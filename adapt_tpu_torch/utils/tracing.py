@@ -1,0 +1,434 @@
+"""Request/stage tracing + the serving flight recorder.
+
+Absent from the reference (SURVEY.md §5: only per-task ``start_time``
+stamps, ``src/dispatcher.py:193``). Three layers:
+
+- :class:`Tracer` — a bounded pid/tid-aware span RING (oldest spans are
+  overwritten, never silently dropped: ``spans_dropped`` counts them,
+  mirrored into the metrics registry as ``tracer.spans_dropped``).
+  Disabled tracing costs one branch per ``span()`` call. Spans convert
+  to the Chrome trace-event JSON format (:meth:`Tracer.to_chrome_trace`)
+  that Perfetto / ``chrome://tracing`` open directly — served by the
+  exporter as ``GET /trace.json``.
+
+- **Cross-process stitching** — spans recorded in a remote worker
+  process are serialized against the WALL clock (:func:`export_spans`),
+  ride back to the dispatcher as a flags-byte annex on the result frame
+  (``comm.framing``), and :meth:`Tracer.ingest` merges them into the
+  local ring keeping the remote pid/tid — so one ``/trace.json`` shows
+  the whole request across processes, rows per process, correlated by
+  the ``request``/``attempt`` span attrs (the same ids the framing
+  header already carries).
+
+- :class:`FlightRecorder` — a bounded structured-event ring for the
+  fault-tolerance control plane (admissions, evictions, re-dispatches,
+  quarantines, probe misses, recoveries). Always on (events are
+  per-lifecycle, not per-token), dumped by the exporter as
+  ``GET /debug/events`` and snapshotted to the journal directory on
+  :meth:`Dispatcher.recover` — post-mortems stop depending on log
+  scraping. Knobs: ``config.ObservabilityConfig``.
+
+``ADAPT_TPU_TRACE=1`` in the environment enables the global tracer at
+import — the switch a remote worker process (``python -m
+adapt_tpu.comm.remote``) is enabled with, since no dispatcher-side
+config reaches its constructor.
+
+An optional bridge to ``torch.profiler`` (:meth:`Tracer.device_trace`)
+covers kernel-level profiling on the GPU; this module's spans are the
+host/serving-path complement.
+"""
+
+from __future__ import annotations
+
+import collections
+import contextlib
+import json
+import os
+import threading
+import time
+from dataclasses import dataclass, field
+
+from adapt_tpu_torch.utils.metrics import global_metrics
+
+#: Wall-clock anchor: ``perf_counter() + _EPOCH_OFFSET ~= time.time()``.
+#: Spans are recorded on the high-resolution perf clock and shifted onto
+#: the epoch clock only at export/ingest — which is what lets spans from
+#: two processes on one machine land on a shared timeline.
+_EPOCH_OFFSET = time.time() - time.perf_counter()
+
+
+@dataclass
+class Span:
+    name: str
+    start: float
+    end: float = 0.0
+    attrs: dict = field(default_factory=dict)
+    #: Origin thread (Chrome trace row). 0 is never a real ident.
+    tid: int = 0
+    #: Origin process; None = the owning tracer's process.
+    pid: int | None = None
+    #: Per-tracer monotonic record number (assigned at ``_record``):
+    #: the cursor :meth:`Tracer.spans_since` pages the ring with, so
+    #: the telemetry reporter ships each span exactly once even while
+    #: the ring keeps evicting.
+    seq: int = 0
+
+    @property
+    def duration(self) -> float:
+        return self.end - self.start
+
+
+class Tracer:
+    """Bounded span ring. ``enabled`` is the one-branch hot-path guard;
+    everything else (export, ingest, resize) is off-path."""
+
+    def __init__(self, capacity: int = 65536):
+        self._lock = threading.Lock()
+        self._spans: collections.deque[Span] = collections.deque(
+            maxlen=capacity
+        )
+        self._capacity = capacity
+        self.enabled = False
+        self.spans_dropped = 0
+        self.pid = os.getpid()
+        self._seq = 0  # monotonic record counter (spans_since cursor)
+
+    def set_capacity(self, capacity: int) -> None:
+        """Resize the ring, keeping the newest spans. No-op when the
+        capacity is unchanged (so re-applying a config is free)."""
+        if capacity == self._capacity:
+            return
+        with self._lock:
+            self._spans = collections.deque(self._spans, maxlen=capacity)
+            self._capacity = capacity
+
+    def _record(self, s: Span) -> None:
+        with self._lock:
+            self._seq += 1
+            s.seq = self._seq
+            if len(self._spans) == self._capacity:
+                # deque(maxlen) evicts the oldest on append — a RING, not
+                # the old fill-once-then-drop-everything list. Count the
+                # evictions so a saturated ring is visible on /metrics.
+                self.spans_dropped += 1
+                dropped = True
+            else:
+                dropped = False
+            self._spans.append(s)
+        if dropped:
+            global_metrics().inc("tracer.spans_dropped")
+
+    @contextlib.contextmanager
+    def span(self, name: str, **attrs):
+        if not self.enabled:
+            yield None
+            return
+        s = Span(
+            name=name,
+            start=time.perf_counter(),
+            attrs=attrs,
+            tid=threading.get_ident(),
+        )
+        try:
+            yield s
+        finally:
+            s.end = time.perf_counter()
+            self._record(s)
+
+    def add_span(
+        self, name: str, start: float, end: float, **attrs
+    ) -> None:
+        """Record an interval timed by the caller (``time.perf_counter``
+        values) — for spans whose begin and end live on different
+        threads (e.g. dispatch -> result), where a context manager can't
+        wrap the region."""
+        if not self.enabled:
+            return
+        self._record(
+            Span(
+                name=name,
+                start=start,
+                end=end,
+                attrs=attrs,
+                tid=threading.get_ident(),
+            )
+        )
+
+    def now(self) -> float:
+        """The clock spans are recorded on (``time.perf_counter``)."""
+        return time.perf_counter()
+
+    def instant(self, name: str, **attrs) -> None:
+        """Record a zero-duration marker event (e.g. the compile
+        sentinel's ``engine.recompile``) — it renders in Perfetto as a
+        point on the timeline next to the tick that paid for it."""
+        if not self.enabled:
+            return
+        t = time.perf_counter()
+        self._record(
+            Span(
+                name=name,
+                start=t,
+                end=t,
+                attrs=attrs,
+                tid=threading.get_ident(),
+            )
+        )
+
+    def ingest(self, exported: list[dict]) -> None:
+        """Merge spans exported by ANOTHER process (:func:`export_spans`
+        dicts: wall-clock times + origin pid/tid) into this ring. Times
+        shift back onto the local perf clock so one
+        :meth:`to_chrome_trace` exports both processes on a shared
+        timeline. Tolerant of garbage (a corrupt annex from a
+        version-skewed peer must never take down the caller's read
+        loop): non-list input and malformed entries are counted as
+        ``tracer.ingest_rejected``, nothing raises."""
+        if not isinstance(exported, list):
+            global_metrics().inc("tracer.ingest_rejected")
+            return
+        for d in exported:
+            try:
+                self._record(
+                    Span(
+                        name=str(d["name"]),
+                        start=float(d["t0"]) - _EPOCH_OFFSET,
+                        end=float(d["t1"]) - _EPOCH_OFFSET,
+                        attrs=dict(d.get("attrs", {})),
+                        tid=int(d.get("tid", 0)),
+                        pid=d.get("pid"),
+                    )
+                )
+            except (AttributeError, KeyError, TypeError, ValueError):
+                global_metrics().inc("tracer.ingest_rejected")
+
+    def spans(self, name: str | None = None) -> list[Span]:
+        with self._lock:
+            return [
+                s for s in self._spans if name is None or s.name == name
+            ]
+
+    def spans_since(self, seq: int) -> tuple[list[Span], int]:
+        """Spans recorded after cursor ``seq`` (oldest first) plus the
+        new cursor — the telemetry reporter's incremental read.
+        Ring-eviction-safe: a span that fell out of the ring before a
+        read is simply gone (``spans_dropped`` counts it); the cursor
+        never re-delivers or skips survivors. Locally-recorded spans
+        only — remote-ingested spans (``pid`` set) are the OTHER
+        process's to report, and forwarding them would duplicate every
+        span once per federation hop."""
+        with self._lock:
+            out = [
+                s
+                for s in self._spans
+                if s.seq > seq and s.pid is None
+            ]
+            return out, self._seq
+
+    def clear(self) -> None:
+        with self._lock:
+            self._spans.clear()
+
+    def to_chrome_trace(self) -> dict:
+        """The ring as a Chrome trace-event JSON object (the format
+        Perfetto and ``chrome://tracing`` load): complete ``"X"`` events
+        in microseconds on the wall clock, one ``pid`` per origin
+        process (remote-ingested spans keep theirs), span attrs under
+        ``args`` — so every event of one request shares
+        ``args.request``."""
+        with self._lock:
+            spans = list(self._spans)
+        events: list[dict] = []
+        pids: set[int] = set()
+        for s in spans:
+            pid = s.pid if s.pid is not None else self.pid
+            pids.add(pid)
+            events.append(
+                {
+                    "name": s.name,
+                    "ph": "X",
+                    "cat": "serving",
+                    "ts": (s.start + _EPOCH_OFFSET) * 1e6,
+                    "dur": max(s.end - s.start, 0.0) * 1e6,
+                    "pid": pid,
+                    "tid": s.tid,
+                    "args": dict(s.attrs),
+                }
+            )
+        meta = [
+            {
+                "name": "process_name",
+                "ph": "M",
+                "ts": 0,
+                "pid": pid,
+                "tid": 0,
+                "args": {
+                    "name": (
+                        f"adapt_tpu_torch (pid {pid})"
+                        if pid == self.pid
+                        else f"adapt_tpu_torch remote (pid {pid})"
+                    )
+                },
+            }
+            for pid in sorted(pids)
+        ]
+        return {"traceEvents": meta + events, "displayTimeUnit": "ms"}
+
+    @contextlib.contextmanager
+    def device_trace(self, path: str):
+        """Kernel-level profiling around a region: a ``torch.profiler``
+        trace of CPU and CUDA activity, exported as Chrome trace JSON to
+        ``path``."""
+        import torch
+
+        acts = [torch.profiler.ProfilerActivity.CPU]
+        if torch.cuda.is_available():
+            acts.append(torch.profiler.ProfilerActivity.CUDA)
+        with torch.profiler.profile(activities=acts) as prof:
+            yield prof
+        prof.export_chrome_trace(path)
+
+
+def export_spans(spans: list[Span | None]) -> list[dict]:
+    """Serialize spans for another process to :meth:`Tracer.ingest`:
+    wall-clock times (comparable across processes on one machine) plus
+    origin pid/tid. ``None`` entries (disabled-tracer spans) are
+    skipped, so callers can pass ``[s]`` straight from a ``span()``
+    block."""
+    out = []
+    for s in spans:
+        if s is None:
+            continue
+        out.append(
+            {
+                "name": s.name,
+                "t0": s.start + _EPOCH_OFFSET,
+                "t1": s.end + _EPOCH_OFFSET,
+                "pid": s.pid if s.pid is not None else os.getpid(),
+                "tid": s.tid,
+                "attrs": s.attrs,
+            }
+        )
+    return out
+
+
+class FlightRecorder:
+    """Bounded ring of structured control-plane events.
+
+    One ``record()`` is a timestamped dict append under a lock —
+    cheap enough to leave ALWAYS on (writers are per-request/-fault
+    lifecycle paths, never per-token). The ring holds the last
+    ``capacity`` events; evictions are counted, not silent."""
+
+    def __init__(self, capacity: int = 2048):
+        self._lock = threading.Lock()
+        self._events: collections.deque[dict] = collections.deque(
+            maxlen=capacity
+        )
+        self._capacity = capacity
+        self.events_dropped = 0
+        self.enabled = True
+        #: Lifetime count per event kind — survives ring eviction, so
+        #: lifecycle-edge accounting (every admit has a finish/cancel)
+        #: stays checkable after a storm overflows the ring.
+        self._kind_counts: collections.Counter = collections.Counter()
+        #: Per-process monotonic event number, stamped into every
+        #: event as ``"seq"``: the :meth:`events_since` cursor, and —
+        #: once events federate across processes (utils.telemetry) —
+        #: what lets the merged stream detect per-source loss (a seq
+        #: gap = events evicted before they shipped) instead of
+        #: silently presenting a holey timeline as complete.
+        self._seq = 0
+
+    def set_capacity(self, capacity: int) -> None:
+        if capacity == self._capacity:
+            return
+        with self._lock:
+            self._events = collections.deque(
+                self._events, maxlen=capacity
+            )
+            self._capacity = capacity
+
+    def record(self, kind: str, **data) -> None:
+        if not self.enabled:
+            return
+        ev = {"ts": time.time(), "kind": kind, "data": data}
+        with self._lock:
+            self._seq += 1
+            ev["seq"] = self._seq
+            if len(self._events) == self._capacity:
+                self.events_dropped += 1
+            self._events.append(ev)
+            self._kind_counts[kind] += 1
+
+    def events(self, kind: str | None = None) -> list[dict]:
+        with self._lock:
+            return [
+                e for e in self._events if kind is None or e["kind"] == kind
+            ]
+
+    def events_since(self, seq: int) -> tuple[list[dict], int]:
+        """Events recorded after cursor ``seq`` (oldest first) plus
+        the new cursor — the telemetry reporter's incremental read.
+        Events evicted from the ring before a read are lost to the
+        stream (the receiver sees the seq gap); the cursor never
+        re-delivers a survivor."""
+        with self._lock:
+            return (
+                [e for e in self._events if e["seq"] > seq],
+                self._seq,
+            )
+
+    def kind_counts(self) -> dict[str, int]:
+        """Lifetime event count per kind, INDEPENDENT of ring eviction:
+        a cancel storm that overflows the ring still balances its books
+        here (admits == finishes when drained — the lifecycle-edge
+        invariant the storm tests pin)."""
+        with self._lock:
+            return dict(self._kind_counts)
+
+    def snapshot(self) -> dict:
+        """JSON-ready dump (the ``GET /debug/events`` body)."""
+        with self._lock:
+            return {
+                "capacity": self._capacity,
+                "dropped": self.events_dropped,
+                "kind_counts": dict(self._kind_counts),
+                "events": list(self._events),
+            }
+
+    def snapshot_to(self, path: str) -> str:
+        """Write :meth:`snapshot` to ``path`` (post-mortem artifact —
+        ``Dispatcher.recover`` drops one beside the journal).
+        ``default=str``: a writer that recorded a non-JSON value (numpy
+        scalar, exception object) degrades that field to its repr — a
+        post-mortem dump must never itself raise."""
+        with open(path, "w", encoding="utf-8") as f:
+            json.dump(self.snapshot(), f, indent=1, default=str)
+        return path
+
+    def clear(self) -> None:
+        with self._lock:
+            self._events.clear()
+            self._kind_counts.clear()
+
+
+_GLOBAL = Tracer()
+#: Truthy-only spellings enable: "ADAPT_TPU_TRACE=off"/"=no" must NOT
+#: silently turn span recording on in every worker process.
+_GLOBAL.enabled = os.environ.get("ADAPT_TPU_TRACE", "").lower() in (
+    "1",
+    "true",
+    "yes",
+    "on",
+)
+
+_FLIGHT = FlightRecorder()
+
+
+def global_tracer() -> Tracer:
+    return _GLOBAL
+
+
+def global_flight_recorder() -> FlightRecorder:
+    return _FLIGHT

@@ -49,6 +49,12 @@ def pytest_configure(config):
         "after an intentional sampling change, re-derive the pinned "
         "expectations instead of loosening the bound",
     )
+    config.addinivalue_line(
+        "markers",
+        "gpu: needs a CUDA card and nvcc (the adapt_tpu_torch kernels); "
+        "skips elsewhere — the skip is decided inside a fixture, never at "
+        "import",
+    )
 
 
 @pytest.fixture(autouse=True, scope="module")
