@@ -1,0 +1,43 @@
+// K3 and K3-split: one decode step of attention over a paged KV pool for
+// Hopper (sm_90a).
+//
+// Replaces the TPU kernels adapt_tpu/ops/paged_attention.py:_paged_kernel
+// and _paged_split_kernel (via _paged_impl) for native pools: the
+// group-folded query q (b, kv_h, g, hd) attends the slot's pages of a shared
+// pool (num_pages, kv_h, page, hd), walked in the order of its page-table
+// row table[b] (b, pps), up to each row's `index` and from `valid_from`.
+// The split variant cuts the slot's pps * page key range into `split` runs
+// of tiles, masks the ragged last run, and emits partials for
+// ops/decode_attention._combine_splits.
+//
+// Design. On the TPU the table rides as a scalar-prefetch operand and the
+// K/V index_map fetches each grid step's physical page; the kernel body is
+// K2's. Here the body is K2's too (decode_tile.cuh): only the address
+// functor differs, mapping key p to table[b, p / page] at offset p % page,
+// read from device memory inside the kernel - no gather of pages into a
+// strip, no host sync, any page size (the TPU gate page % 128 is not carried
+// over). K2 and K3 therefore run the same arithmetic in the same 64-key tile
+// order, and a paged decode equals a dense decode bit for bit on the same
+// K/V. A negative `index` (an idle or mid-prefill row) skips every tile and
+// writes zeros; an all-dead split carries m = -1e30 and l = 0.
+//
+// Bound. As K2: one step reads the live pages once, bytes bound. The table
+// is read once per staged key (it stays in L1/L2); a page-granular walk
+// with cp.async/TMA is later work (PERF.md has its numbers).
+#include "decode_tile.cuh"
+
+// split == 1 with o_part == nullptr writes the normalised output (K3);
+// otherwise each (row, split) block writes its partials (K3-split).
+extern "C" int paged_attn(const void* q, const void* k_pool,
+                          const void* v_pool, const int* table,
+                          const int* index, const int* valid_from, void* out,
+                          float* o_part, float* m_part, float* l_part, int b,
+                          int kvh, int g, int pps, int page, int hd, int split,
+                          int dtype, float sm_scale, void* stream) {
+  if (pps < 1 || page < 1) return (int)cudaErrorInvalidValue;
+  return adapt::decode::dispatch(
+      dtype, hd, q, k_pool, v_pool, index, valid_from, out, o_part, m_part,
+      l_part, b * kvh, kvh, g, pps * page, split, sm_scale,
+      adapt::decode::PagedAddr{table, kvh, pps, page},
+      static_cast<cudaStream_t>(stream));
+}

@@ -5,10 +5,12 @@ positions; sliding window).
 
 The model is an ``nn.Module`` whose submodules carry the JAX graph's node
 names (``embed``, ``decoder_block_{i}``, ``head``), so ``convert.from_flax``
-maps a flax ``variables`` tree onto its ``state_dict`` by name. Three
+maps a flax ``variables`` tree onto its ``state_dict`` by name. Five
 schedules share one set of weights: the full causal forward
-(:func:`logits_full`), ``prefill`` (K1 on CUDA) and the cached
-``decode_step`` (K2 on CUDA). flax's numerics are kept: LayerNorm with
+(:func:`logits_full`), ``prefill`` (K1 on CUDA), the cached
+``decode_step`` over dense strips (K2), and over a paged pool
+``decode_step_paged`` (K3) and the chunk pass ``prefill_chunk_paged``
+(K4). flax's numerics are kept: LayerNorm with
 eps 1e-6 and f32 statistics, tanh-approximate GELU, logits in f32, rotary
 embedding in f32.
 
@@ -43,6 +45,11 @@ from adapt_tpu_torch.ops.decode_attention import (
     _row_index,
     append_kv,
     decode_attention,
+)
+from adapt_tpu_torch.ops.paged_attention import (
+    paged_attention,
+    paged_chunk_attention,
+    pool_values,
 )
 
 #: Decode row count is rounded up to a multiple of this (see module doc).
@@ -337,6 +344,81 @@ class CausalSelfAttention(nn.Module):
         o = self._ungroup_o(o, 1).transpose(1, 2).reshape(b, 1, self.dim)
         return self.out(o), cache_k, cache_v
 
+    def decode_step_paged(self, x_t, k_pool, v_pool, page_table, index,
+                          valid_from=None, attn_impl=None, split=None):
+        """One token against a PAGED cache: write this step's K/V in place
+        into the slot's physical page at ``index``'s (page, offset), then
+        attend over the table-mapped window (K3 on CUDA). Pools are
+        (num_pages, kv_h, P, hd); ``page_table`` (b, pages_per_slot)
+        int32. A negative ``index`` is a dead row (an idle or mid-prefill
+        slot): its write goes to trash page 0 — never ``table[row, 0]``,
+        which a prefilling row owns — and attention masks every position;
+        so does a position past the table (a finished request's garbage
+        tail)."""
+        b = x_t.shape[0]
+        page = pool_values(k_pool).shape[2]
+        width = page_table.shape[1] * page
+        q, k, v = self._project(x_t)
+        idx = _row_index(index, b, x_t.device)
+        if self.rope:
+            logical = idx
+            if valid_from is not None:
+                logical = idx - torch.as_tensor(valid_from, device=x_t.device)
+            q, k = self._rope_qk(q, k, logical[:, None])
+        q = self._group_q(q)
+        # Clamp BEFORE the gather: a negative index is a device assert in
+        # a CUDA gather (JAX clamps out-of-range gathers).
+        live_row = (idx >= 0) & (idx < width)
+        safe = torch.clamp(idx, 0, width - 1).long()
+        phys = torch.gather(page_table, 1, (safe // page)[:, None])[:, 0]
+        phys = torch.where(live_row, phys.long(), 0)
+        # Pool rows (phys[i], h, safe[i] % page) <- token i's head h, one
+        # index_copy_ into the (pages * kv_h * page, hd) view (an indexed
+        # setitem costs the host several times more). Dead rows all land
+        # on the trash page, unordered (never accumulate).
+        kvh, hd = k.shape[1], k.shape[3]
+        heads = torch.arange(kvh, device=x_t.device)
+        rows = ((phys[:, None] * kvh + heads) * page
+                + (safe % page)[:, None]).reshape(-1)
+        for pool, t in ((k_pool, k), (v_pool, v)):
+            pool.view(-1, hd).index_copy_(
+                0, rows, t[:, :, 0, :].reshape(-1, hd).to(pool.dtype))
+        o = paged_attention(
+            q, k_pool, v_pool, page_table, idx,
+            self._window_from(idx, b, valid_from), prefer=attn_impl,
+            split=split,
+        ).to(x_t.dtype)
+        o = self._ungroup_o(o, 1).transpose(1, 2).reshape(b, 1, self.dim)
+        return self.out(o), k_pool, v_pool
+
+    def prefill_chunk_paged(self, x, k_pool, v_pool, pages, pos0: int,
+                            attn_impl=None):
+        """Incremental prefill of a CHUNK of positions [pos0, pos0 + C)
+        directly against a paged window: write the chunk's K/V in place
+        into its own pages (one scatter), then attend the whole window
+        page by page (K4 on CUDA) — no gathered strip. ``pages`` (n,)
+        covers [0, pos0 + C) (pow2 trash padding allowed); ``pos0`` (a
+        host int) is page-aligned and C a whole number of pages. Batch 1.
+        The model's ``window`` bands the chunk's rows."""
+        b, c, _ = x.shape
+        page = pool_values(k_pool).shape[2]
+        q, k, v = self._project(x)
+        q, k = self._rope_qk(q, k, pos0 + torch.arange(c, device=x.device))
+        q = self._group_q(q)
+        n_chunk = c // page
+        pages_t = torch.as_tensor(pages, device=x.device).long().reshape(-1)
+        chunk_pages = pages_t[pos0 // page: pos0 // page + n_chunk]
+        kvh, hd = k.shape[1], k.shape[3]
+        for pool, t in ((k_pool, k), (v_pool, v)):
+            pool.index_copy_(0, chunk_pages, t[0].reshape(
+                kvh, n_chunk, page, hd).transpose(0, 1).to(pool.dtype))
+        o = paged_chunk_attention(
+            q, k_pool, v_pool, pages, pos0, c, prefer=attn_impl,
+            window=self.window,
+        ).to(x.dtype)
+        o = self._ungroup_o(o, c).transpose(1, 2).reshape(b, c, self.dim)
+        return self.out(o), k_pool, v_pool
+
 
 class DecoderBlock(nn.Module):
     """Pre-LN decoder block with the dense GELU MLP."""
@@ -392,6 +474,23 @@ class DecoderBlock(nn.Module):
         )
         x_t = x_t + a
         return x_t + self._mlp(self.ln2(x_t)), ck, cv
+
+    def decode_step_paged(self, x_t, k_pool, v_pool, page_table, index,
+                          valid_from=None, attn_impl=None, split=None):
+        a, kp, vp = self.attn.decode_step_paged(
+            self.ln1(x_t), k_pool, v_pool, page_table, index, valid_from,
+            attn_impl, split,
+        )
+        x_t = x_t + a
+        return x_t + self._mlp(self.ln2(x_t)), kp, vp
+
+    def prefill_chunk_paged(self, x, k_pool, v_pool, pages, pos0,
+                            attn_impl=None):
+        a, kp, vp = self.attn.prefill_chunk_paged(
+            self.ln1(x), k_pool, v_pool, pages, pos0, attn_impl
+        )
+        x = x + a
+        return x + self._mlp(self.ln2(x)), kp, vp
 
 
 class TokenEmbed(nn.Module):

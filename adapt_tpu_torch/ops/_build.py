@@ -4,8 +4,8 @@ Each ``csrc/<name>.cu`` compiles with ``nvcc`` for ``sm_90a`` into its own
 shared library with a plain C interface, loaded through ``ctypes``: no
 PyTorch headers, so a build takes seconds. Libraries go into
 ``adapt_tpu_torch/_kernels_build/`` (listed in ``.gitignore``), named by a
-hash of the sources, so an edited kernel rebuilds and an unchanged one is
-reused. Builds happen at first use (or all at once, in parallel, through
+hash of the source and every shared header (``csrc/*.cuh``), so an edited
+kernel rebuilds and an unchanged one is reused. Builds happen at first use (or all at once, in parallel, through
 :func:`build_all`), never at import. A failed build raises with the
 compiler's output.
 """
@@ -30,6 +30,8 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 KERNELS = {
     "flash_attn_fwd": [_P] * 7 + [_I] * 8 + [_F, _P],
     "decode_attn": [_P] * 9 + [_I] * 7 + [_F, _P],
+    "paged_attn": [_P] * 10 + [_I] * 8 + [_F, _P],
+    "paged_chunk_attn": [_P] * 5 + [_I] * 9 + [_F, _P],
 }
 
 NVCC_FLAGS = [
@@ -53,7 +55,7 @@ def nvcc() -> str:
 
 def _lib_path(name: str) -> Path:
     h = hashlib.sha256()
-    for src in (CSRC / f"{name}.cu", CSRC / "common.cuh"):
+    for src in [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))]:
         h.update(src.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}_{h.hexdigest()[:12]}.so"

@@ -1,16 +1,30 @@
 """Continuous batching: requests join and leave a RUNNING decode batch —
-the dense core of ``adapt_tpu/runtime/continuous.py``'s
-:class:`ContinuousBatcher` (``kv_layout="slots"``, ``kv_cache_dtype=
-"native"``: the JAX package's defaults).
+the port of ``adapt_tpu/runtime/continuous.py``'s :class:`ContinuousBatcher`
+for native caches, on both KV layouts.
 
-- A fixed number of SLOTS decode in lockstep. Each slot owns a dense KV
-  strip of ``max_len + 1`` positions per block; position ``max_len`` is
-  the trash slot where idle rows park their garbage writes (K2 masks by
-  each row's own index, and serves the odd strip length directly).
+- A fixed number of SLOTS decode in lockstep. With ``kv_layout="slots"``
+  each slot owns a dense KV strip of ``max_len + 1`` positions per block;
+  position ``max_len`` is the trash slot where idle rows park their
+  garbage writes (K2 masks by each row's own index, and serves the odd
+  strip length directly).
+- With ``kv_layout="paged"`` the KV lives in per-block page POOLS
+  ``(pool_pages, kv_h, page_size, hd)`` shared by every slot through a
+  ``runtime/paged.Pager`` page table, so memory scales with resident
+  tokens. Decode runs K3 over the table (re-uploaded only when it
+  changed); idle and mid-prefill rows sit at the negative sentinel
+  ``-(chunk + 1)`` and write to trash page 0. Admission probes the
+  content-keyed PREFIX CACHE (full prompt pages shared by refcount, an
+  all-or-nothing reservation of the rest, FIFO head-of-line waiting when
+  the pool is short); a hit prefills only the suffix through
+  ``prefill_chunk_paged`` (K4). ``prefill_chunk`` spreads a long prompt
+  over one K4 pass per tick, interleaved with the decode batch.
+  Sliding-window models return pages behind the window mid-request.
+  ``submit_fanout`` serves n continuations of one prompt, greedy
+  siblings forking the shared last prompt page copy-on-write.
 - One tick admits queued requests into free slots (a prefill per
   admission, padded to a power-of-two bucket, through K1), then runs
-  ``chunk`` decode steps (K2) over every slot and syncs with the host
-  ONCE, to fetch the chunk's tokens and logprobs. Requests finishing
+  ``chunk`` decode steps (K2 or K3) over every slot and syncs with the
+  host ONCE, to fetch the chunk's tokens and logprobs. Requests finishing
   mid-chunk decode a garbage tail the host drops.
 - Per-slot sampling state (last token, position, temperature, top-k,
   top-p, seed, key counter, active mask) lives in device tensors, written
@@ -26,8 +40,8 @@ Lifecycle: ``submit`` / ``tick`` / ``run`` / ``cancel`` / ``result`` /
 Request timelines feed the SLO histograms ``continuous.queue_wait_s``,
 ``continuous.ttft_s``, ``continuous.itl_s`` and
 ``continuous.request_latency_s``; admit/finish/cancel go to the flight
-recorder. The paged pool, quantized caches, speculation, tensor
-parallelism, recovery, the pipelined tick and traffic control are later
+recorder. Quantized caches, speculation, tensor parallelism, recovery,
+the pipelined tick, traffic control and the host KV tier are later
 slices.
 """
 
@@ -47,6 +61,8 @@ from adapt_tpu_torch.models.transformer_lm import (
     chosen_logprob,
     sample_rows,
 )
+from adapt_tpu_torch.ops.paged_attention import DEFAULT_PAGE_SIZE
+from adapt_tpu_torch.runtime.paged import Pager, insert_prefill_pages
 from adapt_tpu_torch.runtime.scheduler import AdmissionQueue, QueueFullError
 from adapt_tpu_torch.utils.logging import get_logger
 from adapt_tpu_torch.utils.metrics import global_metrics
@@ -54,7 +70,24 @@ from adapt_tpu_torch.utils.tracing import global_flight_recorder, global_tracer
 
 log = get_logger("continuous")
 
-__all__ = ["ContinuousBatcher", "QueueFullError"]
+__all__ = ["ContinuousBatcher", "QueueFullError", "fanout_seeds"]
+
+_M64 = (1 << 64) - 1
+
+
+def fanout_seeds(seed: int, n: int) -> list[int]:
+    """The per-sibling seeds of a sampled :meth:`ContinuousBatcher.
+    submit_fanout` group: ``n`` seeds derived deterministically from the
+    request's ``seed`` (splitmix64 over ``(seed, sibling)``) — the port's
+    counterpart of ``jax.random.split``. A sibling's stream equals
+    ``generate()`` under its derived seed."""
+    out = []
+    for j in range(n):
+        z = (int(seed) + (j + 1) * 0x9E3779B97F4A7C15) & _M64
+        z = ((z ^ (z >> 30)) * 0xBF58476D1CE4E5B9) & _M64
+        z = ((z ^ (z >> 27)) * 0x94D049BB133111EB) & _M64
+        out.append((z ^ (z >> 31)) & ((1 << 63) - 1))
+    return out
 
 
 @dataclasses.dataclass
@@ -70,12 +103,38 @@ class _Request:
     stop: tuple[tuple[int, ...], ...] = ()
     on_token: Callable[[int, int, int], None] | None = None
     t_submit: float = 0.0
+    #: ``submit_fanout`` group id (-1 = ordinary request), consumed at
+    #: admission or queued cancel (so it is never decremented twice).
+    fanout_group: int = -1
+
+
+@dataclasses.dataclass
+class _FanoutGroup:
+    """One :meth:`ContinuousBatcher.submit_fanout` group's books.
+    ``remaining`` counts siblings not yet admitted (or cancelled); the
+    group dies at zero. A GREEDY group records its first admitted
+    sibling's last prompt page (``page``, rc-claimed through
+    ``Pager.retain`` so it outlives that sibling) and first commit: a
+    later sibling whose prefix probe matched every earlier page forks
+    that page copy-on-write instead of running the suffix pass. Sampled
+    groups leave ``page`` unset (each sibling draws its own first
+    token)."""
+
+    remaining: int
+    greedy: bool
+    page: int | None = None
+    first: int | None = None
+    first_lp: float | None = None
 
 
 @dataclasses.dataclass
 class _Slot:
-    idx: int = -1
+    idx: int = -1  # position in the slot list (page-table row)
     req: _Request | None = None
+    #: chunked prefill progress: next position to prefill, or -1 when not
+    #: mid-prefill (the slot decodes). A slot with pf_done >= 0 holds its
+    #: request but sits out the decode batch.
+    pf_done: int = -1
     s0: int = 0
     emitted: int = 0
     last_token: int = 0
@@ -88,7 +147,10 @@ class _Slot:
 
 class ContinuousBatcher:
     """Slot-based continuous batching over one LM on one device (the LM's
-    device). ``top_k`` is the default for requests that pass none."""
+    device), on dense strips (``kv_layout="slots"``) or a paged pool
+    (``"paged"``, with ``page_size``, ``pool_pages`` and
+    ``prefill_chunk``). ``top_k`` is the default for requests that pass
+    none."""
 
     #: Max UNCLAIMED logprob streams retained (oldest evicted past it).
     _LPS_CAP = 4096
@@ -102,6 +164,9 @@ class ContinuousBatcher:
         chunk: int = 8,
         kv_cache_dtype: str = "native",
         kv_layout: str = "slots",
+        page_size: int = DEFAULT_PAGE_SIZE,
+        pool_pages: int | None = None,
+        prefill_chunk: int | None = None,
         kernel: KernelConfig | None = None,
         scheduler: SchedulerConfig | None = None,
     ):
@@ -114,10 +179,23 @@ class ContinuousBatcher:
             raise ValueError(
                 f"kv_layout={kv_layout!r}: expected 'slots' or 'paged'"
             )
-        if kv_cache_dtype != "native" or kv_layout != "slots":
+        self._paged = kv_layout == "paged"
+        if prefill_chunk is not None:
+            if not self._paged:
+                raise ValueError(
+                    "prefill_chunk requires kv_layout='paged' (chunk "
+                    "passes run over the page-strip machinery)"
+                )
+            if prefill_chunk < page_size or prefill_chunk % page_size:
+                raise ValueError(
+                    f"prefill_chunk must be a positive multiple of "
+                    f"page_size {page_size}, got {prefill_chunk}"
+                )
+        self._prefill_chunk = prefill_chunk
+        if kv_cache_dtype != "native":
             raise NotImplementedError(
-                "only the dense native-cache batcher is ported so far "
-                "(paged pool and quantized KV are later slices)"
+                "quantized KV caches (int8/int4) are not ported yet "
+                "(ROADMAP 'quantized KV' slice)"
             )
         if chunk < 1:
             raise ValueError(f"chunk must be >= 1, got {chunk}")
@@ -144,13 +222,38 @@ class ContinuousBatcher:
         self._cache_len = lm.max_len + 1
         self._trash = lm.max_len
         block0 = lm.blocks[0]
-        shape = (slots, block0.cache_heads, self._cache_len, block0.head_dim)
+        #: Sliding-window models: decode masking lives in the model; the
+        #: paged batcher's job is page RECYCLING behind the window.
+        self._window = block0.attn.window
+        heads, hd = block0.cache_heads, block0.head_dim
+        if self._paged:
+            if page_size < 1:
+                raise ValueError(f"page_size must be >= 1, got {page_size}")
+            self._page = page_size
+            pps = -(-lm.max_len // page_size)
+            if pool_pages is None:
+                pool_pages = slots * pps + 1  # every slot full + trash page
+            if pool_pages < 2:
+                raise ValueError(
+                    f"pool_pages must be >= 2, got {pool_pages}"
+                )
+            self._pager = Pager(pool_pages, slots, pps, page_tokens=page_size)
+            self._pool_pages = pool_pages
+            shape = (pool_pages, heads, page_size, hd)
+        else:
+            self._pager = None
+            shape = (slots, heads, self._cache_len, hd)
         dev, dt = self.device, lm.dtype
         self._caches = [
             (torch.zeros(shape, dtype=dt, device=dev),
              torch.zeros(shape, dtype=dt, device=dev))
             for _ in lm.block_names
         ]
+        #: Idle-row cache position: the trash strip position on dense
+        #: strips; on pools a negative sentinel that stays negative across
+        #: a whole chunk's advance, routing every garbage write to the
+        #: trash page.
+        self._idle_pos = -(chunk + 1) if self._paged else self._trash
         self._h2d_count = 0
         i64 = dict(dtype=torch.int64, device=dev)
         f32 = dict(dtype=torch.float32, device=dev)
@@ -158,7 +261,7 @@ class ContinuousBatcher:
         #: _stage_slot / _clear_slot and the decode chunk itself.
         self._dstate = {
             "tok": torch.zeros(slots, **i64),
-            "pos": torch.full((slots,), self._trash, dtype=torch.int32,
+            "pos": torch.full((slots,), self._idle_pos, dtype=torch.int32,
                               device=dev),
             "seed": torch.zeros(slots, **i64),
             "kbase": torch.zeros(slots, **i64),
@@ -169,6 +272,15 @@ class ContinuousBatcher:
         }
         #: Every request samples as row 0 of its own key stream.
         self._rows0 = torch.zeros(slots, **i64)
+        #: Device copy of the pager's page table, re-uploaded only when
+        #: the host table changed — a steady paged tick stages nothing.
+        self._table_dev = None
+        self._table_snapshot = None
+        #: submit_fanout groups (id -> books), and page claims of groups
+        #: that died on a client thread, released by the ticking thread.
+        self._fanout_groups: dict[int, _FanoutGroup] = {}
+        self._fanout_next = 0
+        self._fanout_release: list[int] = []
         self._queue = AdmissionQueue(scheduler)
         self._done: dict[int, np.ndarray] = {}
         self._done_lps: dict[int, np.ndarray] = {}
@@ -215,31 +327,54 @@ class ContinuousBatcher:
         d["active"].index_fill_(0, i, True)
 
     def _clear_slot(self, idx: int) -> None:
-        """Retire one slot's device row: park it at the trash position,
+        """Retire one slot's device row: park it at the idle position,
         identity sampling knobs, out of the active mask."""
         d = self._dstate
-        d["pos"][idx] = self._trash
+        d["pos"][idx] = self._idle_pos
         for key, val in (("tok", 0), ("kbase", 0), ("seed", 0), ("temp", 0.0),
                          ("top_k", self.lm.vocab), ("top_p", 1.0),
                          ("active", False)):
             d[key][idx] = val
 
+    def _current_table(self):
+        """Device copy of the pager's page table, re-uploaded only when
+        the host table changed (admissions, retirements, window
+        recycling, prefix shares): snapshot-compare, so no pager mutation
+        site can be missed."""
+        t = self._pager.table()
+        if self._table_dev is None or not np.array_equal(
+            t, self._table_snapshot
+        ):
+            self._table_snapshot = t.copy()
+            self._table_dev = self._h2d(self._table_snapshot, torch.int32)
+        return self._table_dev
+
     def _step_chunk(self, *, do_sample, truncate, nucleus):
         """``chunk`` lockstep decode steps over the device-resident slot
         state; returns ((chunk, B) tokens, (chunk, B) logprobs) without a
         host sync. Active rows advance pos/kbase/tok by the whole chunk
-        (a mid-chunk finish is cleared host-side); idle rows re-park."""
+        (a mid-chunk finish is cleared host-side); idle rows re-park. The
+        cache plumbing (strips or pools + table) is the only thing the
+        layouts change."""
         d, lm, C = self._dstate, self.lm, self.chunk
+        table = self._current_table() if self._paged else None
         tokens, pos = d["tok"], d["pos"]
         toks, lps = [], []
         for j in range(C):
             x = lm.embed.embed_positions(tokens[:, None], pos[:, None])
             for block, (ck, cv) in zip(lm.blocks, self._caches):
-                x, _, _ = block.decode_step(
-                    x, ck, cv, pos, None,
-                    attn_impl=self._kernel.attn_impl,
-                    split=self._kernel.decode_split,
-                )
+                if self._paged:
+                    x, _, _ = block.decode_step_paged(
+                        x, ck, cv, table, pos, None,
+                        attn_impl=self._kernel.attn_impl,
+                        split=self._kernel.decode_split,
+                    )
+                else:
+                    x, _, _ = block.decode_step(
+                        x, ck, cv, pos, None,
+                        attn_impl=self._kernel.attn_impl,
+                        split=self._kernel.decode_split,
+                    )
             logits = lm.head(x)[:, 0]
             nxt = sample_rows(
                 logits, d["temp"], d["top_k"], d["top_p"], d["seed"],
@@ -250,41 +385,126 @@ class ContinuousBatcher:
             lps.append(chosen_logprob(logits, nxt))
             tokens, pos = nxt, pos + 1
         active = d["active"]
-        d["pos"] = torch.where(active, d["pos"] + C, self._trash).to(
+        d["pos"] = torch.where(active, d["pos"] + C, self._idle_pos).to(
             torch.int32)
         d["tok"] = torch.where(active, toks[-1], 0)
         d["kbase"] = torch.where(active, d["kbase"] + C, 0)
         return torch.stack(toks), torch.stack(lps)
 
-    def _prefill(self, slot_idx: int, req: _Request, bucket: int):
-        """Prefill ``req``'s prompt padded to ``bucket`` (K1), insert its
-        K/V into slot ``slot_idx``'s strips, and pick the first token.
-        Returns (token, logprob) with one host sync."""
-        lm = self.lm
-        s0 = req.prompt.shape[0]
-        ids = np.zeros((1, bucket), np.int64)
-        ids[0, :s0] = req.prompt
-        ids_t = self._h2d(ids, torch.int64)
+    def _count_prefill(self, n: int) -> None:
+        self._prefill_tokens += n
+        if self.obs_timeline:
+            global_metrics().inc("continuous.prefill_tokens_total", float(n))
+
+    def _first_pick(self, h_last, req: _Request):
+        """The first-token sampling tail shared by every prefill flavour
+        (whole prompt, prefix-hit suffix, final chunk): token index 0 of
+        the request's key stream, with one host sync."""
         ints = self._h2d([req.top_k, req.seed], torch.int64)
         floats = self._h2d([req.temperature, req.top_p], torch.float32)
-        h = lm.embed(ids_t)
-        for block, (ck, cv) in zip(lm.blocks, self._caches):
-            h, k, v = block.prefill(h, bucket)
-            ck[slot_idx, :, :bucket] = k[0]
-            cv[slot_idx, :, :bucket] = v[0]
-        logits = lm.head(h[:, s0 - 1:s0])[:, 0]
+        logits = self.lm.head(h_last)[:, 0]
         first = sample_rows(
             logits, floats[0:1], ints[0:1], floats[1:2], ints[1:2],
             self._rows0[:1], self._rows0[:1],
             do_sample=req.temperature > 0.0,
-            truncate=req.top_k < lm.vocab, nucleus=req.top_p < 1.0,
+            truncate=req.top_k < self.lm.vocab, nucleus=req.top_p < 1.0,
         )
         lp = chosen_logprob(logits, first)
         host = torch.stack([first.double(), lp.double()]).cpu()
-        self._prefill_tokens += s0
-        if self.obs_timeline:
-            global_metrics().inc("continuous.prefill_tokens_total", float(s0))
         return int(host[0, 0]), float(host[1, 0])
+
+    def _prefill(self, slot_idx: int, req: _Request, bucket: int):
+        """Prefill ``req``'s prompt padded to ``bucket`` (K1), insert its
+        K/V into slot ``slot_idx``'s strips — or its owned pages — and
+        pick the first token. Returns (token, logprob)."""
+        lm = self.lm
+        s0 = req.prompt.shape[0]
+        ids = np.zeros((1, bucket), np.int64)
+        ids[0, :s0] = req.prompt
+        h = lm.embed(self._h2d(ids, torch.int64))
+        pages = (self._h2d(self._pager.owned(slot_idx), torch.int64)
+                 if self._paged else None)
+        for block, (ck, cv) in zip(lm.blocks, self._caches):
+            h, k, v = block.prefill(h, bucket)
+            if self._paged:
+                insert_prefill_pages(ck, pages, k)
+                insert_prefill_pages(cv, pages, v)
+            else:
+                ck[slot_idx, :, :bucket] = k[0]
+                cv[slot_idx, :, :bucket] = v[0]
+        self._count_prefill(s0)
+        return self._first_pick(h[:, s0 - 1:s0], req)
+
+    def _prefill_pass(self, req: _Request, pages, pos0: int, length: int,
+                      sample: bool):
+        """One incremental prefill pass over a paged window: prompt
+        positions [pos0, pos0 + length), padded to whole pages, run the
+        forward against everything cached before them IN PLACE (each
+        block writes the pass's K/V into its pages and attends the window
+        page by page, K4). ``pages`` covers the window padded to a
+        power-of-two page count with trash entries. The prefix-hit suffix
+        pass and every chunked-prefill pass share this body; only a pass
+        that ``sample``s returns (token, logprob)."""
+        P = self._page
+        cbucket = -(-length // P) * P
+        ids = np.zeros((1, cbucket), np.int64)
+        ids[0, :length] = req.prompt[pos0:pos0 + length]
+        ids_t = self._h2d(ids, torch.int64)
+        pages_t = self._h2d(np.asarray(pages, np.int32), torch.int32)
+        pos_ids = pos0 + torch.arange(cbucket, device=self.device)[None]
+        h = self.lm.embed.embed_positions(ids_t, pos_ids)
+        for block, (kp, vp) in zip(self.lm.blocks, self._caches):
+            h, _, _ = block.prefill_chunk_paged(
+                h, kp, vp, pages_t, pos0, self._kernel.attn_impl
+            )
+        self._count_prefill(length)
+        if not sample:
+            return None
+        return self._first_pick(h[:, length - 1:length], req)
+
+    def _window_pages(self, slot_idx: int, n_strip: int) -> list[int]:
+        """The slot's first ``n_strip`` owned pages padded to a power of
+        two with trash page 0 (masked past every row, skipped by K4)."""
+        owned = self._pager.owned(slot_idx)
+        assert n_strip <= len(owned)
+        return owned[:n_strip] + [0] * ((1 << (n_strip - 1).bit_length())
+                                        - n_strip)
+
+    def _fork_page(self, src: int, dst: int) -> None:
+        """Copy-on-write fork: duplicate ONE physical page, every block's
+        K and V, from ``src`` into ``dst`` (a fan-out sibling's private
+        copy of its group's last shared prompt page, taken at admission
+        because the sibling's decode is about to write into it)."""
+        for kp, vp in self._caches:
+            kp[dst].copy_(kp[src])
+            vp[dst].copy_(vp[src])
+
+    def _register_prompt_pages(self, slot_idx: int, req: _Request,
+                               start: int) -> None:
+        """Publish the slot's full prompt pages from ordinal ``start`` on
+        for future sharing (first writer wins)."""
+        P = self._page
+        owned = self._pager.owned(slot_idx)
+        for j in range(start, req.prompt.shape[0] // P):
+            self._pager.register(
+                owned[j], Pager.prefix_key(req.prompt, (j + 1) * P)
+            )
+
+    def prefix_cached(self, prompt) -> int:
+        """Leading FULL pages of ``prompt`` servable from the prefix cache
+        without recompute (resident content keys, longest run). Read-only:
+        no shares taken, no probe accounting moved. 0 on dense strips."""
+        if not self._paged:
+            return 0
+        prompt = np.asarray(prompt, np.int32).reshape(-1)
+        n = 0
+        for j in range((prompt.shape[0] - 1) // self._page):
+            if not self._pager.resident(
+                Pager.prefix_key(prompt, (j + 1) * self._page)
+            ):
+                break
+            n += 1
+        return n
 
     # -- request lifecycle -------------------------------------------------
 
@@ -307,6 +527,15 @@ class ContinuousBatcher:
             raise ValueError(
                 f"prompt {s0} exceeds largest bucket {self.prompt_buckets[-1]}"
             )
+        if self._paged:
+            bucket = next(b for b in self.prompt_buckets if b >= s0)
+            need = -(-max(bucket, s0 + steps) // self._page)
+            if need > self._pool_pages - 1:  # page 0 is trash
+                # Would queue forever: the pool can never cover it.
+                raise ValueError(
+                    f"request needs {need} pages but the pool holds "
+                    f"{self._pool_pages - 1} allocatable"
+                )
         if temperature > 0.0 and rng is None:
             raise ValueError("temperature > 0 requires an rng seed")
         top_k_eff = top_k if top_k is not None else self.top_k
@@ -323,7 +552,7 @@ class ContinuousBatcher:
                eos_id: int | None = None, rng: int | None = None,
                stop: list | None = None,
                on_token: Callable[[int, int, int], None] | None = None,
-               t_submit: float | None = None) -> int:
+               t_submit: float | None = None, _fanout: int = -1) -> int:
         """Queue one request; returns its id. ``rng`` is the integer seed
         of a sampled request's key stream (the same as ``generate``'s for
         it alone). ``stop`` token sequences end the stream (inclusive);
@@ -351,6 +580,7 @@ class ContinuousBatcher:
             stop=tuple(tuple(int(t) for t in seq) for seq in (stop or ())),
             on_token=on_token,
             t_submit=t_submit if t_submit is not None else time.perf_counter(),
+            fanout_group=_fanout,
         )
         try:
             with self._cv:
@@ -367,16 +597,96 @@ class ContinuousBatcher:
         global_metrics().inc("scheduler.admitted_total")
         return req_id
 
+    def submit_fanout(self, prompt, n: int, steps: int,
+                      temperature: float = 0.0, top_k: int | None = None,
+                      top_p: float | None = None, eos_id: int | None = None,
+                      rng: int | None = None, stop: list | None = None,
+                      on_token: Callable[[int, int, int], None] | None = None,
+                      ) -> list[int]:
+        """Queue ``n`` continuations of ONE prompt as a copy-on-write
+        fan-out group; returns their request ids in submission order.
+        Every sibling shares every common full prompt page through the
+        prefix probe, and a greedy group keeps its first admitted
+        sibling's last prompt page claimed so later siblings FORK it (one
+        device page copy, no suffix pass). Greedy siblings are
+        bit-identical to ``n`` independent :meth:`submit` calls; sampled
+        siblings (``temperature > 0`` requires ``rng``) each draw under
+        ``fanout_seeds(rng, n)[j]``. Dense layouts and ``n == 1`` are
+        plain serial submits. On a mid-group :class:`QueueFullError` the
+        already-queued siblings stay queued and the group shrinks."""
+        if n < 1:
+            raise ValueError(f"fan-out width must be >= 1, got {n}")
+        sib_rngs: list = [rng] * n
+        if temperature > 0.0:
+            if rng is None:
+                raise ValueError("temperature > 0 requires an rng seed")
+            sib_rngs = fanout_seeds(rng, n)
+        gid = -1
+        if self._paged and n > 1:
+            with self._cv:
+                gid = self._fanout_next
+                self._fanout_next += 1
+                self._fanout_groups[gid] = _FanoutGroup(
+                    remaining=n, greedy=temperature == 0.0
+                )
+        ids: list[int] = []
+        try:
+            for j in range(n):
+                ids.append(self.submit(
+                    prompt, steps, temperature=temperature, top_k=top_k,
+                    top_p=top_p, eos_id=eos_id, rng=sib_rngs[j], stop=stop,
+                    on_token=on_token, _fanout=gid,
+                ))
+        except Exception:
+            if gid >= 0:
+                with self._cv:
+                    fg = self._fanout_groups.get(gid)
+                    if fg is not None:
+                        fg.remaining -= n - len(ids)
+                        if fg.remaining <= 0:
+                            self._fanout_kill_locked(gid, fg)
+            raise
+        return ids
+
+    def _fanout_kill_locked(self, gid: int, fg: _FanoutGroup,
+                            direct: bool = False) -> None:
+        """Drop an emptied fan-out group (``_cv`` held). Its claimed page
+        is released now on the ticking thread (``direct``), else parked
+        for the next admission sweep: only the ticking thread moves pager
+        refcounts."""
+        if fg.page is not None:
+            if direct:
+                self._pager.release_claim(fg.page)
+            else:
+                self._fanout_release.append(fg.page)
+            fg.page = None
+        self._fanout_groups.pop(gid, None)
+
+    def _fanout_dec_locked(self, req: _Request) -> None:
+        """Consume ``req``'s fan-out membership (``_cv`` held)."""
+        gid = req.fanout_group
+        if gid < 0:
+            return
+        req.fanout_group = -1
+        fg = self._fanout_groups.get(gid)
+        if fg is None:
+            return
+        fg.remaining -= 1
+        if fg.remaining <= 0:
+            self._fanout_kill_locked(gid, fg)
+
     def cancel(self, req_id: int) -> bool:
-        """Queued -> dropped with an empty result; live -> retired at the
-        next commit boundary with its partial stream as the result.
-        False for ids never issued or already finished."""
+        """Queued -> dropped with an empty result; live (in a slot, mid-
+        prefill included) -> retired at the next commit boundary with its
+        partial stream as the result. False for ids never issued or
+        already finished."""
         with self._cv:
             if req_id in self._done or not 0 <= req_id < self._next_id:
                 return False
             req = self._queue.remove_id(req_id)
             if req is not None:
                 self._cancelled.discard(req_id)
+                self._fanout_dec_locked(req)
                 self._done[req_id] = np.zeros((0,), np.int32)
                 self._done_lps[req_id] = np.zeros((0,), np.float32)
                 self._cv.notify_all()
@@ -397,11 +707,16 @@ class ContinuousBatcher:
             return True
 
     def _release_slot(self, slot: _Slot) -> None:
+        """Reset one slot's host-side lifecycle state and return its pages
+        to the pool (caller holds ``_cv``)."""
         slot.req = None
         slot.tokens = []
         slot.lps = []
+        slot.pf_done = -1
         slot.t_first = 0.0
         slot.obs_count = 0
+        if self._paged:
+            self._pager.free_slot(slot.idx)
 
     def _finish(self, slot: _Slot, reason: str = "completed") -> None:
         req = slot.req
@@ -482,6 +797,13 @@ class ContinuousBatcher:
         )
 
     def _admit(self) -> None:
+        if self._paged:
+            # Drain page claims parked by client-thread fan-out group
+            # deaths: only this thread moves pager refcounts.
+            with self._cv:
+                rel, self._fanout_release = self._fanout_release, []
+            for pg in rel:
+                self._pager.release_claim(pg)
         for slot in self.slots:
             if slot.req is not None:
                 continue
@@ -490,29 +812,140 @@ class ContinuousBatcher:
                     return
                 req = self._queue.popleft()
                 self._admitting = req.req_id
+                fg = self._fanout_groups.get(req.fanout_group)
+            i = slot.idx
             s0 = req.prompt.shape[0]
             bucket = next(b for b in self.prompt_buckets if b >= s0)
+            m = 0
+            if self._paged:
+                P = self._page
+                # Prefix probe: acquire (rc+1) every cached FULL prompt
+                # page, first miss stops; capped before the page of the
+                # last prompt token, so the suffix pass is never empty.
+                for j in range((s0 - 1) // P):
+                    key = Pager.prefix_key(req.prompt, (j + 1) * P)
+                    if self._pager.lookup_share(i, key) is None:
+                        break
+                    m += 1
+                # All-or-nothing reservation of the rest of the window
+                # (prefill writes `bucket` positions; decode reaches
+                # s0 + steps - 1). FIFO head-of-line: when the pool cannot
+                # cover this request, admission stops here.
+                span = max(bucket, s0 + req.steps)
+                if not self._pager.alloc(i, -(-span // P) - m):
+                    self._pager.free_slot(i)  # releases the shares too
+                    with self._cv:
+                        self._queue.appendleft(req)
+                        self._admitting = None
+                    return
+                self._pager.record_prefix_match(m, s0)
+            # Copy-on-write fork: a greedy fan-out sibling whose probe
+            # matched every page before the last prompt token, with the
+            # group's source page claimed and its first commit cached.
+            cow = (
+                fg is not None and fg.greedy and fg.page is not None
+                and fg.first is not None and req.temperature == 0.0
+                and m == (s0 - 1) // self._page
+            )
+            chunked = (
+                self._paged and not cow and self._prefill_chunk is not None
+                and s0 - m * self._page > self._prefill_chunk
+            )
             tracer = global_tracer()
             t0 = tracer.now() if tracer.enabled else 0.0
-            tok0, lp0 = self._prefill(slot.idx, req, bucket)
-            if tracer.enabled:
+            tok0 = lp0 = None
+            if chunked:
+                pass  # one K4 pass per tick from here (_prefill_step)
+            elif cow:
+                dst = self._pager.owned(i)[m]
+                self._fork_page(fg.page, dst)
+                self._pager.note_cow_fork()
+                global_flight_recorder().record(
+                    "cow_fork", request=req.req_id, src_page=int(fg.page),
+                    dst_page=int(dst), prefix_pages=m,
+                    saved_positions=s0 - m * self._page,
+                )
+                tok0, lp0 = fg.first, fg.first_lp
+            elif m:
+                # Suffix-only prefill against the shared prefix pages. The
+                # suffix pads to whole PAGES (inside the reservation by
+                # construction), the window to a power-of-two page count.
+                slen = s0 - m * self._page
+                n_strip = m + -(-slen // self._page)
+                tok0, lp0 = self._prefill_pass(
+                    req, self._window_pages(i, n_strip), m * self._page,
+                    slen, sample=True,
+                )
+            else:
+                tok0, lp0 = self._prefill(i, req, bucket)
+            if self._paged and not chunked:
+                # Chunked admissions register on their final pass.
+                self._register_prompt_pages(i, req, m)
+            if tracer.enabled and not chunked:
                 tracer.add_span("batcher.prefill", start=t0, end=tracer.now(),
-                                request=req.req_id, bucket=bucket)
+                                request=req.req_id, bucket=bucket,
+                                prefix_pages=m)
             slot.req, slot.s0 = req, s0
             slot.emitted, slot.tokens, slot.lps = 0, [], []
             slot.t_first, slot.obs_count = 0.0, 0
+            slot.pf_done = m * self._page if chunked else -1
             with self._cv:
                 self._admitting = None
                 self._admitted += 1
+                if fg is not None and req.fanout_group >= 0:
+                    gid, req.fanout_group = req.fanout_group, -1
+                    fg.remaining -= 1
+                    if (fg.greedy and fg.page is None and fg.remaining > 0
+                            and tok0 is not None):
+                        # First admitted greedy sibling: claim its last
+                        # prompt page (it outlives the sibling) and cache
+                        # its first commit for the siblings' forks. A
+                        # chunked first sibling leaves the group
+                        # fork-less.
+                        fg.page = self._pager.owned(i)[(s0 - 1) // self._page]
+                        self._pager.retain(fg.page)
+                        fg.first, fg.first_lp = tok0, lp0
+                    if fg.remaining <= 0:
+                        self._fanout_kill_locked(gid, fg, direct=True)
             global_metrics().inc("continuous.admitted")
             queue_wait = time.perf_counter() - req.t_submit
             if self.obs_timeline:
                 global_metrics().observe("continuous.queue_wait_s", queue_wait)
             global_flight_recorder().record(
-                "admit", request=req.req_id, slot=slot.idx, prompt_len=s0,
+                "admit", request=req.req_id, slot=i, prompt_len=s0,
+                prefix_pages=m, chunked=chunked, cow=cow,
                 queue_wait_s=round(queue_wait, 6),
             )
-            self._commit(slot, tok0, lp0)
+            if not chunked:
+                self._commit(slot, tok0, lp0)
+                if slot.req is req:
+                    self._stage_decode_row(slot)
+
+    def _prefill_step(self, slot: _Slot) -> None:
+        """One chunked-prefill pass for ``slot``: positions [pf_done,
+        pf_done + prefill_chunk) through K4. The final pass registers the
+        prompt pages, samples the first token and moves the slot into the
+        decode batch."""
+        req, s0, P = slot.req, slot.s0, self._page
+        tracer = global_tracer()
+        t0 = tracer.now() if tracer.enabled else 0.0
+        pos0 = slot.pf_done  # page-aligned (chunks are page multiples)
+        clen = min(self._prefill_chunk, s0 - pos0)
+        final = pos0 + clen >= s0
+        n_strip = (pos0 + -(-clen // P) * P) // P
+        first = self._prefill_pass(
+            req, self._window_pages(slot.idx, n_strip), pos0, clen,
+            sample=final,
+        )
+        slot.pf_done = pos0 + clen
+        if tracer.enabled:
+            tracer.add_span("batcher.prefill_chunk", start=t0,
+                            end=tracer.now(), request=req.req_id, pos0=pos0,
+                            chunk_len=clen, final=final)
+        if final:
+            self._register_prompt_pages(slot.idx, req, 0)
+            slot.pf_done = -1
+            self._commit(slot, *first)
             if slot.req is req:
                 self._stage_decode_row(slot)
 
@@ -530,9 +963,10 @@ class ContinuousBatcher:
 
     @torch.no_grad()
     def tick(self) -> int:
-        """Admit into free slots, then decode one chunk over every slot
-        with ONE host sync. Returns the number of active slots committed
-        (0 = idle tick)."""
+        """Admit into free slots, run ONE prefill pass for each slot mid-
+        chunked-prefill, then decode one chunk over every slot with ONE
+        host sync. Returns the number of decoding slots committed (0 =
+        no decode ran)."""
         self._admit()
         for slot in self.slots:
             if slot.req is None:
@@ -540,11 +974,17 @@ class ContinuousBatcher:
             with self._cv:
                 cancelled = slot.req.req_id in self._cancelled
                 self._cancelled.discard(slot.req.req_id)
-            if cancelled:
+            if cancelled:  # mid-prefill or between chunks
                 self._finish(slot, reason="cancelled")
-        active = [s for s in self.slots if s.req is not None]
+        for slot in self.slots:
+            if slot.req is not None and slot.pf_done >= 0:
+                self._prefill_step(slot)  # interleaves with the decode below
+        active = [s for s in self.slots if s.req is not None and s.pf_done < 0]
         reg = global_metrics()
-        reg.set_gauge("continuous.active_slots", float(len(active)))
+        reg.set_gauge("continuous.active_slots",
+                      float(sum(1 for s in self.slots if s.req is not None)))
+        reg.set_gauge("continuous.prefilling_slots", float(sum(
+            1 for s in self.slots if s.req is not None and s.pf_done >= 0)))
         reg.set_gauge("continuous.queue_depth", float(len(self._queue)))
         reg.set_gauge("continuous.h2d_transfers", float(self._h2d_count))
         if not active:
@@ -554,7 +994,8 @@ class ContinuousBatcher:
         vocab = self.lm.vocab
         tracer = global_tracer()
         t_chunk = tracer.now() if tracer.enabled else 0.0
-        reqs = [s.req for s in self.slots]
+        reqs = [s.req if s.req is not None and s.pf_done < 0 else None
+                for s in self.slots]
         lives = [s.tokens for s in self.slots]
         toks, lps = self._step_chunk(
             do_sample=any(s.req.temperature > 0.0 for s in active),
@@ -578,6 +1019,19 @@ class ContinuousBatcher:
                 self._commit(slot, int(host[0, j, i]), float(host[1, j, i]))
                 if slot.req is not req:
                     break
+        if self._paged and self._window is not None:
+            # Rolling-window recycling: pages wholly behind every future
+            # read ((o + 1) * P <= pos - window + 1, with pos = s0 +
+            # emitted - 1 the next write: reads from here on mask positions
+            # < index - window + 1) go back to the pool MID-REQUEST.
+            for slot in self.slots:
+                if slot.req is None or slot.pf_done >= 0:
+                    continue
+                pos = slot.s0 + slot.emitted - 1
+                dead = max(0, pos - self._window + 1) // self._page \
+                    - self._pager.base(slot.idx)
+                if dead > 0:
+                    self._pager.release_prefix(slot.idx, dead)
         if self.obs_timeline:
             self._obs_flush()
         reg.set_gauge(
@@ -588,9 +1042,10 @@ class ContinuousBatcher:
 
     def stats(self) -> dict:
         """Slot occupancy, queue depth and this batcher's lifetime
-        counts."""
+        counts; a paged batcher adds the pager's books (pool partition,
+        prefix cache, radix and copy-on-write counts)."""
         with self._cv:
-            return {
+            out = {
                 "slots": len(self.slots),
                 "active": sum(1 for s in self.slots if s.req is not None),
                 "queued": len(self._queue),
@@ -600,12 +1055,29 @@ class ContinuousBatcher:
                 "ticks": self._ticks,
                 "prefill_tokens": self._prefill_tokens,
                 "h2d_transfers": self._h2d_count,
+                # Resident KV bytes of the strips or the page pools.
                 "cache_bytes": sum(
                     t.numel() * t.element_size()
                     for pair in self._caches for t in pair
                 ),
                 "rejected": self._rejected,
             }
+            if self._paged:
+                ps = self._pager.stats()
+                out["pool_pages"] = ps.num_pages
+                out["pages_in_use"] = ps.in_use
+                out["pages_free"] = ps.free
+                out["pages_cached"] = ps.cached
+                out["prefix_hits"] = ps.prefix_hits
+                out["prefix_misses"] = ps.prefix_misses
+                out["prefix_capacity_skips"] = ps.prefix_capacity_skips
+                out["radix_nodes"] = ps.radix_nodes
+                out["radix_partial_hits"] = ps.radix_partial_hits
+                out["radix_hit_tokens"] = ps.radix_hit_tokens
+                out["radix_evictions"] = self._pager.radix_evictions
+                out["cow_forks"] = ps.cow_forks
+                out["fanout_groups"] = len(self._fanout_groups)
+            return out
 
     def logprobs(self, req_id: int) -> np.ndarray:
         """Per-token model logprobs of a FINISHED request (claims them)."""

@@ -25,7 +25,8 @@ class QueueFullError(RuntimeError):
 class AdmissionQueue:
     """Bounded strict-FIFO admission queue with the deque-shaped API the
     batcher uses: ``append`` (checked — raises :class:`QueueFullError`),
-    ``popleft``, ``remove_id`` (cancel) and ``len``."""
+    ``appendleft`` (a re-queue), ``popleft``, ``remove_id`` (cancel) and
+    ``len``."""
 
     def __init__(self, cfg: SchedulerConfig | None = None):
         if cfg is not None:
@@ -48,6 +49,11 @@ class AdmissionQueue:
     def append(self, req) -> None:
         self.check()
         self._q.append(req)
+
+    def appendleft(self, req) -> None:
+        """Put a popped request back at the head, unchecked: admission
+        could not cover it yet (the paged pool's head-of-line wait)."""
+        self._q.appendleft(req)
 
     def popleft(self):
         if not self._q:

@@ -2,7 +2,8 @@
 """On-card smoke test of the PyTorch/CUDA port (``adapt_tpu_torch``).
 
     python3 chip_smoke.py            # the whole check, one CUDA card
-    python3 chip_smoke.py --profile  # and a torch.profiler decode breakdown
+    python3 chip_smoke.py --profile  # and torch.profiler decode breakdowns
+                                     # (dense strips and paged pool)
 
 Phases (no phase failure is caught; any mismatch exits non-zero):
 
@@ -14,18 +15,34 @@ Phases (no phase failure is caught; any mismatch exits non-zero):
 3. K2 (``decode_attn``) and K2-split (``decode_attn_split``, split 4)
    against the plain version on the batcher's dense strip (L = 1025), plus
    GQA and ``valid_from`` cases, and split 1 against split 4;
-4. GPT-2-small widths (50257 / 768 / 12 layers / 12 heads / 3072, learned
+4. K3 (``paged_attn``) and K3-split (``paged_attn_split``, split 4)
+   against the plain version at the paged path's shapes (8 slots, 12 kv
+   heads, page 128, 8 pages a slot, a 65-page pool, shuffled tables, one
+   dead row), plus GQA, ``valid_from``, page-16 and head_dim-128 cases, and
+   K3 against K2 with ``torch.equal`` on the same K/V as a dense strip;
+5. K4 (``paged_chunk_attn``) against its plain version at C in {128,
+   256}, pos0 in {0, 256, 512}, the window padded to a power of two with
+   trash pages, plus window and GQA cases;
+6. GPT-2-small widths (50257 / 768 / 12 layers / 12 heads / 3072, learned
    positions, max_len 1024, bf16, random weights from seed 0):
    ``generate()`` on 4 ragged prompts, then a ``ContinuousBatcher(slots=8,
    chunk=8)`` answering 16 requests (prompts 16-512, 64 new tokens, two
    staggered waves, one cancel), then the same batcher with
-   ``KernelConfig(decode_split=4)`` on 8 requests. Launch counts are set
-   to 0 just before each batcher path and read just after; every stream
-   must equal the port's own ``generate()`` for that prompt alone;
-5. each kernel timed at its main-path shape with CUDA events, beside its
+   ``KernelConfig(decode_split=4)`` on 8 requests; every stream must equal
+   the port's own ``generate()`` for that prompt alone;
+7. the same model through ``ContinuousBatcher(kv_layout="paged",
+   page_size=128, prefill_chunk=256)``: 16 requests (8 sharing a 384-token
+   prefix, 4 short unique, 4 long enough to be chunked; two staggered waves,
+   one cancel) and a greedy ``submit_fanout`` of 4, then the paged batcher
+   with ``decode_split=4`` on 8 requests. Whole-prompt admissions must equal
+   ``generate()``; prefix-hit, chunked and split streams pass a tie-aware
+   check; fan-out siblings equal each other; the pool drains. Launch
+   counts are set to 0 just before each batcher path and read just after;
+8. each kernel timed at its main-path shape with CUDA events, beside its
    plain version, one PyTorch library call of the same function
-   (``scaled_dot_product_attention``, which the port never calls) and its
-   bound: max(operations / 989 TFLOP/s, bytes / 3.35 TB/s).
+   (``scaled_dot_product_attention``, after a gather of the pages for the
+   paged kernels; the port never calls either) and its bound:
+   max(operations / 989 TFLOP/s, bytes / 3.35 TB/s).
 
 The line before the last is the kernels' JSON; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -38,6 +55,8 @@ import os
 import subprocess
 import sys
 import time
+
+import numpy as np
 
 PEAK_FLOPS = 989e12  # H100 SXM dense bf16
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3
@@ -175,6 +194,117 @@ def check_k2(torch, D, dev, errs):
         print(f"K2 split 1 vs split 4 {shp}: max abs err {e:.3e}")
 
 
+def paged_inputs(torch, dev, b, kvh, g, hd, page, pps, npages, seed=6):
+    """bf16 pools with a shuffled page table (pages shared between two
+    rows, a trash tail), indices spread over the slot window, the last row
+    dead (the batcher's idle sentinel)."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=gen, device=dev).to(
+            torch.bfloat16)
+
+    q, kp, vp = rnd(b, kvh, g, hd), rnd(npages, kvh, page, hd), rnd(
+        npages, kvh, page, hd)
+    perm = torch.randperm(npages - 1, generator=torch.Generator().manual_seed(
+        seed)) + 1
+    table = perm[:b * pps].reshape(b, pps).to(torch.int32)
+    table[1, 0] = table[0, 0]
+    table[-1, -1] = 0
+    width = pps * page
+    idx = torch.linspace(0, width - 1, b).round().to(torch.int32)
+    idx[-1] = -9
+    return q, kp, vp, table.to(dev), idx.to(dev)
+
+
+def as_strip(torch, pool, table, length):
+    """The same K/V as a dense (b, kv_h, length, hd) strip."""
+    b = table.shape[0]
+    win = pool[table.long()].movedim(2, 1).reshape(b, pool.shape[1], -1,
+                                                   pool.shape[3])
+    out = torch.zeros(b, pool.shape[1], length, pool.shape[3],
+                      dtype=pool.dtype, device=pool.device)
+    out[:, :, :win.shape[2]] = win
+    return out
+
+
+def check_k3(torch, D, P, dev, errs):
+    """K3 / K3-split vs the plain version at atol 1e-2, rtol 1e-2 (bf16
+    outputs); K3 == K2 with torch.equal on the same K/V (the batcher's
+    1025-long strip)."""
+    cases = [
+        (dict(b=8, kvh=12, g=1, hd=64, page=128, pps=8, npages=65), None),
+        (dict(b=8, kvh=3, g=4, hd=64, page=128, pps=8, npages=65), None),
+        (dict(b=8, kvh=12, g=1, hd=64, page=128, pps=8, npages=65), "vf"),
+        (dict(b=8, kvh=12, g=1, hd=64, page=16, pps=64, npages=513), None),
+        (dict(b=4, kvh=8, g=2, hd=128, page=128, pps=6, npages=25), None),
+    ]
+    for shp, extra in cases:
+        q, kp, vp, table, idx = paged_inputs(torch, dev, **shp)
+        vf = (idx.clamp(min=0) // 3).to(torch.int32) if extra == "vf" else None
+        for name, split in (("paged_attn", 1), ("paged_attn_split", 4)):
+            if split == 1:
+                got = P.paged_attn(q, kp, vp, table, idx, vf)
+            else:
+                got = P.paged_attn_split(q, kp, vp, table, idx, vf, split)
+            torch.cuda.synchronize()
+            ref = P.paged_attention_plain(q, kp, vp, table, idx, vf, split)
+            e = close(got, ref, 1e-2, 1e-2, f"{name} {shp} {extra}")
+            errs[name] = max(errs.get(name, 0.0), e)
+            print(f"{name} {shp} {extra}: max abs err {e:.3e} "
+                  "(tol 1e-2 + 1e-2|ref|)")
+            if split == 1:
+                dense = D.decode_attn(q, as_strip(torch, kp, table, 1025),
+                                      as_strip(torch, vp, table, 1025), idx, vf)
+                torch.cuda.synchronize()
+                if not torch.equal(got, dense):
+                    raise AssertionError(f"K3 != K2 bit for bit at {shp}")
+                if got[-1].any():
+                    raise AssertionError("K3's dead row is not zero")
+                print(f"K3 == K2 bit for bit (torch.equal) at {shp} {extra}")
+
+
+def chunk_inputs(torch, dev, kvh, g, hd, chunk, pos0, page=128, seed=8):
+    """A chunk's folded q and a pool; the window's pages shuffled and
+    padded to a power of two with trash page 0."""
+    gen = torch.Generator(device=dev).manual_seed(seed + pos0 + chunk)
+    n_strip = (pos0 + chunk) // page
+    n_pad = 1 << (n_strip - 1).bit_length()
+    npages = n_strip + 3
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=gen, device=dev).to(
+            torch.bfloat16)
+
+    q = rnd(1, kvh, g * chunk, hd)
+    kp, vp = rnd(npages, kvh, page, hd), rnd(npages, kvh, page, hd)
+    live = torch.randperm(npages - 1, generator=torch.Generator().manual_seed(
+        seed))[:n_strip] + 1
+    pages = torch.cat([live, torch.zeros(n_pad - n_strip, dtype=live.dtype)])
+    return q, kp, vp, pages.to(torch.int32).to(dev)
+
+
+def check_k4(torch, P, dev, errs):
+    """K4 vs its plain version at atol 1e-2, rtol 1e-2 (bf16 outputs)."""
+    cases = [dict(kvh=12, g=1, hd=64, chunk=c, pos0=p, window=None)
+             for c in (128, 256) for p in (0, 256, 512)]
+    cases += [dict(kvh=12, g=1, hd=64, chunk=256, pos0=512, window=300),
+              dict(kvh=3, g=4, hd=64, chunk=256, pos0=256, window=None),
+              dict(kvh=8, g=2, hd=128, chunk=128, pos0=384, window=None)]
+    for c in cases:
+        q, kp, vp, pages = chunk_inputs(torch, dev, c["kvh"], c["g"], c["hd"],
+                                        c["chunk"], c["pos0"])
+        got = P.paged_chunk_attn(q, kp, vp, pages, c["pos0"], c["chunk"],
+                                 c["window"])
+        torch.cuda.synchronize()
+        ref = P.paged_chunk_attention_reference(q, kp, vp, pages, c["pos0"],
+                                                c["chunk"], c["window"])
+        e = close(got, ref, 1e-2, 1e-2, f"paged_chunk_attn {c}")
+        errs["paged_chunk_attn"] = max(errs.get("paged_chunk_attn", 0.0), e)
+        print(f"paged_chunk_attn {c}: max abs err {e:.3e} "
+              "(tol 1e-2 + 1e-2|ref|)")
+
+
 def drive_batcher(torch, lm, prompts, steps, kernel, cancel_at):
     """Serve ``prompts`` in two staggered waves; cancel request
     ``cancel_at`` (if not None) once it is live. Returns (results,
@@ -204,16 +334,150 @@ def drive_batcher(torch, lm, prompts, steps, kernel, cancel_at):
     return out, ids, cancelled, wall, tokens, ttft
 
 
-def profile_decode(torch, lm, card):
-    """``--profile``: where a steady decode tick's time goes. 8 slots
-    decode (chunk 8, 256-token prompts); 4 ticks are timed on the host
-    clock without the profiler, then 4 more run under ``torch.profiler``
-    for device time by kernel. Busy share = kernel time / unprofiled
-    wall."""
+def paged_traffic(torch, vocab):
+    """The paged path's requests, made from seed 7: 8 share a 384-token
+    prefix (3 full pages) with unique tails of 16-128, 4 are unique of
+    16-512, 4 unique of 600-900 (chunked at prefill_chunk 256). Wave 1 holds
+    one prefix request, the unique ones and 3 long; wave 2 the other 7
+    prefix requests (prefix hits) and the last long one. The fan-out
+    prompt is 2 of the prefix's pages plus 44 tokens."""
+    rng = torch.Generator().manual_seed(7)
+
+    def ri(lo, hi):
+        return int(torch.randint(lo, hi + 1, (1,), generator=rng))
+
+    def toks(n):
+        return torch.randint(0, vocab, (n,), generator=rng).numpy()
+
+    prefix = toks(384)
+    shared = [np.concatenate([prefix, toks(ri(16, 128))]) for _ in range(8)]
+    unique = [toks(ri(16, 512)) for _ in range(4)]
+    longp = [toks(ri(600, 900)) for _ in range(4)]
+    wave1 = [shared[0]] + unique + longp[:3]
+    wave2 = shared[1:] + longp[3:]
+    fan = np.concatenate([prefix[:256], toks(44)])
+    return wave1, wave2, fan
+
+
+def first_gap(torch, lm, prompt, got, ref):
+    """None when ``got`` is a prefix of ``ref``; else (t, gap) with t the
+    first differing token and gap the top-2 logit gap of the full forward
+    over prompt + ref[:t] at the position that picks token t."""
+    from adapt_tpu_torch.models.transformer_lm import logits_full
+
+    bad = np.nonzero(got != ref[:len(got)])[0]
+    if len(bad) == 0:
+        return None
+    t = int(bad[0])
+    lg = logits_full(lm, np.concatenate([prompt, ref[:t]])[None])[0, -1]
+    top2 = torch.topk(lg.float(), 2).values
+    return t, float(top2[0] - top2[1])
+
+
+def drive_paged(torch, lm, kernel, waves, fan, cancel_at):
+    """Serve ``waves`` (two staggered waves) and, if ``fan`` is given, a
+    greedy fan-out of 4 through a paged batcher; cancel wave-1 request
+    ``cancel_at`` once live. Returns the batcher, {id: prompt}, results,
+    admit events by id, the cancelled id, fan-out ids, wall s, committed
+    tokens and mean TTFT s."""
+    from adapt_tpu_torch.runtime.continuous import ContinuousBatcher
+    from adapt_tpu_torch.utils.metrics import global_metrics
+    from adapt_tpu_torch.utils.tracing import global_flight_recorder
+
+    reg, fr = global_metrics(), global_flight_recorder()
+    before = reg.snapshot(window=True)
+    _, cursor = fr.events_since(1 << 62)
+    bat = ContinuousBatcher(lm, slots=8, chunk=8, kv_layout="paged",
+                            page_size=128, prefill_chunk=256, kernel=kernel)
+    t0 = time.perf_counter()
+    ids = [bat.submit(p, 64) for p in waves[0]]
+    bat.tick()
+    bat.tick()
+    ids += [bat.submit(p, 64) for p in waves[1]]
+    cancelled = None
+    if cancel_at is not None:
+        cancelled = ids[cancel_at]
+        if not bat.cancel(cancelled):
+            raise AssertionError("the cancel found no live request")
+    out = bat.run()
+    fan_ids = []
+    if fan is not None:
+        fan_ids = bat.submit_fanout(fan, 4, 64)
+        out.update(bat.run())
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    prompts = dict(zip(ids, list(waves[0]) + list(waves[1])))
+    prompts.update({r: fan for r in fan_ids})
+    events, _ = fr.events_since(cursor)
+    admits = {e["data"]["request"]: e["data"] for e in events
+              if e["kind"] == "admit"}
+    win = reg.snapshot(since=before)
+    ttft = win["histograms"].get("continuous.ttft_s", {}).get("mean", 0.0)
+    tokens = sum(len(v) for v in out.values())
+    return bat, prompts, out, admits, cancelled, fan_ids, wall, tokens, ttft
+
+
+def check_paged_streams(torch, lm, prompts, out, admits, cancelled, fan_ids,
+                        split):
+    """Whole-prompt admissions (no hit, not chunked) with split 1 must
+    equal ``generate()``; every other stream passes the tie-aware check
+    (a first difference only where the full forward's top-2 gap is below
+    0.1; at most 2 exemptions); fan-out siblings equal the first one.
+    Returns (exemptions, {path: count})."""
+    from adapt_tpu_torch.models.transformer_lm import generate
+
+    exempt, paths = [], {}
+    for rid, p in prompts.items():
+        a = admits[rid]
+        path = ("cow" if a["cow"] else "hit" if a["prefix_pages"] else
+                "chunked" if a["chunked"] else "whole")
+        paths[path] = paths.get(path, 0) + 1
+        got = out[rid]
+        if rid == cancelled:
+            if not 0 < len(got) < 64:
+                raise AssertionError(f"cancelled stream has {len(got)} tokens")
+        elif len(got) != 64:
+            raise AssertionError(f"request {rid} has {len(got)} tokens")
+        if path == "cow":
+            if not np.array_equal(got, out[fan_ids[0]]):
+                raise AssertionError(f"fan-out sibling {rid} differs from "
+                                     "its group's first sibling")
+            continue
+        ref = generate(lm, p[None], 64,
+                       decode_split=split)[0].cpu().numpy()
+        if path == "whole" and split is None:
+            if not np.array_equal(got, ref[:len(got)]):
+                bad = int((got != ref[:len(got)]).argmax())
+                raise AssertionError(f"whole-prompt request {rid} differs "
+                                     f"from generate() at token {bad}")
+            continue
+        tg = first_gap(torch, lm, p, got, ref)
+        if tg is None:
+            continue
+        t, gap = tg
+        print(f"tie-aware exemption: request {rid} ({path}, prompt "
+              f"{len(p)}) first differs from generate() at token {t}, "
+              f"top-2 gap {gap:.4f}")
+        if gap >= 0.1:
+            raise AssertionError(f"request {rid} differs at token {t} with "
+                                 f"top-2 gap {gap:.4f} >= 0.1")
+        exempt.append(rid)
+    if len(exempt) > 2:
+        raise AssertionError(f"{len(exempt)} streams needed the tie "
+                             "exemption (at most 2)")
+    return exempt, paths
+
+
+def profile_decode(torch, lm, card, layout):
+    """``--profile``: where a steady decode tick's time goes on one KV
+    ``layout``. 8 slots decode (chunk 8, 256-token prompts); 4 ticks are
+    timed on the host clock without the profiler, then 4 more run under
+    ``torch.profiler`` for device time by kernel. Busy share = kernel time
+    / unprofiled wall."""
     from adapt_tpu_torch.runtime.continuous import ContinuousBatcher
 
     rng = torch.Generator().manual_seed(5)
-    bat = ContinuousBatcher(lm, slots=8, chunk=8)
+    bat = ContinuousBatcher(lm, slots=8, chunk=8, kv_layout=layout)
     for _ in range(8):
         bat.submit(torch.randint(0, lm.vocab, (256,), generator=rng).numpy(),
                    400)
@@ -243,7 +507,8 @@ def profile_decode(torch, lm, card):
     rows.sort(reverse=True)
     busy = sum(r[0] for r in rows)
     steps = 4 * bat.chunk
-    print(f"profile on {card}: 4 steady ticks = {steps} decode steps of 8 "
+    print(f"profile[{layout}] on {card}: 4 steady ticks = {steps} decode "
+          f"steps of 8 "
           f"slots: wall {wall_ms:.2f} ms ({wall_ms / steps:.3f} ms/step, "
           f"{8 * steps / wall_ms * 1e3:.1f} tok/s); kernels "
           f"{busy:.2f} ms = {busy / wall_ms:.3f} of the wall "
@@ -269,6 +534,7 @@ def main(argv) -> int:
     from adapt_tpu_torch.ops import _build
     from adapt_tpu_torch.ops import attention as A
     from adapt_tpu_torch.ops import decode_attention as D
+    from adapt_tpu_torch.ops import paged_attention as P
 
     dev = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -282,7 +548,9 @@ def main(argv) -> int:
     errs: dict[str, float] = {}
     check_k1(torch, A, dev, errs)
     check_k2(torch, D, dev, errs)
-    # -- phase 4: the full-width path ------------------------------------
+    check_k3(torch, D, P, dev, errs)
+    check_k4(torch, P, dev, errs)
+    # -- phase 6: the full-width dense path ------------------------------
     VOCAB, DIM, DEPTH, HEADS, MLP = 50257, 768, 12, 12, 3072
     t0 = time.perf_counter()
     lm = transformer_lm(VOCAB, DIM, DEPTH, HEADS, MLP, max_len=1024,
@@ -338,7 +606,49 @@ def main(argv) -> int:
               f"{ntok / wall:.1f} tok/s, mean TTFT {ttft * 1e3:.1f} ms, "
               f"launches {launches}")
 
-    # -- phase 5: kernel times at main-path shapes -------------------------
+    # -- phase 7: the full-width paged path ------------------------------
+    counters = {"flash_attn_fwd": A.flash_attn_fwd,
+                "paged_attn": P.paged_attn,
+                "paged_attn_split": P.paged_attn_split,
+                "paged_chunk_attn": P.paged_chunk_attn}
+    wave1, wave2, fan = paged_traffic(torch, VOCAB)
+    split_prompts = ([p[:len(p) // 2] for p in wave1[1:5]]
+                     + [p[:256] for p in wave2[:4]])
+    for path, kernel, waves, fan_p, cancel_at, want in (
+        ("paged", KernelConfig(), (wave1, wave2), fan, 2,
+         ("flash_attn_fwd", "paged_attn", "paged_chunk_attn")),
+        ("paged_split4", KernelConfig(decode_split=4),
+         (split_prompts[:4], split_prompts[4:]), None, None,
+         ("flash_attn_fwd", "paged_attn_split")),
+    ):
+        for fn in counters.values():
+            fn.launches = 0
+        (bat, prompts, out, admits, cancelled, fan_ids, wall, ntok,
+         ttft) = drive_paged(torch, lm, kernel, waves, fan_p, cancel_at)
+        launches = {k: fn.launches for k, fn in counters.items()}
+        runs[path] = launches
+        if any(launches[k] == 0 for k in want):
+            return _fail(f"{path} path did not launch its kernels: {launches}")
+        st = bat.stats()
+        if st["pages_in_use"] != 0 or st["pages_free"] != st["pool_pages"] - 1:
+            return _fail(f"{path}: the pool did not drain: {st}")
+        if fan_p is not None and (st["prefix_hits"] < 1 or st["cow_forks"] < 1):
+            return _fail(f"{path}: prefix_hits {st['prefix_hits']}, "
+                         f"cow_forks {st['cow_forks']}")
+        exempt, paths = check_paged_streams(
+            torch, lm, prompts, out, admits, cancelled, fan_ids,
+            kernel.decode_split)
+        submitted = sum(len(p) for p in prompts.values())
+        print(f"batcher[{path}] on {card}: {len(prompts)} requests "
+              f"(paths {paths}, {len(exempt)} tie exemptions"
+              f"{', 1 cancelled' if cancelled is not None else ''}), "
+              f"{ntok} tokens in {wall:.3f} s = {ntok / wall:.1f} tok/s, "
+              f"mean TTFT {ttft * 1e3:.1f} ms, prefix_hits "
+              f"{st['prefix_hits']}, cow_forks {st['cow_forks']}, prompt "
+              f"tokens prefilled {st['prefill_tokens']} of {submitted} "
+              f"submitted, launches {launches}")
+
+    # -- phase 8: kernel times at main-path shapes -------------------------
     F = torch.nn.functional
     kernels = []
     g = torch.Generator(device=dev).manual_seed(3)
@@ -386,8 +696,75 @@ def main(argv) -> int:
             launches=runs[path][name], max_abs_err=errs[name], ms=ms,
             plain_ms=plain, bound_ms=bms, bound_by=by, library_ms=lib,
             shape=f"b{B} kv_h{kvh} g{G} L{L} hd{hd} split{split} bf16"))
+
+    # K3 / K3-split at the K2 shape, in pages: 8 slots, 12 kv heads, page
+    # 128, 8 pages a slot in a 65-page pool, indices spread over 0..1023.
+    q, kp, vp, table, idx = paged_inputs(torch, dev, B, kvh, G, hd, 128, 8,
+                                         65, seed=9)
+    idx[-1] = 1023  # all rows live for the timing
+    live = float((idx.long() + 1).sum()) * kvh
+    pbytes = (2 * live * hd * 2 + 2 * B * kvh * G * hd * 2 + table.numel() * 4
+              + B * 4)
+    pmask = torch.arange(1024, device=dev)[None, :] <= idx[:, None].long()
+
+    def gather_sdpa():
+        ks = kp[table.long()].movedim(2, 1).reshape(B, kvh, -1, hd)
+        vs = vp[table.long()].movedim(2, 1).reshape(B, kvh, -1, hd)
+        return F.scaled_dot_product_attention(
+            q, ks, vs, attn_mask=pmask[:, None, None, :])
+
+    lib = time_ms(gather_sdpa)
+    for name, fn, split, path in (
+        ("paged_attn", lambda: P.paged_attn(q, kp, vp, table, idx), 1,
+         "paged"),
+        ("paged_attn_split",
+         lambda: P.paged_attn_split(q, kp, vp, table, idx, None, 4), 4,
+         "paged_split4"),
+    ):
+        ms = time_ms(fn)
+        plain = time_ms(lambda sp=split: P.paged_attention_plain(
+            q, kp, vp, table, idx, None, sp))
+        bms, by = bound(4 * G * hd * live, pbytes)
+        kernels.append(dict(
+            name=name, route="cuda",
+            source="adapt_tpu_torch/csrc/paged_attn.cu",
+            replaces=("adapt_tpu/ops/paged_attention.py:331" if split == 1
+                      else "adapt_tpu/ops/paged_attention.py:357"),
+            launches=runs[path][name], max_abs_err=errs[name], ms=ms,
+            plain_ms=plain, bound_ms=bms, bound_by=by, library_ms=lib,
+            shape=f"b{B} kv_h{kvh} g{G} page128 pps8 hd{hd} split{split} "
+                  "bf16"))
+
+    # K4 at C = 256, pos0 = 512 (a chunked-prefill pass of the paged path).
+    C, pos0 = 256, 512
+    q, kp, vp, pages = chunk_inputs(torch, dev, kvh, 1, hd, C, pos0)
+    pairs = sum(pos0 + r + 1 for r in range(C)) * kvh
+    cbytes = (2 * (pos0 + C) * kvh * hd * 2 + 2 * kvh * C * hd * 2
+              + pages.numel() * 4)
+    cmask = (torch.arange(pages.numel() * 128, device=dev)[None, :]
+             <= pos0 + torch.arange(C, device=dev)[:, None])
+
+    def gather_sdpa_chunk():
+        ks = kp[pages.long()].movedim(1, 0).reshape(1, kvh, -1, hd)
+        vs = vp[pages.long()].movedim(1, 0).reshape(1, kvh, -1, hd)
+        return F.scaled_dot_product_attention(q, ks, vs, attn_mask=cmask)
+
+    ms = time_ms(lambda: P.paged_chunk_attn(q, kp, vp, pages, pos0, C))
+    plain = time_ms(lambda: P.paged_chunk_attention_reference(
+        q, kp, vp, pages, pos0, C))
+    lib = time_ms(gather_sdpa_chunk)
+    bms, by = bound(4 * pairs * hd, cbytes)
+    kernels.append(dict(
+        name="paged_chunk_attn", route="cuda",
+        source="adapt_tpu_torch/csrc/paged_chunk_attn.cu",
+        replaces="adapt_tpu/ops/paged_attention.py:380",
+        launches=runs["paged"]["paged_chunk_attn"],
+        max_abs_err=errs["paged_chunk_attn"], ms=ms, plain_ms=plain,
+        bound_ms=bms, bound_by=by, library_ms=lib,
+        shape=f"kv_h{kvh} g1 C{C} pos0 {pos0} page128 hd{hd} bf16"))
     if "--profile" in argv:
-        profile_decode(torch, lm, card)
+        for layout in ("slots", "paged"):
+            profile_decode(torch, lm, card, layout)
     for kr in kernels:
         print(f"{kr['name']} on {card}: {kr['ms']:.4f} ms (plain "
               f"{kr['plain_ms']:.4f}, sdpa {kr['library_ms']:.4f}, bound "

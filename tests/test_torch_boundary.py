@@ -41,6 +41,8 @@ def test_port_files_exist():
         "adapt_tpu_torch/ops/decode_attention.py",
         "adapt_tpu_torch/models/transformer_lm.py",
         "adapt_tpu_torch/runtime/continuous.py",
+        "adapt_tpu_torch/runtime/paged.py",
+        "adapt_tpu_torch/ops/paged_attention.py",
         "adapt_tpu_torch/convert.py",
     ):
         assert want in names
@@ -78,10 +80,24 @@ def test_entry_points_refuse_to_run_without_a_card():
 def test_kernel_wrappers_refuse_cpu_tensors():
     from adapt_tpu_torch.ops.attention import flash_attn_fwd
     from adapt_tpu_torch.ops.decode_attention import decode_attn
+    from adapt_tpu_torch.ops.paged_attention import (
+        paged_attn,
+        paged_attn_split,
+        paged_chunk_attn,
+    )
 
     q = torch.zeros(1, 1, 8, 64)
+    table = torch.zeros(1, 1, dtype=torch.int32)
     with pytest.raises(ValueError, match="CUDA"):
         flash_attn_fwd(q, q, q)
     with pytest.raises(ValueError, match="CUDA"):
         decode_attn(q[:, :, :1], q, q, 0)
+    with pytest.raises(ValueError, match="CUDA"):
+        paged_attn(q[:, :, :1], q, q, table, 0)
+    with pytest.raises(ValueError, match="CUDA"):
+        paged_attn_split(q[:, :, :1], q, q, table, 0, None, 2)
+    with pytest.raises(ValueError, match="CUDA"):
+        paged_chunk_attn(q, q, q, [0], 0, 8)
     assert flash_attn_fwd.launches == 0 and decode_attn.launches == 0
+    assert paged_attn.launches == paged_attn_split.launches == 0
+    assert paged_chunk_attn.launches == 0

@@ -230,8 +230,9 @@ def test_queue_bound_rejects_synchronously(lm_setup):
 
 def test_argument_errors(lm_setup):
     _, _, tlm = lm_setup
-    with pytest.raises(NotImplementedError, match="paged"):
-        ContinuousBatcher(tlm, kv_layout="paged")
+    with pytest.raises(NotImplementedError, match="quantized"):
+        ContinuousBatcher(tlm, kv_cache_dtype="int8")
+    assert ContinuousBatcher(tlm, kv_layout="paged").stats()["pool_pages"] > 1
     with pytest.raises(ValueError, match="chunk"):
         ContinuousBatcher(tlm, chunk=0)
     bat = ContinuousBatcher(tlm, slots=1)

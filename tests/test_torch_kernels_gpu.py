@@ -1,5 +1,5 @@
-"""The CUDA kernels (K1, K2, K2-split) against their plain PyTorch
-versions, on a card. Every test is marked ``gpu`` and skips without a
+"""The CUDA kernels (K1, K2, K2-split, K3, K3-split, K4) against their
+plain PyTorch versions, on a card. Every test is marked ``gpu`` and skips without a
 CUDA device (the kernels are CUDA C++ with no CPU mode). This file imports
 no JAX, so it also runs on a machine that has none:
 
@@ -8,13 +8,15 @@ no JAX, so it also runs on a machine that has none:
 Tolerances: f32 inputs at ``atol = rtol = 2e-5`` (only the summation
 order differs); bf16 at ``1e-2`` (one bf16 rounding of the output); the
 logsumexp at ``1e-3``. Rows with no live key (and the left padding of
-``valid_from`` rows) are unspecified and not compared."""
+``valid_from`` rows) are unspecified and not compared. K3 must equal K2
+bit for bit on the same K/V laid out as a dense strip."""
 
 import pytest
 import torch
 
 from adapt_tpu_torch.ops import attention as TA
 from adapt_tpu_torch.ops import decode_attention as TD
+from adapt_tpu_torch.ops import paged_attention as TP
 
 K1_CASES = {
     # name: (b, h, s_q, s_k, kwargs)
@@ -108,3 +110,114 @@ def test_cuda_refuses_plain_and_grad(cuda):
         TA.flash_attention(x.clone().requires_grad_(), x, x)
     with pytest.raises(ValueError, match="head_dim"):
         TA.flash_attn_fwd(x[..., :32], x[..., :32], x[..., :32])
+
+
+def _paged_case(cuda, dtype, b, kvh, g, hd, page, pps, seed=3):
+    """Pools with a shuffled, non-contiguous page table (pages shared
+    between rows, a trash tail), spread indices and one dead row."""
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    npages = b * pps + 1
+    kp = torch.randn(npages, kvh, page, hd, generator=gen, device=cuda)
+    vp = torch.randn(npages, kvh, page, hd, generator=gen, device=cuda)
+    q = torch.randn(b, kvh, g, hd, generator=gen, device=cuda)
+    perm = torch.randperm(npages - 1, generator=torch.Generator().manual_seed(
+        seed)) + 1
+    table = perm[: b * pps].reshape(b, pps).to(torch.int32)
+    table[1, 0] = table[0, 0]
+    table[-1, -1] = 0
+    width = pps * page
+    idx = torch.linspace(0, width - 1, b).round().to(torch.int32)
+    idx[-1] = -9  # dead row
+    return (q.to(dtype), kp.to(dtype), vp.to(dtype), table.to(cuda),
+            idx.to(cuda))
+
+
+def _strip(pool, table, length):
+    """The same K/V as a dense (b, kv_h, length, hd) strip."""
+    b = table.shape[0]
+    win = pool[table.long()].movedim(2, 1).reshape(b, pool.shape[1], -1,
+                                                   pool.shape[3])
+    out = torch.zeros(b, pool.shape[1], length, pool.shape[3],
+                      dtype=pool.dtype, device=pool.device)
+    out[:, :, :win.shape[2]] = win
+    return out
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("page", [16, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k3_equals_k2_bitwise(cuda, page, dtype):
+    q, kp, vp, table, idx = _paged_case(cuda, dtype, 6, 3, 4, 64, page,
+                                        1024 // page)
+    vf = (idx.clamp(min=0) // 3).to(torch.int32)
+    for valid_from in (None, vf):
+        paged = TP.paged_attn(q, kp, vp, table, idx, valid_from)
+        dense = TD.decode_attn(q, _strip(kp, table, 1025),
+                               _strip(vp, table, 1025), idx, valid_from)
+        torch.cuda.synchronize()
+        assert torch.equal(paged, dense)
+        assert not paged[-1].any()  # the dead row
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("split", [1, 4])
+@pytest.mark.parametrize("g", [1, 4])
+@pytest.mark.parametrize("page", [16, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k3_matches_plain(cuda, split, g, page, dtype):
+    q, kp, vp, table, idx = _paged_case(cuda, dtype, 5, 2, g, 64, page,
+                                        512 // page, seed=4)
+    vf = (idx.clamp(min=0) // 2).to(torch.int32)
+    n0 = TP.paged_attn.launches + TP.paged_attn_split.launches
+    for valid_from in (None, vf):
+        got = TP.paged_attention(q, kp, vp, table, idx, valid_from,
+                                 split=split)
+        torch.cuda.synchronize()
+        ref = TP.paged_attention_plain(q, kp, vp, table, idx, valid_from,
+                                       split)
+        torch.testing.assert_close(got.float(), ref.float(),
+                                   atol=_tol(dtype), rtol=_tol(dtype))
+    assert TP.paged_attn.launches + TP.paged_attn_split.launches == n0 + 2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("window", [None, 200])
+@pytest.mark.parametrize("g", [1, 4])
+@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k4_matches_plain(cuda, window, g, hd, dtype):
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    page, chunk, npages, kvh = 16, 128, 40, 2
+    kp = torch.randn(npages, kvh, page, hd, generator=gen, device=cuda)
+    vp = torch.randn(npages, kvh, page, hd, generator=gen, device=cuda)
+    for pos0 in (0, 256):
+        q = torch.randn(1, kvh, g * chunk, hd, generator=gen, device=cuda)
+        n_strip = (pos0 + chunk) // page
+        n_pad = 1 << (n_strip - 1).bit_length()
+        live = torch.randperm(npages - 1, generator=torch.Generator(
+        ).manual_seed(pos0))[:n_strip] + 1
+        pages = torch.cat([live, torch.zeros(n_pad - n_strip,
+                                             dtype=live.dtype)])
+        pages = pages.to(torch.int32).to(cuda)
+        args = (q.to(dtype), kp.to(dtype), vp.to(dtype), pages, pos0, chunk)
+        n0 = TP.paged_chunk_attn.launches
+        got = TP.paged_chunk_attention(*args, window=window)
+        torch.cuda.synchronize()
+        assert TP.paged_chunk_attn.launches == n0 + 1
+        ref = TP.paged_chunk_attention_reference(*args, window=window)
+        torch.testing.assert_close(got.float(), ref.float(),
+                                   atol=_tol(dtype), rtol=_tol(dtype))
+
+
+@pytest.mark.gpu
+def test_paged_cuda_refuses_plain(cuda):
+    q = torch.zeros(1, 1, 1, 64, device=cuda)
+    pool = torch.zeros(2, 1, 16, 64, device=cuda)
+    table = torch.ones(1, 1, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="refuse"):
+        TP.paged_attention(q, pool, pool, table, 0, prefer="xla")
+    with pytest.raises(ValueError, match="refuse"):
+        TP.paged_chunk_attention(q.expand(1, 1, 16, 64), pool, pool, table[0],
+                                 0, 16, prefer="xla")
+    with pytest.raises(ValueError, match="head_dim"):
+        TP.paged_attn(q[..., :32], pool[..., :32], pool[..., :32], table, 0)
