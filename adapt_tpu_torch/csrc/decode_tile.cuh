@@ -1,21 +1,33 @@
 // The decode-attention body shared by K2 (dense strips, decode_attn.cu) and
-// K3 (paged pools, paged_attn.cu): one attention discipline, two layouts.
+// K3 (paged pools, paged_attn.cu): one attention discipline, two layouts,
+// three cache element types.
 //
 // The TPU package runs K3 as K2's kernel body behind a different block fetch
 // (adapt_tpu/ops/paged_attention.py:_paged_kernel delegates to
-// _decode_kernel). Here the one body is a template over an ADDRESS functor
-// that maps (row, key position) to the key's row of head_dim values in the
-// K/V buffers; everything else - the 64-key tile order, the dead-tile skip,
-// the f32 online softmax, the split partials - is this one piece of code.
-// So K2 and K3 do the same arithmetic in the same order, and a paged decode
-// equals a dense decode bit for bit whenever the live positions hold the
-// same K/V.
+// _decode_kernel), and every branch of it through one step body
+// (adapt_tpu/ops/decode_attention.py:_attend_tile). Here the one body is a
+// template over an ADDRESS functor that maps (row, key position) to the
+// key's vector index in the K/V buffers, and over a CACHE-ELEMENT policy
+// (common.cuh) that stages a vector's columns from that index: native
+// values, int8 values with a per-vector f32 scale, or int4 values packed two
+// per byte with the same scale, unpacked in registers. Everything else - the
+// 64-key tile order, the dead-tile skip, the f32 online softmax, the split
+// partials - is this one piece of code. So K2 and K3 do the same arithmetic
+// in the same order, and a paged decode equals a dense decode bit for bit
+// whenever the live positions hold the same K/V, quantized or not.
 //
-// Bound. One step reads the live cache once (2 * live * hd * bytes per kv
-// head) and does ~4 * g * live * hd operations: bytes bound at every g the
-// models use. This first version stages each 64-key tile through shared
-// memory as f32 with plain loads, one block per (row, split); cp.async/TMA
-// double buffering is later work (PERF.md has its numbers).
+// Quantized caches (K2q / K3q). The scales factor out of the per-vector
+// products, as in _attend_tile: score = (q . k_int) * k_scale * sm_scale,
+// the reference's op order (ops/decode_attention.decode_attention_reference),
+// and the PV product takes p * v_scale. The v-scale multiplies only the
+// probabilities that feed the accumulator, never the denominator l.
+//
+// Bound. One step reads the live cache once (2 * live * (hd * value bytes +
+// scale bytes) per kv head) and does ~4 * g * live * hd operations: bytes
+// bound at every g the models use. This first version stages each 64-key
+// tile through shared memory as f32 with plain loads, one block per (row,
+// split); cp.async/TMA double buffering is later work (PERF.md has its
+// numbers).
 #pragma once
 
 #include "common.cuh"
@@ -29,11 +41,11 @@ constexpr int MAX_G = 16;  // folded query rows per kv head
 
 template <int HD>
 constexpr int smem_bytes() {
-  return (MAX_G * HD + 2 * TK * (HD + 1) + MAX_G * TK + 3 * MAX_G) *
+  return (MAX_G * HD + 2 * TK * (HD + 1) + MAX_G * TK + 2 * TK + 3 * MAX_G) *
          (int)sizeof(float);
 }
 
-// Dense strips (b, kv_h, L, hd): key p of row r is the strip row r * L + p.
+// Dense strips (b, kv_h, L, w): key p of row r is the strip row r * L + p.
 struct DenseAddr {
   int L;
   __device__ __forceinline__ size_t operator()(int row, int p) const {
@@ -41,7 +53,7 @@ struct DenseAddr {
   }
 };
 
-// Paged pools (num_pages, kv_h, page, hd) with a (b, pps) page table: key p
+// Paged pools (num_pages, kv_h, page, w) with a (b, pps) page table: key p
 // of row (b, h) lives in physical page table[b, p / page] at offset
 // p % page. The table is read from device memory, any page size.
 struct PagedAddr {
@@ -57,10 +69,9 @@ struct PagedAddr {
 // One block per (b * kv_h row, split). `L` is the key range (strip length,
 // or pps * page); `index` < 0 marks a dead row: every tile is skipped and
 // the output is zeros (partials m = -1e30, l = 0).
-template <typename T, int HD, typename Addr>
+template <typename T, int HD, typename KV, typename Addr>
 __global__ void __launch_bounds__(NT)
-    decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                  const T* __restrict__ v, const int* __restrict__ index,
+    decode_kernel(const T* __restrict__ q, KV kv, const int* __restrict__ index,
                   const int* __restrict__ valid_from, T* __restrict__ out,
                   float* __restrict__ o_part, float* __restrict__ m_part,
                   float* __restrict__ l_part, int kvh, int g, int L,
@@ -75,7 +86,9 @@ __global__ void __launch_bounds__(NT)
   float* ks = qs + MAX_G * HD;   // TK * LD
   float* vs = ks + TK * LD;      // TK * LD
   float* ss = vs + TK * LD;      // g * TK
-  float* m_s = ss + MAX_G * TK;  // g
+  float* ksc = ss + MAX_G * TK;  // TK key scales (quantized caches)
+  float* vsc = ksc + TK;         // TK value scales
+  float* m_s = vsc + TK;         // g
   float* l_s = m_s + MAX_G;
   float* a_s = l_s + MAX_G;
 
@@ -112,17 +125,17 @@ __global__ void __launch_bounds__(NT)
     __syncthreads();  // previous tile's readers are done
     {
       // NT / TK threads stage each key row, each CPT contiguous columns:
-      // one address per thread per tile (on the paged layout one table
-      // load and one division), computed in registers before any load, so
-      // the loads of a thread issue back to back.
+      // one vector index per thread per tile (on the paged layout one
+      // table load and one division), computed in registers before any
+      // load, so the loads of a thread go out back to back.
       const int r = tid / TPR, c0 = (tid % TPR) * CPT;
       const int gk = k0 + r;
       const bool in = gk < L;
-      const size_t a = in ? addr(row, gk) * HD + c0 : 0;
-#pragma unroll 8
-      for (int c = 0; c < CPT; ++c) {
-        ks[r * LD + c0 + c] = in ? to_f(k[a + c]) : 0.f;
-        vs[r * LD + c0 + c] = in ? to_f(v[a + c]) : 0.f;
+      const size_t vec = in ? addr(row, gk) : 0;
+      kv.template stage<CPT>(in, vec, c0, ks + r * LD + c0, vs + r * LD + c0);
+      if (KV::kScaled && tid % TPR == 0) {
+        ksc[r] = kv.k_scale(in, vec);
+        vsc[r] = kv.v_scale(in, vec);
       }
     }
     __syncthreads();
@@ -133,6 +146,7 @@ __global__ void __launch_bounds__(NT)
       float dot = 0.f;
 #pragma unroll 16
       for (int d = 0; d < HD; ++d) dot += qs[r * HD + d] * ks[c * LD + d];
+      if (KV::kScaled) dot *= ksc[c];  // (q . k_int) * k_scale * sm_scale
       const bool live = col <= idx && col >= vfrom && col < L;
       ss[p] = live ? dot * sm_scale : kNegInf;
     }
@@ -164,6 +178,8 @@ __global__ void __launch_bounds__(NT)
     }
     __syncthreads();
 
+    // acc = acc * alpha + p v; a quantized cache weights p by the value
+    // scale here, after l summed the unscaled p.
 #pragma unroll
     for (int i = 0; i < NACC; ++i) {
       const int o = tid + i * NT;
@@ -171,8 +187,14 @@ __global__ void __launch_bounds__(NT)
         const int r = o / HD, d = o % HD;
         float a = acc[i] * a_s[r];
         const float* prow = ss + r * TK;
+        if (KV::kScaled) {
 #pragma unroll 8
-        for (int c = 0; c < TK; ++c) a += prow[c] * vs[c * LD + d];
+          for (int c = 0; c < TK; ++c)
+            a += (prow[c] * vsc[c]) * vs[c * LD + d];
+        } else {
+#pragma unroll 8
+          for (int c = 0; c < TK; ++c) a += prow[c] * vs[c * LD + d];
+        }
         acc[i] = a;
       }
     }
@@ -204,61 +226,78 @@ __global__ void __launch_bounds__(NT)
 // Launch over `rows` = b * kv_h rows and `split` key-range splits; `L` is
 // the key range. split == 1 with o_part == nullptr writes the normalised
 // output; otherwise each (row, split) block writes its partials.
-template <typename T, int HD, typename Addr>
-int launch(const void* q, const void* k, const void* v, const int* index,
-           const int* valid_from, void* out, float* o_part, float* m_part,
-           float* l_part, int rows, int kvh, int g, int L, int split,
-           float sm_scale, Addr addr, cudaStream_t stream) {
+template <typename T, int HD, typename KV, typename Addr>
+int launch(const void* q, KV kv, const int* index, const int* valid_from,
+           void* out, float* o_part, float* m_part, float* l_part, int rows,
+           int kvh, int g, int L, int split, float sm_scale, Addr addr,
+           cudaStream_t stream) {
   const int bytes = smem_bytes<HD>();
   cudaError_t err = cudaFuncSetAttribute(
-      decode_kernel<T, HD, Addr>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      bytes);
+      decode_kernel<T, HD, KV, Addr>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return (int)err;
   const int num_tiles = (L + TK - 1) / TK;
   const int tps = (num_tiles + split - 1) / split;
   dim3 grid(rows, split);
-  decode_kernel<T, HD, Addr><<<grid, NT, bytes, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), index, valid_from, static_cast<T*>(out),
+  decode_kernel<T, HD, KV, Addr><<<grid, NT, bytes, stream>>>(
+      static_cast<const T*>(q), kv, index, valid_from, static_cast<T*>(out),
       o_part, m_part, l_part, kvh, g, L, tps, sm_scale, addr);
   return (int)cudaGetLastError();
 }
 
-// Head-dim and dtype dispatch of one entry point (the dtype codes of
-// common.cuh; head dims 64 and 128).
+// Head-dim and cache-element dispatch of one entry point (head dims 64 and
+// 128; the KVCode of common.cuh).
+template <typename T, int HD, typename Addr>
+int by_kv(int kvc, const void* q, const void* k, const void* v,
+          const float* ks, const float* vs, const int* index, const int* vf,
+          void* out, float* o_part, float* m_part, float* l_part, int rows,
+          int kvh, int g, int L, int split, float sm_scale, Addr addr,
+          cudaStream_t st) {
+  return with_kv<T, HD>(kvc, k, v, ks, vs, [&](auto kv) {
+    return launch<T, HD>(q, kv, index, vf, out, o_part, m_part, l_part, rows,
+                         kvh, g, L, split, sm_scale, addr, st);
+  });
+}
+
 template <typename T, typename Addr>
-int by_dim(int hd, const void* q, const void* k, const void* v,
-           const int* index, const int* vf, void* out, float* o_part,
-           float* m_part, float* l_part, int rows, int kvh, int g, int L,
-           int split, float sm_scale, Addr addr, cudaStream_t st) {
+int by_dim(int hd, int kvc, const void* q, const void* k, const void* v,
+           const float* ks, const float* vs, const int* index, const int* vf,
+           void* out, float* o_part, float* m_part, float* l_part, int rows,
+           int kvh, int g, int L, int split, float sm_scale, Addr addr,
+           cudaStream_t st) {
   if (hd == 64)
-    return launch<T, 64>(q, k, v, index, vf, out, o_part, m_part, l_part,
-                         rows, kvh, g, L, split, sm_scale, addr, st);
+    return by_kv<T, 64>(kvc, q, k, v, ks, vs, index, vf, out, o_part, m_part,
+                        l_part, rows, kvh, g, L, split, sm_scale, addr, st);
   if (hd == 128)
-    return launch<T, 128>(q, k, v, index, vf, out, o_part, m_part, l_part,
-                          rows, kvh, g, L, split, sm_scale, addr, st);
+    return by_kv<T, 128>(kvc, q, k, v, ks, vs, index, vf, out, o_part,
+                         m_part, l_part, rows, kvh, g, L, split, sm_scale,
+                         addr, st);
   return (int)cudaErrorInvalidValue;
 }
 
+// `dtype` is the query's (and the output's) dtype code, `kvc` the cache's
+// KVCode; k/v are the value buffers, ks/vs the scale planes (nullptr for a
+// native cache).
 template <typename Addr>
-int dispatch(int dtype, int hd, const void* q, const void* k, const void* v,
+int dispatch(int dtype, int kvc, int hd, const void* q, const void* k,
+             const void* v, const float* ks, const float* vs,
              const int* index, const int* vf, void* out, float* o_part,
              float* m_part, float* l_part, int rows, int kvh, int g, int L,
              int split, float sm_scale, Addr addr, cudaStream_t st) {
   if (g < 1 || g > MAX_G || split < 1) return (int)cudaErrorInvalidValue;
   switch (dtype) {
     case kF32:
-      return by_dim<float>(hd, q, k, v, index, vf, out, o_part, m_part,
-                           l_part, rows, kvh, g, L, split, sm_scale, addr,
-                           st);
+      return by_dim<float>(hd, kvc, q, k, v, ks, vs, index, vf, out, o_part,
+                           m_part, l_part, rows, kvh, g, L, split, sm_scale,
+                           addr, st);
     case kBF16:
-      return by_dim<__nv_bfloat16>(hd, q, k, v, index, vf, out, o_part,
-                                   m_part, l_part, rows, kvh, g, L, split,
-                                   sm_scale, addr, st);
+      return by_dim<__nv_bfloat16>(hd, kvc, q, k, v, ks, vs, index, vf, out,
+                                   o_part, m_part, l_part, rows, kvh, g, L,
+                                   split, sm_scale, addr, st);
     case kF16:
-      return by_dim<__half>(hd, q, k, v, index, vf, out, o_part, m_part,
-                            l_part, rows, kvh, g, L, split, sm_scale, addr,
-                            st);
+      return by_dim<__half>(hd, kvc, q, k, v, ks, vs, index, vf, out, o_part,
+                            m_part, l_part, rows, kvh, g, L, split, sm_scale,
+                            addr, st);
     default:
       return (int)cudaErrorInvalidValue;
   }

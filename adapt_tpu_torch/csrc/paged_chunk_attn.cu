@@ -1,27 +1,33 @@
-// K4: chunk-query attention over a paged KV pool for Hopper (sm_90a).
+// K4: chunk-query attention over a paged KV pool for Hopper (sm_90a), over
+// native, int8 or packed-int4 pools (K4q).
 //
 // Replaces the TPU kernel adapt_tpu/ops/paged_attention.py:_chunk_kernel
-// (via _chunk_impl) for native pools: the query rows of one prefill CHUNK,
+// (via _chunk_impl), every branch: the query rows of one prefill CHUNK,
 // positions [pos0, pos0 + C) with the GQA group folded in (row r = member *
 // C + p, q of shape (1, kv_h, g * C, hd)), attend the pages listed in
 // `pages` (n,) - the slot's window [0, pos0 + C), padded to a power of two
 // with trash page 0 - each row up to its own position: col <= pos0 + r % C,
 // and with a sliding window also col > pos0 + r % C - window. It serves the
 // prefix-hit suffix pass and every chunked-prefill pass; the caller has
-// already written the chunk's own K/V into its pages.
+// already written the chunk's own K/V into its pages. A quantized pool is an
+// int8 value pool (head_dim wide, or head_dim / 2 packed int4) plus an f32
+// scale pool (num_pages, kv_h, page, 1) per K and V; its bytes are staged
+// and unpacked in the kernel, with the scales applied as in
+// _attend_tile: score = (q . k_int) * k_scale * sm_scale, and p * v_scale in
+// the PV product only (the denominator sums the unscaled p).
 //
 // Design. A CUDA grid has no sequential axis to carry softmax state, so
 // one block per (kv head, tile of 64 folded query rows) walks the window
 // inside the block: each 64-key tile is staged in shared memory as f32 with
-// its page looked up per key (any page size), the block computes the 64x64
-// score tile, four threads per row reduce it, (m, l) live in shared memory
-// and the 64 x hd accumulator in registers - K1's structure
-// (flash_attn_fwd.cu) with the page walk and the row-dependent diagonal.
-// Dead key tiles are skipped by POSITION, never by page id: tiles wholly past
-// the block's last row position (the pow2 trash pages among them, and the
-// causal upper triangle) and, with a window, tiles wholly below the block's
-// lowest band. pos0 and the page list come from the caller; nothing is
-// gathered into a strip.
+// its page looked up per key (any page size) through common.cuh's
+// cache-element policy, the block computes the 64x64 score tile, four
+// threads per row reduce it, (m, l) live in shared memory and the 64 x hd
+// accumulator in registers - K1's structure (flash_attn_fwd.cu) with the
+// page walk and the row-dependent diagonal. Dead key tiles are skipped by
+// POSITION, never by page id: tiles wholly past the block's last row
+// position (the pow2 trash pages among them, and the causal upper triangle)
+// and, with a window, tiles wholly below the block's lowest band. pos0 and
+// the page list come from the caller; nothing is gathered into a strip.
 //
 // Bound. A pass reads the live window once and does 4 * rows * live * hd
 // operations: at C = 256 it is operations bound on paper. This first version
@@ -41,13 +47,12 @@ constexpr int NT = 256;  // threads per block (16 x 16)
 
 template <int D>
 constexpr int smem_floats() {
-  return BQ * (D + 1) + 2 * BK * (D + 1) + BQ * (BK + 1) + 3 * BQ;
+  return BQ * (D + 1) + 2 * BK * (D + 1) + BQ * (BK + 1) + 2 * BK + 3 * BQ;
 }
 
-template <typename T, int D>
+template <typename T, int D, typename KV>
 __global__ void __launch_bounds__(NT)
-    chunk_kernel(const T* __restrict__ q, const T* __restrict__ kp,
-                 const T* __restrict__ vp, const int* __restrict__ pages,
+    chunk_kernel(const T* __restrict__ q, KV kv, const int* __restrict__ pages,
                  T* __restrict__ out, int kvh, int gc, int chunk, int n_pages,
                  int page, int pos0, int window, float sm_scale) {
   extern __shared__ float smem[];
@@ -60,7 +65,9 @@ __global__ void __launch_bounds__(NT)
   float* ks = qs + BQ * LD;
   float* vs = ks + BK * LD;
   float* ss = vs + BK * LD;
-  float* m_s = ss + BQ * LS;
+  float* ksc = ss + BQ * LS;  // BK key scales (quantized pools)
+  float* vsc = ksc + BK;       // BK value scales
+  float* m_s = vsc + BK;
   float* l_s = m_s + BQ;
   float* a_s = l_s + BQ;
 
@@ -115,14 +122,12 @@ __global__ void __launch_bounds__(NT)
       const int r = tid / TPR, c0 = (tid % TPR) * CPT;
       const int col = k0 + r;
       const bool in = col < n_keys;
-      const size_t a =
-          in ? (((size_t)pages[col / page] * kvh + h) * page + col % page) *
-                       D + c0
-             : 0;
-#pragma unroll 8
-      for (int c = 0; c < CPT; ++c) {
-        ks[r * LD + c0 + c] = in ? to_f(kp[a + c]) : 0.f;
-        vs[r * LD + c0 + c] = in ? to_f(vp[a + c]) : 0.f;
+      const size_t vec =
+          in ? ((size_t)pages[col / page] * kvh + h) * page + col % page : 0;
+      kv.template stage<CPT>(in, vec, c0, ks + r * LD + c0, vs + r * LD + c0);
+      if (KV::kScaled && tid % TPR == 0) {
+        ksc[r] = kv.k_scale(in, vec);
+        vsc[r] = kv.v_scale(in, vec);
       }
     }
     __syncthreads();
@@ -135,15 +140,15 @@ __global__ void __launch_bounds__(NT)
       for (int jj = 0; jj < 4; ++jj) dot[i][jj] = 0.f;
 #pragma unroll 8
     for (int d = 0; d < D; ++d) {
-      float qv[4], kv[4];
+      float qv[4], kk[4];
 #pragma unroll
       for (int i = 0; i < 4; ++i) qv[i] = qs[(ty + 16 * i) * LD + d];
 #pragma unroll
-      for (int jj = 0; jj < 4; ++jj) kv[jj] = ks[(tx + 16 * jj) * LD + d];
+      for (int jj = 0; jj < 4; ++jj) kk[jj] = ks[(tx + 16 * jj) * LD + d];
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
-        for (int jj = 0; jj < 4; ++jj) dot[i][jj] += qv[i] * kv[jj];
+        for (int jj = 0; jj < 4; ++jj) dot[i][jj] += qv[i] * kk[jj];
     }
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
@@ -155,7 +160,9 @@ __global__ void __launch_bounds__(NT)
         const int col = k0 + c;
         bool live = col <= pos && col < n_keys;
         if (window > 0) live = live && col > pos - window;
-        ss[r * LS + c] = live ? dot[i][jj] * sm_scale : kNegInf;
+        // (q . k_int) * k_scale * sm_scale for a quantized pool.
+        const float sdot = KV::kScaled ? dot[i][jj] * ksc[c] : dot[i][jj];
+        ss[r * LS + c] = live ? sdot * sm_scale : kNegInf;
       }
     }
     __syncthreads();
@@ -190,7 +197,8 @@ __global__ void __launch_bounds__(NT)
     }
     __syncthreads();
 
-    // acc = acc * alpha + p v
+    // acc = acc * alpha + p v; a quantized pool weights p by the value
+    // scale here, after l summed the unscaled p.
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const float alpha = a_s[ty + 16 * i];
@@ -200,8 +208,11 @@ __global__ void __launch_bounds__(NT)
 #pragma unroll 4
     for (int c = 0; c < BK; ++c) {
       float pv[4], vv[DJ];
+      const float vscale = KV::kScaled ? vsc[c] : 1.f;
 #pragma unroll
-      for (int i = 0; i < 4; ++i) pv[i] = ss[(ty + 16 * i) * LS + c];
+      for (int i = 0; i < 4; ++i)
+        pv[i] = KV::kScaled ? ss[(ty + 16 * i) * LS + c] * vscale
+                            : ss[(ty + 16 * i) * LS + c];
 #pragma unroll
       for (int jj = 0; jj < DJ; ++jj) vv[jj] = vs[c * LD + tx + 16 * jj];
 #pragma unroll
@@ -224,60 +235,76 @@ __global__ void __launch_bounds__(NT)
   }
 }
 
-template <typename T, int D>
-int launch(const void* q, const void* kp, const void* vp, const int* pages,
-           void* out, int kvh, int gc, int chunk, int n_pages, int page,
-           int pos0, int window, float sm_scale, cudaStream_t stream) {
+template <typename T, int D, typename KV>
+int launch(const void* q, KV kv, const int* pages, void* out, int kvh,
+           int gc, int chunk, int n_pages, int page, int pos0, int window,
+           float sm_scale, cudaStream_t stream) {
   const int bytes = smem_floats<D>() * (int)sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
-      chunk_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+      chunk_kernel<T, D, KV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      bytes);
   if (err != cudaSuccess) return (int)err;
   dim3 grid(kvh, (gc + BQ - 1) / BQ);
-  chunk_kernel<T, D><<<grid, NT, bytes, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(kp),
-      static_cast<const T*>(vp), pages, static_cast<T*>(out), kvh, gc, chunk,
-      n_pages, page, pos0, window, sm_scale);
+  chunk_kernel<T, D, KV><<<grid, NT, bytes, stream>>>(
+      static_cast<const T*>(q), kv, pages, static_cast<T*>(out), kvh, gc,
+      chunk, n_pages, page, pos0, window, sm_scale);
   return (int)cudaGetLastError();
 }
 
+template <typename T, int D>
+int by_kv(int kvc, const void* q, const void* kp, const void* vp,
+          const float* ks, const float* vs, const int* pages, void* out,
+          int kvh, int gc, int chunk, int n_pages, int page, int pos0,
+          int window, float sm_scale, cudaStream_t stream) {
+  return adapt::with_kv<T, D>(kvc, kp, vp, ks, vs, [&](auto kv) {
+    return launch<T, D>(q, kv, pages, out, kvh, gc, chunk, n_pages, page,
+                        pos0, window, sm_scale, stream);
+  });
+}
+
 template <typename T>
-int by_dim(int d, const void* q, const void* kp, const void* vp,
-           const int* pages, void* out, int kvh, int gc, int chunk,
-           int n_pages, int page, int pos0, int window, float sm_scale,
-           cudaStream_t stream) {
+int by_dim(int d, int kvc, const void* q, const void* kp, const void* vp,
+           const float* ks, const float* vs, const int* pages, void* out,
+           int kvh, int gc, int chunk, int n_pages, int page, int pos0,
+           int window, float sm_scale, cudaStream_t stream) {
   if (d == 64)
-    return launch<T, 64>(q, kp, vp, pages, out, kvh, gc, chunk, n_pages, page,
-                         pos0, window, sm_scale, stream);
+    return by_kv<T, 64>(kvc, q, kp, vp, ks, vs, pages, out, kvh, gc, chunk,
+                        n_pages, page, pos0, window, sm_scale, stream);
   if (d == 128)
-    return launch<T, 128>(q, kp, vp, pages, out, kvh, gc, chunk, n_pages,
-                          page, pos0, window, sm_scale, stream);
+    return by_kv<T, 128>(kvc, q, kp, vp, ks, vs, pages, out, kvh, gc, chunk,
+                         n_pages, page, pos0, window, sm_scale, stream);
   return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 // q and out (kv_h, g * chunk, hd) contiguous (batch 1); pools (num_pages,
-// kv_h, page, hd); pages (n_pages,) int32. window <= 0 means none.
+// kv_h, page, w) with w = hd (native, int8) or hd / 2 (int4); scale pools
+// (num_pages, kv_h, page, 1) f32 or nullptr (native); pages (n_pages,)
+// int32. `kv` is the pool's KVCode; window <= 0 means none.
 extern "C" int paged_chunk_attn(const void* q, const void* k_pool,
-                                const void* v_pool, const int* pages,
+                                const void* v_pool, const float* k_scale,
+                                const float* v_scale, const int* pages,
                                 void* out, int kvh, int gc, int chunk,
                                 int n_pages, int page, int pos0, int window,
-                                int hd, int dtype, float sm_scale,
+                                int hd, int dtype, int kv, float sm_scale,
                                 void* stream) {
   if (gc < 1 || chunk < 1 || n_pages < 1 || page < 1 || pos0 < 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case adapt::kF32:
-      return by_dim<float>(hd, q, k_pool, v_pool, pages, out, kvh, gc, chunk,
-                           n_pages, page, pos0, window, sm_scale, st);
+      return by_dim<float>(hd, kv, q, k_pool, v_pool, k_scale, v_scale, pages,
+                           out, kvh, gc, chunk, n_pages, page, pos0, window,
+                           sm_scale, st);
     case adapt::kBF16:
-      return by_dim<__nv_bfloat16>(hd, q, k_pool, v_pool, pages, out, kvh, gc,
-                                   chunk, n_pages, page, pos0, window,
-                                   sm_scale, st);
+      return by_dim<__nv_bfloat16>(hd, kv, q, k_pool, v_pool, k_scale,
+                                   v_scale, pages, out, kvh, gc, chunk,
+                                   n_pages, page, pos0, window, sm_scale, st);
     case adapt::kF16:
-      return by_dim<__half>(hd, q, k_pool, v_pool, pages, out, kvh, gc, chunk,
-                            n_pages, page, pos0, window, sm_scale, st);
+      return by_dim<__half>(hd, kv, q, k_pool, v_pool, k_scale, v_scale,
+                            pages, out, kvh, gc, chunk, n_pages, page, pos0,
+                            window, sm_scale, st);
     default:
       return (int)cudaErrorInvalidValue;
   }

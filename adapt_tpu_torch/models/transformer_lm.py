@@ -10,7 +10,11 @@ schedules share one set of weights: the full causal forward
 (:func:`logits_full`), ``prefill`` (K1 on CUDA), the cached
 ``decode_step`` over dense strips (K2), and over a paged pool
 ``decode_step_paged`` (K3) and the chunk pass ``prefill_chunk_paged``
-(K4). flax's numerics are kept: LayerNorm with
+(K4). A KV cache is a tensor or a quantized ``(values, scales)`` pair
+(``ops/quantize``: int8, or int4 packed two per byte, with one f32 scale
+per vector); every cache write quantizes through one definition
+(:meth:`CausalSelfAttention._write_kv_pair`) and the kernels read the
+quantized bytes (K2q, K3q, K4q). flax's numerics are kept: LayerNorm with
 eps 1e-6 and f32 statistics, tanh-approximate GELU, logits in f32, rotary
 embedding in f32.
 
@@ -51,6 +55,7 @@ from adapt_tpu_torch.ops.paged_attention import (
     paged_chunk_attention,
     pool_values,
 )
+from adapt_tpu_torch.ops.quantize import quantize_kv_vectors
 
 #: Decode row count is rounded up to a multiple of this (see module doc).
 ROW_QUANTUM = 8
@@ -161,6 +166,14 @@ def sample_next_tokens(logits, seed, step, temperature, *, do_sample, top_k,
 
 
 # -- layers ------------------------------------------------------------------
+
+
+def map_cache(fn, cache):
+    """Apply ``fn`` to a cache tensor, or to each member of a quantized
+    ``(values, scales)`` pair (returning a pair)."""
+    if isinstance(cache, tuple):
+        return tuple(fn(m) for m in cache)
+    return fn(cache)
 
 
 def apply_rope(x, positions, base: float = 10000.0):
@@ -296,15 +309,27 @@ class CausalSelfAttention(nn.Module):
                 valid_from, device=w_from.device).to(w_from.dtype))
         return w_from
 
+    def _write_kv_pair(self, cache_k, cache_v, k, v, write):
+        """THE cache write: a quantized ``(values, scales)`` cache
+        quantizes ``k``/``v`` with the shared absmax scheme and applies
+        ``write(member, new)`` to both members; a native cache is written
+        directly. The value member's width decides the dtype: ``head_dim
+        // 2`` is packed int4. ``write`` is each call site's own primitive
+        (strip append, page scatter, chunk scatter)."""
+        if isinstance(cache_k, tuple):
+            dt = "int4" if cache_k[0].shape[-1] * 2 == k.shape[-1] else "int8"
+            kq, ks = quantize_kv_vectors(k, dt)
+            vq, vs = quantize_kv_vectors(v, dt)
+            return ((write(cache_k[0], kq), write(cache_k[1], ks)),
+                    (write(cache_v[0], vq), write(cache_v[1], vs)))
+        return write(cache_k, k), write(cache_v, v)
+
     def prefill(self, x, max_len: int, valid_from=None, quantize_cache=False):
         """Full causal attention over the prompt; returns the output and
         K/V caches padded to ``max_len``. ``valid_from`` (b,) masks each
-        row's left padding."""
-        if quantize_cache:
-            raise NotImplementedError(
-                "quantized KV caches are not ported yet (ROADMAP 'quantized "
-                "KV' slice)"
-            )
+        row's left padding. ``quantize_cache`` (``"int8"`` or True, or
+        ``"int4"``) returns the caches as ``(values, scales)`` pairs,
+        quantized after the native attention."""
         b, s, d = x.shape
         q, k, v = self._project(x)
         pos = torch.arange(s, device=x.device)
@@ -318,12 +343,17 @@ class CausalSelfAttention(nn.Module):
         )
         out = self.out(o.transpose(1, 2).reshape(b, s, d))
         pad = (0, 0, 0, max_len - s)
-        return out, F.pad(k, pad), F.pad(v, pad)
+        if quantize_cache:
+            dt = "int4" if quantize_cache == "int4" else "int8"
+            k, v = quantize_kv_vectors(k, dt), quantize_kv_vectors(v, dt)
+        return (out, map_cache(lambda t: F.pad(t, pad), k),
+                map_cache(lambda t: F.pad(t, pad), v))
 
     def decode_step(self, x_t, cache_k, cache_v, index, valid_from=None,
                     quantized=False, attn_impl=None, split=None):
         """One token: write its K/V at ``index`` (in place — the caches are
-        updated and returned), attend its q over the cache."""
+        updated and returned; a quantized pair quantizes first), attend its
+        q over the cache."""
         del quantized
         b = x_t.shape[0]
         q, k, v = self._project(x_t)
@@ -334,8 +364,8 @@ class CausalSelfAttention(nn.Module):
                     valid_from, device=x_t.device)
             q, k = self._rope_qk(q, k, logical[:, None])
         q = self._group_q(q)
-        append_kv(cache_k, k, index)
-        append_kv(cache_v, v, index)
+        cache_k, cache_v = self._write_kv_pair(
+            cache_k, cache_v, k, v, lambda c, t: append_kv(c, t, index))
         o = decode_attention(
             q, cache_k, cache_v, index,
             self._window_from(index, b, valid_from), prefer=attn_impl,
@@ -349,9 +379,9 @@ class CausalSelfAttention(nn.Module):
         """One token against a PAGED cache: write this step's K/V in place
         into the slot's physical page at ``index``'s (page, offset), then
         attend over the table-mapped window (K3 on CUDA). Pools are
-        (num_pages, kv_h, P, hd); ``page_table`` (b, pages_per_slot)
-        int32. A negative ``index`` is a dead row (an idle or mid-prefill
-        slot): its write goes to trash page 0 — never ``table[row, 0]``,
+        (num_pages, kv_h, P, hd) or quantized pairs of them;
+        ``page_table`` (b, pages_per_slot) int32. A negative ``index`` is a
+        dead row (an idle or mid-prefill slot): its write goes to trash page 0 — never ``table[row, 0]``,
         which a prefilling row owns — and attention masks every position;
         so does a position past the table (a finished request's garbage
         tail)."""
@@ -373,16 +403,20 @@ class CausalSelfAttention(nn.Module):
         phys = torch.gather(page_table, 1, (safe // page)[:, None])[:, 0]
         phys = torch.where(live_row, phys.long(), 0)
         # Pool rows (phys[i], h, safe[i] % page) <- token i's head h, one
-        # index_copy_ into the (pages * kv_h * page, hd) view (an indexed
-        # setitem costs the host several times more). Dead rows all land
-        # on the trash page, unordered (never accumulate).
-        kvh, hd = k.shape[1], k.shape[3]
+        # index_copy_ into the (pages * kv_h * page, width) view of each
+        # pool (an indexed setitem costs the host several times more). Dead
+        # rows all land on the trash page, unordered (never accumulate).
+        kvh = k.shape[1]
         heads = torch.arange(kvh, device=x_t.device)
         rows = ((phys[:, None] * kvh + heads) * page
                 + (safe % page)[:, None]).reshape(-1)
-        for pool, t in ((k_pool, k), (v_pool, v)):
-            pool.view(-1, hd).index_copy_(
-                0, rows, t[:, :, 0, :].reshape(-1, hd).to(pool.dtype))
+
+        def write(pool, t):
+            w = pool.shape[-1]
+            return pool.view(-1, w).index_copy_(
+                0, rows, t[:, :, 0, :].reshape(-1, w).to(pool.dtype))
+
+        self._write_kv_pair(k_pool, v_pool, k, v, write)
         o = paged_attention(
             q, k_pool, v_pool, page_table, idx,
             self._window_from(idx, b, valid_from), prefer=attn_impl,
@@ -408,10 +442,15 @@ class CausalSelfAttention(nn.Module):
         n_chunk = c // page
         pages_t = torch.as_tensor(pages, device=x.device).long().reshape(-1)
         chunk_pages = pages_t[pos0 // page: pos0 // page + n_chunk]
-        kvh, hd = k.shape[1], k.shape[3]
-        for pool, t in ((k_pool, k), (v_pool, v)):
-            pool.index_copy_(0, chunk_pages, t[0].reshape(
-                kvh, n_chunk, page, hd).transpose(0, 1).to(pool.dtype))
+        kvh = k.shape[1]
+
+        def write(pool, t):
+            return pool.index_copy_(0, chunk_pages, t[0].reshape(
+                kvh, n_chunk, page, t.shape[3]).transpose(0, 1).to(pool.dtype))
+
+        # A quantized pass quantizes its chunk, then attends the already
+        # quantized window, as the JAX package's pass does.
+        self._write_kv_pair(k_pool, v_pool, k, v, write)
         o = paged_chunk_attention(
             q, k_pool, v_pool, pages, pos0, c, prefer=attn_impl,
             window=self.window,
@@ -708,8 +747,13 @@ def generate(lm: TransformerLM, prompt, steps: int, temperature: float = 0.0,
     ``prompt_lengths`` (rows are left-aligned, positions are row-logical,
     padding is masked). ``temperature > 0`` samples, keyed by ``(rng, row,
     t)``, after ``top_k`` then ``top_p``; ``eos_id`` pads a finished row
-    with EOS. ``decode_attn``/``decode_split`` are ``KernelConfig``'s
-    ``attn_impl``/``decode_split``."""
+    with EOS. ``kv_cache_dtype`` ``"int8"`` / ``"int4"`` keeps the cache
+    quantized (one f32 scale per vector; int4 packed two per byte; an odd
+    head_dim raises for int4): the prompt is prefilled on native K/V and
+    quantized after, every decode step quantizes its K/V before the write,
+    and attention reads the quantized cache (K2q). ``decode_attn`` /
+    ``decode_split`` are ``KernelConfig``'s ``attn_impl`` /
+    ``decode_split``."""
     dev = lm.device
     prompt = torch.as_tensor(np.asarray(prompt) if not torch.is_tensor(
         prompt) else prompt).to(dev, torch.int64)
@@ -717,10 +761,6 @@ def generate(lm: TransformerLM, prompt, steps: int, temperature: float = 0.0,
         lm, prompt, steps, temperature, top_k, rng, prompt_lengths,
         kv_cache_dtype, top_p=top_p,
     )
-    if kv_cache_dtype != "native":
-        raise NotImplementedError(
-            "quantized KV caches are not ported yet (ROADMAP 'quantized KV')"
-        )
     if decode_attn not in (None, "xla", "pallas"):
         raise ValueError(
             f"decode_attn={decode_attn!r}: expected None, 'xla' or 'pallas'"
@@ -741,9 +781,10 @@ def generate(lm: TransformerLM, prompt, steps: int, temperature: float = 0.0,
     # Strips of max_len + 1, the batcher's length: K2-split cuts the
     # strip into the same per-split tile ranges in both, so a split decode
     # matches the batcher bit for bit too.
+    quant = kv_cache_dtype if kv_cache_dtype != "native" else False
     caches = []
     for block in lm.blocks:
-        h, ck, cv = block.prefill(h, lm.max_len + 1, valid_from)
+        h, ck, cv = block.prefill(h, lm.max_len + 1, valid_from, quant)
         caches.append((ck, cv))
     logits = lm.head(h[:, s0 - 1:s0])[:, 0]
 
@@ -774,8 +815,9 @@ def generate(lm: TransformerLM, prompt, steps: int, temperature: float = 0.0,
     done = (first == eos_id) if eos_id is not None else None
     if steps > 1:
         pad_rows = B - b
-        caches = [tuple(F.pad(c, (0, 0, 0, 0, 0, 0, 0, pad_rows)) for c in kv)
-                  for kv in caches]
+        caches = [tuple(map_cache(
+            lambda t: F.pad(t, (0, 0, 0, 0, 0, 0, 0, pad_rows)), c)
+            for c in kv) for kv in caches]
         tok = F.pad(first, (0, pad_rows))
         if done is not None:
             done = F.pad(done, (0, pad_rows))

@@ -29,9 +29,9 @@ BUILD_DIR = _PKG / "_kernels_build"
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 KERNELS = {
     "flash_attn_fwd": [_P] * 7 + [_I] * 8 + [_F, _P],
-    "decode_attn": [_P] * 9 + [_I] * 7 + [_F, _P],
-    "paged_attn": [_P] * 10 + [_I] * 8 + [_F, _P],
-    "paged_chunk_attn": [_P] * 5 + [_I] * 9 + [_F, _P],
+    "decode_attn": [_P] * 11 + [_I] * 8 + [_F, _P],
+    "paged_attn": [_P] * 12 + [_I] * 9 + [_F, _P],
+    "paged_chunk_attn": [_P] * 7 + [_I] * 10 + [_F, _P],
 }
 
 NVCC_FLAGS = [
@@ -121,6 +121,11 @@ def dtype_code(dtype) -> int:
     if dtype not in codes:
         raise ValueError(f"kernels take f32, bf16 or f16 tensors, got {dtype}")
     return codes[dtype]
+
+
+#: ``adapt::KVCode`` (``csrc/common.cuh``): the cache element of a K/V
+#: operand.
+KV_NATIVE, KV_INT8, KV_INT4 = 0, 1, 2
 
 
 def check(err: int, name: str) -> None:

@@ -1,15 +1,20 @@
 """Decode-time cached attention: kernels K2 / K2-split
 (``csrc/decode_attn.cu``) and their plain PyTorch version.
 
-Counterpart of ``adapt_tpu/ops/decode_attention.py`` for native caches.
-Layouts stay the JAX package's: q is the GQA-folded ``(b, kv_h, g, hd)``,
-caches are ``(b, kv_h, L, hd)``, ``index`` (scalar or ``(b,)``) is each
-row's newest live position and ``valid_from`` ``(b,)`` its first. A CUDA
-tensor launches K2 (``split == 1``) or K2-split plus :func:`_combine_splits`
-(``split > 1``); a CPU tensor runs :func:`decode_attention_plain`, which
+Counterpart of ``adapt_tpu/ops/decode_attention.py``. Layouts stay the JAX
+package's: q is the GQA-folded ``(b, kv_h, g, hd)``, caches are ``(b, kv_h,
+L, hd)`` arrays or quantized ``(values, scales)`` pairs — int8 values
+``(b, kv_h, L, hd)``, or packed int4 values ``(b, kv_h, L, hd // 2)``
+(``ops/quantize``), with one f32 scale per cached vector ``(b, kv_h, L,
+1)`` — ``index`` (scalar or ``(b,)``) is each row's newest live position
+and ``valid_from`` ``(b,)`` its first. A CUDA tensor launches K2
+(``split == 1``) or K2-split plus :func:`_combine_splits` (``split > 1``);
+for a quantized cache the kernel reads the int8 / int4 bytes and the scales
+itself (K2q). A CPU tensor runs :func:`decode_attention_plain`, which
 computes what the kernel computes tile for tile (64-key tiles, dead tiles
-skipped, per-split partials, the same combine). Any ``L`` is served.
-Quantized ``(values, scales)`` caches raise until their slice is ported.
+skipped, per-split partials, the same combine). Any ``L`` is served. The
+scales are applied in the reference's op order: ``(q . k_int) * k_scale *
+sm``, then ``softmax(...) * v_scale`` against ``v_int``.
 """
 
 from __future__ import annotations
@@ -17,6 +22,7 @@ from __future__ import annotations
 import torch
 
 from adapt_tpu_torch.ops import _build
+from adapt_tpu_torch.ops.quantize import kv_values
 
 _NEG_INF = -1e30
 
@@ -38,12 +44,43 @@ def check_head_parity(q_heads: int, cache_heads: int) -> None:
         )
 
 
-def _reject_quantized(cache_k) -> None:
+def cache_values(cache):
+    """The VALUE tensor of a cache operand: the int8 member of a quantized
+    ``(values, scales)`` pair, the cache itself otherwise."""
+    return cache[0] if isinstance(cache, tuple) else cache
+
+
+def split_kv(cache_k, cache_v):
+    """Split possibly-quantized K/V operands into ``(k_vals, v_vals,
+    k_scales, v_scales)``, the scales None for native caches."""
     if isinstance(cache_k, tuple):
-        raise NotImplementedError(
-            "quantized (values, scales) KV caches are not ported yet "
-            "(K2's int8/int4 branches: ROADMAP 'quantized KV' slice)"
-        )
+        (kv, ks), (vv, vs) = cache_k, cache_v
+        return kv, vv, ks, vs
+    return cache_k, cache_v, None, None
+
+
+def _operand(cache, hd):
+    """A cache operand as (f32 values in element order, f32 scale row
+    ``(..., 1, L)`` or None for a native cache)."""
+    if isinstance(cache, tuple):
+        vals, sc = cache
+        return kv_values(vals, hd).float(), sc.float().transpose(-2, -1)
+    return cache.float(), None
+
+
+def _qk(q, k, ksc, sm):
+    """Scores ``q . k`` times ``sm``; a quantized cache's key scales come
+    between, in the reference's order ``(q . k_int) * k_scale * sm``."""
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k)
+    if ksc is not None:
+        s = s * ksc
+    return s * sm
+
+
+def _pv(p, v, vsc):
+    """``p . v``; a quantized cache weights p by the value scales first
+    (the denominator was summed from the unscaled p)."""
+    return torch.einsum("bhqk,bhkd->bhqd", p if vsc is None else p * vsc, v)
 
 
 def append_kv(cache, new, index):
@@ -52,8 +89,9 @@ def append_kv(cache, new, index):
     one position) or ``(b,)`` (each row at its own). The start clamps to
     ``[0, L - K]`` exactly as the JAX ``dynamic_update_slice`` does, so a
     write past the end lands on the last K positions instead of faulting.
-    Tensor indices stay on the device (no host sync)."""
-    _reject_quantized(cache)
+    Tensor indices stay on the device (no host sync). A quantized cache is
+    written member by member (``models/transformer_lm._write_kv_pair``):
+    ``hd`` is the member's own width."""
     b, h, L, hd = cache.shape
     K = new.shape[2]
     new = new.to(cache.dtype)
@@ -76,14 +114,15 @@ def _row_index(index, b, device):
 
 def decode_attention_reference(q, cache_k, cache_v, index, valid_from=None):
     """The einsum oracle (f32 scores, position mask over the whole
-    buffer) — ``adapt_tpu.ops.decode_attention.decode_attention_reference``
-    for native caches."""
-    _reject_quantized(cache_k)
-    sm = 1.0 / torch.sqrt(torch.tensor(q.shape[-1], dtype=torch.float32))
-    s = torch.einsum(
-        "bhqd,bhkd->bhqk", q.float(), cache_k.float()
-    ) * sm.to(q.device)
-    b, n_pos = q.shape[0], cache_k.shape[2]
+    buffer, a quantized cache's scales on the score and probability
+    columns): ``adapt_tpu.ops.decode_attention.
+    decode_attention_reference``."""
+    hd = q.shape[-1]
+    sm = 1.0 / torch.sqrt(torch.tensor(hd, dtype=torch.float32))
+    k, ksc = _operand(cache_k, hd)
+    v, vsc = _operand(cache_v, hd)
+    s = _qk(q, k, ksc, sm.to(q.device))
+    b, n_pos = q.shape[0], k.shape[2]
     positions = torch.arange(n_pos, device=q.device)
     live = positions[None, :] <= _row_index(index, b, q.device)[:, None]
     if valid_from is not None:
@@ -91,8 +130,7 @@ def decode_attention_reference(q, cache_k, cache_v, index, valid_from=None):
         live = live & (positions[None, :] >= vf[:, None])
     s = torch.where(live[:, None, None, :], s, _NEG_INF)
     p = torch.softmax(s, dim=-1)
-    o = torch.einsum("bhqk,bhkd->bhqd", p, cache_v.float())
-    return o.to(q.dtype)
+    return _pv(p, v, vsc).to(q.dtype)
 
 
 def _combine_splits(o_parts, m_parts, l_parts, out_dtype):
@@ -115,10 +153,11 @@ def _split_partials(q, cache_k, cache_v, index, valid_from, split):
     skipped (they add nothing, not even ``exp(0)`` garbage), the ragged
     last split masked."""
     b, kvh, g, hd = q.shape
-    L = cache_k.shape[2]
+    k, ksc = _operand(cache_k, hd)
+    vv, vsc = _operand(cache_v, hd)
+    L = k.shape[2]
     dev = q.device
-    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), cache_k.float())
-    s = s * (1.0 / (hd ** 0.5))
+    s = _qk(q, k, ksc, 1.0 / (hd ** 0.5))
     pos = torch.arange(L, device=dev)
     idx = _row_index(index, b, dev)[:, None]
     vf = (
@@ -133,14 +172,13 @@ def _split_partials(q, cache_k, cache_v, index, valid_from, split):
     tps = -(-n_tiles // split)
     owner = (pos // DECODE_TILE) // tps  # split each position belongs to
     o_p, m_p, l_p = [], [], []
-    vv = cache_v.float()
     for sp in range(split):
         in_sp = (owner == sp)[None, :] & tile_live  # (b, L)
         mask = in_sp[:, None, None, :]
         m = torch.where(mask, s, float("-inf")).amax(-1)
         m = torch.clamp(m, min=_NEG_INF)  # no live tile: m stays -1e30
         p = torch.where(mask, torch.exp(s - m[..., None]), 0.0)
-        o_p.append(torch.einsum("bhqk,bhkd->bhqd", p, vv))
+        o_p.append(_pv(p, vv, vsc))
         m_p.append(m)
         l_p.append(p.sum(-1))
     rows = b * kvh
@@ -153,7 +191,8 @@ def _split_partials(q, cache_k, cache_v, index, valid_from, split):
 
 def decode_attention_plain(q, cache_k, cache_v, index, valid_from=None,
                            split=1):
-    """The plain version of K2 (``split == 1``) and K2-split."""
+    """The plain version of K2 (``split == 1``) and K2-split, native or
+    quantized."""
     b, kvh, g, hd = q.shape
     o, m, l = _split_partials(q, cache_k, cache_v, index, valid_from, split)
     if split == 1:
@@ -162,28 +201,63 @@ def decode_attention_plain(q, cache_k, cache_v, index, valid_from=None,
     return _combine_splits(o, m, l, q.dtype).reshape(b, kvh, g, hd)
 
 
-def _check_kernel_args(q, cache_k, cache_v):
-    if not (q.is_cuda and cache_k.is_cuda and cache_v.is_cuda):
-        raise ValueError("decode kernels launch on CUDA tensors only")
-    if not q.dtype == cache_k.dtype == cache_v.dtype:
-        raise ValueError(
-            f"q/cache dtypes differ: {q.dtype} {cache_k.dtype} "
-            f"{cache_v.dtype}"
-        )
-    b, kvh, g, hd = q.shape
-    if cache_k.shape != cache_v.shape or cache_k.shape[:2] != (b, kvh) \
-            or cache_k.shape[3] != hd:
-        raise ValueError(
-            f"cache shape {tuple(cache_k.shape)} vs q {tuple(q.shape)}"
-        )
+def kernel_kv(q, cache_k, cache_v, what):
+    """Check the K/V operands a decode kernel takes against q (b, kv_h, g,
+    hd) and return ``(k, v, k_scale, v_scale, kv code)``:
+    native K/V in q's dtype, or quantized pairs of int8 values (``hd``
+    wide, or ``hd // 2`` packed int4) and f32 scales of one per vector. The
+    leading (vector) dims are the caller's to check."""
+    hd = q.shape[-1]
+    quant = isinstance(cache_k, tuple)
+    if quant != isinstance(cache_v, tuple):
+        raise ValueError(f"{what}: K and V must both be quantized or not")
+    k, v, ks, vs = split_kv(cache_k, cache_v)
+    if not all(t.is_cuda for t in (q, k, v, ks, vs) if t is not None):
+        raise ValueError(f"{what} launches on CUDA tensors only")
     if hd not in KERNEL_HEAD_DIMS:
-        raise ValueError(f"K2 serves head_dim {KERNEL_HEAD_DIMS}, got {hd}")
+        raise ValueError(
+            f"{what} serves head_dim {KERNEL_HEAD_DIMS}, got {hd}")
+    if k.shape != v.shape:
+        raise ValueError(f"{what}: K {tuple(k.shape)} vs V {tuple(v.shape)}")
+    if not quant:
+        if not q.dtype == k.dtype == v.dtype:
+            raise ValueError(
+                f"q/cache dtypes differ: {q.dtype} {k.dtype} {v.dtype}")
+        if k.shape[-1] != hd:
+            raise ValueError(f"cache width {k.shape[-1]} vs head_dim {hd}")
+        return k, v, None, None, _build.KV_NATIVE
+    if k.dtype != torch.int8 or v.dtype != torch.int8:
+        raise ValueError(f"quantized values must be int8, got {k.dtype}")
+    if k.shape[-1] not in (hd, hd // 2):
+        raise ValueError(
+            f"quantized width {k.shape[-1]}: expected {hd} (int8) or "
+            f"{hd // 2} (packed int4)")
+    want = (*k.shape[:-1], 1)
+    for sc in (ks, vs):
+        if sc.dtype != torch.float32 or tuple(sc.shape) != want:
+            raise ValueError(
+                f"scales must be f32 {want}, got {sc.dtype} "
+                f"{tuple(sc.shape)}")
+    code = _build.KV_INT8 if k.shape[-1] == hd else _build.KV_INT4
+    return k, v, ks, vs, code
+
+
+def _check_kernel_args(q, cache_k, cache_v):
+    k, v, ks, vs, code = kernel_kv(q, cache_k, cache_v, "K2")
+    b, kvh, g, hd = q.shape
+    if k.shape[:2] != (b, kvh):
+        raise ValueError(
+            f"cache shape {tuple(k.shape)} vs q {tuple(q.shape)}"
+        )
     if g > KERNEL_MAX_G:
         raise ValueError(f"K2 serves g <= {KERNEL_MAX_G} rows, got {g}")
+    c = lambda t: None if t is None else t.contiguous()  # noqa: E731
+    return c(k), c(v), c(ks), c(vs), code
 
 
-def _launch(q, cache_k, cache_v, index, valid_from, split, out, parts):
+def _launch(q, kv, index, valid_from, split, out, parts):
     b, kvh, g, hd = q.shape
+    k, v, ks, vs, code = kv
     idx = _row_index(index, b, q.device)
     vf = None
     if valid_from is not None:
@@ -192,21 +266,21 @@ def _launch(q, cache_k, cache_v, index, valid_from, split, out, parts):
     o_p, m_p, l_p = parts if parts is not None else (None, None, None)
     ptr = lambda t: t.data_ptr() if t is not None else None  # noqa: E731
     err = _build.load("decode_attn").decode_attn(
-        q.data_ptr(), cache_k.data_ptr(), cache_v.data_ptr(), idx.data_ptr(),
-        ptr(vf), ptr(out), ptr(o_p), ptr(m_p), ptr(l_p), b, kvh, g,
-        cache_k.shape[2], hd, split, _build.dtype_code(q.dtype),
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), ptr(ks), ptr(vs),
+        idx.data_ptr(), ptr(vf), ptr(out), ptr(o_p), ptr(m_p), ptr(l_p), b,
+        kvh, g, k.shape[2], hd, split, _build.dtype_code(q.dtype), code,
         1.0 / (hd ** 0.5), torch.cuda.current_stream(q.device).cuda_stream,
     )
     _build.check(err, "decode_attn")
 
 
 def decode_attn(q, cache_k, cache_v, index, valid_from=None):
-    """Launch K2 (one block per (b, kv head)) on CUDA tensors."""
-    _check_kernel_args(q, cache_k, cache_v)
+    """Launch K2 (one block per (b, kv head)) on CUDA tensors; a quantized
+    cache launches its int8 / int4 branch (K2q)."""
+    kv = _check_kernel_args(q, cache_k, cache_v)
     q = q.contiguous()
-    cache_k, cache_v = cache_k.contiguous(), cache_v.contiguous()
     out = torch.empty_like(q)
-    _launch(q, cache_k, cache_v, index, valid_from, 1, out, None)
+    _launch(q, kv, index, valid_from, 1, out, None)
     decode_attn.launches += 1
     return out
 
@@ -214,9 +288,8 @@ def decode_attn(q, cache_k, cache_v, index, valid_from=None):
 def decode_attn_split(q, cache_k, cache_v, index, valid_from=None, split=2):
     """Launch K2-split (one block per (b, kv head, split)) on CUDA tensors
     and combine its partials."""
-    _check_kernel_args(q, cache_k, cache_v)
+    kv = _check_kernel_args(q, cache_k, cache_v)
     q = q.contiguous()
-    cache_k, cache_v = cache_k.contiguous(), cache_v.contiguous()
     b, kvh, g, hd = q.shape
     f32 = dict(dtype=torch.float32, device=q.device)
     parts = (
@@ -224,7 +297,7 @@ def decode_attn_split(q, cache_k, cache_v, index, valid_from=None, split=2):
         torch.empty((b * kvh, split, g), **f32),
         torch.empty((b * kvh, split, g), **f32),
     )
-    _launch(q, cache_k, cache_v, index, valid_from, split, None, parts)
+    _launch(q, kv, index, valid_from, split, None, parts)
     decode_attn_split.launches += 1
     return _combine_splits(*parts, q.dtype).reshape(b, kvh, g, hd)
 
@@ -237,13 +310,13 @@ decode_attn_split.launches = 0
 def decode_attention(q, cache_k, cache_v, index, valid_from=None,
                      prefer=None, block_k=None, split=None):
     """Cached decode attention over the live window ``[valid_from, index]``
-    of a native cache: K2 / K2-split on CUDA, the plain version on CPU.
+    of a native or quantized cache: K2 / K2-split on CUDA, the plain
+    version on CPU.
     ``prefer="xla"`` selects the plain version, which a CUDA tensor
     refuses. ``split`` None means 1. ``block_k`` is accepted for signature
     parity and ignored (K2's tile is fixed)."""
     del block_k
-    _reject_quantized(cache_k)
-    check_head_parity(q.shape[1], cache_k.shape[1])
+    check_head_parity(q.shape[1], cache_values(cache_k).shape[1])
     if prefer not in (None, "pallas", "xla"):
         raise ValueError(
             f"prefer={prefer!r}: expected None, 'pallas' or 'xla'"

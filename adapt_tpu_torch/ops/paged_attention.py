@@ -2,10 +2,13 @@
 (``csrc/paged_chunk_attn.cu``) over a shared KV page pool, and their plain
 PyTorch versions.
 
-Counterpart of ``adapt_tpu/ops/paged_attention.py`` for native pools.
-Layouts stay the JAX package's:
+Counterpart of ``adapt_tpu/ops/paged_attention.py``. Layouts stay the JAX
+package's:
 
-- pool: ``(num_pages, kv_heads, page_size, head_dim)``; page 0 is the
+- pool: ``(num_pages, kv_heads, page_size, head_dim)``, or a quantized
+  ``(values, scales)`` pair of an int8 value pool (``head_dim`` wide, or
+  ``head_dim // 2`` packed int4) and an f32 scale pool ``(num_pages,
+  kv_heads, page_size, 1)`` addressed by the same table; page 0 is the
   trash page (``runtime/paged``), the target of unallocated table entries
   and of dead rows' writes, and is never read unmasked;
 - page table: ``(slots, pages_per_slot)`` int32 physical page ids in
@@ -19,8 +22,9 @@ itself (no gather of pages into a strip); a CPU tensor runs the plain
 version. K3 is K2's body with a paged address (one attention discipline,
 two layouts), so its plain version is K2's on the slot's gathered window:
 the same 64-key tiles, dead-tile skip and split partials. Any page size
-is served: the TPU gate ``page % 128`` is not carried over. Quantized
-``(values, scales)`` pools raise until their slice is ported;
+is served: the TPU gates ``page % 128`` (and ``page % 1024`` for quantized
+pools) are not carried over. A quantized pool launches the kernels' int8 /
+int4 branches (K3q, K4q), which read the bytes and scales themselves;
 ``paged_verify_attention`` (K5) waits for the speculative slice.
 """
 
@@ -32,13 +36,18 @@ import torch
 
 from adapt_tpu_torch.ops import _build
 from adapt_tpu_torch.ops.decode_attention import (
-    KERNEL_HEAD_DIMS,
     KERNEL_MAX_G,
     _combine_splits,
+    _operand,
+    _pv,
+    _qk,
     _row_index,
+    cache_values,
     check_head_parity,
     decode_attention_plain,
     decode_attention_reference,
+    kernel_kv,
+    split_kv,
 )
 
 DEFAULT_PAGE_SIZE = 128
@@ -46,25 +55,22 @@ DEFAULT_PAGE_SIZE = 128
 _NEG_INF = -1e30
 
 
-def pool_values(pool):
-    """The VALUE array of a pool operand: the int8 member of a quantized
-    ``(values, scales)`` pair, the pool itself otherwise."""
-    return pool[0] if isinstance(pool, tuple) else pool
+#: The VALUE array of a pool operand (the int8 member of a quantized pair).
+pool_values = cache_values
 
 
-def _reject_quantized(k_pool, v_pool) -> None:
-    if isinstance(k_pool, tuple) or isinstance(v_pool, tuple):
-        raise NotImplementedError(
-            "quantized (values, scales) KV pools are not ported yet "
-            "(K3/K4's int8/int4 branches: ROADMAP 'quantized KV' slice)"
-        )
+#: Pool operands -> ``(k_vals, v_vals, k_scales, v_scales)``.
+_split_pools = split_kv
 
 
 def _gather_window(pool, page_table):
-    """(num_pages, kvh, P, hd) pool + (b, n) table -> (b, kvh, n * P, hd),
-    each slot's pages in table order."""
+    """(num_pages, kvh, P, w) pool + (b, n) table -> (b, kvh, n * P, w),
+    each slot's pages in table order; a quantized pair gathers both
+    members."""
+    if isinstance(pool, tuple):
+        return tuple(_gather_window(m, page_table) for m in pool)
     b = page_table.shape[0]
-    g_ = pool[page_table.long()]  # (b, n, kvh, P, hd)
+    g_ = pool[page_table.long()]  # (b, n, kvh, P, w)
     return g_.movedim(2, 1).reshape(b, pool.shape[1], -1, pool.shape[3])
 
 
@@ -73,7 +79,6 @@ def paged_attention_reference(q, k_pool, v_pool, page_table, index,
     """The gather oracle: each slot's pages gathered into a contiguous
     window, then the contiguous decode oracle — the semantics definition
     AND the materializing schedule K3 exists to beat."""
-    _reject_quantized(k_pool, v_pool)
     return decode_attention_reference(
         q, _gather_window(k_pool, page_table),
         _gather_window(v_pool, page_table), index, valid_from,
@@ -85,7 +90,6 @@ def paged_attention_plain(q, k_pool, v_pool, page_table, index,
     """The plain version of K3 (``split == 1``) and K3-split: K2's tile-
     exact plain version over the slot's ``pps * page`` window, as K3 runs
     K2's body over it."""
-    _reject_quantized(k_pool, v_pool)
     return decode_attention_plain(
         q, _gather_window(k_pool, page_table),
         _gather_window(v_pool, page_table), index, valid_from, split,
@@ -97,20 +101,23 @@ def paged_chunk_attention_reference(q, k_pool, v_pool, pages, pos0,
     """The gather oracle of the chunk-query kernel: gather the window,
     mask ``col <= pos0 + row % chunk`` (banded by ``window`` when set),
     softmax, weight. q is (1, kv_h, g * chunk, hd) group-folded, pages
-    (n,). Also K4's plain version: K4 only skips tiles whose every
-    position this mask removes."""
-    _reject_quantized(k_pool, v_pool)
-    kvh = k_pool.shape[1]
+    (n,). Quantized pools apply their scales to the score and
+    probability columns in ``decode_attention_reference``'s op order. Also
+    K4's plain version: K4 only skips tiles whose every position this mask
+    removes."""
+    hd = q.shape[-1]
+    kvh = pool_values(k_pool).shape[1]
 
     def gather(pool):
+        if isinstance(pool, tuple):
+            return tuple(gather(m) for m in pool)
         return pool[torch.as_tensor(pages, device=pool.device).long()].movedim(
             1, 0).reshape(1, kvh, -1, pool.shape[3])
 
-    k, v = gather(k_pool), gather(v_pool)
-    sm = 1.0 / torch.sqrt(torch.tensor(q.shape[-1], dtype=torch.float32))
-    s = torch.einsum(
-        "bhqd,bhkd->bhqk", q.float(), k.float()
-    ) * sm.to(q.device)
+    k, ksc = _operand(gather(k_pool), hd)
+    v, vsc = _operand(gather(v_pool), hd)
+    sm = 1.0 / torch.sqrt(torch.tensor(hd, dtype=torch.float32))
+    s = _qk(q, k, ksc, sm.to(q.device))
     rows = torch.arange(q.shape[2], device=q.device) % chunk
     cols = torch.arange(k.shape[2], device=q.device)
     live = cols[None, :] <= pos0 + rows[:, None]
@@ -118,33 +125,26 @@ def paged_chunk_attention_reference(q, k_pool, v_pool, pages, pos0,
         live = live & (cols[None, :] > pos0 + rows[:, None] - window)
     s = torch.where(live[None, None], s, _NEG_INF)
     p = torch.softmax(s, dim=-1)
-    return torch.einsum("bhqk,bhkd->bhqd", p, v.float()).to(q.dtype)
+    return _pv(p, v, vsc).to(q.dtype)
 
 
 def _check_pools(q, k_pool, v_pool, what):
-    if not (q.is_cuda and k_pool.is_cuda and v_pool.is_cuda):
-        raise ValueError(f"{what} launches on CUDA tensors only")
-    if not q.dtype == k_pool.dtype == v_pool.dtype:
+    """The kernel operands of a pool pair (``decode_attention.kernel_kv``)
+    after the pool-shape checks; pools must already be contiguous (the
+    kernels write nothing to them, and a copy would defeat the page
+    sharing)."""
+    kv = kernel_kv(q, k_pool, v_pool, what)
+    if kv[0].shape[1] != q.shape[1]:
         raise ValueError(
-            f"q/pool dtypes differ: {q.dtype} {k_pool.dtype} {v_pool.dtype}"
-        )
-    hd = q.shape[-1]
-    if (k_pool.shape != v_pool.shape or k_pool.shape[1] != q.shape[1]
-            or k_pool.shape[3] != hd):
-        raise ValueError(
-            f"pool shape {tuple(k_pool.shape)} vs q {tuple(q.shape)}"
-        )
-    if hd not in KERNEL_HEAD_DIMS:
-        raise ValueError(
-            f"{what} serves head_dim {KERNEL_HEAD_DIMS}, got {hd}"
-        )
-    if not (k_pool.is_contiguous() and v_pool.is_contiguous()):
+            f"pool shape {tuple(kv[0].shape)} vs q {tuple(q.shape)}")
+    if not all(t.is_contiguous() for t in kv[:4] if t is not None):
         raise ValueError(f"{what} needs contiguous pools")
+    return kv
 
 
 def _launch_paged(q, k_pool, v_pool, page_table, index, valid_from, split,
                   out, parts):
-    _check_pools(q, k_pool, v_pool, "K3")
+    k, v, ks, vs, code = _check_pools(q, k_pool, v_pool, "K3")
     b, kvh, g, hd = q.shape
     if g > KERNEL_MAX_G:
         raise ValueError(f"K3 serves g <= {KERNEL_MAX_G} rows, got {g}")
@@ -161,17 +161,18 @@ def _launch_paged(q, k_pool, v_pool, page_table, index, valid_from, split,
     o_p, m_p, l_p = parts if parts is not None else (None, None, None)
     ptr = lambda t: t.data_ptr() if t is not None else None  # noqa: E731
     err = _build.load("paged_attn").paged_attn(
-        q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), table.data_ptr(),
-        idx.data_ptr(), ptr(vf), ptr(out), ptr(o_p), ptr(m_p), ptr(l_p), b,
-        kvh, g, table.shape[1], k_pool.shape[2], hd, split,
-        _build.dtype_code(q.dtype), 1.0 / math.sqrt(hd),
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), ptr(ks), ptr(vs),
+        table.data_ptr(), idx.data_ptr(), ptr(vf), ptr(out), ptr(o_p),
+        ptr(m_p), ptr(l_p), b, kvh, g, table.shape[1], k.shape[2], hd, split,
+        _build.dtype_code(q.dtype), code, 1.0 / math.sqrt(hd),
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     _build.check(err, "paged_attn")
 
 
 def paged_attn(q, k_pool, v_pool, page_table, index, valid_from=None):
-    """Launch K3 (one block per (slot, kv head)) on CUDA tensors."""
+    """Launch K3 (one block per (slot, kv head)) on CUDA tensors; a
+    quantized pool launches its int8 / int4 branch (K3q)."""
     q = q.contiguous()
     out = torch.empty_like(q)
     _launch_paged(q, k_pool, v_pool, page_table, index, valid_from, 1, out,
@@ -201,8 +202,9 @@ def paged_attn_split(q, k_pool, v_pool, page_table, index, valid_from=None,
 def paged_chunk_attn(q, k_pool, v_pool, pages, pos0: int, chunk: int,
                      window: int | None = None):
     """Launch K4 (one block per (kv head, 64 folded query rows)) on CUDA
-    tensors; ``pos0`` is the chunk's first position (a host int)."""
-    _check_pools(q, k_pool, v_pool, "K4")
+    tensors; ``pos0`` is the chunk's first position (a host int). A
+    quantized pool launches its int8 / int4 branch (K4q)."""
+    k, v, ks, vs, code = _check_pools(q, k_pool, v_pool, "K4")
     _, kvh, gc, hd = q.shape
     if q.shape[0] != 1:
         raise ValueError(f"K4 takes one chunk (batch 1), got {q.shape[0]}")
@@ -212,11 +214,13 @@ def paged_chunk_attn(q, k_pool, v_pool, pages, pos0: int, chunk: int,
     pages = pages.reshape(-1).contiguous()
     q = q.contiguous()
     out = torch.empty_like(q)
+    ptr = lambda t: t.data_ptr() if t is not None else None  # noqa: E731
     err = _build.load("paged_chunk_attn").paged_chunk_attn(
-        q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), pages.data_ptr(),
-        out.data_ptr(), kvh, gc, chunk, pages.shape[0], k_pool.shape[2],
-        int(pos0), int(window or 0), hd, _build.dtype_code(q.dtype),
-        1.0 / math.sqrt(hd), torch.cuda.current_stream(q.device).cuda_stream,
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), ptr(ks), ptr(vs),
+        pages.data_ptr(), out.data_ptr(), kvh, gc, chunk, pages.shape[0],
+        k.shape[2], int(pos0), int(window or 0), hd,
+        _build.dtype_code(q.dtype), code, 1.0 / math.sqrt(hd),
+        torch.cuda.current_stream(q.device).cuda_stream,
     )
     _build.check(err, "paged_chunk_attn")
     paged_chunk_attn.launches += 1
@@ -246,10 +250,9 @@ def paged_chunk_attention(q, k_pool, v_pool, pages, pos0, chunk: int,
     """Chunk-prefill attention over a paged window, in place: q (1, kv_h,
     g * chunk, hd) group-folded; ``pages`` (n,) covers the whole live
     window [0, pos0 + chunk) (pow2 padding to the trash page is fine —
-    those positions are past every row's mask). K4 on CUDA, the plain
-    version on CPU."""
-    _reject_quantized(k_pool, v_pool)
-    check_head_parity(q.shape[1], k_pool.shape[1])
+    those positions are past every row's mask). Pools may be quantized
+    pairs. K4 on CUDA, the plain version on CPU."""
+    check_head_parity(q.shape[1], pool_values(k_pool).shape[1])
     _check_prefer(prefer, q)
     if not q.is_cuda:
         return paged_chunk_attention_reference(
@@ -262,10 +265,9 @@ def paged_attention(q, k_pool, v_pool, page_table, index, valid_from=None,
                     prefer=None, split=None):
     """Decode attention over a paged KV cache: K3 (``split`` 1 or None)
     or K3-split plus the rescale combine on CUDA, the plain version on
-    CPU. ``prefer="xla"`` selects the plain version, which a CUDA tensor
-    refuses."""
-    _reject_quantized(k_pool, v_pool)
-    check_head_parity(q.shape[1], k_pool.shape[1])
+    CPU. Pools may be quantized pairs. ``prefer="xla"`` selects the plain
+    version, which a CUDA tensor refuses."""
+    check_head_parity(q.shape[1], pool_values(k_pool).shape[1])
     _check_prefer(prefer, q)
     split = 1 if split is None else int(split)
     if split < 1:

@@ -21,6 +21,15 @@ for native caches, on both KV layouts.
   Sliding-window models return pages behind the window mid-request.
   ``submit_fanout`` serves n continuations of one prompt, greedy
   siblings forking the shared last prompt page copy-on-write.
+- ``kv_cache_dtype`` ``"int8"`` / ``"int4"`` makes every strip or pool a
+  ``(values, scales)`` pair (int8 values, or int4 packed two per byte, and
+  one f32 scale per vector): quantization is a property of the cache
+  layout, so admission, prefix sharing, chunked prefill, window recycling
+  and CoW forks move both planes, and the kernels read the quantized
+  bytes (K2q, K3q, K4q). Prefix-hit and chunked passes attend the already
+  quantized window; whole-prompt admissions equal ``generate()`` with the
+  same ``kv_cache_dtype``. ``stats()`` reports ``cache_bytes`` over both
+  planes and ``cache_bytes_ratio`` against the native cache.
 - One tick admits queued requests into free slots (a prefill per
   admission, padded to a power-of-two bucket, through K1), then runs
   ``chunk`` decode steps (K2 or K3) over every slot and syncs with the
@@ -40,9 +49,8 @@ Lifecycle: ``submit`` / ``tick`` / ``run`` / ``cancel`` / ``result`` /
 Request timelines feed the SLO histograms ``continuous.queue_wait_s``,
 ``continuous.ttft_s``, ``continuous.itl_s`` and
 ``continuous.request_latency_s``; admit/finish/cancel go to the flight
-recorder. Quantized caches, speculation, tensor parallelism, recovery,
-the pipelined tick, traffic control and the host KV tier are later
-slices.
+recorder. Speculation, tensor parallelism, recovery, the pipelined tick,
+traffic control and the host KV tier are later slices.
 """
 
 from __future__ import annotations
@@ -88,6 +96,11 @@ def fanout_seeds(seed: int, n: int) -> list[int]:
         z = ((z ^ (z >> 27)) * 0x94D049BB133111EB) & _M64
         out.append((z ^ (z >> 31)) & ((1 << 63) - 1))
     return out
+
+
+def _members(cache):
+    """The tensors of a cache: both planes of a quantized pair."""
+    return cache if isinstance(cache, tuple) else (cache,)
 
 
 @dataclasses.dataclass
@@ -192,11 +205,6 @@ class ContinuousBatcher:
                     f"page_size {page_size}, got {prefill_chunk}"
                 )
         self._prefill_chunk = prefill_chunk
-        if kv_cache_dtype != "native":
-            raise NotImplementedError(
-                "quantized KV caches (int8/int4) are not ported yet "
-                "(ROADMAP 'quantized KV' slice)"
-            )
         if chunk < 1:
             raise ValueError(f"chunk must be >= 1, got {chunk}")
         if top_k is not None and not (1 <= top_k <= lm.vocab):
@@ -226,6 +234,14 @@ class ContinuousBatcher:
         #: paged batcher's job is page RECYCLING behind the window.
         self._window = block0.attn.window
         heads, hd = block0.cache_heads, block0.head_dim
+        if kv_cache_dtype == "int4" and hd % 2:
+            raise ValueError(
+                f"kv_cache_dtype='int4' packs two nibbles per int8 "
+                f"lane and needs an even head_dim, got {hd}"
+            )
+        #: prefill's quantize_cache: False, "int8" or "int4".
+        self._kv_quant = (kv_cache_dtype if kv_cache_dtype != "native"
+                          else False)
         if self._paged:
             if page_size < 1:
                 raise ValueError(f"page_size must be >= 1, got {page_size}")
@@ -244,11 +260,26 @@ class ContinuousBatcher:
             self._pager = None
             shape = (slots, heads, self._cache_len, hd)
         dev, dt = self.device, lm.dtype
-        self._caches = [
-            (torch.zeros(shape, dtype=dt, device=dev),
-             torch.zeros(shape, dtype=dt, device=dev))
-            for _ in lm.block_names
-        ]
+
+        def one_cache():
+            if not self._kv_quant:
+                return torch.zeros(shape, dtype=dt, device=dev)
+            # (values, scales): the scale plane is one f32 per cached
+            # vector, addressed like the values (page-addressed by the
+            # same table on pools); int4 halves the value width.
+            width = hd // 2 if self._kv_quant == "int4" else hd
+            return (torch.zeros(*shape[:-1], width, dtype=torch.int8,
+                                device=dev),
+                    torch.zeros(*shape[:-1], 1, dtype=torch.float32,
+                                device=dev))
+
+        self._caches = [(one_cache(), one_cache()) for _ in lm.block_names]
+        #: What the same cache geometry costs in the model's dtype: the
+        #: denominator of stats()["cache_bytes_ratio"].
+        self._native_cache_bytes = (
+            2 * len(lm.block_names) * shape[0] * shape[1] * shape[2] * hd
+            * torch.empty((), dtype=dt).element_size()
+        )
         #: Idle-row cache position: the trash strip position on dense
         #: strips; on pools a negative sentinel that stays negative across
         #: a whole chunk's advance, routing every garbage write to the
@@ -425,13 +456,13 @@ class ContinuousBatcher:
         pages = (self._h2d(self._pager.owned(slot_idx), torch.int64)
                  if self._paged else None)
         for block, (ck, cv) in zip(lm.blocks, self._caches):
-            h, k, v = block.prefill(h, bucket)
-            if self._paged:
-                insert_prefill_pages(ck, pages, k)
-                insert_prefill_pages(cv, pages, v)
-            else:
-                ck[slot_idx, :, :bucket] = k[0]
-                cv[slot_idx, :, :bucket] = v[0]
+            h, k, v = block.prefill(h, bucket, None, self._kv_quant)
+            for cache, new in ((ck, k), (cv, v)):
+                if self._paged:
+                    insert_prefill_pages(cache, pages, new)
+                else:
+                    for c, n in zip(_members(cache), _members(new)):
+                        c[slot_idx, :, :bucket] = n[0]
         self._count_prefill(s0)
         return self._first_pick(h[:, s0 - 1:s0], req)
 
@@ -474,10 +505,12 @@ class ContinuousBatcher:
         """Copy-on-write fork: duplicate ONE physical page, every block's
         K and V, from ``src`` into ``dst`` (a fan-out sibling's private
         copy of its group's last shared prompt page, taken at admission
-        because the sibling's decode is about to write into it)."""
-        for kp, vp in self._caches:
-            kp[dst].copy_(kp[src])
-            vp[dst].copy_(vp[src])
+        because the sibling's decode is about to write into it). A
+        quantized pool copies its scale plane with the values."""
+        for pair in self._caches:
+            for pool in pair:
+                for m in _members(pool):
+                    m[dst].copy_(m[src])
 
     def _register_prompt_pages(self, slot_idx: int, req: _Request,
                                start: int) -> None:
@@ -1055,11 +1088,13 @@ class ContinuousBatcher:
                 "ticks": self._ticks,
                 "prefill_tokens": self._prefill_tokens,
                 "h2d_transfers": self._h2d_count,
-                # Resident KV bytes of the strips or the page pools.
-                "cache_bytes": sum(
-                    t.numel() * t.element_size()
-                    for pair in self._caches for t in pair
-                ),
+                # Resident KV bytes of the strips or the page pools, scale
+                # planes included, and their share of the same geometry in
+                # the model's dtype (1.0 native; (hd + 4) / (2 hd) for int8
+                # under bf16, (hd / 2 + 4) / (2 hd) for int4).
+                "cache_bytes": self._cache_bytes(),
+                "cache_bytes_ratio": (self._cache_bytes()
+                                      / float(self._native_cache_bytes)),
                 "rejected": self._rejected,
             }
             if self._paged:
@@ -1078,6 +1113,10 @@ class ContinuousBatcher:
                 out["cow_forks"] = ps.cow_forks
                 out["fanout_groups"] = len(self._fanout_groups)
             return out
+
+    def _cache_bytes(self) -> int:
+        return sum(m.numel() * m.element_size() for pair in self._caches
+                   for c in pair for m in _members(c))
 
     def logprobs(self, req_id: int) -> np.ndarray:
         """Per-token model logprobs of a FINISHED request (claims them)."""

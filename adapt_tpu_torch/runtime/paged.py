@@ -447,11 +447,17 @@ class Pager:
 
 
 def insert_prefill_pages(pool, pages, kv):
-    """Scatter a prefilled request's contiguous (1, kv_h, S, hd) K or V
+    """Scatter a prefilled request's contiguous (1, kv_h, S, w) K or V
     into its physical ``pages`` ((n,) int, logical order) of ``pool``
-    (num_pages, kv_h, page, hd) IN PLACE, and return the pool. S pads up
+    (num_pages, kv_h, page, w) IN PLACE, and return the pool. S pads up
     to n * page positions with zeros that sit beyond the prompt (masked
-    until decode overwrites them). One index_copy_ on the page axis."""
+    until decode overwrites them). One index_copy_ on the page axis. A
+    quantized ``(values, scales)`` pool takes a pair and scatters both
+    members by the same pages, so a page's scales travel with its
+    values."""
+    if isinstance(pool, tuple):
+        return tuple(insert_prefill_pages(p, pages, x)
+                     for p, x in zip(pool, kv))
     pages = torch.as_tensor(pages, device=pool.device).long().reshape(-1)
     n = pages.shape[0]
     _, kvh, page, hd = pool.shape

@@ -3,7 +3,8 @@
 
     python3 chip_smoke.py            # the whole check, one CUDA card
     python3 chip_smoke.py --profile  # and torch.profiler decode breakdowns
-                                     # (dense strips and paged pool)
+                                     # (dense strips and paged pool, native
+                                     # and int8 caches)
 
 Phases (no phase failure is caught; any mismatch exits non-zero):
 
@@ -42,7 +43,24 @@ Phases (no phase failure is caught; any mismatch exits non-zero):
    plain version, one PyTorch library call of the same function
    (``scaled_dot_product_attention``, after a gather of the pages for the
    paged kernels; the port never calls either) and its bound:
-   max(operations / 989 TFLOP/s, bytes / 3.35 TB/s).
+   max(operations / 989 TFLOP/s, bytes / 3.35 TB/s);
+9. the quantized branches (int8 and packed int4 K/V with one f32 scale per
+   vector): K2q / K2q-split, K3q / K3q-split and K4q against their plain
+   versions at the shapes of phases 3-5 (K3q equal to K2q with
+   ``torch.equal``); the dense batcher with ``kv_cache_dtype="int8"`` then
+   ``"int4"`` on 8 of phase 6's prompts (two staggered waves of 4, one
+   cancel), every stream equal to ``generate(kv_cache_dtype=...)``; phase 7's
+   paged traffic with ``"int8"``, whose prefix-hit and chunked streams pass
+   the tie-aware check at a bar set from the measured first-token logit
+   error of a hit and a chunked pass; the paged batcher with ``"int4"`` on 8
+   unique whole-prompt requests, streams exact; every path's launch counts,
+   drained pool, ``cache_bytes_ratio`` ((hd + 4) / (2 hd) for int8, (hd / 2
+   + 4) / (2 hd) for int4, exactly) and top-1 agreement with the native
+   streams (printed, not gated); K2q and K3q (int8, int4) and K4q (int8)
+   timed, their bound from the quantized bytes, no library call (none takes
+   int8 K/V with per-vector scales; a dequantize + SDPA time is printed as a
+   two-call figure); the branches no path launches (the splits, K4q on
+   int4) timed on lines of their own.
 
 The line before the last is the kernels' JSON; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -305,16 +323,122 @@ def check_k4(torch, P, dev, errs):
               "(tol 1e-2 + 1e-2|ref|)")
 
 
-def drive_batcher(torch, lm, prompts, steps, kernel, cancel_at):
+KV_DTYPES = ("int8", "int4")
+
+
+def quantized(Q, t, kv):
+    """``t`` as a quantized (values, scales) pair; pools pass as pairs."""
+    return Q.quantize_kv_vectors(t, kv)
+
+
+def check_k2q(torch, D, Q, dev, errs):
+    """K2q / K2q-split (int8 and int4 caches) vs the plain version at atol
+    1e-2, rtol 1e-2 (bf16 outputs) on phase 3's shapes."""
+    cases = [
+        (dict(b=8, kvh=12, g=1, L=1025, hd=64), None),
+        (dict(b=8, kvh=3, g=4, L=1025, hd=64), None),
+        (dict(b=8, kvh=12, g=1, L=1025, hd=64), "vf"),
+        (dict(b=4, kvh=8, g=2, L=700, hd=128), None),
+    ]
+    for kv in KV_DTYPES:
+        for shp, extra in cases:
+            q, ck, cv, idx = decode_inputs(torch, dev, **shp)
+            ck, cv = quantized(Q, ck, kv), quantized(Q, cv, kv)
+            vf = (idx // 3).to(torch.int32) if extra == "vf" else None
+            for name, split in (("decode_attn", 1), ("decode_attn_split", 4)):
+                if split == 1:
+                    got = D.decode_attn(q, ck, cv, idx, vf)
+                else:
+                    got = D.decode_attn_split(q, ck, cv, idx, vf, split)
+                torch.cuda.synchronize()
+                ref = D.decode_attention_plain(q, ck, cv, idx, vf, split)
+                key = f"{name}[{kv}]"
+                e = close(got, ref, 1e-2, 1e-2, f"{key} {shp} {extra}")
+                errs[key] = max(errs.get(key, 0.0), e)
+                print(f"{key} {shp} {extra}: max abs err {e:.3e} "
+                      "(tol 1e-2 + 1e-2|ref|)")
+
+
+def check_k3q(torch, D, P, Q, dev, errs):
+    """K3q / K3q-split vs the plain version at atol 1e-2, rtol 1e-2 on
+    phase 4's pool shapes; K3q == K2q with torch.equal on the same
+    quantized K/V as a dense strip."""
+    cases = [
+        (dict(b=8, kvh=12, g=1, hd=64, page=128, pps=8, npages=65), None),
+        (dict(b=8, kvh=3, g=4, hd=64, page=128, pps=8, npages=65), None),
+        (dict(b=8, kvh=12, g=1, hd=64, page=128, pps=8, npages=65), "vf"),
+        (dict(b=8, kvh=12, g=1, hd=64, page=16, pps=64, npages=513), None),
+        (dict(b=4, kvh=8, g=2, hd=128, page=128, pps=6, npages=25), None),
+    ]
+    for kv in KV_DTYPES:
+        for shp, extra in cases:
+            q, kp, vp, table, idx = paged_inputs(torch, dev, **shp)
+            kp, vp = quantized(Q, kp, kv), quantized(Q, vp, kv)
+            vf = ((idx.clamp(min=0) // 3).to(torch.int32) if extra == "vf"
+                  else None)
+            for name, split in (("paged_attn", 1), ("paged_attn_split", 4)):
+                if split == 1:
+                    got = P.paged_attn(q, kp, vp, table, idx, vf)
+                else:
+                    got = P.paged_attn_split(q, kp, vp, table, idx, vf, split)
+                torch.cuda.synchronize()
+                ref = P.paged_attention_plain(q, kp, vp, table, idx, vf, split)
+                key = f"{name}[{kv}]"
+                e = close(got, ref, 1e-2, 1e-2, f"{key} {shp} {extra}")
+                errs[key] = max(errs.get(key, 0.0), e)
+                print(f"{key} {shp} {extra}: max abs err {e:.3e} "
+                      "(tol 1e-2 + 1e-2|ref|)")
+                if split == 1:
+                    strip = lambda pool: tuple(  # noqa: E731
+                        as_strip(torch, m, table, 1025) for m in pool)
+                    dense = D.decode_attn(q, strip(kp), strip(vp), idx, vf)
+                    torch.cuda.synchronize()
+                    if not torch.equal(got, dense):
+                        raise AssertionError(
+                            f"K3q != K2q bit for bit at {shp}")
+                    if got[-1].any():
+                        raise AssertionError("K3q's dead row is not zero")
+                    print(f"K3q == K2q bit for bit (torch.equal) [{kv}] at "
+                          f"{shp} {extra}")
+
+
+def check_k4q(torch, P, Q, dev, errs):
+    """K4q vs its plain version at atol 1e-2, rtol 1e-2 on phase 5's
+    cases."""
+    cases = [dict(kvh=12, g=1, hd=64, chunk=c, pos0=p, window=None)
+             for c in (128, 256) for p in (0, 256, 512)]
+    cases += [dict(kvh=12, g=1, hd=64, chunk=256, pos0=512, window=300),
+              dict(kvh=3, g=4, hd=64, chunk=256, pos0=256, window=None),
+              dict(kvh=8, g=2, hd=128, chunk=128, pos0=384, window=None)]
+    for kv in KV_DTYPES:
+        for c in cases:
+            q, kp, vp, pages = chunk_inputs(torch, dev, c["kvh"], c["g"],
+                                            c["hd"], c["chunk"], c["pos0"])
+            kp, vp = quantized(Q, kp, kv), quantized(Q, vp, kv)
+            got = P.paged_chunk_attn(q, kp, vp, pages, c["pos0"], c["chunk"],
+                                     c["window"])
+            torch.cuda.synchronize()
+            ref = P.paged_chunk_attention_reference(
+                q, kp, vp, pages, c["pos0"], c["chunk"], c["window"])
+            key = f"paged_chunk_attn[{kv}]"
+            e = close(got, ref, 1e-2, 1e-2, f"{key} {c}")
+            errs[key] = max(errs.get(key, 0.0), e)
+            print(f"{key} {c}: max abs err {e:.3e} (tol 1e-2 + 1e-2|ref|)")
+
+
+def drive_batcher(torch, lm, prompts, steps, kernel, cancel_at,
+                  kv_cache_dtype="native"):
     """Serve ``prompts`` in two staggered waves; cancel request
     ``cancel_at`` (if not None) once it is live. Returns (results,
-    request ids, cancelled id, wall s, committed tokens, mean TTFT s)."""
+    request ids, cancelled id, wall s, committed tokens, mean TTFT s,
+    the batcher's stats)."""
     from adapt_tpu_torch.runtime.continuous import ContinuousBatcher
     from adapt_tpu_torch.utils.metrics import global_metrics
 
     reg = global_metrics()
     before = reg.snapshot(window=True)
-    bat = ContinuousBatcher(lm, slots=8, chunk=8, kernel=kernel)
+    bat = ContinuousBatcher(lm, slots=8, chunk=8, kernel=kernel,
+                            kv_cache_dtype=kv_cache_dtype)
     half = len(prompts) // 2
     t0 = time.perf_counter()
     ids = [bat.submit(p, steps) for p in prompts[:half]]
@@ -324,14 +448,15 @@ def drive_batcher(torch, lm, prompts, steps, kernel, cancel_at):
     cancelled = None
     if cancel_at is not None:
         cancelled = ids[cancel_at]
-        bat.cancel(cancelled)
+        if not bat.cancel(cancelled):
+            raise AssertionError("the cancel found no live request")
     out = bat.run()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     win = reg.snapshot(since=before)
     ttft = win["histograms"].get("continuous.ttft_s", {}).get("mean", 0.0)
     tokens = sum(len(v) for v in out.values())
-    return out, ids, cancelled, wall, tokens, ttft
+    return out, ids, cancelled, wall, tokens, ttft, bat.stats()
 
 
 def paged_traffic(torch, vocab):
@@ -374,7 +499,8 @@ def first_gap(torch, lm, prompt, got, ref):
     return t, float(top2[0] - top2[1])
 
 
-def drive_paged(torch, lm, kernel, waves, fan, cancel_at):
+def drive_paged(torch, lm, kernel, waves, fan, cancel_at,
+                kv_cache_dtype="native", prefill_chunk=256):
     """Serve ``waves`` (two staggered waves) and, if ``fan`` is given, a
     greedy fan-out of 4 through a paged batcher; cancel wave-1 request
     ``cancel_at`` once live. Returns the batcher, {id: prompt}, results,
@@ -388,7 +514,8 @@ def drive_paged(torch, lm, kernel, waves, fan, cancel_at):
     before = reg.snapshot(window=True)
     _, cursor = fr.events_since(1 << 62)
     bat = ContinuousBatcher(lm, slots=8, chunk=8, kv_layout="paged",
-                            page_size=128, prefill_chunk=256, kernel=kernel)
+                            page_size=128, prefill_chunk=prefill_chunk,
+                            kernel=kernel, kv_cache_dtype=kv_cache_dtype)
     t0 = time.perf_counter()
     ids = [bat.submit(p, 64) for p in waves[0]]
     bat.tick()
@@ -418,14 +545,13 @@ def drive_paged(torch, lm, kernel, waves, fan, cancel_at):
 
 
 def check_paged_streams(torch, lm, prompts, out, admits, cancelled, fan_ids,
-                        split):
+                        split, ref, bar=0.1, max_exempt=2):
     """Whole-prompt admissions (no hit, not chunked) with split 1 must
-    equal ``generate()``; every other stream passes the tie-aware check
-    (a first difference only where the full forward's top-2 gap is below
-    0.1; at most 2 exemptions); fan-out siblings equal the first one.
-    Returns (exemptions, {path: count})."""
-    from adapt_tpu_torch.models.transformer_lm import generate
-
+    equal their reference stream ``ref(prompt)`` (``generate()`` alone);
+    every other stream passes the tie-aware check (a first difference only
+    where the full forward's top-2 gap is below ``bar``; at most
+    ``max_exempt`` exemptions, None for no cap); fan-out siblings equal the
+    first one. Returns (exemptions, {path: count})."""
     exempt, paths = [], {}
     for rid, p in prompts.items():
         a = admits[rid]
@@ -443,41 +569,101 @@ def check_paged_streams(torch, lm, prompts, out, admits, cancelled, fan_ids,
                 raise AssertionError(f"fan-out sibling {rid} differs from "
                                      "its group's first sibling")
             continue
-        ref = generate(lm, p[None], 64,
-                       decode_split=split)[0].cpu().numpy()
+        want = ref(p)
         if path == "whole" and split is None:
-            if not np.array_equal(got, ref[:len(got)]):
-                bad = int((got != ref[:len(got)]).argmax())
+            if not np.array_equal(got, want[:len(got)]):
+                bad = int((got != want[:len(got)]).argmax())
                 raise AssertionError(f"whole-prompt request {rid} differs "
                                      f"from generate() at token {bad}")
             continue
-        tg = first_gap(torch, lm, p, got, ref)
+        tg = first_gap(torch, lm, p, got, want)
         if tg is None:
             continue
         t, gap = tg
         print(f"tie-aware exemption: request {rid} ({path}, prompt "
               f"{len(p)}) first differs from generate() at token {t}, "
               f"top-2 gap {gap:.4f}")
-        if gap >= 0.1:
+        if gap >= bar:
             raise AssertionError(f"request {rid} differs at token {t} with "
-                                 f"top-2 gap {gap:.4f} >= 0.1")
+                                 f"top-2 gap {gap:.4f} >= {bar:.4f}")
         exempt.append(rid)
-    if len(exempt) > 2:
+    if max_exempt is not None and len(exempt) > max_exempt:
         raise AssertionError(f"{len(exempt)} streams needed the tie "
-                             "exemption (at most 2)")
+                             f"exemption (at most {max_exempt})")
     return exempt, paths
 
 
-def profile_decode(torch, lm, card, layout):
+def first_token_logits(bat, prompt):
+    """The f32 logits a batcher's admission of ``prompt`` samples its first
+    token from (whole-prompt, prefix-hit or final chunked pass, whichever
+    the batcher takes), read through its ``_first_pick``."""
+    seen = []
+    orig = bat._first_pick
+
+    def spy(h_last, req):
+        seen.append(bat.lm.head(h_last)[0, 0].float())
+        return orig(h_last, req)
+
+    bat._first_pick = spy
+    try:
+        bat.submit(prompt, 1)
+        bat.run()
+    finally:
+        bat._first_pick = orig
+    return seen[-1]
+
+
+def quantized_pass_error(torch, lm, kv, shared, longp):
+    """Largest |first-token logits| difference of a prefix-hit pass (each
+    ``shared`` prompt re-submitted, its full prompt pages cached) and of a
+    chunked pass (each ``longp`` prompt at prefill_chunk 256) against the
+    whole-prompt pass of the same prompt, on ``kv`` pools: these passes
+    attend the already quantized window, the whole-prompt pass the native
+    K/V. Returns (hit error, chunked error)."""
+    from adapt_tpu_torch.runtime.continuous import ContinuousBatcher
+
+    def fresh(**extra):  # an empty prefix cache: the first pass is whole
+        return ContinuousBatcher(lm, slots=1, chunk=8, kv_layout="paged",
+                                 page_size=128, kv_cache_dtype=kv, **extra)
+
+    hit_err = chunk_err = 0.0
+    for p in shared:
+        bat = fresh()
+        a = first_token_logits(bat, p)  # whole prompt
+        b = first_token_logits(bat, p)  # prefix hit on its own pages
+        if bat.stats()["prefix_hits"] < 1:
+            raise AssertionError("the re-submitted prompt did not hit")
+        hit_err = max(hit_err, float((a - b).abs().max()))
+    for p in longp:
+        a = first_token_logits(fresh(), p)
+        b = first_token_logits(fresh(prefill_chunk=256), p)
+        chunk_err = max(chunk_err, float((a - b).abs().max()))
+    return hit_err, chunk_err
+
+
+def agreement(out, ids, prompts, ref, cancelled):
+    """Top-1 agreement of served streams with reference streams."""
+    same = total = 0
+    for rid, p in zip(ids, prompts):
+        if rid == cancelled:
+            continue
+        want = ref(p)
+        same += int((out[rid] == want[:len(out[rid])]).sum())
+        total += len(out[rid])
+    return same / max(total, 1)
+
+
+def profile_decode(torch, lm, card, layout, kv="native"):
     """``--profile``: where a steady decode tick's time goes on one KV
-    ``layout``. 8 slots decode (chunk 8, 256-token prompts); 4 ticks are
-    timed on the host clock without the profiler, then 4 more run under
-    ``torch.profiler`` for device time by kernel. Busy share = kernel time
-    / unprofiled wall."""
+    ``layout`` and cache dtype ``kv``. 8 slots decode (chunk 8, 256-token
+    prompts); 4 ticks are timed on the host clock without the profiler,
+    then 4 more run under ``torch.profiler`` for device time by kernel.
+    Busy share = kernel time / unprofiled wall."""
     from adapt_tpu_torch.runtime.continuous import ContinuousBatcher
 
     rng = torch.Generator().manual_seed(5)
-    bat = ContinuousBatcher(lm, slots=8, chunk=8, kv_layout=layout)
+    bat = ContinuousBatcher(lm, slots=8, chunk=8, kv_layout=layout,
+                            kv_cache_dtype=kv)
     for _ in range(8):
         bat.submit(torch.randint(0, lm.vocab, (256,), generator=rng).numpy(),
                    400)
@@ -507,7 +693,7 @@ def profile_decode(torch, lm, card, layout):
     rows.sort(reverse=True)
     busy = sum(r[0] for r in rows)
     steps = 4 * bat.chunk
-    print(f"profile[{layout}] on {card}: 4 steady ticks = {steps} decode "
+    print(f"profile[{layout} {kv}] on {card}: 4 steady ticks = {steps} decode "
           f"steps of 8 "
           f"slots: wall {wall_ms:.2f} ms ({wall_ms / steps:.3f} ms/step, "
           f"{8 * steps / wall_ms * 1e3:.1f} tok/s); kernels "
@@ -535,6 +721,7 @@ def main(argv) -> int:
     from adapt_tpu_torch.ops import attention as A
     from adapt_tpu_torch.ops import decode_attention as D
     from adapt_tpu_torch.ops import paged_attention as P
+    from adapt_tpu_torch.ops import quantize as Q
 
     dev = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -569,6 +756,16 @@ def main(argv) -> int:
     plens = torch.randint(16, 513, (16,), generator=rng).tolist()
     prompts = [torch.randint(0, VOCAB, (n,), generator=rng).numpy()
                for n in plens]
+    streams = {}
+
+    def solo(p, split=None, kv="native"):
+        """``generate()`` of one prompt alone, 64 tokens (memoised)."""
+        key = (p.tobytes(), split, kv)
+        if key not in streams:
+            streams[key] = generate(lm, p[None], 64, decode_split=split,
+                                    kv_cache_dtype=kv)[0].cpu().numpy()
+        return streams[key]
+
     runs = {}
     for path, kernel, reqs, cancel_at in (
         ("main", KernelConfig(), prompts, 3),
@@ -577,7 +774,7 @@ def main(argv) -> int:
         A.flash_attn_fwd.launches = 0
         D.decode_attn.launches = 0
         D.decode_attn_split.launches = 0
-        out, ids, cancelled, wall, ntok, ttft = drive_batcher(
+        out, ids, cancelled, wall, ntok, ttft, _ = drive_batcher(
             torch, lm, reqs, 64, kernel, cancel_at)
         launches = {
             "flash_attn_fwd": A.flash_attn_fwd.launches,
@@ -589,8 +786,7 @@ def main(argv) -> int:
         if launches["flash_attn_fwd"] == 0 or launches[want] == 0:
             return _fail(f"{path} path did not launch its kernels: {launches}")
         for rid, p in zip(ids, reqs):
-            ref = generate(lm, p[None], 64,
-                           decode_split=kernel.decode_split)[0].cpu().numpy()
+            ref = solo(p, kernel.decode_split)
             got = out[rid]
             if rid == cancelled:
                 if len(got) >= 64 or not (ref[:len(got)] == got).all():
@@ -623,7 +819,7 @@ def main(argv) -> int:
     ):
         for fn in counters.values():
             fn.launches = 0
-        (bat, prompts, out, admits, cancelled, fan_ids, wall, ntok,
+        (bat, pprompts, out, admits, cancelled, fan_ids, wall, ntok,
          ttft) = drive_paged(torch, lm, kernel, waves, fan_p, cancel_at)
         launches = {k: fn.launches for k, fn in counters.items()}
         runs[path] = launches
@@ -636,10 +832,10 @@ def main(argv) -> int:
             return _fail(f"{path}: prefix_hits {st['prefix_hits']}, "
                          f"cow_forks {st['cow_forks']}")
         exempt, paths = check_paged_streams(
-            torch, lm, prompts, out, admits, cancelled, fan_ids,
-            kernel.decode_split)
-        submitted = sum(len(p) for p in prompts.values())
-        print(f"batcher[{path}] on {card}: {len(prompts)} requests "
+            torch, lm, pprompts, out, admits, cancelled, fan_ids,
+            kernel.decode_split, lambda p, sp=kernel.decode_split: solo(p, sp))
+        submitted = sum(len(p) for p in pprompts.values())
+        print(f"batcher[{path}] on {card}: {len(pprompts)} requests "
               f"(paths {paths}, {len(exempt)} tie exemptions"
               f"{', 1 cancelled' if cancelled is not None else ''}), "
               f"{ntok} tokens in {wall:.3f} s = {ntok / wall:.1f} tok/s, "
@@ -762,12 +958,242 @@ def main(argv) -> int:
         max_abs_err=errs["paged_chunk_attn"], ms=ms, plain_ms=plain,
         bound_ms=bms, bound_by=by, library_ms=lib,
         shape=f"kv_h{kvh} g1 C{C} pos0 {pos0} page128 hd{hd} bf16"))
+    # -- phase 9: quantized KV (int8 / int4) ------------------------------
+    check_k2q(torch, D, Q, dev, errs)
+    check_k3q(torch, D, P, Q, dev, errs)
+    check_k4q(torch, P, Q, dev, errs)
+    hd_lm = DIM // HEADS
+    want_ratio = {"int8": (hd_lm + 4) / (2 * hd_lm),
+                  "int4": (hd_lm // 2 + 4) / (2 * hd_lm)}
+    dense_counters = {"flash_attn_fwd": A.flash_attn_fwd,
+                      "decode_attn": D.decode_attn,
+                      "decode_attn_split": D.decode_attn_split}
+    qprompts = prompts[:8]
+    for kv in KV_DTYPES:
+        path = f"dense_{kv}"
+        for fn in dense_counters.values():
+            fn.launches = 0
+        out, ids, cancelled, wall, ntok, ttft, st = drive_batcher(
+            torch, lm, qprompts, 64, KernelConfig(), 1, kv_cache_dtype=kv)
+        launches = {k: fn.launches for k, fn in dense_counters.items()}
+        runs[path] = launches
+        if launches["flash_attn_fwd"] == 0 or launches["decode_attn"] == 0:
+            return _fail(f"{path} path did not launch its kernels: {launches}")
+        for rid, p in zip(ids, qprompts):
+            ref, got = solo(p, kv=kv), out[rid]
+            if rid == cancelled:
+                if not 0 < len(got) < 64 or not (ref[:len(got)] == got).all():
+                    return _fail(f"{path}: cancelled stream is no prefix")
+                continue
+            if len(got) != 64 or not (ref == got).all():
+                bad = int((ref != got).argmax())
+                return _fail(f"{path}: request {rid} differs from generate("
+                             f"kv_cache_dtype={kv!r}) at token {bad}")
+        if st["active"] or st["queued"]:
+            return _fail(f"{path}: the batcher did not drain: {st}")
+        if st["cache_bytes_ratio"] != want_ratio[kv]:
+            return _fail(f"{path}: cache_bytes_ratio {st['cache_bytes_ratio']}"
+                         f" != {want_ratio[kv]}")
+        agree = agreement(out, ids, qprompts, solo, cancelled)
+        print(f"batcher[{path}] on {card}: {len(qprompts)} requests (1 "
+              f"cancelled, streams equal generate(kv_cache_dtype={kv!r})), "
+              f"{ntok} tokens in {wall:.3f} s = {ntok / wall:.1f} tok/s, "
+              f"mean TTFT {ttft * 1e3:.1f} ms, cache_bytes "
+              f"{st['cache_bytes']} (ratio {st['cache_bytes_ratio']}), top-1 "
+              f"agreement with the native streams {agree:.4f} (not gated), "
+              f"launches {launches}")
+
+    # Paged int8 on phase 7's traffic: hit and chunked passes attend the
+    # quantized window, so their tie-aware bar is set from the measured
+    # first-token logit error of such passes (at least phase 7's 0.1), and
+    # every such stream may need it: each starts from logits perturbed by
+    # that error, where a native pass differs only in summation order. A
+    # first difference at a gap above the bar still fails.
+    hit_err, chunk_err = quantized_pass_error(
+        torch, lm, "int8", [wave1[0]] + list(wave2[:7]), list(wave1[5:8])
+        + list(wave2[7:]))
+    qbar = max(0.1, 2 * max(hit_err, chunk_err))
+    print(f"int8 paged: largest first-token logit difference against the "
+          f"whole-prompt pass: prefix hit {hit_err:.4f}, chunked "
+          f"{chunk_err:.4f}; tie-aware bar {qbar:.4f}")
+    for path, kv, waves, fan_p, cancel_at, pchunk, bar, cap, want in (
+        ("paged_int8", "int8", (wave1, wave2), fan, 2, 256, qbar, None,
+         ("flash_attn_fwd", "paged_attn", "paged_chunk_attn")),
+        ("paged_int4", "int4", (qprompts[:4], qprompts[4:]), None, None,
+         None, 0.0, 0, ("flash_attn_fwd", "paged_attn")),
+    ):
+        for fn in counters.values():
+            fn.launches = 0
+        (bat, pprompts, out, admits, cancelled, fan_ids, wall, ntok,
+         ttft) = drive_paged(torch, lm, KernelConfig(), waves, fan_p,
+                             cancel_at, kv_cache_dtype=kv,
+                             prefill_chunk=pchunk)
+        launches = {k: fn.launches for k, fn in counters.items()}
+        runs[path] = launches
+        if any(launches[k] == 0 for k in want):
+            return _fail(f"{path} path did not launch its kernels: {launches}")
+        st = bat.stats()
+        if st["pages_in_use"] != 0 or st["pages_free"] != st["pool_pages"] - 1:
+            return _fail(f"{path}: the pool did not drain: {st}")
+        if st["cache_bytes_ratio"] != want_ratio[kv]:
+            return _fail(f"{path}: cache_bytes_ratio {st['cache_bytes_ratio']}"
+                         f" != {want_ratio[kv]}")
+        exempt, paths = check_paged_streams(
+            torch, lm, pprompts, out, admits, cancelled, fan_ids, None,
+            lambda p, kv=kv: solo(p, kv=kv), bar, cap)
+        if pchunk is None and set(paths) != {"whole"}:
+            return _fail(f"{path}: expected whole-prompt admissions only, "
+                         f"got {paths}")
+        ids = list(pprompts)
+        agree = agreement(out, ids, [pprompts[r] for r in ids], solo,
+                          cancelled)
+        print(f"batcher[{path}] on {card}: {len(pprompts)} requests (paths "
+              f"{paths}, {len(exempt)} tie exemptions at bar {bar:.4f}"
+              f"{', 1 cancelled' if cancelled is not None else ''}), "
+              f"{ntok} tokens in {wall:.3f} s = {ntok / wall:.1f} tok/s, "
+              f"mean TTFT {ttft * 1e3:.1f} ms, prefix_hits "
+              f"{st['prefix_hits']}, cow_forks {st['cow_forks']}, "
+              f"cache_bytes {st['cache_bytes']} (ratio "
+              f"{st['cache_bytes_ratio']}), top-1 agreement with the native "
+              f"streams {agree:.4f} (not gated), launches {launches}")
+
+    # Quantized kernel times at their main-path shapes. The bound counts
+    # each live vector's value bytes plus its f32 scale. Branches that no
+    # quantized path of this script launches (the splits, K4q on int4) are
+    # timed too and printed on their own lines, not in the kernels line.
+    def dequant(pair, hd):
+        return (Q.kv_values(pair[0], hd).float() * pair[1]).to(torch.bfloat16)
+
+    def side_time(name, fn, plain_fn, ops, nbytes, shape):
+        bms, by = bound(ops, nbytes)
+        print(f"{name} on {card} (no quantized path launches it): "
+              f"{time_ms(fn):.4f} ms (plain {time_ms(plain_fn):.4f}, library "
+              f"none, bound {bms:.4f} by {by}) at {shape}")
+
+    q, ck, cv, idx = decode_inputs(torch, dev, B, kvh, G, L, hd, seed=4)
+    live = float((idx.long() + 1).sum()) * kvh
+    for kv in KV_DTYPES:
+        ckq, cvq = quantized(Q, ck, kv), quantized(Q, cv, kv)
+        w = ckq[0].shape[-1]
+        ms = time_ms(lambda: D.decode_attn(q, ckq, cvq, idx))
+        plain = time_ms(lambda: D.decode_attention_plain(q, ckq, cvq, idx))
+        two = time_ms(lambda: F.scaled_dot_product_attention(
+            q, dequant(ckq, hd), dequant(cvq, hd),
+            attn_mask=mask[:, None, None, :]))
+        bms, by = bound(4 * G * hd * live, 2 * live * (w + 4)
+                        + 2 * B * kvh * G * hd * 2 + B * 4)
+        name = f"decode_attn[{kv}]"
+        kernels.append(dict(
+            name=name, route="cuda",
+            source="adapt_tpu_torch/csrc/decode_attn.cu",
+            replaces="adapt_tpu/ops/decode_attention.py:240",
+            launches=runs[f"dense_{kv}"]["decode_attn"],
+            max_abs_err=errs[name], ms=ms, plain_ms=plain, bound_ms=bms,
+            bound_by=by, library_ms=None, dequant_sdpa_ms=two,
+            shape=f"b{B} kv_h{kvh} g{G} L{L} hd{hd} {kv} K/V bf16 q"))
+        side_time(f"decode_attn_split[{kv}]",
+                  lambda: D.decode_attn_split(q, ckq, cvq, idx, None, 4),
+                  lambda: D.decode_attention_plain(q, ckq, cvq, idx, None, 4),
+                  4 * G * hd * live,
+                  2 * live * (w + 4) + 2 * B * kvh * G * hd * 2 + B * 4,
+                  f"b{B} kv_h{kvh} g{G} L{L} hd{hd} split4 {kv} K/V bf16 q")
+
+    q, kp, vp, table, idx = paged_inputs(torch, dev, B, kvh, G, hd, 128, 8,
+                                         65, seed=9)
+    idx[-1] = 1023
+    live = float((idx.long() + 1).sum()) * kvh
+    kpq, vpq = quantized(Q, kp, "int8"), quantized(Q, vp, "int8")
+
+    def gather_dequant_sdpa():
+        ks = dequant(kpq, hd)[table.long()].movedim(2, 1).reshape(
+            B, kvh, -1, hd)
+        vs = dequant(vpq, hd)[table.long()].movedim(2, 1).reshape(
+            B, kvh, -1, hd)
+        return F.scaled_dot_product_attention(
+            q, ks, vs, attn_mask=pmask[:, None, None, :])
+
+    ms = time_ms(lambda: P.paged_attn(q, kpq, vpq, table, idx))
+    plain = time_ms(lambda: P.paged_attention_plain(q, kpq, vpq, table, idx))
+    two = time_ms(gather_dequant_sdpa)
+    bms, by = bound(4 * G * hd * live, 2 * live * (hd + 4)
+                    + 2 * B * kvh * G * hd * 2 + table.numel() * 4 + B * 4)
+    kernels.append(dict(
+        name="paged_attn[int8]", route="cuda",
+        source="adapt_tpu_torch/csrc/paged_attn.cu",
+        replaces="adapt_tpu/ops/paged_attention.py:331",
+        launches=runs["paged_int8"]["paged_attn"],
+        max_abs_err=errs["paged_attn[int8]"], ms=ms, plain_ms=plain,
+        bound_ms=bms, bound_by=by, library_ms=None, dequant_sdpa_ms=two,
+        shape=f"b{B} kv_h{kvh} g{G} page128 pps8 hd{hd} int8 K/V bf16 q"))
+    k4 = (quantized(Q, kp, "int4"), quantized(Q, vp, "int4"))
+    bms, by = bound(4 * G * hd * live, 2 * live * (hd // 2 + 4)
+                    + 2 * B * kvh * G * hd * 2 + table.numel() * 4 + B * 4)
+    kernels.append(dict(
+        name="paged_attn[int4]", route="cuda",
+        source="adapt_tpu_torch/csrc/paged_attn.cu",
+        replaces="adapt_tpu/ops/paged_attention.py:331",
+        launches=runs["paged_int4"]["paged_attn"],
+        max_abs_err=errs["paged_attn[int4]"],
+        ms=time_ms(lambda: P.paged_attn(q, *k4, table, idx)),
+        plain_ms=time_ms(lambda: P.paged_attention_plain(q, *k4, table,
+                                                         idx)),
+        bound_ms=bms, bound_by=by, library_ms=None,
+        shape=f"b{B} kv_h{kvh} g{G} page128 pps8 hd{hd} int4 K/V bf16 q"))
+    for kv, pq in (("int8", (kpq, vpq)), ("int4", k4)):
+        side_time(f"paged_attn_split[{kv}]",
+                  lambda: P.paged_attn_split(q, *pq, table, idx, None, 4),
+                  lambda: P.paged_attention_plain(q, *pq, table, idx, None,
+                                                  4),
+                  4 * G * hd * live, 2 * live * (pq[0][0].shape[-1] + 4)
+                  + 2 * B * kvh * G * hd * 2 + table.numel() * 4 + B * 4,
+                  f"b{B} kv_h{kvh} g{G} page128 pps8 hd{hd} split4 {kv} K/V "
+                  "bf16 q")
+
+    q, kp, vp, pages = chunk_inputs(torch, dev, kvh, 1, hd, C, pos0)
+    kpq, vpq = quantized(Q, kp, "int8"), quantized(Q, vp, "int8")
+
+    def gather_dequant_sdpa_chunk():
+        ks = dequant(kpq, hd)[pages.long()].movedim(1, 0).reshape(
+            1, kvh, -1, hd)
+        vs = dequant(vpq, hd)[pages.long()].movedim(1, 0).reshape(
+            1, kvh, -1, hd)
+        return F.scaled_dot_product_attention(q, ks, vs, attn_mask=cmask)
+
+    ms = time_ms(lambda: P.paged_chunk_attn(q, kpq, vpq, pages, pos0, C))
+    plain = time_ms(lambda: P.paged_chunk_attention_reference(
+        q, kpq, vpq, pages, pos0, C))
+    two = time_ms(gather_dequant_sdpa_chunk)
+    bms, by = bound(4 * pairs * hd, 2 * (pos0 + C) * kvh * (hd + 4)
+                    + 2 * kvh * C * hd * 2 + pages.numel() * 4)
+    k4q = (quantized(Q, kp, "int4"), quantized(Q, vp, "int4"))
+    side_time("paged_chunk_attn[int4]",
+              lambda: P.paged_chunk_attn(q, *k4q, pages, pos0, C),
+              lambda: P.paged_chunk_attention_reference(q, *k4q, pages, pos0,
+                                                        C),
+              4 * pairs * hd, 2 * (pos0 + C) * kvh * (hd // 2 + 4)
+              + 2 * kvh * C * hd * 2 + pages.numel() * 4,
+              f"kv_h{kvh} g1 C{C} pos0 {pos0} page128 hd{hd} int4 K/V bf16 q")
+    kernels.append(dict(
+        name="paged_chunk_attn[int8]", route="cuda",
+        source="adapt_tpu_torch/csrc/paged_chunk_attn.cu",
+        replaces="adapt_tpu/ops/paged_attention.py:380",
+        launches=runs["paged_int8"]["paged_chunk_attn"],
+        max_abs_err=errs["paged_chunk_attn[int8]"], ms=ms, plain_ms=plain,
+        bound_ms=bms, bound_by=by, library_ms=None, dequant_sdpa_ms=two,
+        shape=f"kv_h{kvh} g1 C{C} pos0 {pos0} page128 hd{hd} int8 K/V "
+              "bf16 q"))
+
     if "--profile" in argv:
-        for layout in ("slots", "paged"):
-            profile_decode(torch, lm, card, layout)
+        for kv in ("native", "int8"):
+            for layout in ("slots", "paged"):
+                profile_decode(torch, lm, card, layout, kv)
     for kr in kernels:
+        lib = ("none" if kr["library_ms"] is None
+               else f"{kr['library_ms']:.4f}")
+        two = (f", dequantize + sdpa {kr['dequant_sdpa_ms']:.4f}"
+               if "dequant_sdpa_ms" in kr else "")
         print(f"{kr['name']} on {card}: {kr['ms']:.4f} ms (plain "
-              f"{kr['plain_ms']:.4f}, sdpa {kr['library_ms']:.4f}, bound "
+              f"{kr['plain_ms']:.4f}, library {lib}{two}, bound "
               f"{kr['bound_ms']:.4f} by {kr['bound_by']}) at {kr['shape']}")
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -230,8 +230,10 @@ def test_queue_bound_rejects_synchronously(lm_setup):
 
 def test_argument_errors(lm_setup):
     _, _, tlm = lm_setup
-    with pytest.raises(NotImplementedError, match="quantized"):
-        ContinuousBatcher(tlm, kv_cache_dtype="int8")
+    # Quantized strips are served: int8 values + f32 scales against f32
+    # native, (hd + 4) / (4 hd) of the bytes at head_dim 16.
+    st = ContinuousBatcher(tlm, kv_cache_dtype="int8").stats()
+    assert st["cache_bytes_ratio"] == (16 + 4) / (4 * 16)
     assert ContinuousBatcher(tlm, kv_layout="paged").stats()["pool_pages"] > 1
     with pytest.raises(ValueError, match="chunk"):
         ContinuousBatcher(tlm, chunk=0)

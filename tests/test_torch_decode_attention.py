@@ -132,10 +132,18 @@ def test_append_kv_matches_jax_including_clamp(index):
 
 
 def test_quantized_caches_and_head_mismatch_raise():
+    """Quantized (values, scales) caches are served (K2q's plain version
+    on the CPU, no kernel launch); a head mismatch and a bad ``prefer``
+    still raise."""
     q = torch.zeros(1, 2, 1, 8)
     c = torch.zeros(1, 2, 16, 8)
-    with pytest.raises(NotImplementedError, match="quantized"):
-        TD.decode_attention(q, (c, c[..., :1]), (c, c[..., :1]), 0)
+    vals = torch.ones(1, 2, 16, 8, dtype=torch.int8)
+    sc = torch.full((1, 2, 16, 1), 0.5)
+    out = TD.decode_attention(q, (vals, sc), (vals, sc), 0)
+    np.testing.assert_allclose(out.numpy(), 0.5)  # one live key, v = 1 * 0.5
+    packed = torch.zeros(1, 2, 16, 4, dtype=torch.int8)
+    out = TD.decode_attention(q, (packed, sc), (packed, sc), 3)
+    assert out.shape == q.shape
     with pytest.raises(ValueError, match="KV-head"):
         TD.decode_attention(q, c[:, :1], c[:, :1], 0)
     with pytest.raises(ValueError, match="prefer"):

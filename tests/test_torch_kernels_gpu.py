@@ -1,5 +1,6 @@
-"""The CUDA kernels (K1, K2, K2-split, K3, K3-split, K4) against their
-plain PyTorch versions, on a card. Every test is marked ``gpu`` and skips without a
+"""The CUDA kernels (K1, K2, K2-split, K3, K3-split, K4, and the int8 /
+int4 branches K2q, K3q, K4q) against their plain PyTorch versions, on a
+card. Every test is marked ``gpu`` and skips without a
 CUDA device (the kernels are CUDA C++ with no CPU mode). This file imports
 no JAX, so it also runs on a machine that has none:
 
@@ -9,7 +10,10 @@ Tolerances: f32 inputs at ``atol = rtol = 2e-5`` (only the summation
 order differs); bf16 at ``1e-2`` (one bf16 rounding of the output); the
 logsumexp at ``1e-3``. Rows with no live key (and the left padding of
 ``valid_from`` rows) are unspecified and not compared. K3 must equal K2
-bit for bit on the same K/V laid out as a dense strip."""
+bit for bit on the same K/V laid out as a dense strip, quantized or not.
+Quantized caches come from ``ops.quantize.quantize_kv_vectors`` on the
+card; the plain versions read the same bytes, so the tolerances stay the
+native ones."""
 
 import pytest
 import torch
@@ -17,6 +21,7 @@ import torch
 from adapt_tpu_torch.ops import attention as TA
 from adapt_tpu_torch.ops import decode_attention as TD
 from adapt_tpu_torch.ops import paged_attention as TP
+from adapt_tpu_torch.ops.quantize import quantize_kv_vectors
 
 K1_CASES = {
     # name: (b, h, s_q, s_k, kwargs)
@@ -133,7 +138,10 @@ def _paged_case(cuda, dtype, b, kvh, g, hd, page, pps, seed=3):
 
 
 def _strip(pool, table, length):
-    """The same K/V as a dense (b, kv_h, length, hd) strip."""
+    """The same K/V as a dense (b, kv_h, length, w) strip (each member of
+    a quantized pair)."""
+    if isinstance(pool, tuple):
+        return tuple(_strip(m, table, length) for m in pool)
     b = table.shape[0]
     win = pool[table.long()].movedim(2, 1).reshape(b, pool.shape[1], -1,
                                                    pool.shape[3])
@@ -221,3 +229,119 @@ def test_paged_cuda_refuses_plain(cuda):
                                  0, 16, prefer="xla")
     with pytest.raises(ValueError, match="head_dim"):
         TP.paged_attn(q[..., :32], pool[..., :32], pool[..., :32], table, 0)
+
+
+def _q(t, kv_dtype):
+    return quantize_kv_vectors(t, kv_dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kv_dtype", ["int8", "int4"])
+@pytest.mark.parametrize("split", [1, 4])
+@pytest.mark.parametrize("g", [1, 4])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k2q_matches_plain(cuda, kv_dtype, split, g, dtype):
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    b, kvh, L = 4, 3, 1025
+    for hd in (64, 128):
+        q = torch.randn(b, kvh, g, hd, generator=gen, device=cuda).to(dtype)
+        ck = _q(torch.randn(b, kvh, L, hd, generator=gen, device=cuda),
+                kv_dtype)
+        cv = _q(torch.randn(b, kvh, L, hd, generator=gen, device=cuda),
+                kv_dtype)
+        idx = torch.tensor([1024, 0, 517, 64], device=cuda, dtype=torch.int32)
+        vf = (idx // 3).to(torch.int32)
+        n0 = TD.decode_attn.launches + TD.decode_attn_split.launches
+        for valid_from in (None, vf):
+            got = TD.decode_attention(q, ck, cv, idx, valid_from, split=split)
+            torch.cuda.synchronize()
+            ref = TD.decode_attention_plain(q, ck, cv, idx, valid_from, split)
+            torch.testing.assert_close(got.float(), ref.float(),
+                                       atol=_tol(dtype), rtol=_tol(dtype))
+        n = TD.decode_attn.launches + TD.decode_attn_split.launches
+        assert n == n0 + 2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kv_dtype", ["int8", "int4"])
+@pytest.mark.parametrize("page", [16, 128])
+def test_k3q_equals_k2q_bitwise(cuda, kv_dtype, page):
+    q, kp, vp, table, idx = _paged_case(cuda, torch.bfloat16, 6, 3, 4, 64,
+                                        page, 1024 // page, seed=12)
+    kp, vp = _q(kp, kv_dtype), _q(vp, kv_dtype)
+    vf = (idx.clamp(min=0) // 3).to(torch.int32)
+    for valid_from in (None, vf):
+        paged = TP.paged_attn(q, kp, vp, table, idx, valid_from)
+        dense = TD.decode_attn(q, _strip(kp, table, 1025),
+                               _strip(vp, table, 1025), idx, valid_from)
+        torch.cuda.synchronize()
+        assert torch.equal(paged, dense)
+        assert not paged[-1].any()  # the dead row
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kv_dtype", ["int8", "int4"])
+@pytest.mark.parametrize("split", [1, 4])
+@pytest.mark.parametrize("page", [16, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k3q_matches_plain(cuda, kv_dtype, split, page, dtype):
+    q, kp, vp, table, idx = _paged_case(cuda, dtype, 5, 2, 4, 64, page,
+                                        512 // page, seed=13)
+    kp, vp = _q(kp.float(), kv_dtype), _q(vp.float(), kv_dtype)
+    vf = (idx.clamp(min=0) // 2).to(torch.int32)
+    n0 = TP.paged_attn.launches + TP.paged_attn_split.launches
+    for valid_from in (None, vf):
+        got = TP.paged_attention(q, kp, vp, table, idx, valid_from,
+                                 split=split)
+        torch.cuda.synchronize()
+        ref = TP.paged_attention_plain(q, kp, vp, table, idx, valid_from,
+                                       split)
+        torch.testing.assert_close(got.float(), ref.float(),
+                                   atol=_tol(dtype), rtol=_tol(dtype))
+    assert TP.paged_attn.launches + TP.paged_attn_split.launches == n0 + 2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kv_dtype", ["int8", "int4"])
+@pytest.mark.parametrize("window", [None, 200])
+@pytest.mark.parametrize("g", [1, 4])
+@pytest.mark.parametrize("hd", [64, 128])
+def test_k4q_matches_plain(cuda, kv_dtype, window, g, hd):
+    gen = torch.Generator(device=cuda).manual_seed(14)
+    page, chunk, npages, kvh = 16, 128, 40, 2
+    kp = _q(torch.randn(npages, kvh, page, hd, generator=gen, device=cuda),
+            kv_dtype)
+    vp = _q(torch.randn(npages, kvh, page, hd, generator=gen, device=cuda),
+            kv_dtype)
+    for pos0 in (0, 256):
+        q = torch.randn(1, kvh, g * chunk, hd, generator=gen,
+                        device=cuda).to(torch.bfloat16)
+        n_strip = (pos0 + chunk) // page
+        n_pad = 1 << (n_strip - 1).bit_length()
+        live = torch.randperm(npages - 1, generator=torch.Generator(
+        ).manual_seed(pos0))[:n_strip] + 1
+        pages = torch.cat([live, torch.zeros(n_pad - n_strip,
+                                             dtype=live.dtype)])
+        pages = pages.to(torch.int32).to(cuda)
+        n0 = TP.paged_chunk_attn.launches
+        got = TP.paged_chunk_attention(q, kp, vp, pages, pos0, chunk,
+                                       window=window)
+        torch.cuda.synchronize()
+        assert TP.paged_chunk_attn.launches == n0 + 1
+        ref = TP.paged_chunk_attention_reference(q, kp, vp, pages, pos0,
+                                                 chunk, window=window)
+        torch.testing.assert_close(got.float(), ref.float(), atol=1e-2,
+                                   rtol=1e-2)
+
+
+@pytest.mark.gpu
+def test_quantized_operands_are_checked(cuda):
+    q = torch.zeros(1, 1, 1, 64, device=cuda)
+    vals = torch.zeros(1, 1, 16, 64, dtype=torch.int8, device=cuda)
+    sc = torch.ones(1, 1, 16, 1, device=cuda)
+    with pytest.raises(ValueError, match="both"):
+        TD.decode_attn(q, (vals, sc), vals.float(), 0)
+    with pytest.raises(ValueError, match="width"):
+        TD.decode_attn(q, (vals[..., :16], sc), (vals[..., :16], sc), 0)
+    with pytest.raises(ValueError, match="scales"):
+        TD.decode_attn(q, (vals, sc[..., :8, :]), (vals, sc[..., :8, :]), 0)

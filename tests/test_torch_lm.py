@@ -256,7 +256,9 @@ def test_validation_errors():
         T.generate(tlm, p, 3, temperature=1.0)
     with pytest.raises(ValueError, match="prompt_lengths"):
         T.generate(tlm, p, 3, prompt_lengths=[9])
-    with pytest.raises(NotImplementedError, match="quantized"):
-        T.generate(tlm, p, 3, kv_cache_dtype="int8")
+    for kv in ("int8", "int4"):  # quantized caches are served
+        assert T.generate(tlm, p, 3, kv_cache_dtype=kv).shape == (1, 3)
+    with pytest.raises(ValueError, match="kv_cache_dtype"):
+        T.generate(tlm, p, 3, kv_cache_dtype="fp8")
     with pytest.raises(NotImplementedError, match="MoE"):
         T.transformer_lm(61, 64, 2, 8, 128, moe_experts=4, device="cpu")

@@ -193,15 +193,18 @@ def test_insert_prefill_pages_matches_jax():
 
 
 def test_quantized_pools_head_mismatch_and_prefer_raise():
+    """Quantized (values, scales) pools are served (the plain versions of
+    K3q / K4q on the CPU, no kernel launch); a head mismatch, a bad
+    ``prefer`` and kernel calls on CPU tensors still raise."""
     q = torch.zeros(1, 2, 1, 8)
     pool = torch.zeros(4, 2, 8, 8)
     table = torch.zeros(1, 2, dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="quantized"):
-        TP.paged_attention(q, (pool, pool[..., :1]), (pool, pool[..., :1]),
-                           table, 0)
-    with pytest.raises(NotImplementedError, match="quantized"):
-        TP.paged_chunk_attention(q, (pool, pool[..., :1]),
-                                 (pool, pool[..., :1]), [1], 0, 1)
+    vals = torch.ones(4, 2, 8, 8, dtype=torch.int8)
+    sc = torch.full((4, 2, 8, 1), 0.25)
+    out = TP.paged_attention(q, (vals, sc), (vals, sc), table, 0)
+    np.testing.assert_allclose(out.numpy(), 0.25)  # one live key
+    out = TP.paged_chunk_attention(q, (vals, sc), (vals, sc), [1], 0, 1)
+    np.testing.assert_allclose(out.numpy(), 0.25)
     with pytest.raises(ValueError, match="KV-head"):
         TP.paged_attention(q, pool[:, :1], pool[:, :1], table, 0)
     with pytest.raises(ValueError, match="prefer"):

@@ -465,5 +465,8 @@ def test_validation_errors_equal_jax():
         with pytest.raises(ValueError, match="pages") as e:
             b.submit(np.arange(10), steps=20)  # needs 2 of 1 allocatable
         assert "needs 2 pages" in str(e.value)
-    with pytest.raises(NotImplementedError, match="quantized"):
-        ContinuousBatcher(tlm, kv_layout="paged", kv_cache_dtype="int8")
+    # Quantized pools are served: (int8 values, f32 scales) page pairs.
+    bat = ContinuousBatcher(tlm, kv_layout="paged", kv_cache_dtype="int8")
+    vals, scales = bat._caches[0][0]
+    assert vals.dtype == torch.int8 and scales.shape[-1] == 1
+    assert vals.shape[:3] == scales.shape[:3]
