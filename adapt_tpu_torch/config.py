@@ -1,7 +1,8 @@
 """Typed configuration the ported serving core reads — copies of
-``adapt_tpu/config.py``'s ``KernelConfig`` and ``SchedulerConfig`` (with
-``TenantQuota``, which the latter names), same field names and defaults, so
-one config means the same thing in both packages.
+``adapt_tpu/config.py``'s ``KernelConfig``, ``SpeculativeConfig`` and
+``SchedulerConfig`` (with ``TenantQuota``, which the latter names), same
+field names and defaults, so one config means the same thing in both
+packages.
 
 What differs is what ``KernelConfig`` selects on this card:
 
@@ -37,6 +38,43 @@ class KernelConfig:
         if self.decode_split is not None and self.decode_split < 1:
             raise ValueError(
                 f"decode_split must be >= 1, got {self.decode_split}"
+            )
+
+
+@dataclasses.dataclass(frozen=True)
+class SpeculativeConfig:
+    """Batched speculative decoding knobs (the continuous batcher's
+    speculative mode, ``ContinuousBatcher(draft_lm=...,
+    speculative=SpeculativeConfig(...))``). Every tick runs a ``draft_k +
+    1``-step draft scan over all slots plus ONE fused verify pass; each slot
+    commits its longest agreeing prefix plus the target's correction token.
+    Greedy requests get exactly the target's argmax stream; sampled requests
+    go through speculative sampling (lossless in distribution)."""
+
+    #: Proposals per round; a slot commits 1 .. ``draft_k + 1`` tokens.
+    draft_k: int = 4
+    #: Resident dtype of the draft's weights: ``"native"``, or ``"int8"`` —
+    #: every matrix leaf blockwise int8 (``ops.quantize.quantize_params``),
+    #: dequantized inside each draft scan and draft prefill. The draft's
+    #: quality moves acceptance only, never the emitted stream.
+    draft_weight_dtype: str = "native"
+    #: Tree-draft width: 0 = chain speculation. w >= 1 appends the draft's
+    #: top-w candidates for the position after the chain as leaf rows of
+    #: the verify chunk; a leaf hit commits one bonus token (up to
+    #: ``draft_k + 2`` per pass).
+    tree_width: int = 0
+
+    def __post_init__(self):
+        if self.draft_k < 1:
+            raise ValueError(f"draft_k must be >= 1, got {self.draft_k}")
+        if self.draft_weight_dtype not in ("native", "int8"):
+            raise ValueError(
+                f"draft_weight_dtype={self.draft_weight_dtype!r}: "
+                "expected 'native' or 'int8'"
+            )
+        if self.tree_width < 0:
+            raise ValueError(
+                f"tree_width must be >= 0, got {self.tree_width}"
             )
 
 

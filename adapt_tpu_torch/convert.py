@@ -17,6 +17,12 @@ Mapping (flax -> torch):
   ``(dim, heads, hd)`` and ``kv`` kernel ``(dim, 2, kv_h, hd)`` likewise.
 - ``LayerNorm`` scale/bias, ``Embed.embedding`` and ``pos_embed`` (present
   only with learned positions) keep their shapes.
+- A blockwise-int8 leaf (the JAX package's ``ops.quantize.QuantizedTensor``,
+  as ``quantize_params`` leaves a speculative draft's matrices) is given as
+  the numpy 4-tuple ``(values, scales, shape, dtype)``: :func:`quantized_leaf`
+  carries it into the port's ``QuantizedTensor``, and :func:`from_flax`
+  dequantizes it with the port's own ``dequantize`` before mapping — so the
+  very int8 payload JAX produced loads as the draft's weights.
 """
 
 from __future__ import annotations
@@ -25,14 +31,40 @@ import numpy as np
 import torch
 
 
+from adapt_tpu_torch.ops.quantize import QuantizedTensor, dequantize
+
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+           "float16": torch.float16}
+
+
+def quantized_leaf(values, scales, shape, dtype) -> QuantizedTensor:
+    """The numpy fields of a JAX ``QuantizedTensor`` -> the port's (CPU
+    tensors; ``dtype`` is the logical dtype's name or numpy dtype)."""
+    name = np.dtype(dtype).name if not isinstance(dtype, str) else dtype
+    if name not in _DTYPES:
+        raise ValueError(f"quantized leaf dtype {name!r} is not a float type")
+    return QuantizedTensor(
+        torch.from_numpy(np.array(values, dtype=np.int8, copy=True)),
+        torch.from_numpy(np.array(scales, dtype=np.float32, copy=True)),
+        tuple(int(d) for d in shape), _DTYPES[name],
+    )
+
+
+def _arr(x) -> np.ndarray:
+    """A leaf as an f32 numpy array; a quantized 4-tuple dequantizes."""
+    if isinstance(x, tuple) and len(x) == 4:
+        return dequantize(quantized_leaf(*x)).to(torch.float32).numpy()
+    return np.asarray(x, np.float32)
+
+
 def _t(x) -> torch.Tensor:
-    return torch.from_numpy(np.array(x, dtype=np.float32, copy=True))
+    return torch.from_numpy(np.array(_arr(x), dtype=np.float32, copy=True))
 
 
 def _dense(out: dict, prefix: str, p: dict) -> None:
-    kernel = np.asarray(p["kernel"], np.float32)
+    kernel = _arr(p["kernel"])
     out[f"{prefix}.weight"] = _t(kernel.reshape(kernel.shape[0], -1).T)
-    out[f"{prefix}.bias"] = _t(np.asarray(p["bias"]).reshape(-1))
+    out[f"{prefix}.bias"] = _t(_arr(p["bias"]).reshape(-1))
 
 
 def _norm(out: dict, prefix: str, p: dict) -> None:

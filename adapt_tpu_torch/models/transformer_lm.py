@@ -5,12 +5,14 @@ positions; sliding window).
 
 The model is an ``nn.Module`` whose submodules carry the JAX graph's node
 names (``embed``, ``decoder_block_{i}``, ``head``), so ``convert.from_flax``
-maps a flax ``variables`` tree onto its ``state_dict`` by name. Five
+maps a flax ``variables`` tree onto its ``state_dict`` by name. Seven
 schedules share one set of weights: the full causal forward
 (:func:`logits_full`), ``prefill`` (K1 on CUDA), the cached
-``decode_step`` over dense strips (K2), and over a paged pool
+``decode_step`` over dense strips (K2), over a paged pool
 ``decode_step_paged`` (K3) and the chunk pass ``prefill_chunk_paged``
-(K4). A KV cache is a tensor or a quantized ``(values, scales)`` pair
+(K4), and the speculative verify passes ``verify_chunk`` (dense strips,
+plain tensor operations as in the JAX package) and ``verify_chunk_paged``
+(K5). A KV cache is a tensor or a quantized ``(values, scales)`` pair
 (``ops/quantize``: int8, or int4 packed two per byte, with one f32 scale
 per vector); every cache write quantizes through one definition
 (:meth:`CausalSelfAttention._write_kv_pair`) and the kernels read the
@@ -49,10 +51,12 @@ from adapt_tpu_torch.ops.decode_attention import (
     _row_index,
     append_kv,
     decode_attention,
+    verify_attention,
 )
 from adapt_tpu_torch.ops.paged_attention import (
     paged_attention,
     paged_chunk_attention,
+    paged_verify_attention,
     pool_values,
 )
 from adapt_tpu_torch.ops.quantize import quantize_kv_vectors
@@ -84,10 +88,23 @@ def _row_keys(seeds, rows, counters):
     return _mix32(k ^ (counters & _M32))
 
 
-def gumbel_noise(seeds, rows, counters, vocab: int):
+def _salted(key, salt: int):
+    """A domain-separated key stream off the same (seed, row, t)."""
+    return _mix32(key ^ salt) if salt else key
+
+
+def uniform_draw(seeds, rows, counters, salt: int = 0):
+    """(n,) f32 uniforms in (0, 1), a pure function of (seed, row, t) and
+    the ``salt`` that separates this draw from the others off the key."""
+    h = _mix32(_salted(_row_keys(seeds, rows, counters), salt) ^ 0x2545F491)
+    return ((h >> 9).to(torch.float32) + 0.5) * (2.0 ** -23)
+
+
+def gumbel_noise(seeds, rows, counters, vocab: int, salt: int = 0):
     """(n, vocab) f32 Gumbel noise, a pure function of (seed, row, t,
-    column): the same on any batch that holds the row."""
-    key = _row_keys(seeds, rows, counters)
+    column): the same on any batch that holds the row. A non-zero ``salt``
+    gives an independent stream off the same key."""
+    key = _salted(_row_keys(seeds, rows, counters), salt)
     cols = _mix32(torch.arange(vocab, device=key.device) ^ 0x632BE5AB)
     h = _mix32(key[:, None] ^ cols[None, :])
     u = ((h >> 9).to(torch.float32) + 0.5) * (2.0 ** -23)  # (0, 1)
@@ -459,6 +476,86 @@ class CausalSelfAttention(nn.Module):
         return self.out(o), k_pool, v_pool
 
 
+    def _verify_offsets(self, kc, tree_tail, device):
+        """Logical offsets of a verify chunk's rows: chain rows at their
+        own, tree leaves sharing the position after the chain."""
+        offs = torch.arange(kc, device=device)
+        return torch.clamp(offs, max=kc - tree_tail) if tree_tail else offs
+
+    def verify_chunk(self, x, cache_k, cache_v, index, tree_tail=0):
+        """Append a CHUNK of K tokens at positions ``index .. index + K -
+        1`` in one cached pass — the speculative verify primitive over
+        dense strips: row t attends the cache up to ``index + t``, so the
+        K outputs equal K sequential ``decode_step`` calls. ``index`` is a
+        scalar or (b,) (each slot at its own position; a negative row is
+        dead). One ``append_kv`` scatter writes the chunk (quantized pairs
+        quantize first); rejected suffixes need no rollback, the position
+        mask never admits them. ``tree_tail`` = w marks the last w rows as
+        tree leaves: they embed / rotate at the shared logical position
+        ``index + K - w``, write at their own physical slots ``index +
+        row`` and attend the chain plus themselves only."""
+        b, kc, _ = x.shape
+        q, k, v = self._project(x)
+        if self.rope:
+            offs = self._verify_offsets(kc, tree_tail, x.device)
+            pos = _row_index(index, b, x.device)[:, None] + offs[None, :]
+            q, k = self._rope_qk(q, k, pos)
+        q = self._group_q(q)
+        cache_k, cache_v = self._write_kv_pair(
+            cache_k, cache_v, k, v, lambda c, t: append_kv(c, t, index))
+        o = verify_attention(
+            q, cache_k, cache_v, index, kc, window=self.window,
+            tree_tail=tree_tail,
+        ).to(x.dtype)
+        o = self._ungroup_o(o, kc).transpose(1, 2).reshape(b, kc, self.dim)
+        return self.out(o), cache_k, cache_v
+
+    def verify_chunk_paged(self, x, k_pool, v_pool, page_table, index,
+                           attn_impl=None, tree_tail=0, split=None):
+        """Batched verify over a PAGED cache: scatter each slot's K chunk
+        tokens into its own pages at ``index[b] .. index[b] + K - 1`` (one
+        table-mapped scatter), then attend each row's paged window up to
+        its own diagonal (K5 on CUDA). ``index`` (b,); a negative row is
+        dead (an idle or mid-prefill slot): its writes go to trash page 0
+        and its positions all mask. Quantized pools scatter the chunk's
+        quantized K/V into both members. ``tree_tail`` as in
+        :meth:`verify_chunk`."""
+        b, kc, _ = x.shape
+        page = pool_values(k_pool).shape[2]
+        pps = page_table.shape[1]
+        q, k, v = self._project(x)
+        idx = _row_index(index, b, x.device)
+        if self.rope:
+            offs = self._verify_offsets(kc, tree_tail, x.device)
+            q, k = self._rope_qk(q, k, idx[:, None] + offs[None, :])
+        q = self._group_q(q)
+        live_row = idx >= 0
+        pos = (torch.clamp(idx, min=0)[:, None]
+               + torch.arange(kc, device=x.device)[None, :]).long()
+        # Clamp BEFORE the gather, as decode_step_paged does.
+        phys = torch.gather(page_table, 1,
+                            torch.clamp(pos // page, max=pps - 1))
+        phys = torch.where(live_row[:, None], phys.long(), 0)  # dead -> trash
+        kvh = k.shape[1]
+        heads = torch.arange(kvh, device=x.device)
+        # Pool rows (phys[b, t], h, pos[b, t] % page) <- token t of slot b.
+        rows = ((phys[:, :, None] * kvh + heads) * page
+                + (pos % page)[:, :, None]).reshape(-1)
+
+        def write(pool, t):
+            w = pool.shape[-1]
+            return pool.view(-1, w).index_copy_(
+                0, rows, t.transpose(1, 2).reshape(-1, w).to(pool.dtype))
+
+        self._write_kv_pair(k_pool, v_pool, k, v, write)
+        o = paged_verify_attention(
+            q, k_pool, v_pool, page_table, idx, kc, prefer=attn_impl,
+            window=self.window, tree_tail=tree_tail, split=split,
+        ).to(x.dtype)
+        o = self._ungroup_o(o, kc).transpose(1, 2).reshape(b, kc, self.dim)
+        return self.out(o), k_pool, v_pool
+
+
 class DecoderBlock(nn.Module):
     """Pre-LN decoder block with the dense GELU MLP."""
 
@@ -527,6 +624,23 @@ class DecoderBlock(nn.Module):
                             attn_impl=None):
         a, kp, vp = self.attn.prefill_chunk_paged(
             self.ln1(x), k_pool, v_pool, pages, pos0, attn_impl
+        )
+        x = x + a
+        return x + self._mlp(self.ln2(x)), kp, vp
+
+
+    def verify_chunk(self, x, cache_k, cache_v, index, tree_tail=0):
+        a, ck, cv = self.attn.verify_chunk(
+            self.ln1(x), cache_k, cache_v, index, tree_tail
+        )
+        x = x + a
+        return x + self._mlp(self.ln2(x)), ck, cv
+
+    def verify_chunk_paged(self, x, k_pool, v_pool, page_table, index,
+                           attn_impl=None, tree_tail=0, split=None):
+        a, kp, vp = self.attn.verify_chunk_paged(
+            self.ln1(x), k_pool, v_pool, page_table, index, attn_impl,
+            tree_tail, split,
         )
         x = x + a
         return x + self._mlp(self.ln2(x)), kp, vp

@@ -26,12 +26,16 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_kernels_build"
 
 #: kernel library name -> its C entry point's ctypes signature.
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I, _F, _L = (ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
+                  ctypes.c_longlong)
 KERNELS = {
     "flash_attn_fwd": [_P] * 7 + [_I] * 8 + [_F, _P],
     "decode_attn": [_P] * 11 + [_I] * 8 + [_F, _P],
     "paged_attn": [_P] * 12 + [_I] * 9 + [_F, _P],
     "paged_chunk_attn": [_P] * 7 + [_I] * 10 + [_F, _P],
+    "paged_verify_attn": [_P] * 11 + [_I] * 12 + [_F, _P],
+    "quantize_blocks": [_P] * 3 + [_L, _I, _I, _P],
+    "dequantize_blocks": [_P] * 3 + [_L, _I, _P],
 }
 
 NVCC_FLAGS = [

@@ -15,6 +15,11 @@ computes what the kernel computes tile for tile (64-key tiles, dead tiles
 skipped, per-split partials, the same combine). Any ``L`` is served. The
 scales are applied in the reference's op order: ``(q . k_int) * k_scale *
 sm``, then ``softmax(...) * v_scale`` against ``v_int``.
+
+:func:`verify_attention`, the speculative verify over dense strips, has no
+kernel in either package: the JAX package runs it as an einsum schedule
+outside any Pallas kernel, and so does the port, as plain tensor operations
+on the card too.
 """
 
 from __future__ import annotations
@@ -129,6 +134,56 @@ def decode_attention_reference(q, cache_k, cache_v, index, valid_from=None):
         vf = torch.as_tensor(valid_from, device=q.device)
         live = live & (positions[None, :] >= vf[:, None])
     s = torch.where(live[:, None, None, :], s, _NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    return _pv(p, v, vsc).to(q.dtype)
+
+
+def verify_live(index, b, rows, n_pos, chunk, window, tree_tail, device):
+    """The verify mask ``(b, rows, n_pos)``: folded row ``r`` is chunk
+    position ``t = r % chunk``; it attends ``col <= index + depth(t)`` with
+    ``depth = min(t, chunk - 1 - tree_tail)`` (banded below by ``window``),
+    and a tree leaf also its own slot ``col == index + t``."""
+    cols = torch.arange(n_pos, device=device)
+    t = torch.arange(rows, device=device) % chunk
+    depth = torch.clamp(t, max=chunk - 1 - tree_tail) if tree_tail else t
+    idx = _row_index(index, b, device)
+    edge = idx[:, None, None] + depth[None, :, None]
+    live = cols[None, None, :] <= edge
+    if window is not None:
+        live = live & (cols[None, None, :] > edge - window)
+    if tree_tail:
+        own = idx[:, None, None] + t[None, :, None]
+        live = live | (cols[None, None, :] == own)
+    return live
+
+
+def verify_attention(q, cache_k, cache_v, index, chunk: int, window=None,
+                     tree_tail: int = 0):
+    """Multi-token VERIFY attention over dense strips: ``chunk`` rows per
+    slot, each attending the cache up to its own position — the port of
+    ``adapt_tpu.ops.decode_attention.verify_attention``.
+
+    q (b, kv_h, g * chunk, hd) group-folded K-major (row = member * chunk +
+    t); caches (b, kv_h, L, hd), or quantized pairs, with the chunk's K/V
+    already appended; ``index`` scalar or (b,) is the cache position of
+    chunk token 0. A negative row index is a dead row: everything masks and
+    the output is finite garbage nothing reads. ``tree_tail`` = w marks the
+    last w rows as tree leaves (see :func:`verify_live`). Quantized caches
+    apply their scales in :func:`decode_attention_reference`'s op order, so
+    a verify chunk's rows equal sequential quantized decode steps.
+
+    No kernel: the JAX package runs this einsum schedule outside any Pallas
+    kernel, so it stays plain tensor operations (matmul + softmax) on the
+    card as well — deliberately not ``scaled_dot_product_attention``."""
+    hd = q.shape[-1]
+    check_head_parity(q.shape[1], cache_values(cache_k).shape[1])
+    sm = 1.0 / torch.sqrt(torch.tensor(hd, dtype=torch.float32))
+    k, ksc = _operand(cache_k, hd)
+    v, vsc = _operand(cache_v, hd)
+    s = _qk(q, k, ksc, sm.to(q.device))
+    live = verify_live(index, q.shape[0], q.shape[2], k.shape[2], chunk,
+                       window, tree_tail, q.device)
+    s = torch.where(live[:, None], s, _NEG_INF)
     p = torch.softmax(s, dim=-1)
     return _pv(p, v, vsc).to(q.dtype)
 

@@ -1,5 +1,6 @@
-"""Paged attention: kernels K3 / K3-split (``csrc/paged_attn.cu``) and K4
-(``csrc/paged_chunk_attn.cu``) over a shared KV page pool, and their plain
+"""Paged attention: kernels K3 / K3-split (``csrc/paged_attn.cu``), K4
+(``csrc/paged_chunk_attn.cu``) and K5 / K5-split
+(``csrc/paged_verify_attn.cu``) over a shared KV page pool, and their plain
 PyTorch versions.
 
 Counterpart of ``adapt_tpu/ops/paged_attention.py``. Layouts stay the JAX
@@ -13,9 +14,10 @@ package's:
   and of dead rows' writes, and is never read unmasked;
 - page table: ``(slots, pages_per_slot)`` int32 physical page ids in
   logical order;
-- q: ``(slots, kv_heads, g, head_dim)`` group-folded for decode, and
+- q: ``(slots, kv_heads, g, head_dim)`` group-folded for decode,
   ``(1, kv_heads, g * chunk, head_dim)`` (row = member * chunk + position)
-  for a chunk pass.
+  for a chunk pass, and ``(slots, kv_heads, g * chunk, head_dim)`` for the
+  batched speculative verify (K5), each slot's rows on its own diagonal.
 
 A CUDA tensor launches the kernel, which walks each slot's page-table row
 itself (no gather of pages into a strip); a CPU tensor runs the plain
@@ -24,8 +26,7 @@ two layouts), so its plain version is K2's on the slot's gathered window:
 the same 64-key tiles, dead-tile skip and split partials. Any page size
 is served: the TPU gates ``page % 128`` (and ``page % 1024`` for quantized
 pools) are not carried over. A quantized pool launches the kernels' int8 /
-int4 branches (K3q, K4q), which read the bytes and scales themselves;
-``paged_verify_attention`` (K5) waits for the speculative slice.
+int4 branches (K3q, K4q, K5q), which read the bytes and scales themselves.
 """
 
 from __future__ import annotations
@@ -48,6 +49,8 @@ from adapt_tpu_torch.ops.decode_attention import (
     decode_attention_reference,
     kernel_kv,
     split_kv,
+    verify_attention,
+    verify_live,
 )
 
 DEFAULT_PAGE_SIZE = 128
@@ -126,6 +129,72 @@ def paged_chunk_attention_reference(q, k_pool, v_pool, pages, pos0,
     s = torch.where(live[None, None], s, _NEG_INF)
     p = torch.softmax(s, dim=-1)
     return _pv(p, v, vsc).to(q.dtype)
+
+
+def paged_verify_attention_reference(q, k_pool, v_pool, page_table, index,
+                                     chunk: int, window: int | None = None,
+                                     tree_tail: int = 0):
+    """The gather oracle of the batched paged verify: each slot's pages
+    gathered into a contiguous window, then the dense verify
+    (:func:`decode_attention.verify_attention`). q (b, kv_h, g * chunk, hd)
+    group-folded K-major; ``index`` (b,) per-slot base positions. A dead
+    row (negative index) comes out as a uniform average nothing reads —
+    where K5 and its plain version emit zeros."""
+    return verify_attention(
+        q, _gather_window(k_pool, page_table),
+        _gather_window(v_pool, page_table), index, chunk, window=window,
+        tree_tail=tree_tail,
+    )
+
+
+def _verify_partials(q, k_pool, v_pool, page_table, index, chunk, window,
+                     tree_tail, split):
+    """Plain per-split partials (acc, m, l) of what K5-split computes: each
+    split owns ``ceil(pps / split)`` pages of the slot's table row (the
+    ragged tail empty), a slot whose last chunk position is negative skips
+    everything (m = -1e30, l = 0), and a split holding no live key of a row
+    contributes nothing to it."""
+    b, kvh, gc, hd = q.shape
+    page = pool_values(k_pool).shape[2]
+    pps = page_table.shape[1]
+    k, ksc = _operand(_gather_window(k_pool, page_table), hd)
+    v, vsc = _operand(_gather_window(v_pool, page_table), hd)
+    n_pos = k.shape[2]
+    dev = q.device
+    s = _qk(q, k, ksc, 1.0 / (hd ** 0.5))
+    idx = _row_index(index, b, dev)
+    live = verify_live(idx, b, gc, n_pos, chunk, window, tree_tail, dev)
+    live = live & (idx + chunk - 1 >= 0)[:, None, None]
+    owner = (torch.arange(n_pos, device=dev) // page) // (-(-pps // split))
+    o_p, m_p, l_p = [], [], []
+    for sp in range(split):
+        mask = (live & (owner == sp)[None, None, :])[:, None]
+        m = torch.where(mask, s, float("-inf")).amax(-1)
+        m = torch.clamp(m, min=_NEG_INF)
+        p = torch.where(mask, torch.exp(s - m[..., None]), 0.0)
+        o_p.append(_pv(p, v, vsc))
+        m_p.append(m)
+        l_p.append(p.sum(-1))
+    rows = b * kvh
+    return (
+        torch.stack(o_p, 2).reshape(rows, split, gc, hd),
+        torch.stack(m_p, 2).reshape(rows, split, gc),
+        torch.stack(l_p, 2).reshape(rows, split, gc),
+    )
+
+
+def paged_verify_attention_plain(q, k_pool, v_pool, page_table, index,
+                                 chunk: int, window: int | None = None,
+                                 tree_tail: int = 0, split: int = 1):
+    """The plain version of K5 (``split == 1``) and K5-split, native or
+    quantized: live rows as the gather oracle, dead rows zeros."""
+    b, kvh, gc, hd = q.shape
+    o, m, l = _verify_partials(q, k_pool, v_pool, page_table, index, chunk,
+                               window, tree_tail, split)
+    if split == 1:
+        out = o[:, 0] / torch.clamp(l[:, 0, :, None], min=1e-30)
+        return out.to(q.dtype).reshape(b, kvh, gc, hd)
+    return _combine_splits(o, m, l, q.dtype).reshape(b, kvh, gc, hd)
 
 
 def _check_pools(q, k_pool, v_pool, what):
@@ -227,10 +296,72 @@ def paged_chunk_attn(q, k_pool, v_pool, pages, pos0: int, chunk: int,
     return out
 
 
-#: Launches of K3 / K3-split / K4 (kernel calls only).
+def _launch_verify(q, k_pool, v_pool, page_table, index, chunk, window,
+                   tree_tail, split, out, parts):
+    k, v, ks, vs, code = _check_pools(q, k_pool, v_pool, "K5")
+    b, kvh, gc, hd = q.shape
+    if chunk < 1 or gc % chunk:
+        raise ValueError(f"{gc} folded rows are not a multiple of {chunk}")
+    if not 0 <= tree_tail < chunk:
+        raise ValueError(f"tree_tail {tree_tail} outside [0, {chunk})")
+    if window is not None and window < 1:
+        raise ValueError(f"window must be >= 1, got {window}")
+    if page_table.dim() != 2 or page_table.shape[0] != b:
+        raise ValueError(
+            f"page table shape {tuple(page_table.shape)} vs {b} rows"
+        )
+    table = page_table.to(torch.int32).contiguous()
+    idx = _row_index(index, b, q.device)
+    o_p, m_p, l_p = parts if parts is not None else (None, None, None)
+    ptr = lambda t: t.data_ptr() if t is not None else None  # noqa: E731
+    err = _build.load("paged_verify_attn").paged_verify_attn(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), ptr(ks), ptr(vs),
+        table.data_ptr(), idx.data_ptr(), ptr(out), ptr(o_p), ptr(m_p),
+        ptr(l_p), b, kvh, gc, chunk, int(window or 0), tree_tail,
+        table.shape[1], k.shape[2], hd, split, _build.dtype_code(q.dtype),
+        code, 1.0 / math.sqrt(hd),
+        torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    _build.check(err, "paged_verify_attn")
+
+
+def paged_verify_attn(q, k_pool, v_pool, page_table, index, chunk: int,
+                      window: int | None = None, tree_tail: int = 0):
+    """Launch K5 (one block per (slot, kv head, 16 folded rows)) on CUDA
+    tensors; a quantized pool launches its int8 / int4 branch (K5q)."""
+    q = q.contiguous()
+    out = torch.empty_like(q)
+    _launch_verify(q, k_pool, v_pool, page_table, index, chunk, window,
+                   tree_tail, 1, out, None)
+    paged_verify_attn.launches += 1
+    return out
+
+
+def paged_verify_attn_split(q, k_pool, v_pool, page_table, index, chunk: int,
+                            window: int | None = None, tree_tail: int = 0,
+                            split: int = 2):
+    """Launch K5-split (one block per (slot, kv head, split, 16 folded
+    rows)) on CUDA tensors and combine its partials."""
+    q = q.contiguous()
+    b, kvh, gc, hd = q.shape
+    f32 = dict(dtype=torch.float32, device=q.device)
+    parts = (
+        torch.empty((b * kvh, split, gc, hd), **f32),
+        torch.empty((b * kvh, split, gc), **f32),
+        torch.empty((b * kvh, split, gc), **f32),
+    )
+    _launch_verify(q, k_pool, v_pool, page_table, index, chunk, window,
+                   tree_tail, split, None, parts)
+    paged_verify_attn_split.launches += 1
+    return _combine_splits(*parts, q.dtype).reshape(b, kvh, gc, hd)
+
+
+#: Launches of K3 / K3-split / K4 / K5 / K5-split (kernel calls only).
 paged_attn.launches = 0
 paged_attn_split.launches = 0
 paged_chunk_attn.launches = 0
+paged_verify_attn.launches = 0
+paged_verify_attn_split.launches = 0
 
 
 def _check_prefer(prefer, q):
@@ -241,7 +372,7 @@ def _check_prefer(prefer, q):
     if q.is_cuda and prefer == "xla":
         raise ValueError(
             "prefer='xla' selects the plain version, which CUDA tensors "
-            "refuse: the card's paged path runs the K3/K4 kernels"
+            "refuse: the card's paged path runs the K3/K4/K5 kernels"
         )
 
 
@@ -280,3 +411,31 @@ def paged_attention(q, k_pool, v_pool, page_table, index, valid_from=None,
         return paged_attn(q, k_pool, v_pool, page_table, index, valid_from)
     return paged_attn_split(q, k_pool, v_pool, page_table, index,
                             valid_from, split)
+
+
+def paged_verify_attention(q, k_pool, v_pool, page_table, index, chunk: int,
+                           prefer=None, window: int | None = None,
+                           tree_tail: int = 0, split=None):
+    """Batched multi-token verify attention over a paged KV cache — the
+    speculative counterpart of :func:`paged_attention`: ``chunk`` rows per
+    slot, each masked to its own ``index[b] + t`` diagonal (the caller has
+    already scattered the chunk's K/V into the pages). K5 (``split`` 1 or
+    None) or K5-split plus the rescale combine on CUDA, the plain version
+    on CPU. Pools may be quantized pairs; ``tree_tail`` marks the chunk's
+    last w rows as tree-draft leaves. ``prefer="xla"`` selects the plain
+    version, which a CUDA tensor refuses."""
+    check_head_parity(q.shape[1], pool_values(k_pool).shape[1])
+    _check_prefer(prefer, q)
+    split = 1 if split is None else int(split)
+    if split < 1:
+        raise ValueError(f"split must be >= 1, got {split}")
+    if not q.is_cuda:
+        return paged_verify_attention_plain(
+            q, k_pool, v_pool, page_table, index, chunk, window, tree_tail,
+            split,
+        )
+    if split == 1:
+        return paged_verify_attn(q, k_pool, v_pool, page_table, index, chunk,
+                                 window, tree_tail)
+    return paged_verify_attn_split(q, k_pool, v_pool, page_table, index,
+                                   chunk, window, tree_tail, split)

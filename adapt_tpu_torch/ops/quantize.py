@@ -1,6 +1,11 @@
-"""KV-cache quantization: one f32 absmax scale per cached key/value vector
-— the port of ``adapt_tpu/ops/quantize.py``'s ``pack_int4``,
-``unpack_int4`` and ``quantize_kv_vectors``.
+"""Quantization: the per-vector KV-cache scheme and the blockwise int8
+tensor codec (kernels K6, ``csrc/quantize_blocks.cu`` and
+``csrc/dequantize_blocks.cu``) — the port of ``adapt_tpu/ops/quantize.py``'s
+``pack_int4``, ``unpack_int4``, ``quantize_kv_vectors``, ``quantize`` /
+``dequantize`` (with their ``*_reference`` plain versions) and
+``quantize_params`` / ``dequantize_params``.
+
+KV caches: one f32 absmax scale per cached key/value vector.
 
 The op order is the JAX package's (f32 absmax / qmax, clamped at 1e-8,
 then ``round(t / scale)`` clipped to ``±qmax``; ``torch.round`` rounds half
@@ -11,11 +16,29 @@ lane (element ``2i`` in the low nibble of byte ``i``, ``2i + 1`` in the
 high one). The attention kernels consume these bytes directly
 (``csrc/decode_tile.cuh``'s cache-element policies); nothing here
 dequantizes a cache for them.
+
+Blockwise int8 (the speculative draft's resident weights): the tensor is
+flattened, viewed as ``(rows, 128)`` and cut into blocks of ``64 * 128``
+elements (the tail zero-padded); each block gets one f32 scale
+``max(absmax, 1e-12) / 127`` and its values are ``clip(round(x / scale),
+-127, 127)``. A CUDA tensor launches K6, a CPU tensor runs the plain
+version; both are bit-equal to the JAX package's on the same input (a true
+division, round half to even, one rounding into the target dtype on the way
+back).
 """
 
 from __future__ import annotations
 
+import dataclasses
+import math
+
 import torch
+
+from adapt_tpu_torch.ops import _build
+
+LANES = 128
+BLOCK_ROWS = 64  # one scale per 64 * 128 = 8192 elements
+BLOCK = BLOCK_ROWS * LANES
 
 KV_DTYPES = ("int8", "int4")
 
@@ -69,3 +92,137 @@ def kv_values(cache, head_dim: int):
     if cache.shape[-1] * 2 == head_dim:
         return unpack_int4(cache)
     return cache.to(torch.int32)
+
+
+# -- blockwise int8 (K6) -----------------------------------------------------
+
+
+@dataclasses.dataclass
+class QuantizedTensor:
+    """int8 payload + per-block scales + logical shape / dtype."""
+
+    values: torch.Tensor  # (rows, 128) int8, padded to whole blocks
+    scales: torch.Tensor  # (num_blocks, 1) f32
+    shape: tuple[int, ...]
+    dtype: torch.dtype
+
+    @property
+    def nbytes_payload(self) -> int:
+        return self.values.numel() + self.scales.numel() * 4
+
+
+def _num_blocks(n: int) -> int:
+    return -(-n // BLOCK)
+
+
+def quantize_reference(x) -> QuantizedTensor:
+    """The plain version of K6-quantize (``adapt_tpu.ops.quantize.
+    quantize_reference``)."""
+    flat = x.to(torch.float32).reshape(-1)
+    nb = _num_blocks(flat.numel())
+    flat = torch.nn.functional.pad(flat, (0, nb * BLOCK - flat.numel()))
+    blocks = flat.reshape(nb, BLOCK)
+    amax = torch.amax(torch.abs(blocks), dim=1, keepdim=True)
+    # Divide by a TENSOR 127: by a Python scalar, the CUDA division kernel
+    # multiplies by the reciprocal, which is not the true division the
+    # scheme defines (the results differ in the last bit).
+    scales = torch.clamp(amax, min=1e-12) / torch.full_like(amax, 127.0)
+    q = torch.round(blocks / scales).clamp(-127.0, 127.0).to(torch.int8)
+    return QuantizedTensor(q.reshape(-1, LANES), scales, tuple(x.shape),
+                           x.dtype)
+
+
+def dequantize_reference(qt: QuantizedTensor):
+    """The plain version of K6-dequantize: ``int8 * scale`` in f32, cut to
+    the logical size, cast to the logical dtype."""
+    nb = qt.scales.shape[0]
+    blocks = qt.values.reshape(nb, BLOCK).to(torch.float32)
+    out = (blocks * qt.scales).reshape(-1)
+    return out[: math.prod(qt.shape)].reshape(qt.shape).to(qt.dtype)
+
+
+def quantize_blocks(x) -> QuantizedTensor:
+    """Launch K6-quantize on a CUDA tensor (f32 / bf16 / f16): one block
+    per 8192-element quantization block, the input read in its own dtype
+    and the ragged tail zero-padded in the kernel."""
+    if not x.is_cuda:
+        raise ValueError("K6 launches on CUDA tensors only")
+    x = x.contiguous()
+    n = x.numel()
+    nb = _num_blocks(n)
+    vals = torch.empty((nb * BLOCK_ROWS, LANES), dtype=torch.int8,
+                       device=x.device)
+    scales = torch.empty((nb, 1), dtype=torch.float32, device=x.device)
+    if nb:
+        err = _build.load("quantize_blocks").quantize_blocks(
+            x.data_ptr(), vals.data_ptr(), scales.data_ptr(), n, nb,
+            _build.dtype_code(x.dtype),
+            torch.cuda.current_stream(x.device).cuda_stream,
+        )
+        _build.check(err, "quantize_blocks")
+        quantize_blocks.launches += 1
+    return QuantizedTensor(vals, scales, tuple(x.shape), x.dtype)
+
+
+def dequantize_blocks(qt: QuantizedTensor):
+    """Launch K6-dequantize on a CUDA payload: writes the logical-size
+    tensor directly in the logical dtype."""
+    if not (qt.values.is_cuda and qt.scales.is_cuda):
+        raise ValueError("K6 launches on CUDA tensors only")
+    n = math.prod(qt.shape)
+    out = torch.empty(qt.shape, dtype=qt.dtype, device=qt.values.device)
+    if n:
+        vals, scales = qt.values.contiguous(), qt.scales.contiguous()
+        if vals.numel() < n or scales.numel() != _num_blocks(n):
+            raise ValueError(
+                f"payload {tuple(vals.shape)} / {tuple(scales.shape)} does "
+                f"not cover shape {qt.shape}")
+        err = _build.load("dequantize_blocks").dequantize_blocks(
+            vals.data_ptr(), scales.data_ptr(), out.data_ptr(), n,
+            _build.dtype_code(qt.dtype),
+            torch.cuda.current_stream(out.device).cuda_stream,
+        )
+        _build.check(err, "dequantize_blocks")
+        dequantize_blocks.launches += 1
+    return out
+
+
+#: Launches of K6-quantize / K6-dequantize (kernel calls only).
+quantize_blocks.launches = 0
+dequantize_blocks.launches = 0
+
+
+def quantize(x) -> QuantizedTensor:
+    """Blockwise int8-quantize a tensor of any shape: K6 on CUDA, the
+    plain version on CPU."""
+    return quantize_blocks(x) if x.is_cuda else quantize_reference(x)
+
+
+def dequantize(qt: QuantizedTensor):
+    """Inverse of :func:`quantize`: K6 on CUDA, the plain version on CPU."""
+    if qt.values.is_cuda:
+        return dequantize_blocks(qt)
+    return dequantize_reference(qt)
+
+
+def quantize_params(tree):
+    """int8-quantize every float MATRIX leaf (``ndim >= 2``) of a nested
+    dict of tensors (a ``state_dict``) into :class:`QuantizedTensor`; 1-D
+    leaves — biases, LayerNorm scales — stay native."""
+    if isinstance(tree, dict):
+        return {k: quantize_params(v) for k, v in tree.items()}
+    if torch.is_tensor(tree) and tree.ndim >= 2 and tree.is_floating_point():
+        return quantize(tree.detach())
+    return tree
+
+
+def dequantize_params(tree):
+    """Inverse of :func:`quantize_params`: every :class:`QuantizedTensor`
+    leaf dequantized, everything else passed through. Called inside each
+    draft scan and draft prefill, so the float weights live only for that
+    call."""
+    if isinstance(tree, dict):
+        return {k: dequantize_params(v) for k, v in tree.items()}
+    if isinstance(tree, QuantizedTensor):
+        return dequantize(tree)
+    return tree

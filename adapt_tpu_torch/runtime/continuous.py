@@ -49,8 +49,30 @@ Lifecycle: ``submit`` / ``tick`` / ``run`` / ``cancel`` / ``result`` /
 Request timelines feed the SLO histograms ``continuous.queue_wait_s``,
 ``continuous.ttft_s``, ``continuous.itl_s`` and
 ``continuous.request_latency_s``; admit/finish/cancel go to the flight
-recorder. Speculation, tensor parallelism, recovery, the pipelined tick,
-traffic control and the host KV tier are later slices.
+recorder.
+
+Batched speculative decoding (``draft_lm=`` + ``config.SpeculativeConfig``):
+every tick becomes a fixed-shape ``draft_k + 1``-step draft scan over ALL
+slots (``models/speculative.draft_chunk`` over the draft's own dense strips,
+K2) plus ONE fused verify pass of the target over every slot at its own
+position (``verify_chunk`` on dense strips — plain tensor operations, as in
+the JAX package — or ``verify_chunk_paged`` on pools, K5), then per-slot
+longest-agreeing-prefix acceptance: a slot commits 1 .. ``draft_k + 1``
+tokens a tick (``draft_k + 2`` with a tree-draft leaf hit). Rejected
+speculation needs no rollback: each layout carries ``draft_k +
+tree_width`` slack positions, and entries past the accepted position are
+masked until overwritten. Greedy requests stream exactly the target's
+argmax whatever the draft proposes; ``temperature > 0`` requests go through
+speculative sampling (accept a proposal with the target's own probability
+of it, resample a rejection from the residual), lossless in distribution.
+A steady speculative tick stages nothing to the device and fetches ONE
+packed (tokens, logprobs, accepted) tensor. ``draft_weight_dtype="int8"``
+keeps the draft's matrices blockwise int8 (K6), dequantized inside every
+draft scan and draft prefill.
+
+Tensor parallelism, recovery, the pipelined tick, traffic control (the
+degradation ladder that calls :meth:`ContinuousBatcher.set_draft_k`) and
+the host KV tier are later slices.
 """
 
 from __future__ import annotations
@@ -63,13 +85,26 @@ from collections.abc import Callable
 import numpy as np
 import torch
 
-from adapt_tpu_torch.config import KernelConfig, SchedulerConfig
+from adapt_tpu_torch.config import (
+    KernelConfig,
+    SchedulerConfig,
+    SpeculativeConfig,
+)
+from adapt_tpu_torch.models.speculative import (
+    accept_speculation,
+    draft_chunk,
+    speculative_sample,
+    swapped_weights,
+)
 from adapt_tpu_torch.models.transformer_lm import (
     TransformerLM,
     chosen_logprob,
+    nucleus_filter,
     sample_rows,
+    truncate_rows,
 )
 from adapt_tpu_torch.ops.paged_attention import DEFAULT_PAGE_SIZE
+from adapt_tpu_torch.ops.quantize import quantize_params
 from adapt_tpu_torch.runtime.paged import Pager, insert_prefill_pages
 from adapt_tpu_torch.runtime.scheduler import AdmissionQueue, QueueFullError
 from adapt_tpu_torch.utils.logging import get_logger
@@ -163,7 +198,8 @@ class ContinuousBatcher:
     device), on dense strips (``kv_layout="slots"``) or a paged pool
     (``"paged"``, with ``page_size``, ``pool_pages`` and
     ``prefill_chunk``). ``top_k`` is the default for requests that pass
-    none."""
+    none. ``draft_lm`` (with an optional ``speculative`` config) turns on
+    batched speculative decoding."""
 
     #: Max UNCLAIMED logprob streams retained (oldest evicted past it).
     _LPS_CAP = 4096
@@ -182,6 +218,8 @@ class ContinuousBatcher:
         prefill_chunk: int | None = None,
         kernel: KernelConfig | None = None,
         scheduler: SchedulerConfig | None = None,
+        draft_lm: TransformerLM | None = None,
+        speculative: SpeculativeConfig | None = None,
     ):
         if kv_cache_dtype not in ("native", "int8", "int4"):
             raise ValueError(
@@ -217,6 +255,44 @@ class ContinuousBatcher:
                 "KernelConfig(attn_impl='xla') selects the plain attention, "
                 "which the card's path refuses"
             )
+        if speculative is not None and draft_lm is None:
+            raise ValueError("speculative config requires draft_lm")
+        self._spec = None
+        self._draft_lm = draft_lm
+        #: The draft's parameters held quantized (int8 draft weights), or
+        #: None: the draft module runs on its own tensors.
+        self._draft_weights = None
+        if draft_lm is not None:
+            if draft_lm.vocab != lm.vocab:
+                raise ValueError(
+                    f"draft vocab {draft_lm.vocab} != target vocab {lm.vocab}"
+                )
+            if draft_lm.max_len < lm.max_len:
+                # The draft prefills the same prompt buckets and decodes
+                # the same positions as the target.
+                raise ValueError(
+                    f"draft max_len {draft_lm.max_len} < target max_len "
+                    f"{lm.max_len}"
+                )
+            if draft_lm.device != lm.device:
+                raise ValueError(
+                    f"draft on {draft_lm.device} but the target on "
+                    f"{lm.device}"
+                )
+            self._spec = speculative or SpeculativeConfig()
+            if self._spec.draft_weight_dtype == "int8":
+                # Matrix weights blockwise int8 (K6); the draft scan and
+                # the draft prefill dequantize them at use.
+                self._draft_weights = quantize_params(draft_lm.state_dict())
+        self._spec_k = self._spec.draft_k if self._spec else 0
+        #: EFFECTIVE speculation depth (:meth:`set_draft_k`). Cache slack,
+        #: table width and reservations stay sized for the CONFIGURED
+        #: ``draft_k``, so a shrunk depth never needs a re-layout.
+        self._spec_k_eff = self._spec_k
+        #: Tree-draft width: w sibling leaf rows per verify chunk.
+        self._spec_w = self._spec.tree_width if self._spec else 0
+        self._spec_drafted = 0
+        self._spec_accepted = 0
         self.slots = [_Slot(idx=i) for i in range(slots)]
         self.top_k = top_k
         self.chunk = chunk
@@ -227,7 +303,10 @@ class ContinuousBatcher:
                 b *= 2
             prompt_buckets.append(lm.max_len)
         self.prompt_buckets = tuple(sorted(prompt_buckets))
-        self._cache_len = lm.max_len + 1
+        # One trash position for idle rows, plus draft_k (+ tree_width
+        # leaf rows) SLACK positions in speculative mode: a verify chunk
+        # writes draft_k + 1 + tree_width tokens from each slot's position.
+        self._cache_len = lm.max_len + 1 + self._spec_k + self._spec_w
         self._trash = lm.max_len
         block0 = lm.blocks[0]
         #: Sliding-window models: decode masking lives in the model; the
@@ -246,7 +325,8 @@ class ContinuousBatcher:
             if page_size < 1:
                 raise ValueError(f"page_size must be >= 1, got {page_size}")
             self._page = page_size
-            pps = -(-lm.max_len // page_size)
+            # The table covers max_len plus the speculative overshoot.
+            pps = -(-(lm.max_len + self._spec_k + self._spec_w) // page_size)
             if pool_pages is None:
                 pool_pages = slots * pps + 1  # every slot full + trash page
             if pool_pages < 2:
@@ -282,10 +362,28 @@ class ContinuousBatcher:
         )
         #: Idle-row cache position: the trash strip position on dense
         #: strips; on pools a negative sentinel that stays negative across
-        #: a whole chunk's advance, routing every garbage write to the
-        #: trash page.
-        self._idle_pos = -(chunk + 1) if self._paged else self._trash
+        #: a whole tick's advance (chunk steps, or a speculative tick's
+        #: up to draft_k + 1 commits, + 1 with a tree bonus), routing every
+        #: garbage write to the trash page.
+        adv = (self._spec_k + 1 + (1 if self._spec_w else 0)
+               if self._spec else chunk)
+        self._idle_pos = -(adv + 1) if self._paged else self._trash
+        #: Draft-model slot caches: dense per-slot strips with draft_k + 1
+        #: slack (the draft is small by construction). A tree draft runs
+        #: one extra scan step, so its strips carry one more position.
+        self._draft_caches = None
+        if self._spec:
+            db = draft_lm.blocks[0]
+            dshape = (slots, db.cache_heads,
+                      draft_lm.max_len + self._spec_k + 1
+                      + (1 if self._spec_w else 0), db.head_dim)
+            self._draft_caches = [
+                tuple(torch.zeros(dshape, dtype=draft_lm.dtype, device=dev)
+                      for _ in range(2))
+                for _ in draft_lm.block_names
+            ]
         self._h2d_count = 0
+        self._d2h_count = 0
         i64 = dict(dtype=torch.int64, device=dev)
         f32 = dict(dtype=torch.float32, device=dev)
         #: Device-resident per-slot sampling state, written only by
@@ -342,6 +440,13 @@ class ContinuousBatcher:
         0-per-steady-tick contract is asserted, not assumed."""
         self._h2d_count += 1
         return torch.as_tensor(np.asarray(x), dtype=dtype).to(self.device)
+
+    def _d2h(self, *rows):
+        """THE device->host fetch funnel: ``rows`` (same-shaped tensors)
+        come back as ONE stacked f64 numpy array, and the fetch is counted,
+        so "one fetch per steady tick" is asserted, not assumed."""
+        self._d2h_count += 1
+        return torch.stack([r.double() for r in rows]).cpu().numpy()
 
     def _stage_slot(self, ints, floats) -> None:
         """Write one admitted request's sampling row: ``ints`` (6,) =
@@ -440,8 +545,7 @@ class ContinuousBatcher:
             do_sample=req.temperature > 0.0,
             truncate=req.top_k < self.lm.vocab, nucleus=req.top_p < 1.0,
         )
-        lp = chosen_logprob(logits, first)
-        host = torch.stack([first.double(), lp.double()]).cpu()
+        host = self._d2h(first, chosen_logprob(logits, first))
         return int(host[0, 0]), float(host[1, 0])
 
     def _prefill(self, slot_idx: int, req: _Request, bucket: int):
@@ -562,7 +666,8 @@ class ContinuousBatcher:
             )
         if self._paged:
             bucket = next(b for b in self.prompt_buckets if b >= s0)
-            need = -(-max(bucket, s0 + steps) // self._page)
+            need = -(-max(bucket, s0 + steps + self._spec_k + self._spec_w)
+                     // self._page)
             if need > self._pool_pages - 1:  # page 0 is trash
                 # Would queue forever: the pool can never cover it.
                 raise ValueError(
@@ -820,6 +925,8 @@ class ContinuousBatcher:
 
     def _stage_decode_row(self, slot: _Slot) -> None:
         req = slot.req
+        if self._spec:
+            self._admit_draft(slot.idx, req)
         # The next step consumes last_token (stream index emitted - 1) at
         # cache position s0 + emitted - 1.
         ints = [slot.idx, slot.last_token, slot.s0 + slot.emitted - 1,
@@ -827,6 +934,229 @@ class ContinuousBatcher:
         self._stage_slot(
             self._h2d(ints, torch.int64),
             self._h2d([req.temperature, req.top_p], torch.float32),
+        )
+
+    def _admit_draft(self, slot_idx: int, req: _Request) -> None:
+        """Prefill the DRAFT model's whole prompt into its dense slot row
+        as the slot joins the decode batch. Always the full prompt: the
+        draft has no prefix cache and no chunked prefill — one bucketed
+        pass per admission keeps its cache in lockstep with the target's
+        committed stream. int8 draft weights dequantize for the pass."""
+        s0 = req.prompt.shape[0]
+        bucket = next(b for b in self.prompt_buckets if b >= s0)
+        ids = np.zeros((1, bucket), np.int64)
+        ids[0, :s0] = req.prompt
+        dlm = self._draft_lm
+        with swapped_weights(dlm, self._draft_weights):
+            h = dlm.embed(self._h2d(ids, torch.int64))
+            for block, (ck, cv) in zip(dlm.blocks, self._draft_caches):
+                h, k, v = block.prefill(h, bucket)
+                ck[slot_idx, :, :bucket] = k[0]
+                cv[slot_idx, :, :bucket] = v[0]
+
+    def set_draft_k(self, k: int) -> None:
+        """Shrink (or restore) the EFFECTIVE speculation depth at runtime.
+        Cache slack, table width and page reservations were sized for the
+        CONFIGURED ``draft_k``, so any ``k`` in ``[1, draft_k]`` keeps every
+        write inside reserved space; the next tick's draft scan and verify
+        chunk simply narrow to ``k``."""
+        if self._spec is None:
+            raise ValueError(
+                "set_draft_k requires speculative mode (draft_lm=)"
+            )
+        if not 1 <= k <= self._spec.draft_k:
+            raise ValueError(
+                f"draft_k must be in [1, {self._spec.draft_k}], got {k}"
+            )
+        if k != self._spec_k_eff:
+            self._spec_k_eff = k
+            log.info("effective draft_k -> %d (configured %d)", k,
+                     self._spec.draft_k)
+
+    def _move_leaf(self, p_src, p_dst, table) -> None:
+        """Move one cached vector per slot from position ``p_src`` to
+        ``p_dst`` (both (B,)) in every block's K and V (and their scale
+        planes): the accepted tree leaf's K/V to its canonical slot. Rows
+        with nothing to move carry ``p_src == p_dst`` (an identity
+        copy)."""
+        B = p_src.shape[0]
+        for pair in self._caches:
+            for cache in pair:
+                for m in _members(cache):
+                    kvh, w = m.shape[1], m.shape[-1]
+                    heads = torch.arange(kvh, device=m.device)
+                    if table is not None:
+                        P = self._page
+
+                        def rows(p):
+                            phys = torch.gather(
+                                table, 1, (p // P)[:, None]).long()
+                            return ((phys * kvh + heads) * P
+                                    + (p % P)[:, None]).reshape(-1)
+                    else:
+                        L = m.shape[2]
+                        slot = torch.arange(B, device=m.device)[:, None]
+
+                        def rows(p):
+                            return ((slot * kvh + heads) * L
+                                    + p[:, None]).reshape(-1)
+
+                    flat = m.view(-1, w)
+                    flat.index_copy_(0, rows(p_dst), flat[rows(p_src)])
+
+    def _spec_verify(self, dtoks, table, cands, *, sample, truncate,
+                     nucleus):
+        """The speculative tick's VERIFY pass. Builds every slot's chunk
+        ``[last token, proposals (, leaf candidates)]`` ON DEVICE from the
+        draft scan's output, runs one fused ``verify_chunk`` /
+        ``verify_chunk_paged`` pass over all slots at their own positions,
+        reduces each row's longest agreeing prefix and advances the device
+        state by each row's commit count — no host array is staged.
+        Returns ((d + 1 or d + 2, B) tokens, logprobs, (B,) accepted).
+
+        ``sample`` turns on SPECULATIVE SAMPLING for ticks whose batch
+        carries a ``temperature > 0`` row
+        (``models/speculative.speculative_sample``: the token committed at
+        stream offset j uses the request's counter ``kbase + j``); greedy
+        rows of the same batch keep their exact argmax stream.
+
+        TREE DRAFTS (``cands`` (B, w), the draft's top-w ids for the
+        position after the chain): the chunk grows w LEAF rows verified in
+        the same pass under the tree mask. When a row's whole chain
+        accepts AND its correction token matches a leaf, the first matching
+        leaf's K/V moves to the canonical ``pos + d + 1`` slot and the
+        target's prediction AFTER that leaf commits as a BONUS token (the
+        outputs then carry d + 2 rows and ``acc`` counts the bonus).
+        Sampled rows take no tree bonus: the leaf's cached K/V and the
+        post-leaf prediction are argmax artifacts."""
+        d_state, lm = self._dstate, self.lm
+        tree = cands is not None
+        w = cands.shape[1] if tree else 0
+        # The depth comes from the draft output, not the configured k:
+        # set_draft_k narrows it at runtime.
+        d = dtoks.shape[0] - (2 if tree else 1)
+        kc = d + 1 + w
+        tok, pos, active = d_state["tok"], d_state["pos"], d_state["active"]
+        props = dtoks[:d].transpose(0, 1)  # (B, d)
+        parts = [tok[:, None], props]
+        if tree:
+            parts.append(cands)
+        chunk = torch.cat(parts, dim=1)  # (B, kc)
+        # Chain rows embed at their own offsets; leaf rows share the
+        # post-chain logical position d + 1.
+        offs = torch.clamp(torch.arange(kc, device=self.device), max=d + 1)
+        x = lm.embed.embed_positions(chunk, pos[:, None] + offs[None, :])
+        for block, (ck, cv) in zip(lm.blocks, self._caches):
+            if self._paged:
+                x, _, _ = block.verify_chunk_paged(
+                    x, ck, cv, table, pos, self._kernel.attn_impl, w,
+                    self._kernel.decode_split,
+                )
+            else:
+                x, _, _ = block.verify_chunk(x, ck, cv, pos, w)
+        logits = lm.head(x)  # (B, kc, V)
+        vocab = logits.shape[-1]
+        preds = torch.argmax(logits, dim=-1)
+        lps = chosen_logprob(
+            logits.reshape(-1, vocab), preds.reshape(-1)
+        ).reshape(preds.shape)
+        acc = accept_speculation(props, preds[:, : d + 1])
+        greedy = d_state["temp"] == 0.0
+        if sample:
+            nd = d + 1
+            lg = logits[:, :nd] / torch.clamp(
+                d_state["temp"], min=1e-6)[:, None, None]
+            flat = lg.reshape(-1, vocab)
+            if truncate:
+                flat = truncate_rows(
+                    flat, d_state["top_k"].repeat_interleave(nd))
+            if nucleus:
+                flat = nucleus_filter(
+                    flat, d_state["top_p"].repeat_interleave(nd))
+            out_s, acc_s = speculative_sample(
+                flat.reshape(lg.shape), props, d_state["seed"],
+                d_state["kbase"],
+            )
+            # Raw-logit scoring, like the lockstep chunk.
+            lps_s = chosen_logprob(
+                logits[:, :nd].reshape(-1, vocab), out_s.reshape(-1)
+            ).reshape(out_s.shape)
+            sel = greedy[:, None]
+            preds = torch.cat(
+                [torch.where(sel, preds[:, :nd], out_s), preds[:, nd:]], 1)
+            lps = torch.cat(
+                [torch.where(sel, lps[:, :nd], lps_s), lps[:, nd:]], 1)
+            acc = torch.where(greedy, acc, acc_s)
+        out_preds, out_lps = preds, lps
+        if tree:
+            corr = preds[:, d]  # the target's token for pos + d + 1
+            match = cands == corr[:, None]  # (B, w)
+            hit = (acc == d) & match.any(dim=1)
+            if sample:
+                hit = hit & greedy
+            s_leaf = torch.argmax(match.to(torch.int64), dim=1)  # first
+            leaf_row = (d + 1 + s_leaf)[:, None]
+            out_preds = torch.cat(
+                [preds[:, : d + 1], torch.gather(preds, 1, leaf_row)], 1)
+            out_lps = torch.cat(
+                [lps[:, : d + 1], torch.gather(lps, 1, leaf_row)], 1)
+            # Canonicalize the accepted leaf's cache entry: leaf s moves
+            # from pos + d + 1 + s to pos + d + 1. Rows with s == 0, no
+            # hit, or inactive reduce to an identity copy at position 0.
+            do = hit & (s_leaf > 0) & active
+            base = torch.clamp(pos, min=0).long() + d + 1
+            zero = torch.zeros_like(base)
+            self._move_leaf(torch.where(do, base + s_leaf, zero),
+                            torch.where(do, base, zero), table)
+            acc = acc + hit.to(acc.dtype)
+        ncommit = acc + 1
+        last = torch.gather(out_preds, 1, acc[:, None])[:, 0]
+        # Optimistic device-side advance, the lockstep chunk's discipline:
+        # a surviving slot lands on pos + ncommit; retired slots are
+        # cleared host-side before the next tick; idle rows re-park.
+        d_state["pos"] = torch.where(
+            active, pos + ncommit.to(torch.int32), self._idle_pos
+        ).to(torch.int32)
+        d_state["tok"] = torch.where(active, last, 0)
+        d_state["kbase"] = torch.where(active, d_state["kbase"] + ncommit, 0)
+        return out_preds.transpose(0, 1), out_lps.transpose(0, 1), acc
+
+    def _spec_decode(self, active, tracer):
+        """One SPECULATIVE decode round for the whole slot batch: the
+        fixed-shape draft scan over the device-resident per-slot state,
+        then the fused verify-and-accept pass. Stages zero host arrays in
+        steady state. Returns ((rows, B) tokens, logprobs, (B,) accepted)
+        on the device."""
+        d, w = self._spec_k_eff, self._spec_w
+        vocab = self.lm.vocab
+        sample = any(s.req.temperature > 0.0 for s in active)
+        truncate = sample and any(s.req.top_k < vocab for s in active)
+        nucleus = sample and any(s.req.top_p < 1.0 for s in active)
+        t0 = tracer.now() if tracer.enabled else 0.0
+        kw = dict(weights=self._draft_weights,
+                  attn_impl=self._kernel.attn_impl,
+                  split=self._kernel.decode_split)
+        st = self._dstate
+        if w:
+            # d chain steps + the argmax-leaf step + one leaf-coverage
+            # step (the leaf token's own draft-cache write); the top-w
+            # leaf candidates come from the step that predicts the
+            # post-chain position (scan index d).
+            dtoks, dtops = draft_chunk(
+                self._draft_lm, st["tok"], st["pos"], self._draft_caches,
+                n=d + 2, tail_w=w, **kw)
+            cands = dtops[d]  # (B, w); cands[:, 0] == dtoks[d]
+        else:
+            cands = None
+            dtoks = draft_chunk(
+                self._draft_lm, st["tok"], st["pos"], self._draft_caches,
+                n=d + 1, **kw)
+        if tracer.enabled:
+            tracer.add_span("decode.draft", start=t0, end=tracer.now(),
+                            slots=len(active), draft_k=d)
+        return self._spec_verify(
+            dtoks, self._current_table() if self._paged else None, cands,
+            sample=sample, truncate=truncate, nucleus=nucleus,
         )
 
     def _admit(self) -> None:
@@ -864,7 +1194,9 @@ class ContinuousBatcher:
                 # (prefill writes `bucket` positions; decode reaches
                 # s0 + steps - 1). FIFO head-of-line: when the pool cannot
                 # cover this request, admission stops here.
-                span = max(bucket, s0 + req.steps)
+                # Speculative mode reserves the overshoot slack too.
+                span = max(bucket,
+                           s0 + req.steps + self._spec_k + self._spec_w)
                 if not self._pager.alloc(i, -(-span // P) - m):
                     self._pager.free_slot(i)  # releases the shares too
                     with self._cv:
@@ -997,9 +1329,11 @@ class ContinuousBatcher:
     @torch.no_grad()
     def tick(self) -> int:
         """Admit into free slots, run ONE prefill pass for each slot mid-
-        chunked-prefill, then decode one chunk over every slot with ONE
-        host sync. Returns the number of decoding slots committed (0 =
-        no decode ran)."""
+        chunked-prefill, then decode one chunk over every slot — or, in
+        speculative mode, one draft-scan + fused-verify round that commits
+        1 .. draft_k + 1 (+ 1) tokens per slot — with ONE host sync.
+        Returns the number of decoding slots committed (0 = no decode
+        ran)."""
         self._admit()
         for slot in self.slots:
             if slot.req is None:
@@ -1030,25 +1364,55 @@ class ContinuousBatcher:
         reqs = [s.req if s.req is not None and s.pf_done < 0 else None
                 for s in self.slots]
         lives = [s.tokens for s in self.slots]
-        toks, lps = self._step_chunk(
-            do_sample=any(s.req.temperature > 0.0 for s in active),
-            truncate=any(s.req.top_k < vocab for s in active),
-            nucleus=any(s.req.top_p < 1.0 for s in active),
-        )
-        # The tick's one device->host fetch.
-        host = torch.stack([toks.double(), lps.double()]).cpu().numpy()
+        if self._spec is None:
+            toks, lps = self._step_chunk(
+                do_sample=any(s.req.temperature > 0.0 for s in active),
+                truncate=any(s.req.top_k < vocab for s in active),
+                nucleus=any(s.req.top_p < 1.0 for s in active),
+            )
+            # The tick's one device->host fetch.
+            host = self._d2h(toks, lps)
+            limits = [self.chunk] * len(self.slots)
+        else:
+            d_eff, w = self._spec_k_eff, self._spec_w
+            toks, lps, acc = self._spec_decode(active, tracer)
+            # The round's ONE fetch covers all three arrays: the accepted
+            # counts ride as a last row.
+            packed = self._d2h(torch.cat([toks, acc[None]]),
+                               torch.cat([lps, acc[None].to(lps.dtype)]))
+            host = packed[:, :-1]
+            limits = [int(a) + 1 for a in packed[0, -1]]
         with self._cv:
             self._ticks += 1
         reg.inc("continuous.ticks")
+        if self._spec is not None:
+            # Acceptance books: drafted / accepted proposals of the rows
+            # ACTIVE at dispatch (idle rows verify garbage nobody commits);
+            # a tree round drafts d chain proposals + w leaf candidates per
+            # slot and counts a leaf hit as one more accepted.
+            acc_counts = [limits[s.idx] - 1 for s in active]
+            with self._cv:
+                self._spec_drafted += (d_eff + w) * len(active)
+                self._spec_accepted += sum(acc_counts)
+                ratio = self._spec_accepted / self._spec_drafted
+            reg.set_gauge("continuous.spec_acceptance", ratio)
+            if self.obs_timeline:
+                reg.observe_many("continuous.spec_accepted_per_tick",
+                                 [float(a) for a in acc_counts])
         if tracer.enabled:
-            tracer.add_span("batcher.decode_chunk", start=t_chunk,
-                            end=tracer.now(), slots=len(active),
-                            chunk=self.chunk)
+            if self._spec is None:
+                tracer.add_span("batcher.decode_chunk", start=t_chunk,
+                                end=tracer.now(), slots=len(active),
+                                chunk=self.chunk)
+            else:
+                tracer.add_span("decode.verify", start=t_chunk,
+                                end=tracer.now(), slots=len(active),
+                                draft_k=d_eff)
         for i, slot in enumerate(self.slots):
             req = reqs[i]
             if req is None or slot.req is not req or slot.tokens is not lives[i]:
                 continue
-            for j in range(self.chunk):
+            for j in range(limits[i]):
                 self._commit(slot, int(host[0, j, i]), float(host[1, j, i]))
                 if slot.req is not req:
                     break
@@ -1088,6 +1452,7 @@ class ContinuousBatcher:
                 "ticks": self._ticks,
                 "prefill_tokens": self._prefill_tokens,
                 "h2d_transfers": self._h2d_count,
+                "d2h_fetches": self._d2h_count,
                 # Resident KV bytes of the strips or the page pools, scale
                 # planes included, and their share of the same geometry in
                 # the model's dtype (1.0 native; (hd + 4) / (2 hd) for int8
@@ -1097,6 +1462,16 @@ class ContinuousBatcher:
                                       / float(self._native_cache_bytes)),
                 "rejected": self._rejected,
             }
+            if self._spec is not None:
+                out["spec_drafted"] = self._spec_drafted
+                out["spec_accepted"] = self._spec_accepted
+                out["spec_acceptance"] = (
+                    self._spec_accepted / self._spec_drafted
+                    if self._spec_drafted else 0.0
+                )
+                out["draft_cache_bytes"] = sum(
+                    c.numel() * c.element_size()
+                    for pair in self._draft_caches for c in pair)
             if self._paged:
                 ps = self._pager.stats()
                 out["pool_pages"] = ps.num_pages

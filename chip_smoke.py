@@ -4,7 +4,8 @@
     python3 chip_smoke.py            # the whole check, one CUDA card
     python3 chip_smoke.py --profile  # and torch.profiler decode breakdowns
                                      # (dense strips and paged pool, native
-                                     # and int8 caches)
+                                     # and int8 caches; two speculative
+                                     # ticks)
 
 Phases (no phase failure is caught; any mismatch exits non-zero):
 
@@ -60,7 +61,27 @@ Phases (no phase failure is caught; any mismatch exits non-zero):
    timed, their bound from the quantized bytes, no library call (none takes
    int8 K/V with per-vector scales; a dequantize + SDPA time is printed as a
    two-call figure); the branches no path launches (the splits, K4q on
-   int4) timed on lines of their own.
+   int4) timed on lines of their own;
+10. speculative decoding: K5 / K5-split (``paged_verify_attn``, native,
+   int8 and int4 pools; window, tree leaves, GQA row tiling, page 16,
+   head_dim 128, a dead slot in every case, split 1 equal to the unsplit
+   kernel with ``torch.equal``) and K6 (``quantize_blocks`` /
+   ``dequantize_blocks``, ``torch.equal`` to the plain version) against
+   their plain versions; then the 12-layer model through
+   ``ContinuousBatcher(draft_lm=..., speculative=SpeculativeConfig(draft_k=
+   4))``: (a) phase 7's paged traffic with the target as its own draft, (b)
+   a 2-layer draft of the same widths held in int8 on an int8 pool, (c) a
+   tree draft (``tree_width=2``) with ``decode_split=4``, (d) an int4 pool,
+   (e) dense strips (plain ``verify_attention``, no kernel) with one
+   ``temperature > 0, top_k = 1`` request. Every stream passes a tie-aware
+   check against ``generate()`` (a first difference only where the
+   reference's own top-2 logit gap is below the bar) at a bar set from the
+   measured first-token logit error of a verify pass against the decode
+   step; the self draft's
+   acceptance is at least 0.9 (of what a tree round can accept); pools drain; a steady speculative tick stages
+   nothing host->device and fetches once. K5, K5q, K5-split and K6 are timed
+   at their main-path shapes; plain dense ``verify_attention`` is timed
+   beside them.
 
 The line before the last is the kernels' JSON; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -426,6 +447,227 @@ def check_k4q(torch, P, Q, dev, errs):
             print(f"{key} {c}: max abs err {e:.3e} (tol 1e-2 + 1e-2|ref|)")
 
 
+def verify_inputs(torch, dev, b, kvh, g, kc, hd, page, pps, npages,
+                  dtype=None, seed=12):
+    """A verify chunk's folded q (b, kv_h, g * kc, hd) and pools with a
+    shuffled page table; base positions spread over the slot window, the
+    last slot dead (the batcher's idle sentinel)."""
+    dtype = dtype or torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=gen, device=dev).to(dtype)
+
+    q = rnd(b, kvh, g * kc, hd)
+    kp, vp = rnd(npages, kvh, page, hd), rnd(npages, kvh, page, hd)
+    perm = torch.randperm(npages - 1, generator=torch.Generator().manual_seed(
+        seed)) + 1
+    table = perm[:b * pps].reshape(b, pps).to(torch.int32)
+    idx = torch.linspace(0, pps * page - kc, b).round().to(torch.int32)
+    idx[-1] = -(kc + 2)
+    return q, kp, vp, table.to(dev), idx.to(dev)
+
+
+def check_k5(torch, P, Q, dev, errs):
+    """K5 / K5-split vs the plain version at atol 1e-2, rtol 1e-2 (bf16) or
+    1e-4 (f32), native / int8 / int4 pools; split 1 == unsplit with
+    torch.equal; the dead slot is zeros."""
+    main = dict(b=8, kvh=12, g=1, kc=5, hd=64, page=128, pps=8, npages=65)
+    cases = [
+        (main, None, 0, None),
+        (dict(main, kvh=3, g=4), None, 0, None),  # 20 rows: two row tiles
+        (main, 300, 0, None),
+        (dict(main, kc=7), None, 2, None),  # tree leaves
+        (dict(main, kvh=3, g=4, kc=7), 200, 2, None),
+        (dict(main, page=16, pps=64, npages=513), None, 0, None),
+        (dict(b=4, kvh=8, g=2, kc=5, hd=128, page=128, pps=6, npages=25),
+         None, 0, None),
+        (main, None, 0, torch.float32),
+    ]
+    for kv in ("native",) + KV_DTYPES:
+        for shp, window, tt, dtype in cases:
+            q, kp, vp, table, idx = verify_inputs(torch, dev, dtype=dtype,
+                                                  **shp)
+            if kv != "native":
+                kp, vp = quantized(Q, kp, kv), quantized(Q, vp, kv)
+            kc = shp["kc"]
+            tol = 1e-4 if dtype is torch.float32 else 1e-2
+            tag = "" if kv == "native" else f"[{kv}]"
+            what = (f"{shp} window={window} tree_tail={tt} "
+                    f"{'f32' if dtype else 'bf16'}")
+            got = P.paged_verify_attn(q, kp, vp, table, idx, kc, window, tt)
+            split4 = P.paged_verify_attn_split(q, kp, vp, table, idx, kc,
+                                               window, tt, 4)
+            split1 = P.paged_verify_attn_split(q, kp, vp, table, idx, kc,
+                                               window, tt, 1)
+            torch.cuda.synchronize()
+            for name, out, split in (("paged_verify_attn", got, 1),
+                                     ("paged_verify_attn_split", split4, 4)):
+                ref = P.paged_verify_attention_plain(q, kp, vp, table, idx,
+                                                     kc, window, tt, split)
+                e = close(out, ref, tol, tol, f"{name}{tag} {what}")
+                errs[name + tag] = max(errs.get(name + tag, 0.0), e)
+                print(f"{name}{tag} {what}: max abs err {e:.3e} (tol {tol} "
+                      f"+ {tol}|ref|)")
+                if out[-1].any():
+                    raise AssertionError(f"{name}{tag}: the dead slot is not "
+                                         "zero")
+            if not torch.equal(split1, got):
+                raise AssertionError(f"K5{tag} split 1 != unsplit at {what}")
+    print("K5 split 1 == unsplit bit for bit (torch.equal) in every case")
+
+
+def check_k6(torch, Q, dev, errs):
+    """K6 quantize / dequantize vs the plain version with torch.equal
+    (values, scales, the round trip)."""
+    gen = torch.Generator(device=dev).manual_seed(13)
+    zero = torch.randn(3, 8192, generator=gen, device=dev)
+    zero[1] = 0.0
+    cases = {
+        "(768, 3072) bf16": (torch.randn(768, 3072, generator=gen, device=dev)
+                             * 0.036).to(torch.bfloat16),
+        "(50257, 768) bf16": (torch.randn(50257, 768, generator=gen,
+                                          device=dev) * 0.036).to(
+                                              torch.bfloat16),
+        "(1000, 37) f32, no multiple of 8192": torch.randn(
+            1000, 37, generator=gen, device=dev),
+        "(3, 8192) f32 with an all-zero block": zero,
+    }
+    for what, x in cases.items():
+        qt = Q.quantize_blocks(x)
+        back = Q.dequantize_blocks(qt)
+        torch.cuda.synchronize()
+        ref = Q.quantize_reference(x)
+        ref_back = Q.dequantize_reference(ref)
+        ev = float((qt.values.int() - ref.values.int()).abs().max())
+        es = float((qt.scales - ref.scales).abs().max())
+        eb = float((back.float() - ref_back.float()).abs().max())
+        if not (torch.equal(qt.values, ref.values)
+                and torch.equal(qt.scales, ref.scales)):
+            raise AssertionError(f"quantize_blocks != plain at {what}: values "
+                                 f"differ by {ev}, scales by {es}")
+        if not torch.equal(back, ref_back) or back.dtype != x.dtype:
+            raise AssertionError(f"dequantize_blocks != plain at {what}: "
+                                 f"differs by {eb}")
+        errs["quantize_blocks"] = max(errs.get("quantize_blocks", 0.0), ev, es)
+        errs["dequantize_blocks"] = max(errs.get("dequantize_blocks", 0.0), eb)
+        rt = float((back.float() - x.float()).abs().max())
+        print(f"K6 {what}: values, scales and round trip torch.equal to the "
+              f"plain version (round-trip error {rt:.3e}, largest step "
+              f"{float(qt.scales.max()):.3e})")
+
+
+def drive_spec(torch, lm, draft, spec, kernel, layout, kv, waves, steps,
+               cancel_at, prefill_chunk=None, sampled=None):
+    """Serve ``waves`` (two staggered waves) through a speculative batcher;
+    cancel wave-1 request ``cancel_at`` once live. Between the waves, once
+    no slot is mid-prefill, ONE steady tick is measured: host->device
+    copies and device->host fetches it made. ``sampled`` (prompt, kwargs)
+    joins wave 2. Returns the batcher, {id: prompt}, results, the cancelled
+    id, the sampled id, wall s, committed tokens, (h2d, d2h) of the steady
+    tick."""
+    from adapt_tpu_torch.runtime.continuous import ContinuousBatcher
+
+    extra = {}
+    if layout == "paged":
+        extra = dict(page_size=128, prefill_chunk=prefill_chunk)
+    bat = ContinuousBatcher(lm, slots=8, kv_layout=layout, kernel=kernel,
+                            kv_cache_dtype=kv, draft_lm=draft,
+                            speculative=spec, **extra)
+    t0 = time.perf_counter()
+    ids = [bat.submit(p, steps) for p in waves[0]]
+    bat.tick()
+    while any(s.req is not None and s.pf_done >= 0 for s in bat.slots):
+        bat.tick()
+    before = bat.stats()
+    if bat.tick() < 1:
+        raise AssertionError("the steady tick decoded no slot")
+    after = bat.stats()
+    steady = (after["h2d_transfers"] - before["h2d_transfers"],
+              after["d2h_fetches"] - before["d2h_fetches"])
+    ids += [bat.submit(p, steps) for p in waves[1]]
+    sampled_id = None
+    if sampled is not None:
+        sampled_id = bat.submit(sampled[0], steps, **sampled[1])
+    cancelled = None
+    if cancel_at is not None:
+        cancelled = ids[cancel_at]
+        if not bat.cancel(cancelled):
+            raise AssertionError("the cancel found no live request")
+    out = bat.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    prompts = dict(zip(ids, list(waves[0]) + list(waves[1])))
+    if sampled_id is not None:
+        prompts[sampled_id] = sampled[0]
+    tokens = sum(len(v) for v in out.values())
+    return bat, prompts, out, cancelled, sampled_id, wall, tokens, steady
+
+
+def check_spec_streams(prompts, out, cancelled, steps, ref, ref_gaps, bar):
+    """Every speculative stream against its reference ``ref(prompt)``
+    (``generate()`` alone, same cache dtype and split): equal, or first
+    differing at a token where the reference's OWN top-2 logit gap
+    (``ref_gaps(prompt)[t]``, read from the logits ``generate()`` picked
+    that token from — over a quantized cache the native forward's gap would
+    say nothing) is below ``bar``. Returns the exempted ids."""
+    exempt = []
+    for rid, p in prompts.items():
+        got = out[rid]
+        if rid == cancelled:
+            if not 0 < len(got) < steps:
+                raise AssertionError(f"cancelled stream has {len(got)} tokens")
+        elif len(got) != steps:
+            raise AssertionError(f"request {rid} has {len(got)} tokens")
+        bad = np.nonzero(got != ref(p)[:len(got)])[0]
+        if len(bad) == 0:
+            continue
+        t = int(bad[0])
+        gap = float(ref_gaps(p)[t])
+        print(f"tie-aware exemption: speculative request {rid} (prompt "
+              f"{len(p)}) first differs from generate() at token {t}, top-2 "
+              f"gap {gap:.4f}")
+        if gap >= bar:
+            raise AssertionError(f"request {rid} differs at token {t} with "
+                                 f"top-2 gap {gap:.4f} >= {bar:.4f}")
+        exempt.append(rid)
+    return exempt
+
+
+def verify_pass_error(torch, lm, draft, prompts, layout, kv):
+    """Largest |logits| difference, over ``prompts`` (one per slot), between
+    the FIRST row of a speculative verify pass and the plain decode step
+    that scores the same token at the same position: two fresh batchers
+    admit the same prompts, one takes a lockstep step (chunk 1), the other a
+    speculative tick; the target head's outputs are read through a forward
+    hook. The two differ in the matmuls' row count (and so, possibly, in
+    their summation order), not in the function."""
+    from adapt_tpu_torch.config import SpeculativeConfig
+    from adapt_tpu_torch.runtime.continuous import ContinuousBatcher
+
+    seen = []
+    hook = lm.head.register_forward_hook(
+        lambda mod, args, out: seen.append(out.detach()))
+    extra = dict(page_size=128) if layout == "paged" else {}
+    try:
+        rows = {}
+        for mode, kw in (("decode", dict(chunk=1)),
+                         ("verify", dict(draft_lm=draft,
+                                         speculative=SpeculativeConfig(4)))):
+            bat = ContinuousBatcher(lm, slots=len(prompts), kv_layout=layout,
+                                    kv_cache_dtype=kv, **extra, **kw)
+            for p in prompts:
+                bat.submit(p, 8)
+            seen.clear()
+            bat.tick()
+            rows[mode] = [o for o in seen if o.shape[0] == len(prompts)][-1]
+    finally:
+        hook.remove()
+    if rows["decode"].shape[1] != 1 or rows["verify"].shape[1] != 5:
+        raise AssertionError("verify_pass_error read the wrong head calls")
+    return float((rows["decode"][:, 0] - rows["verify"][:, 0]).abs().max())
+
+
 def drive_batcher(torch, lm, prompts, steps, kernel, cancel_at,
                   kv_cache_dtype="native"):
     """Serve ``prompts`` in two staggered waves; cancel request
@@ -703,6 +945,59 @@ def profile_decode(torch, lm, card, layout, kv="native"):
         print(f"  {ms:9.3f} ms  {n:6d} x  {key[:90]}")
 
 
+def profile_spec(torch, lm, draft, spec, card, kv, label):
+    """``--profile``: where a steady SPECULATIVE tick's time goes on the
+    paged layout: 8 slots (256-token prompts), 4 ticks timed on the host
+    clock without the profiler, then 4 more under ``torch.profiler`` for
+    device time by kernel. Tokens are what the 4 unprofiled ticks
+    committed."""
+    from adapt_tpu_torch.runtime.continuous import ContinuousBatcher
+
+    rng = torch.Generator().manual_seed(5)
+    bat = ContinuousBatcher(lm, slots=8, kv_layout="paged", page_size=128,
+                            kv_cache_dtype=kv, draft_lm=draft,
+                            speculative=spec)
+    done = [0]
+    for _ in range(8):
+        bat.submit(torch.randint(0, lm.vocab, (256,), generator=rng).numpy(),
+                   400, on_token=lambda *a: done.__setitem__(0, done[0] + 1))
+    for _ in range(2):
+        bat.tick()
+    torch.cuda.synchronize()
+    n0, t0 = done[0], time.perf_counter()
+    for _ in range(4):
+        bat.tick()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    ntok = done[0] - n0
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(4):
+            bat.tick()
+        torch.cuda.synchronize()
+    rows = []
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        dev = getattr(e, "self_device_time_total", None)
+        if dev is None:
+            dev = getattr(e, "self_cuda_time_total", 0.0)
+        if dev > 0:
+            rows.append((dev / 1e3, e.count, e.key))
+    rows.sort(reverse=True)
+    busy = sum(r[0] for r in rows)
+    print(f"profile[spec {label}] on {card}: 4 steady ticks of 8 slots: wall "
+          f"{wall_ms:.2f} ms ({wall_ms / 4:.3f} ms/tick), {ntok} tokens "
+          f"committed ({ntok / 32:.3f} per slot and tick) = "
+          f"{ntok / wall_ms * 1e3:.1f} tok/s; acceptance "
+          f"{bat.stats()['spec_acceptance']:.4f}; kernels {busy:.2f} ms = "
+          f"{busy / wall_ms:.3f} of the wall "
+          f"({sum(r[1] for r in rows) / 4:.0f} launches/tick)")
+    for ms, n, key in rows[:12]:
+        print(f"  {ms:9.3f} ms  {n:6d} x  {key[:90]}")
+
+
 def main(argv) -> int:
     try:
         import torch
@@ -715,7 +1010,7 @@ def main(argv) -> int:
     if not os.path.isdir(os.path.join(root, "adapt_tpu_torch", "csrc")):
         return _fail("adapt_tpu_torch/ is missing beside chip_smoke.py")
     sys.path.insert(0, root)
-    from adapt_tpu_torch.config import KernelConfig
+    from adapt_tpu_torch.config import KernelConfig, SpeculativeConfig
     from adapt_tpu_torch.models.transformer_lm import generate, transformer_lm
     from adapt_tpu_torch.ops import _build
     from adapt_tpu_torch.ops import attention as A
@@ -765,6 +1060,27 @@ def main(argv) -> int:
             streams[key] = generate(lm, p[None], 64, decode_split=split,
                                     kv_cache_dtype=kv)[0].cpu().numpy()
         return streams[key]
+
+    gaps = {}
+
+    def solo_gaps(p, split=None, kv="native"):
+        """The top-2 logit gap at every token of ``solo(p, split, kv)``:
+        the same ``generate()`` call with a hook on the head reading row 0
+        of each step's logits (memoised)."""
+        key = (p.tobytes(), split, kv)
+        if key not in gaps:
+            seen = []
+            hook = lm.head.register_forward_hook(
+                lambda mod, args, o: seen.append(
+                    torch.topk(o[0, 0].float(), 2).values))
+            try:
+                generate(lm, p[None], 64, decode_split=split,
+                         kv_cache_dtype=kv)
+            finally:
+                hook.remove()
+            top2 = torch.stack(seen).cpu().numpy()
+            gaps[key] = top2[:, 0] - top2[:, 1]
+        return gaps[key]
 
     runs = {}
     for path, kernel, reqs, cancel_at in (
@@ -1183,15 +1499,261 @@ def main(argv) -> int:
         shape=f"kv_h{kvh} g1 C{C} pos0 {pos0} page128 hd{hd} int8 K/V "
               "bf16 q"))
 
+    # -- phase 10: speculative decoding (K5, K6) ---------------------------
+    check_k5(torch, P, Q, dev, errs)
+    check_k6(torch, Q, dev, errs)
+    t0 = time.perf_counter()
+    draft2 = transformer_lm(VOCAB, DIM, 2, HEADS, MLP, max_len=1024,
+                            dtype=torch.bfloat16, name="gpt2_small_draft",
+                            seed=1)
+    # The 2-layer draft shares the target's embedding, first two blocks and
+    # head (a truncated draft). With random weights it rarely agrees with
+    # the 12-layer target: that path shows losslessness at acceptance ~0.
+    draft2.load_state_dict({k: v for k, v in lm.state_dict().items()
+                            if k in draft2.state_dict()})
+    print(f"2-layer draft of the same widths built in "
+          f"{time.perf_counter() - t0:.1f} s")
+    spec_counters = {
+        "flash_attn_fwd": A.flash_attn_fwd, "decode_attn": D.decode_attn,
+        "decode_attn_split": D.decode_attn_split,
+        "paged_chunk_attn": P.paged_chunk_attn,
+        "paged_verify_attn": P.paged_verify_attn,
+        "paged_verify_attn_split": P.paged_verify_attn_split,
+        "quantize_blocks": Q.quantize_blocks,
+        "dequantize_blocks": Q.dequantize_blocks,
+    }
+    verr = {}
+    for layout, kv in (("paged", "native"), ("paged", "int8"),
+                       ("paged", "int4"), ("slots", "native")):
+        verr[layout, kv] = verify_pass_error(torch, lm, draft2, qprompts,
+                                             layout, kv)
+        print(f"verify pass vs decode step, first-token logits "
+              f"[{layout} {kv}]: largest difference {verr[layout, kv]:.4f}; "
+              f"tie-aware bar {max(0.1, 2 * verr[layout, kv]):.4f}")
+    base = {}  # tok/s of the non-speculative run of the same traffic
+    (_, _, _, _, _, _, wall, ntok, _) = drive_paged(
+        torch, lm, KernelConfig(), (wave1, wave2), None, 2)
+    base["spec_paged"] = ntok / wall
+    for key, kv, kern in (("spec_int8", "int8", KernelConfig()),
+                          ("spec_tree_split4", "native",
+                           KernelConfig(decode_split=4)),
+                          ("spec_int4", "int4", KernelConfig())):
+        (_, _, _, _, _, _, wall, ntok, _) = drive_paged(
+            torch, lm, kern, (qprompts[:4], qprompts[4:]), None, 1,
+            kv_cache_dtype=kv, prefill_chunk=None)
+        base[key] = ntok / wall
+    _, _, _, wall, ntok, _, _ = drive_batcher(torch, lm, qprompts, 64,
+                                              KernelConfig(), 1)
+    base["spec_dense"] = ntok / wall
+    sampled = (prompts[9], dict(temperature=0.7, top_k=1, rng=3))
+    qwaves = (qprompts[:4], qprompts[4:])
+    for (path, layout, kv, draft, spec, kernel, waves, cancel_at, pchunk,
+         samp, want) in (
+        ("spec_paged", "paged", "native", lm, SpeculativeConfig(draft_k=4),
+         KernelConfig(), (wave1, wave2), 2, 256, None,
+         ("flash_attn_fwd", "decode_attn", "paged_chunk_attn",
+          "paged_verify_attn")),
+        ("spec_int8", "paged", "int8", draft2,
+         SpeculativeConfig(draft_k=4, draft_weight_dtype="int8"),
+         KernelConfig(), qwaves, 1, None, None,
+         ("flash_attn_fwd", "decode_attn", "paged_verify_attn",
+          "quantize_blocks", "dequantize_blocks")),
+        ("spec_tree_split4", "paged", "native", lm,
+         SpeculativeConfig(draft_k=4, tree_width=2),
+         KernelConfig(decode_split=4), qwaves, 1, None, None,
+         ("flash_attn_fwd", "decode_attn_split", "paged_verify_attn_split")),
+        ("spec_int4", "paged", "int4", lm, SpeculativeConfig(draft_k=4),
+         KernelConfig(), qwaves, 1, None, None,
+         ("flash_attn_fwd", "decode_attn", "paged_verify_attn")),
+        ("spec_dense", "slots", "native", lm, SpeculativeConfig(draft_k=4),
+         KernelConfig(), qwaves, 1, None, sampled,
+         ("flash_attn_fwd", "decode_attn")),
+    ):
+        for fn in spec_counters.values():
+            fn.launches = 0
+        (bat, sprompts, out, cancelled, sampled_id, wall, ntok,
+         steady) = drive_spec(torch, lm, draft, spec, kernel, layout, kv,
+                              waves, 64, cancel_at, pchunk, samp)
+        launches = {k: fn.launches for k, fn in spec_counters.items()}
+        runs[path] = launches
+        if any(launches[k] == 0 for k in want):
+            return _fail(f"{path} path did not launch its kernels: {launches}")
+        if layout == "slots" and (launches["paged_verify_attn"]
+                                  or launches["paged_verify_attn_split"]):
+            return _fail(f"{path}: the dense verify launched K5: {launches}")
+        st = bat.stats()
+        if st["active"] or st["queued"]:
+            return _fail(f"{path}: the batcher did not drain: {st}")
+        if layout == "paged" and (
+                st["pages_in_use"] != 0
+                or st["pages_free"] != st["pool_pages"] - 1):
+            return _fail(f"{path}: the pool did not drain: {st}")
+        if steady != (0, 1):
+            return _fail(f"{path}: a steady speculative tick made {steady[0]} "
+                         f"host->device copies and {steady[1]} device->host "
+                         "fetches (want 0 and 1)")
+        # The bar: twice the measured verify-vs-decode logit error of this
+        # layout and cache dtype, at least 0.1; the int8 pool keeps phase
+        # 9's bar where that is larger.
+        bar = max(0.1, 2 * verr[layout, kv])
+        if path == "spec_int8":
+            bar = max(bar, qbar)
+        split = kernel.decode_split
+        exempt = check_spec_streams(
+            sprompts, out, cancelled, 64,
+            lambda p, sp=split, kv=kv: solo(p, sp, kv),
+            lambda p, sp=split, kv=kv: solo_gaps(p, sp, kv), bar)
+        acc = st["spec_acceptance"]
+        rounds = st["spec_drafted"] // (spec.draft_k + spec.tree_width)
+        per_pass = (st["spec_accepted"] + rounds) / max(rounds, 1)
+        # A tree round drafts d + w candidates of which at most d + 1 can
+        # be accepted, so its bar scales by (d + 1) / (d + w).
+        most = min(1.0, (spec.draft_k + 1) / (spec.draft_k + spec.tree_width))
+        if draft is lm and kv == "native" and acc < 0.9 * most:
+            return _fail(f"{path}: self-draft acceptance {acc:.4f} < "
+                         f"{0.9 * most:.4f}")
+        note = ""
+        if layout == "slots":
+            note = (" (verify on dense strips is plain verify_attention: the "
+                    "JAX package has no kernel there, K5 not launched)")
+        if sampled_id is not None:
+            note += ("; the temperature 0.7 / top_k 1 request passed the same "
+                     "check against its greedy stream")
+        print(f"batcher[{path}] on {card}: {len(sprompts)} requests "
+              f"({'1 cancelled, ' if cancelled is not None else ''}"
+              f"{len(exempt)} tie exemptions at bar {bar:.4f}), acceptance "
+              f"{acc:.4f}, {per_pass:.3f} tokens per verify pass and slot, "
+              f"{st['ticks']} ticks, {ntok} tokens in {wall:.3f} s = "
+              f"{ntok / wall:.1f} tok/s (non-speculative run of the same "
+              f"traffic in this call: {base[path]:.1f} tok/s), steady tick: "
+              f"{steady[0]} host->device copies, {steady[1]} fetch, launches "
+              f"{launches}{note}")
+
+    # K5 / K5q / K5-split at the speculative path's shape: 8 slots, 12 kv
+    # heads, g 1, 5 chunk rows, page 128, 8 pages a slot, base positions
+    # spread over the window.
+    KC = 5
+    q, kp, vp, table, idx = verify_inputs(torch, dev, B, kvh, G, KC, hd, 128,
+                                          8, 65, seed=14)
+    idx[-1] = 8 * 128 - KC
+    live = float((idx.long() + KC).sum()) * kvh  # keys a slot's rows read
+    pairs5 = float(sum((idx.long() + t + 1).sum() for t in range(KC))) * kvh
+    qo_bytes = 2 * B * kvh * G * KC * hd * 2 + table.numel() * 4 + B * 4
+    vmask = D.verify_live(idx, B, G * KC, 8 * 128, KC, None, 0, dev)
+
+    def sdpa_verify(kpool, vpool):
+        ks = kpool[table.long()].movedim(2, 1).reshape(B, kvh, -1, hd)
+        vs = vpool[table.long()].movedim(2, 1).reshape(B, kvh, -1, hd)
+        return F.scaled_dot_product_attention(q, ks, vs,
+                                              attn_mask=vmask[:, None])
+
+    pools = {"native": (kp, vp),
+             "int8": (quantized(Q, kp, "int8"), quantized(Q, vp, "int8")),
+             "int4": (quantized(Q, kp, "int4"), quantized(Q, vp, "int4"))}
+    for kv, path in (("native", "spec_paged"), ("int8", "spec_int8"),
+                     ("int4", "spec_int4")):
+        pq = pools[kv]
+        vbytes = (2 * live * hd * 2 if kv == "native"
+                  else 2 * live * (pq[0][0].shape[-1] + 4))
+        bms, by = bound(4 * pairs5 * hd, vbytes + qo_bytes)
+        tag = "" if kv == "native" else f"[{kv}]"
+        row = dict(
+            name=f"paged_verify_attn{tag}", route="cuda",
+            source="adapt_tpu_torch/csrc/paged_verify_attn.cu",
+            replaces="adapt_tpu/ops/paged_attention.py:647",
+            launches=runs[path]["paged_verify_attn"],
+            max_abs_err=errs[f"paged_verify_attn{tag}"],
+            ms=time_ms(lambda: P.paged_verify_attn(q, *pq, table, idx, KC)),
+            plain_ms=time_ms(lambda: P.paged_verify_attention_plain(
+                q, *pq, table, idx, KC)),
+            bound_ms=bms, bound_by=by,
+            library_ms=(time_ms(lambda: sdpa_verify(kp, vp))
+                        if kv == "native" else None),
+            shape=f"b{B} kv_h{kvh} g{G} kc{KC} page128 pps8 hd{hd} "
+                  f"{kv} K/V bf16 q")
+        if kv != "native":
+            row["dequant_sdpa_ms"] = time_ms(lambda: sdpa_verify(
+                dequant(pq[0], hd), dequant(pq[1], hd)))
+        kernels.append(row)
+        split_fn = lambda: P.paged_verify_attn_split(  # noqa: E731
+            q, *pq, table, idx, KC, None, 0, 4)
+        split_plain = lambda: P.paged_verify_attention_plain(  # noqa: E731
+            q, *pq, table, idx, KC, None, 0, 4)
+        split_shape = (f"b{B} kv_h{kvh} g{G} kc{KC} page128 pps8 hd{hd} "
+                       f"split4 {kv} K/V bf16 q")
+        if kv == "native":
+            kernels.append(dict(
+                name="paged_verify_attn_split", route="cuda",
+                source="adapt_tpu_torch/csrc/paged_verify_attn.cu",
+                replaces="adapt_tpu/ops/paged_attention.py:647",
+                launches=runs["spec_tree_split4"]["paged_verify_attn_split"],
+                max_abs_err=errs["paged_verify_attn_split"],
+                ms=time_ms(split_fn), plain_ms=time_ms(split_plain),
+                bound_ms=bms, bound_by=by, library_ms=row["library_ms"],
+                shape=split_shape))
+        else:
+            side_time(f"paged_verify_attn_split[{kv}]", split_fn, split_plain,
+                      4 * pairs5 * hd, vbytes + qo_bytes, split_shape)
+    # The dense-strip verify at the same geometry: plain tensor operations,
+    # no kernel (as in the JAX package), timed for the record.
+    Lv = 1024 + 1 + 4
+    ck = torch.randn(B, kvh, Lv, hd, device=dev).to(torch.bfloat16)
+    cv = torch.randn(B, kvh, Lv, hd, device=dev).to(torch.bfloat16)
+    dense_ms = time_ms(lambda: D.verify_attention(q, ck, cv, idx, KC))
+    print(f"verify_attention (dense strips, plain tensor operations, no "
+          f"kernel) on {card}: {dense_ms:.4f} ms at b{B} kv_h{kvh} g{G} "
+          f"kc{KC} L{Lv} hd{hd} bf16")
+
+    # K6 at the draft's matrices: an MLP matrix and the embedding, bf16.
+    # No single PyTorch call computes either; the plain version is the
+    # multi-call figure. Elementwise f32 work outside the tensor cores:
+    # its operations are held against 67 TFLOP/s.
+    for shape, in_kernels in (((768, 3072), True), ((50257, 768), False)):
+        x = (torch.randn(*shape, device=dev) * 0.036).to(torch.bfloat16)
+        qt = Q.quantize_blocks(x)
+        n, nb = x.numel(), qt.scales.numel()
+        for name, fn, plain_fn, ops, nbytes, replaces in (
+            ("quantize_blocks", lambda: Q.quantize_blocks(x),
+             lambda: Q.quantize_reference(x), 3 * n,
+             n * 2 + nb * 8192 + nb * 4, "adapt_tpu/ops/quantize.py:71"),
+            ("dequantize_blocks", lambda: Q.dequantize_blocks(qt),
+             lambda: Q.dequantize_reference(qt), n, n + nb * 4 + n * 2,
+             "adapt_tpu/ops/quantize.py:81"),
+        ):
+            t_ops, t_bytes = ops / 67e12, nbytes / PEAK_BYTES
+            bms = max(t_ops, t_bytes) * 1e3
+            by = "operations" if t_ops > t_bytes else "bytes"
+            ms, plain = time_ms(fn), time_ms(plain_fn)
+            what = f"{shape} bf16, {nb} blocks of 8192"
+            if in_kernels:
+                kernels.append(dict(
+                    name=name, route="cuda",
+                    source=f"adapt_tpu_torch/csrc/{name}.cu",
+                    replaces=replaces, launches=runs["spec_int8"][name],
+                    max_abs_err=errs[name], ms=ms, plain_ms=plain,
+                    bound_ms=bms, bound_by=by, library_ms=None,
+                    multi_call_ms=plain, shape=what))
+            else:
+                print(f"{name} on {card}: {ms:.4f} ms (plain {plain:.4f}, "
+                      f"library none (multi-call {plain:.4f}), bound "
+                      f"{bms:.4f} by {by}) at {what}")
+
     if "--profile" in argv:
         for kv in ("native", "int8"):
             for layout in ("slots", "paged"):
                 profile_decode(torch, lm, card, layout, kv)
+        profile_spec(torch, lm, lm, SpeculativeConfig(draft_k=4), card,
+                     "native", "self draft, native pool")
+        profile_spec(torch, lm, draft2,
+                     SpeculativeConfig(draft_k=4, draft_weight_dtype="int8"),
+                     card, "int8", "2-layer int8-weight draft, int8 pool")
     for kr in kernels:
         lib = ("none" if kr["library_ms"] is None
                else f"{kr['library_ms']:.4f}")
         two = (f", dequantize + sdpa {kr['dequant_sdpa_ms']:.4f}"
                if "dequant_sdpa_ms" in kr else "")
+        if "multi_call_ms" in kr:
+            two = f" (multi-call {kr['multi_call_ms']:.4f})"
         print(f"{kr['name']} on {card}: {kr['ms']:.4f} ms (plain "
               f"{kr['plain_ms']:.4f}, library {lib}{two}, bound "
               f"{kr['bound_ms']:.4f} by {kr['bound_by']}) at {kr['shape']}")

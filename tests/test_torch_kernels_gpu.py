@@ -1,6 +1,6 @@
-"""The CUDA kernels (K1, K2, K2-split, K3, K3-split, K4, and the int8 /
-int4 branches K2q, K3q, K4q) against their plain PyTorch versions, on a
-card. Every test is marked ``gpu`` and skips without a
+"""The CUDA kernels (K1, K2, K2-split, K3, K3-split, K4, K5, K5-split, the
+int8 / int4 branches K2q, K3q, K4q, K5q, and K6's blockwise quantize /
+dequantize) against their plain PyTorch versions, on a card. Every test is marked ``gpu`` and skips without a
 CUDA device (the kernels are CUDA C++ with no CPU mode). This file imports
 no JAX, so it also runs on a machine that has none:
 
@@ -13,7 +13,9 @@ logsumexp at ``1e-3``. Rows with no live key (and the left padding of
 bit for bit on the same K/V laid out as a dense strip, quantized or not.
 Quantized caches come from ``ops.quantize.quantize_kv_vectors`` on the
 card; the plain versions read the same bytes, so the tolerances stay the
-native ones."""
+native ones. K5 with ``split == 1`` partials must equal the unsplit kernel
+bit for bit; K6 must be ``torch.equal`` to its plain version (values, scales
+and the round trip)."""
 
 import pytest
 import torch
@@ -21,6 +23,7 @@ import torch
 from adapt_tpu_torch.ops import attention as TA
 from adapt_tpu_torch.ops import decode_attention as TD
 from adapt_tpu_torch.ops import paged_attention as TP
+from adapt_tpu_torch.ops import quantize as TQ
 from adapt_tpu_torch.ops.quantize import quantize_kv_vectors
 
 K1_CASES = {
@@ -345,3 +348,136 @@ def test_quantized_operands_are_checked(cuda):
         TD.decode_attn(q, (vals[..., :16], sc), (vals[..., :16], sc), 0)
     with pytest.raises(ValueError, match="scales"):
         TD.decode_attn(q, (vals, sc[..., :8, :]), (vals, sc[..., :8, :]), 0)
+
+
+# -- K5 / K5q: batched paged verify ------------------------------------------
+
+
+def _verify_case(cuda, dtype, kv_dtype, g, kc, hd, page, b=5, kvh=3, seed=21):
+    """Pools with a shuffled table, indices spread over the window, the
+    last slot dead (the batcher's idle sentinel)."""
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    pps = 640 // page
+    npages = b * pps + 1
+    q = torch.randn(b, kvh, g * kc, hd, generator=gen, device=cuda).to(dtype)
+    kp = torch.randn(npages, kvh, page, hd, generator=gen, device=cuda)
+    vp = torch.randn(npages, kvh, page, hd, generator=gen, device=cuda)
+    if kv_dtype == "native":
+        kp, vp = kp.to(dtype), vp.to(dtype)
+    else:
+        kp = quantize_kv_vectors(kp, kv_dtype)
+        vp = quantize_kv_vectors(vp, kv_dtype)
+    perm = torch.randperm(npages - 1,
+                          generator=torch.Generator().manual_seed(seed)) + 1
+    table = perm.reshape(b, pps).to(torch.int32).to(cuda)
+    idx = torch.linspace(0, 640 - kc, b).round().to(torch.int32)
+    idx[-1] = -(kc + 2)
+    return q, kp, vp, table, idx.to(cuda)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kv_dtype", ["native", "int8", "int4"])
+@pytest.mark.parametrize("window,tree_tail", [(None, 0), (150, 0), (None, 2),
+                                              (70, 2)])
+@pytest.mark.parametrize("g,hd,page", [(1, 64, 128), (4, 64, 16),
+                                       (2, 128, 128)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k5_matches_plain(cuda, dtype, g, hd, page, window, tree_tail,
+                          kv_dtype):
+    kc = 5 + tree_tail
+    q, kp, vp, table, idx = _verify_case(cuda, dtype, kv_dtype, g, kc, hd,
+                                         page)
+    n0 = TP.paged_verify_attn.launches
+    n1 = TP.paged_verify_attn_split.launches
+    out = TP.paged_verify_attention(q, kp, vp, table, idx, kc, window=window,
+                                    tree_tail=tree_tail)
+    one = TP.paged_verify_attention(q, kp, vp, table, idx, kc, window=window,
+                                    tree_tail=tree_tail, split=4)
+    same = TP.paged_verify_attn_split(q, kp, vp, table, idx, kc, window,
+                                      tree_tail, split=1)
+    torch.cuda.synchronize()
+    assert TP.paged_verify_attn.launches == n0 + 1
+    assert TP.paged_verify_attn_split.launches == n1 + 2
+    tol = _tol(dtype)
+    for got, split in ((out, 1), (one, 4)):
+        ref = TP.paged_verify_attention_plain(q, kp, vp, table, idx, kc,
+                                              window, tree_tail, split)
+        torch.testing.assert_close(got.float(), ref.float(), atol=tol,
+                                   rtol=tol)
+        assert not got[-1].any()  # the dead slot emits zeros
+    assert torch.equal(same, out)  # split 1 == unsplit, bit for bit
+    # Live rows also agree with the gather oracle.
+    oracle = TP.paged_verify_attention_reference(q, kp, vp, table, idx, kc,
+                                                 window, tree_tail)
+    torch.testing.assert_close(out[:-1].float(), oracle[:-1].float(),
+                               atol=tol, rtol=tol)
+
+
+@pytest.mark.gpu
+def test_k5_cuda_refuses_plain_and_bad_operands(cuda):
+    q, kp, vp, table, idx = _verify_case(cuda, torch.bfloat16, "native", 1,
+                                         5, 64, 128)
+    with pytest.raises(ValueError, match="plain version"):
+        TP.paged_verify_attention(q, kp, vp, table, idx, 5, prefer="xla")
+    with pytest.raises(ValueError, match="multiple"):
+        TP.paged_verify_attn(q, kp, vp, table, idx, 4)
+    with pytest.raises(ValueError, match="tree_tail"):
+        TP.paged_verify_attn(q, kp, vp, table, idx, 5, None, 5)
+    with pytest.raises(ValueError, match="page table"):
+        TP.paged_verify_attn(q, kp, vp, table[:2], idx, 5)
+    with pytest.raises(ValueError, match="dtypes differ"):
+        TP.paged_verify_attn(q.float(), kp, vp, table, idx, 5)
+    with pytest.raises(ValueError, match="contiguous"):
+        TP.paged_verify_attn(q, kp.transpose(1, 2).contiguous().transpose(
+            1, 2), vp, table, idx, 5)
+
+
+# -- K6: blockwise int8 quantize / dequantize --------------------------------
+
+
+def _k6_inputs(cuda):
+    gen = torch.Generator(device=cuda).manual_seed(31)
+    blocks = torch.randn(4, 8192, generator=gen, device=cuda)
+    blocks[1] = 0.0
+    blocks[2] = -0.37
+    return {
+        "matrix_bf16": (torch.randn(768, 3072, generator=gen, device=cuda)
+                        * 0.04).to(torch.bfloat16),
+        "ragged_f32": torch.randn(1000, 37, generator=gen, device=cuda) * 3,
+        "zero_const": blocks,
+        "ties": torch.arange(-300, 301, device=cuda).float() / 2.0,
+        "small_f16": torch.randn(17, generator=gen, device=cuda).to(
+            torch.float16),
+    }
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["matrix_bf16", "ragged_f32", "zero_const",
+                                  "ties", "small_f16"])
+def test_k6_bit_equal_to_plain(cuda, name):
+    x = _k6_inputs(cuda)[name]
+    n0, n1 = TQ.quantize_blocks.launches, TQ.dequantize_blocks.launches
+    qt = TQ.quantize(x)
+    back = TQ.dequantize(qt)
+    torch.cuda.synchronize()
+    assert TQ.quantize_blocks.launches == n0 + 1
+    assert TQ.dequantize_blocks.launches == n1 + 1
+    ref = TQ.quantize_reference(x)
+    assert qt.values.shape == ref.values.shape and qt.shape == tuple(x.shape)
+    assert torch.equal(qt.values, ref.values)
+    assert torch.equal(qt.scales, ref.scales)
+    assert back.dtype == x.dtype and back.shape == x.shape
+    assert torch.equal(back, TQ.dequantize_reference(ref))
+
+
+@pytest.mark.gpu
+def test_k6_params_round_trip_on_the_card(cuda):
+    tree = {"w": torch.randn(300, 200, device=cuda).to(torch.bfloat16),
+            "b": torch.randn(200, device=cuda)}
+    q = TQ.quantize_params(tree)
+    assert isinstance(q["w"], TQ.QuantizedTensor) and q["b"] is tree["b"]
+    back = TQ.dequantize_params(q)
+    assert back["w"].dtype == torch.bfloat16
+    step = float(q["w"].scales.max())
+    assert float((back["w"].float() - tree["w"].float()).abs().max()) \
+        <= step / 2 + 0.01 * float(tree["w"].float().abs().max())
