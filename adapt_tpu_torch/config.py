@@ -1,8 +1,8 @@
 """Typed configuration the ported serving core reads — copies of
-``adapt_tpu/config.py``'s ``KernelConfig``, ``SpeculativeConfig`` and
-``SchedulerConfig`` (with ``TenantQuota``, which the latter names), same
-field names and defaults, so one config means the same thing in both
-packages.
+``adapt_tpu/config.py``'s ``KernelConfig``, ``SpeculativeConfig``,
+``SchedulerConfig`` (with ``TenantQuota``, which the latter names) and
+``PipelineConfig``, same field names and defaults, so one config means the
+same thing in both packages.
 
 What differs is what ``KernelConfig`` selects on this card:
 
@@ -151,3 +151,36 @@ class SchedulerConfig:
                 "cache_aware_window must be >= 1, got "
                 f"{self.cache_aware_window}"
             )
+
+
+@dataclasses.dataclass(frozen=True)
+class PipelineConfig:
+    """SPMD pipeline schedule knobs (``parallel.pipeline_spmd``).
+
+    The serial (GPipe) schedule puts every activation hop on the critical
+    path; the overlap schedule issues each hop alongside the next
+    microbatch's compute so hop latency hides under it. On one rank there
+    is no hop: both schedules run each microbatch through the whole block
+    stack in order and give the same result. Consumed by
+    ``spmd_pipeline_from_config``.
+    """
+
+    # "serial" (GPipe; hop on the critical path) or "overlap"
+    # (double-buffered; hop issued concurrently with compute).
+    schedule: str = "overlap"
+    # Microbatches per global batch.
+    microbatches: int = 8
+    # Circular activation-buffer depth for the overlap schedule: a hop
+    # gets hop_buffers - 1 ticks to land.
+    hop_buffers: int = 2
+
+    def __post_init__(self):
+        if self.schedule not in ("serial", "overlap"):
+            raise ValueError(
+                f"schedule={self.schedule!r}: expected 'serial' or "
+                f"'overlap'"
+            )
+        if self.microbatches < 1:
+            raise ValueError("microbatches must be >= 1")
+        if self.hop_buffers < 2:
+            raise ValueError("hop_buffers must be >= 2")

@@ -1,4 +1,4 @@
-"""Load the JAX package's flax ``variables`` into the port's LM.
+"""Load the JAX package's flax ``variables`` into the port's LM and ViT.
 
 ``from_flax(variables)`` takes the per-node variables of
 ``adapt_tpu.models.transformer_lm`` (nested dicts of numpy arrays — pass
@@ -23,6 +23,14 @@ Mapping (flax -> torch):
   carries it into the port's ``QuantizedTensor``, and :func:`from_flax`
   dequantizes it with the port's own ``dequantize`` before mapping — so the
   very int8 payload JAX produced loads as the draft's weights.
+
+``vit_from_flax(variables)`` does the same for ``adapt_tpu.models.vit``'s
+per-node variables and the port's ViT ``LayerGraph`` (keys
+``layers.<node>.<param>``): the patch ``Conv_0`` kernel is HWIO and becomes
+torch's OIHW; ``cls`` and ``pos_embed`` keep their shapes; the encoder
+blocks' ``LayerNorm_0`` / ``LayerNorm_1`` / ``Dense_0`` / ``Dense_1`` map to
+``ln1`` / ``ln2`` / ``mlp_in`` / ``mlp_out``; the head's ``LayerNorm_0`` /
+``Dense_0`` to ``ln`` / ``fc``.
 """
 
 from __future__ import annotations
@@ -98,4 +106,34 @@ def from_flax(variables) -> dict[str, torch.Tensor]:
         for proj in ("qkv", "q", "kv", "out"):
             if proj in attn:
                 _dense(sd, f"{name}.attn.{proj}", attn[proj])
+    return sd
+
+
+def vit_from_flax(variables) -> dict[str, torch.Tensor]:
+    """flax ViT variables -> the port's ViT ``state_dict`` (f32 CPU
+    tensors)."""
+    sd: dict[str, torch.Tensor] = {}
+    pe = variables["patch_embed"]["params"]
+    conv = pe["Conv_0"]
+    sd["layers.patch_embed.weight"] = _t(
+        np.transpose(_arr(conv["kernel"]), (3, 2, 0, 1)))
+    sd["layers.patch_embed.bias"] = _t(conv["bias"])
+    sd["layers.patch_embed.cls"] = _t(pe["cls"])
+    sd["layers.patch_embed.pos_embed"] = _t(pe["pos_embed"])
+    blocks = sorted(
+        (k for k in variables if k.startswith("encoder_block_")),
+        key=lambda k: int(k.rsplit("_", 1)[1]),
+    )
+    for name in blocks:
+        p = variables[name]["params"]
+        pre = f"layers.{name}"
+        _norm(sd, f"{pre}.ln1", p["LayerNorm_0"])
+        _norm(sd, f"{pre}.ln2", p["LayerNorm_1"])
+        _dense(sd, f"{pre}.mlp_in", p["Dense_0"])
+        _dense(sd, f"{pre}.mlp_out", p["Dense_1"])
+        _dense(sd, f"{pre}.attn.qkv", p["attn"]["qkv"])
+        _dense(sd, f"{pre}.attn.out", p["attn"]["out"])
+    head = variables["head"]["params"]
+    _norm(sd, "layers.head.ln", head["LayerNorm_0"])
+    _dense(sd, "layers.head.fc", head["Dense_0"])
     return sd

@@ -1,1 +1,2 @@
-"""Models of the port (the decoder LM so far)."""
+"""Models of the port: the decoder LM (``transformer_lm``, ``speculative``)
+and the ViT (``vit``)."""

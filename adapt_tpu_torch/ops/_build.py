@@ -30,6 +30,7 @@ _P, _I, _F, _L = (ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
                   ctypes.c_longlong)
 KERNELS = {
     "flash_attn_fwd": [_P] * 7 + [_I] * 8 + [_F, _P],
+    "flash_attn_bwd": [_P] * 11 + [_I] * 8 + [_F, _P],
     "decode_attn": [_P] * 11 + [_I] * 8 + [_F, _P],
     "paged_attn": [_P] * 12 + [_I] * 9 + [_F, _P],
     "paged_chunk_attn": [_P] * 7 + [_I] * 10 + [_F, _P],

@@ -1,14 +1,22 @@
-"""Forward flash attention: kernel K1 (``csrc/flash_attn_fwd.cu``) and its
-plain PyTorch version.
+"""Flash attention: the forward kernel K1 (``csrc/flash_attn_fwd.cu``), the
+streaming backward K7 (``csrc/flash_attn_bwd.cu``) and their plain
+PyTorch versions.
 
 Counterpart of ``adapt_tpu/ops/attention.py``. Layouts stay the JAX
 package's: q, k, v are ``(batch, heads, seq, head_dim)``; the logsumexp is
 ``(batch, heads, s_q)`` f32. Dispatch is by device, not by a measured
 budget: a CUDA tensor launches K1 (``flash_attn_fwd``), a CPU tensor runs
 :func:`attention_reference` / :func:`_reference_with_lse`, the JAX
-oracle's op order with the same finite ``-1e30`` sentinel. Forward only:
-a CUDA call that needs a gradient raises until the streaming backward (K7)
-is ported.
+oracle's op order with the same finite ``-1e30`` sentinel.
+
+Gradients: when grad is enabled and q, k or v requires it,
+:func:`flash_attention` runs through an ``autograd.Function`` (the JAX
+package's custom VJP): its forward saves ``(q, k, v, out, lse)`` from K1
+(CUDA) or ``_reference_with_lse`` (CPU), its backward runs K7
+(``flash_attn_bwd``) on CUDA or :func:`flash_attention_bwd_plain` on the
+CPU. A call without grad keeps the forward-only path above.
+:func:`flash_attention_with_lse` (and so ``causal_shift``) is forward-only,
+as in the JAX package, and raises under grad.
 
 Fully padded query rows (position < ``valid_from``) have unspecified
 contents in both versions, as in the JAX package: compare valid rows.
@@ -40,6 +48,11 @@ def _causal_mask(s_q, s_k, causal_shift=None, device=None):
 def _masked_scores(q, k, causal, valid_from, causal_shift, window):
     d = q.shape[-1]
     s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) / math.sqrt(d)
+    return _mask(s, causal, valid_from, causal_shift, window)
+
+
+def _mask(s, causal, valid_from, causal_shift, window):
+    """The masks of K1 / K7 on a ``(b, h, s_q, s_k)`` f32 score tensor."""
     s_q, s_k = s.shape[-2:]
     dev = s.device
     if causal:
@@ -129,6 +142,88 @@ def flash_attn_fwd(
 flash_attn_fwd.launches = 0
 
 
+def flash_attention_bwd_plain(q, k, v, out, lse, do, causal=False,
+                              valid_from=None, window=None):
+    """Plain version of K7: ``(dq, dk, dv)`` of ``out = attention(q, k, v)``
+    given the forward's ``out`` and ``lse`` and the cotangent ``do``,
+    materialized in f32 in the op order of the JAX kernels
+    (``_bwd_dq_kernel`` / ``_bwd_dkv_kernel``): ``p = exp(s - lse)``,
+    ``dp = do v^T``, ``ds = p (dp - delta) sm_scale``, ``dq = ds k``,
+    ``dk = ds^T q``, ``dv = p^T do`` with ``delta = rowsum(do * out)``.
+    Each gradient comes back in its input's dtype."""
+    sm_scale = 1.0 / math.sqrt(q.shape[-1])
+    qf, kf, vf, dof = q.float(), k.float(), v.float(), do.float()
+    lse = lse.float()
+    if valid_from is not None:
+        # A fully padded row saved lse ~= -1e30, so exp(s - lse) would be
+        # exp(0) = 1 on its masked scores; clamped at -1e20 they stay 0
+        # (``_flash_bwd_impl`` :856-862).
+        lse = torch.clamp(lse, min=-1e20)
+    delta = torch.sum(dof * out.float(), dim=-1)
+    s = torch.einsum("bhqd,bhkd->bhqk", qf, kf) * sm_scale
+    s = _mask(s, causal, valid_from, None, window)
+    p = torch.exp(s - lse[..., None])
+    dp = torch.einsum("bhqd,bhkd->bhqk", dof, vf)
+    ds = p * (dp - delta[..., None]) * sm_scale
+    dq = torch.einsum("bhqk,bhkd->bhqd", ds, kf)
+    dk = torch.einsum("bhqk,bhqd->bhkd", ds, qf)
+    dv = torch.einsum("bhqk,bhqd->bhkd", p, dof)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def flash_attn_bwd(q, k, v, out, lse, do, causal=False, valid_from=None,
+                   window=None):
+    """Launch K7 on CUDA tensors: ``(dq, dk, dv)`` in the inputs' dtype.
+    One call runs both passes (dQ, whose prologue writes ``delta``, then
+    dK/dV) and counts one launch. Raises on any shape, dtype or device it
+    does not take, and on a failed launch."""
+    if not all(t.is_cuda for t in (q, k, v, out, lse, do)):
+        raise ValueError("flash_attn_bwd launches on CUDA tensors only")
+    if not q.dtype == k.dtype == v.dtype == out.dtype == do.dtype:
+        raise ValueError(
+            f"q/k/v/out/do dtypes differ: "
+            f"{[str(t.dtype) for t in (q, k, v, out, do)]}")
+    b, h, s_q, d = q.shape
+    if k.shape != v.shape or k.shape[:2] != (b, h) or k.shape[3] != d:
+        raise ValueError(f"k/v shape {tuple(k.shape)} vs q {tuple(q.shape)}")
+    if out.shape != q.shape or do.shape != q.shape:
+        raise ValueError(f"out/do shapes {tuple(out.shape)} "
+                         f"{tuple(do.shape)} vs q {tuple(q.shape)}")
+    if lse.shape != (b, h, s_q) or lse.dtype != torch.float32:
+        raise ValueError(f"lse must be ({b}, {h}, {s_q}) f32, got "
+                         f"{tuple(lse.shape)} {lse.dtype}")
+    if d not in KERNEL_HEAD_DIMS:
+        raise ValueError(f"K7 serves head_dim {KERNEL_HEAD_DIMS}, got {d}")
+    if window is not None and not causal:
+        raise ValueError("window requires causal=True")
+    s_k = k.shape[2]
+    q, k, v, out, do = (t.contiguous() for t in (q, k, v, out, do))
+    lse = lse.contiguous()
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    delta = torch.empty((b, h, s_q), dtype=torch.float32, device=q.device)
+    vf = None
+    if valid_from is not None:
+        vf = torch.as_tensor(valid_from, device=q.device).to(torch.int32)
+        vf = vf.reshape(b).contiguous()
+    lib = _build.load("flash_attn_bwd")
+    err = lib.flash_attn_bwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+        dk.data_ptr(), dv.data_ptr(),
+        vf.data_ptr() if vf is not None else None,
+        b, h, s_q, s_k, d, _build.dtype_code(q.dtype), int(bool(causal)),
+        int(window or 0), 1.0 / math.sqrt(d),
+        torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    _build.check(err, "flash_attn_bwd")
+    flash_attn_bwd.launches += 1
+    return dq, dk, dv
+
+
+#: Calls of K7 (each runs both passes; the plain version never counts).
+flash_attn_bwd.launches = 0
+
+
 def _check_args(q, prefer, causal, window, causal_shift):
     if prefer not in (None, "pallas", "xla"):
         raise ValueError(
@@ -138,17 +233,42 @@ def _check_args(q, prefer, causal, window, causal_shift):
         raise ValueError("window requires causal=True without causal_shift")
     if causal_shift is not None and not causal:
         raise ValueError("causal_shift requires causal=True")
-    if q.is_cuda:
-        if prefer == "xla":
-            raise ValueError(
-                "prefer='xla' selects the plain version, which CUDA tensors "
-                "refuse: the card's path runs the K1 kernel"
-            )
-        if torch.is_grad_enabled() and q.requires_grad:
-            raise NotImplementedError(
-                "flash attention backward (K7, ops/attention.py:"
-                "_bwd_dq_kernel/_bwd_dkv_kernel) is not ported yet"
-            )
+    if q.is_cuda and prefer == "xla":
+        raise ValueError(
+            "prefer='xla' selects the plain version, which CUDA tensors "
+            "refuse: the card's path runs the K1 kernel"
+        )
+
+
+def _wants_grad(*ts) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in ts)
+
+
+class _FlashAttention(torch.autograd.Function):
+    """The custom VJP of ``_flash_vjp`` / ``_flash_ragged_vjp``: K1 + K7 on
+    CUDA, ``_reference_with_lse`` + :func:`flash_attention_bwd_plain` on
+    the CPU. ``valid_from`` is an integer operand with no cotangent."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, valid_from, causal, window):
+        q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+        if q.is_cuda:
+            out, lse = flash_attn_fwd(q, k, v, causal, valid_from, None,
+                                      window)
+        else:
+            out, lse = _reference_with_lse(q, k, v, causal, valid_from, None,
+                                           window)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.valid_from, ctx.causal, ctx.window = valid_from, causal, window
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out, lse = ctx.saved_tensors
+        bwd = flash_attn_bwd if q.is_cuda else flash_attention_bwd_plain
+        dq, dk, dv = bwd(q, k, v, out, lse, do.to(q.dtype), ctx.causal,
+                         ctx.valid_from, ctx.window)
+        return dq, dk, dv, None, None, None
 
 
 def flash_attention(
@@ -156,10 +276,14 @@ def flash_attention(
     valid_from=None, window=None,
 ):
     """Fused attention over ``(b, h, s, d)`` tensors: K1 on CUDA, the plain
-    :func:`attention_reference` on CPU. ``block_q``/``block_k`` are
-    accepted for signature parity and ignored: K1 picks its own tiles."""
+    :func:`attention_reference` on CPU; differentiable (K7 backward on
+    CUDA, :func:`flash_attention_bwd_plain` on CPU) when grad is enabled
+    and an input requires it. ``block_q``/``block_k`` are accepted for
+    signature parity and ignored: the kernels pick their own tiles."""
     del block_q, block_k
     _check_args(q, prefer, causal, window, None)
+    if _wants_grad(q, k, v):
+        return _FlashAttention.apply(q, k, v, valid_from, causal, window)
     if not q.is_cuda:
         return attention_reference(
             q, k, v, causal=causal, valid_from=valid_from, window=window
@@ -173,9 +297,15 @@ def flash_attention_with_lse(
     """``(out, lse)`` with the per-row logsumexp of the scaled scores,
     ``(b, h, s_q)`` f32 — the merge residual ring attention builds on.
     ``causal_shift`` offsets the diagonal (row i attends cols <= i -
-    shift)."""
+    shift). Forward-only, as in the JAX package: it raises under grad
+    (use :func:`flash_attention` for training paths)."""
     del block_q, block_k
     _check_args(q, None, causal, None, causal_shift)
+    if _wants_grad(q, k, v):
+        raise NotImplementedError(
+            "flash_attention_with_lse is forward-only (no VJP for the lse "
+            "output or causal_shift): use flash_attention for gradients"
+        )
     if not q.is_cuda:
         return _reference_with_lse(q, k, v, causal, None, causal_shift)
     return flash_attn_fwd(q, k, v, causal, None, causal_shift, None)

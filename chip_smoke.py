@@ -2,10 +2,11 @@
 """On-card smoke test of the PyTorch/CUDA port (``adapt_tpu_torch``).
 
     python3 chip_smoke.py            # the whole check, one CUDA card
-    python3 chip_smoke.py --profile  # and torch.profiler decode breakdowns
-                                     # (dense strips and paged pool, native
-                                     # and int8 caches; two speculative
-                                     # ticks)
+    python3 chip_smoke.py --profile  # and torch.profiler breakdowns: one
+                                     # ViT-B/16 train step and SDPA's
+                                     # forward + backward; decode (dense
+                                     # strips and paged pool, native and
+                                     # int8 caches); two speculative ticks
 
 Phases (no phase failure is caught; any mismatch exits non-zero):
 
@@ -81,7 +82,23 @@ Phases (no phase failure is caught; any mismatch exits non-zero):
    acceptance is at least 0.9 (of what a tree round can accept); pools drain; a steady speculative tick stages
    nothing host->device and fetches once. K5, K5q, K5-split and K6 are timed
    at their main-path shapes; plain dense ``verify_attention`` is timed
-   beside them.
+   beside them;
+11. training: K7 (``flash_attn_bwd``, the flash backward) against its plain
+   version on K1's ``(out, lse)`` in f32 (2e-4) and bf16 (1e-2 of the
+   largest reference magnitude) at the ViT shape b8 h12 s197 d64, causal
+   s256, causal + window 64, ``valid_from``, head_dim 128 and s_q 70 x s_k
+   197, two runs ``torch.equal``; then ViT-B/16 (patch 16, 768 / 12 blocks
+   / 12 heads / 3072, 1000 classes, 224 x 224 x 3, random weights from seed
+   0) through ``split_vit_variables`` -> ``make_pipelined_vit_apply`` ->
+   ``make_train_step(SGD)``: (a) one f32 step of batch 8 in 2 microbatches
+   through K1 + K7 against the same step with every attention on the plain
+   versions, every parameter's gradient within 1e-3 relative L2; (b) five
+   bf16-compute steps (f32 parameters) of batch 32 in 4 microbatches on one
+   fixed batch (lr 0.005): losses finite and falling, K1 and K7 launched
+   12 x 4 times a step each (K7's count is one per call, both passes), step
+   ms, images/s, peak memory; then K7 and K1 timed at the ViT shape beside the plain
+   version, SDPA (K7's library figure derived as SDPA forward + backward
+   minus forward) and the bound.
 
 The line before the last is the kernels' JSON; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -998,6 +1015,321 @@ def profile_spec(torch, lm, draft, spec, card, kv, label):
         print(f"  {ms:9.3f} ms  {n:6d} x  {key[:90]}")
 
 
+K7_CASES = [
+    # (label, b, h, s_q, s_k, d, causal, window, valid_from)
+    ("vit", 8, 12, 197, 197, 64, False, None, None),
+    ("causal", 1, 12, 256, 256, 64, True, None, None),
+    ("window64", 1, 12, 256, 256, 64, True, 64, None),
+    ("valid_from", 4, 12, 128, 128, 64, True, None, [0, 5, 64, 127]),
+    ("d128", 1, 8, 256, 256, 128, True, None, None),
+    ("sq70_sk197", 2, 12, 70, 197, 64, False, None, None),
+]
+
+
+def check_k7(torch, A, dev, errs):
+    """K7 vs its plain version on the same ``(out, lse)`` from K1, in f32
+    (atol = rtol = 2e-4, the JAX package's bar for its streaming backward)
+    and bf16 (within 1e-2 of the largest reference magnitude); dq compared
+    on valid rows only under ``valid_from``. Two runs on the same inputs
+    must be ``torch.equal``, and each case moves the launch count by 2."""
+    g = torch.Generator(device=dev).manual_seed(11)
+    for dtype in (torch.float32, torch.bfloat16):
+        for label, b, h, s_q, s_k, d, causal, window, vf in K7_CASES:
+            def rnd(s):
+                return torch.randn(b, h, s, d, generator=g, device=dev).to(
+                    dtype)
+            q, k, v, do = rnd(s_q), rnd(s_k), rnd(s_k), rnd(s_q)
+            vft = None if vf is None else torch.tensor(vf, device=dev)
+            out, lse = A.flash_attn_fwd(q, k, v, causal, vft, None, window)
+            n0 = A.flash_attn_bwd.launches
+            got = A.flash_attn_bwd(q, k, v, out, lse, do, causal, vft, window)
+            again = A.flash_attn_bwd(q, k, v, out, lse, do, causal, vft,
+                                     window)
+            torch.cuda.synchronize()
+            if A.flash_attn_bwd.launches != n0 + 2:
+                raise AssertionError(f"K7 {label}: launches did not move")
+            ref = A.flash_attention_bwd_plain(q, k, v, out, lse, do, causal,
+                                              vft, window)
+            worst = 0.0
+            for name, a, a2, r in zip(("dq", "dk", "dv"), got, again, ref):
+                if not torch.equal(a, a2):
+                    raise AssertionError(f"K7 {label} {dtype}: {name} differs "
+                                         "between two runs")
+                if name == "dq" and vft is not None:
+                    keep = torch.arange(s_q, device=dev)[None, :] >= vft[:, None]
+                    a, r = a.transpose(1, 2)[keep], r.transpose(1, 2)[keep]
+                what = f"K7 {label} {dtype} {name}"
+                if dtype == torch.float32:
+                    worst = max(worst, close(a, r, 2e-4, 2e-4, what))
+                else:
+                    e = float((a.float() - r.float()).abs().max())
+                    lim = 1e-2 * float(r.float().abs().max())
+                    if e > lim:
+                        raise AssertionError(f"{what}: max abs err {e:.3e} "
+                                             f"over {lim:.3e}")
+                    worst = max(worst, e)
+            errs["flash_attn_bwd"] = max(errs.get("flash_attn_bwd", 0.0),
+                                         worst)
+            tol = ("atol 2e-4 + rtol 2e-4" if dtype == torch.float32
+                   else "1e-2 x max|ref|")
+            print(f"K7 {label} b{b} h{h} s_q{s_q} s_k{s_k} d{d} "
+                  f"{str(dtype)[6:]}: max abs err {worst:.3e} (tol {tol}), "
+                  "two runs equal")
+
+
+def plain_attention(torch, A):
+    """Every attention of a ViT on the plain versions, as an ``attn_fn``:
+    ``_reference_with_lse`` forward, ``flash_attention_bwd_plain`` backward
+    (the card's path runs K1 and K7 in their place)."""
+
+    class PlainFlash(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, q, k, v):
+            out, lse = A._reference_with_lse(q, k, v, False)
+            ctx.save_for_backward(q, k, v, out, lse)
+            return out
+
+        @staticmethod
+        def backward(ctx, do):
+            return A.flash_attention_bwd_plain(*ctx.saved_tensors,
+                                               do.to(ctx.saved_tensors[0].dtype))
+
+    return PlainFlash.apply
+
+
+def vit_step(torch, graph, x, y, num_micro, lr, attn_fn=None, steps=1):
+    """``steps`` SGD steps of the port's ``make_train_step`` over the graph's
+    own modules, every attention through ``attn_fn`` (None: K1 / K7).
+    Returns (losses as device tensors, step times in ms on CUDA events, the
+    first step's gradients by parameter name)."""
+    import functools
+
+    from adapt_tpu_torch.parallel.train import (
+        make_pipelined_vit_apply,
+        make_train_step,
+        split_vit_variables,
+    )
+
+    depth = sum(n.startswith("encoder_block_") for n in graph.topo_order())
+    for i in range(depth):
+        graph.node(f"encoder_block_{i}").module.attn.attn_fn = attn_fn
+    params = split_vit_variables(graph, depth)
+    step = make_train_step(
+        make_pipelined_vit_apply(graph, {"dp": 1, "pp": 1}, num_micro),
+        functools.partial(torch.optim.SGD, lr=lr))
+    state, losses, times, grads = None, [], [], None
+    for i in range(steps):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        params, state, loss = step(params, state, x, y)
+        ev[1].record()
+        losses.append(loss)
+        times.append(ev)
+        if i == 0:
+            grads = {n: p.grad.detach().clone()
+                     for n, p in graph.named_parameters()}
+    torch.cuda.synchronize()
+    return losses, [a.elapsed_time(b) for a, b in times], grads
+
+
+def grad_error(torch, got, ref):
+    """The largest relative L2 error over the parameters' gradients."""
+    return max(float(torch.linalg.vector_norm((got[n] - r).float())
+                     / max(float(torch.linalg.vector_norm(r.float())), 1e-30))
+               for n, r in ref.items())
+
+
+def profile_train(torch, graph, x, y, num_micro, lr, card):
+    """``--profile``: one train step's breakdown: its wall on the host clock
+    unprofiled, then one more step under ``torch.profiler`` for device time
+    by kernel; launches per step, the device's busy share, K1 and K7 ms."""
+    vit_step(torch, graph, x, y, num_micro, lr)  # warm
+    t0 = time.perf_counter()
+    vit_step(torch, graph, x, y, num_micro, lr)
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        vit_step(torch, graph, x, y, num_micro, lr)
+        torch.cuda.synchronize()
+    rows = []
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        dev = getattr(e, "self_device_time_total", None)
+        if dev is None:
+            dev = getattr(e, "self_cuda_time_total", 0.0)
+        if dev > 0:
+            rows.append((dev / 1e3, e.count, e.key))
+    rows.sort(reverse=True)
+    busy = sum(r[0] for r in rows)
+    k1 = sum(r[0] for r in rows if "flash_fwd_kernel" in r[2])
+    k7 = sum(r[0] for r in rows if "flash_bwd_" in r[2])
+    print(f"profile[train] on {card}: one step of batch {x.shape[0]} in "
+          f"{num_micro} microbatches: wall {wall_ms:.2f} ms; kernels "
+          f"{busy:.2f} ms = {busy / wall_ms:.3f} of the wall "
+          f"({sum(r[1] for r in rows)} launches/step); K1 {k1:.3f} ms, K7 "
+          f"{k7:.3f} ms (both passes)")
+    for ms, n, key in rows[:15]:
+        print(f"  {ms:9.3f} ms  {n:6d} x  {key[:90]}")
+
+
+def train_phase(torch, A, dev, card, runs, kernels, errs, build, img,
+                classes):
+    """Phase 11: the training path through the port's ``make_train_step``
+    on ``build`` (``vit_b16``): an f32 step through K1 + K7 against the
+    plain versions, five bf16-compute steps, and K7 / K1 timed at the
+    path's shape. Returns (a failure message or None, the bf16 run's
+    ``(graph, x, y, num_micro, lr)`` for ``--profile``)."""
+    F = torch.nn.functional
+    LR = 0.005
+    gen = torch.Generator().manual_seed(21)
+
+    def batch(n):
+        x = torch.randn(n, img, img, 3, generator=gen).to(dev)
+        return x, torch.randint(0, classes, (n,), generator=gen).to(dev)
+
+    # (a) f32, batch 8 in 2 microbatches, one step: K1 + K7 vs the plain
+    # versions, from the same weights on the same batch.
+    t0 = time.perf_counter()
+    vit = build(dtype=torch.float32, seed=0)
+    nparam = sum(p.numel() for p in vit.parameters())
+    depth = sum(n.startswith("encoder_block_") for n in vit.topo_order())
+    print(f"{vit.name} built in {time.perf_counter() - t0:.1f} s ({nparam} "
+          "parameters)")
+    w0 = {k: t.clone() for k, t in vit.state_dict().items()}
+    x8, y8 = batch(8)
+    plain_fn = plain_attention(torch, A)
+    A.flash_attn_fwd.launches = A.flash_attn_bwd.launches = 0
+    loss_k, _, g_k = vit_step(torch, vit, x8, y8, 2, LR)
+    n_f32 = (A.flash_attn_fwd.launches, A.flash_attn_bwd.launches)
+    vit.load_state_dict(w0)
+    loss_p, _, g_p = vit_step(torch, vit, x8, y8, 2, LR, plain_fn)
+    err32 = grad_error(torch, g_k, g_p)
+    if n_f32 != (2 * depth, 2 * depth):
+        return (f"f32 ViT step launched K1/K7 {n_f32} times, want "
+                f"{2 * depth} each"), None
+    if not err32 <= 1e-3:
+        return (f"f32 {vit.name} gradients through K1 + K7 differ from the "
+                f"plain path by relative L2 {err32:.3e} > 1e-3"), None
+    print(f"{vit.name} f32 step (batch 8, 2 microbatches) on {card}: loss "
+          f"{float(loss_k[0]):.6f} (plain {float(loss_p[0]):.6f}), largest "
+          f"relative L2 gradient error vs the plain path {err32:.3e} (gate "
+          f"1e-3), K1/K7 launches {n_f32}")
+    del vit, w0, g_k, g_p
+
+    # (b) bf16 compute (f32 parameters), batch 32 in 4 microbatches, 5 SGD
+    # steps on one fixed batch. K7's count is one per call, both passes.
+    vit = build(dtype=torch.bfloat16, seed=0)
+    w0 = {k: t.clone() for k, t in vit.state_dict().items()}
+    x32, y32 = batch(32)
+    _, _, g_p = vit_step(torch, vit, x32, y32, 4, LR, plain_fn)
+    vit.load_state_dict(w0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    A.flash_attn_fwd.launches = A.flash_attn_bwd.launches = 0
+    losses, times, g_k = vit_step(torch, vit, x32, y32, 4, LR, steps=5)
+    launches = {"flash_attn_fwd": A.flash_attn_fwd.launches,
+                "flash_attn_bwd": A.flash_attn_bwd.launches}
+    runs["train"] = launches
+    peak = torch.cuda.max_memory_allocated()
+    losses = [float(v) for v in losses]
+    want = 5 * 4 * depth  # steps x microbatches x blocks
+    if launches != {"flash_attn_fwd": want, "flash_attn_bwd": want}:
+        return (f"train path launches {launches}, want {want} each ({depth} "
+                "blocks x 4 microbatches x 5 steps)"), None
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        return f"bf16 {vit.name} losses {losses}: not finite and falling", None
+    step_ms = sum(times[1:]) / len(times[1:])
+    err16 = grad_error(torch, g_k, g_p)
+    print(f"{vit.name} bf16 training (batch 32, 4 microbatches, SGD lr {LR}) "
+          f"on {card}: losses {[round(v, 6) for v in losses]}; step "
+          f"{step_ms:.2f} ms (steps 2-5, CUDA events) = "
+          f"{32 / step_ms * 1e3:.1f} images/s; peak memory "
+          f"{peak / 2**30:.2f} GiB; step-1 gradient error vs the plain path "
+          f"(relative L2, not gated) {err16:.3e}; launches {launches} (K7: "
+          "one per call, both passes)")
+
+    # K7 at the path's shape: b8 h12 s197 d64 non-causal bf16 (one
+    # microbatch of the bf16 run). Bound: the five products over 989
+    # TFLOP/s against q, k, v, out, do read + dq, dk, dv written + lse and
+    # delta over 3.35 TB/s.
+    b, h, s, d = 8, 12, 197, 64
+    g = torch.Generator(device=dev).manual_seed(23)
+    q, k, v, do = (torch.randn(b, h, s, d, generator=g, device=dev).to(
+        torch.bfloat16) for _ in range(4))
+    out, lse = A.flash_attn_fwd(q, k, v, False)
+    ms = time_ms(lambda: A.flash_attn_bwd(q, k, v, out, lse, do, False))
+    plain = time_ms(lambda: A.flash_attention_bwd_plain(q, k, v, out, lse,
+                                                        do, False))
+    qg, kg, vg = (t.clone().requires_grad_() for t in (q, k, v))
+    sdpa_f = time_ms(lambda: F.scaled_dot_product_attention(qg, kg, vg))
+    sdpa_fb = time_ms(lambda: torch.autograd.grad(
+        F.scaled_dot_product_attention(qg, kg, vg), (qg, kg, vg), do))
+    bms, by = bound(10 * b * h * s * s * d, 8 * b * h * s * d * 2
+                    + 2 * b * h * s * 4)
+    kernels.append(dict(
+        name="flash_attn_bwd", route="cuda",
+        source="adapt_tpu_torch/csrc/flash_attn_bwd.cu",
+        replaces="adapt_tpu/ops/attention.py:840",
+        launches=runs["train"]["flash_attn_bwd"],
+        max_abs_err=errs["flash_attn_bwd"], ms=ms, plain_ms=plain,
+        bound_ms=bms, bound_by=by, library_ms=sdpa_fb - sdpa_f,
+        library_derived="sdpa forward+backward minus sdpa forward",
+        shape=f"b{b} h{h} s{s} d{d} non-causal bf16"))
+    k1_ms = time_ms(lambda: A.flash_attn_fwd(q, k, v, False))
+    with torch.no_grad():
+        sdpa_nograd = time_ms(lambda: F.scaled_dot_product_attention(q, k, v))
+    k1_bms, k1_by = bound(4 * b * h * s * s * d, 4 * b * h * s * d * 2
+                          + b * h * s * 4)
+    print(f"at the ViT shape b{b} h{h} s{s} d{d} bf16 on {card}: K7 {ms:.4f} "
+          f"ms, SDPA backward {sdpa_fb - sdpa_f:.4f} ms (derived: "
+          f"forward+backward {sdpa_fb:.4f} minus forward {sdpa_f:.4f}), bound "
+          f"{bms:.4f} by {by}; K1 {k1_ms:.4f} ms, SDPA forward "
+          f"{sdpa_nograd:.4f} ms, K1 bound {k1_bms:.4f} by {k1_by}")
+
+    return None, (vit, x32, y32, 4, LR)
+
+
+def profile_library_backward(torch, card):
+    """``--profile``: which kernels one SDPA forward + backward runs at the
+    ViT shape (b8 h12 s197 d64 bf16) and their device time, to read K7's
+    derived library figure against."""
+    F = torch.nn.functional
+    g = torch.Generator(device="cuda").manual_seed(23)
+    q, k, v, do = (torch.randn(8, 12, 197, 64, generator=g, device="cuda").to(
+        torch.bfloat16) for _ in range(4))
+    q, k, v = (t.requires_grad_() for t in (q, k, v))
+
+    def fwd_bwd():
+        return torch.autograd.grad(F.scaled_dot_product_attention(q, k, v),
+                                   (q, k, v), do)
+
+    for _ in range(3):
+        fwd_bwd()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(5):
+            fwd_bwd()
+        torch.cuda.synchronize()
+    rows = []
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        dev = getattr(e, "self_device_time_total", None)
+        if dev is None:
+            dev = getattr(e, "self_cuda_time_total", 0.0)
+        if dev > 0:
+            rows.append((dev / 1e3 / 5, e.count // 5, e.key))
+    rows.sort(reverse=True)
+    print(f"profile[sdpa forward+backward] on {card}: b8 h12 s197 d64 bf16, "
+          f"device {sum(r[0] for r in rows):.4f} ms a call")
+    for ms, n, key in rows[:8]:
+        print(f"  {ms:9.4f} ms  {n:4d} x  {key[:90]}")
+
+
 def main(argv) -> int:
     try:
         import torch
@@ -1738,7 +2070,18 @@ def main(argv) -> int:
                       f"library none (multi-call {plain:.4f}), bound "
                       f"{bms:.4f} by {by}) at {what}")
 
+    # -- phase 11: training ViT-B/16 (K1 forward, K7 backward) -------------
+    check_k7(torch, A, dev, errs)
+    from adapt_tpu_torch.models.vit import vit_b16
+
+    msg, train_case = train_phase(torch, A, dev, card, runs, kernels, errs,
+                                  vit_b16, 224, 1000)
+    if msg:
+        return _fail(msg)
+
     if "--profile" in argv:
+        profile_train(torch, *train_case, card)
+        profile_library_backward(torch, card)
         for kv in ("native", "int8"):
             for layout in ("slots", "paged"):
                 profile_decode(torch, lm, card, layout, kv)

@@ -44,6 +44,11 @@ def test_port_files_exist():
         "adapt_tpu_torch/runtime/paged.py",
         "adapt_tpu_torch/ops/paged_attention.py",
         "adapt_tpu_torch/convert.py",
+        "adapt_tpu_torch/graph/ir.py",
+        "adapt_tpu_torch/models/vit.py",
+        "adapt_tpu_torch/parallel/pipeline_spmd.py",
+        "adapt_tpu_torch/parallel/train.py",
+        "adapt_tpu_torch/utils/checkpoint.py",
     ):
         assert want in names
 
@@ -78,7 +83,7 @@ def test_entry_points_refuse_to_run_without_a_card():
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():
-    from adapt_tpu_torch.ops.attention import flash_attn_fwd
+    from adapt_tpu_torch.ops.attention import flash_attn_bwd, flash_attn_fwd
     from adapt_tpu_torch.ops.decode_attention import decode_attn
     from adapt_tpu_torch.ops.paged_attention import (
         paged_attn,
@@ -91,6 +96,8 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         flash_attn_fwd(q, q, q)
     with pytest.raises(ValueError, match="CUDA"):
+        flash_attn_bwd(q, q, q, q, q[..., 0], q)
+    with pytest.raises(ValueError, match="CUDA"):
         decode_attn(q[:, :, :1], q, q, 0)
     with pytest.raises(ValueError, match="CUDA"):
         paged_attn(q[:, :, :1], q, q, table, 0)
@@ -99,5 +106,6 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         paged_chunk_attn(q, q, q, [0], 0, 8)
     assert flash_attn_fwd.launches == 0 and decode_attn.launches == 0
+    assert flash_attn_bwd.launches == 0
     assert paged_attn.launches == paged_attn_split.launches == 0
     assert paged_chunk_attn.launches == 0

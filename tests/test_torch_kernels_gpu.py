@@ -1,6 +1,7 @@
 """The CUDA kernels (K1, K2, K2-split, K3, K3-split, K4, K5, K5-split, the
-int8 / int4 branches K2q, K3q, K4q, K5q, and K6's blockwise quantize /
-dequantize) against their plain PyTorch versions, on a card. Every test is marked ``gpu`` and skips without a
+int8 / int4 branches K2q, K3q, K4q, K5q, K6's blockwise quantize /
+dequantize, and K7, the flash backward) against their plain PyTorch
+versions, on a card. Every test is marked ``gpu`` and skips without a
 CUDA device (the kernels are CUDA C++ with no CPU mode). This file imports
 no JAX, so it also runs on a machine that has none:
 
@@ -15,7 +16,10 @@ Quantized caches come from ``ops.quantize.quantize_kv_vectors`` on the
 card; the plain versions read the same bytes, so the tolerances stay the
 native ones. K5 with ``split == 1`` partials must equal the unsplit kernel
 bit for bit; K6 must be ``torch.equal`` to its plain version (values, scales
-and the round trip)."""
+and the round trip). K7's gradients are held at ``atol = rtol = 2e-4`` in
+f32 (the JAX package's bar for its streaming backward) and within 1e-2 of
+the largest reference magnitude in bf16, and two runs on the same inputs
+must be ``torch.equal`` (two passes, no atomics)."""
 
 import pytest
 import torch
@@ -75,6 +79,61 @@ def test_k1_matches_plain(cuda, name, dtype, d):
     torch.testing.assert_close(lse[ok], ref_lse[ok], atol=1e-3, rtol=1e-5)
 
 
+K7_CASES = {
+    # name: (b, h, s_q, s_k, kwargs) -- the shapes of chip_smoke phase 11
+    "vit_noncausal_197": (2, 3, 197, 197, dict(causal=False)),
+    "causal_256": (1, 3, 256, 256, dict(causal=True)),
+    "causal_window_64": (1, 2, 300, 300, dict(causal=True, window=64)),
+    "valid_from": (3, 2, 130, 130, dict(causal=True, vf=[0, 7, 100])),
+    "sq70_sk197": (2, 2, 70, 197, dict(causal=False)),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name", sorted(K7_CASES))
+def test_k7_matches_plain_and_is_deterministic(cuda, name, dtype, d):
+    b, h, s_q, s_k, kw = K7_CASES[name]
+    g = torch.Generator(device=cuda).manual_seed(7)
+    q = torch.randn(b, h, s_q, d, generator=g, device=cuda).to(dtype)
+    k = torch.randn(b, h, s_k, d, generator=g, device=cuda).to(dtype)
+    v = torch.randn(b, h, s_k, d, generator=g, device=cuda).to(dtype)
+    do = torch.randn(b, h, s_q, d, generator=g, device=cuda).to(dtype)
+    vf = torch.tensor(kw["vf"], device=cuda) if "vf" in kw else None
+    args = (kw["causal"], vf, kw.get("window"))
+    out, lse = TA.flash_attn_fwd(q, k, v, kw["causal"], vf, None,
+                                 kw.get("window"))
+    n0 = TA.flash_attn_bwd.launches
+    got = TA.flash_attn_bwd(q, k, v, out, lse, do, *args)
+    again = TA.flash_attn_bwd(q, k, v, out, lse, do, *args)
+    torch.cuda.synchronize()
+    assert TA.flash_attn_bwd.launches == n0 + 2
+    ref = TA.flash_attention_bwd_plain(q, k, v, out, lse, do, *args)
+    for a, a2, r in zip(got, again, ref):
+        assert a.dtype == dtype and torch.equal(a, a2)
+        if dtype == torch.float32:
+            torch.testing.assert_close(a, r, atol=2e-4, rtol=2e-4)
+        else:
+            err = (a.float() - r.float()).abs().max()
+            assert err <= 1e-2 * r.float().abs().max(), float(err)
+
+
+@pytest.mark.gpu
+def test_k7_refuses_bad_operands(cuda):
+    x = torch.zeros(1, 2, 8, 64, device=cuda)
+    lse = torch.zeros(1, 2, 8, device=cuda)
+    with pytest.raises(ValueError, match="head_dim"):
+        s = x[..., :32]
+        TA.flash_attn_bwd(s, s, s, s, lse, s)
+    with pytest.raises(ValueError, match="lse"):
+        TA.flash_attn_bwd(x, x, x, x, lse[..., :4], x)
+    with pytest.raises(ValueError, match="dtypes"):
+        TA.flash_attn_bwd(x, x, x, x, lse, x.to(torch.bfloat16))
+    with pytest.raises(ValueError, match="CUDA"):
+        TA.flash_attn_bwd(x.cpu(), x, x, x, lse, x)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("split", [1, 4])
 @pytest.mark.parametrize("g", [1, 4])
@@ -114,8 +173,15 @@ def test_cuda_refuses_plain_and_grad(cuda):
         TA.flash_attention(x, x, x, prefer="xla")
     with pytest.raises(ValueError, match="refuse"):
         TD.decode_attention(x[:, :, :1], x, x, 0, prefer="xla")
-    with pytest.raises(NotImplementedError, match="K7"):
-        TA.flash_attention(x.clone().requires_grad_(), x, x)
+    xg = x.clone().requires_grad_()
+    n_fwd, n_bwd = TA.flash_attn_fwd.launches, TA.flash_attn_bwd.launches
+    TA.flash_attention(xg, x, x).sum().backward()  # grads run K1 then K7
+    torch.cuda.synchronize()
+    assert TA.flash_attn_fwd.launches == n_fwd + 1
+    assert TA.flash_attn_bwd.launches == n_bwd + 1
+    assert xg.grad.shape == x.shape
+    with pytest.raises(NotImplementedError, match="forward-only"):
+        TA.flash_attention_with_lse(xg, x, x)
     with pytest.raises(ValueError, match="head_dim"):
         TA.flash_attn_fwd(x[..., :32], x[..., :32], x[..., :32])
 
