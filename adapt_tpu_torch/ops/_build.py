@@ -29,8 +29,8 @@ BUILD_DIR = _PKG / "_kernels_build"
 _P, _I, _F, _L = (ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
                   ctypes.c_longlong)
 KERNELS = {
-    "flash_attn_fwd": [_P] * 7 + [_I] * 8 + [_F, _P],
-    "flash_attn_bwd": [_P] * 11 + [_I] * 8 + [_F, _P],
+    "flash_attn_fwd": [_P] * 8 + [_I] * 8 + [_F, _P],
+    "flash_attn_bwd": [_P] * 12 + [_I] * 8 + [_F, _P],
     "decode_attn": [_P] * 11 + [_I] * 8 + [_F, _P],
     "paged_attn": [_P] * 12 + [_I] * 9 + [_F, _P],
     "paged_chunk_attn": [_P] * 7 + [_I] * 10 + [_F, _P],
@@ -41,11 +41,14 @@ KERNELS = {
 
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-lineinfo",
+    "-shared", "-Xcompiler", "-fPIC", "-lineinfo", "-Xptxas", "-v",
 ]
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
+#: kernel library name -> the compiler's output of the build this process
+#: ran (``ptxas -v``: registers, shared memory and spills per kernel).
+LOGS: dict[str, str] = {}
 
 
 def nvcc() -> str:
@@ -84,6 +87,7 @@ def _finish(name: str, job) -> None:
     log, _ = proc.communicate()
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed for {name}.cu:\n{log}")
+    LOGS[name] = log
     os.replace(tmp, out)
 
 

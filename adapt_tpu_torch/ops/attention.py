@@ -24,6 +24,7 @@ contents in both versions, as in the JAX package: compare valid rows.
 
 from __future__ import annotations
 
+import ctypes
 import math
 
 import torch
@@ -98,11 +99,38 @@ def _reference_with_lse(
     return out, lse
 
 
+def _operand(t):
+    """``t`` as K1 / K7 read it. A 16-bit view whose last dim is contiguous
+    and whose rows start on 16-byte boundaries passes as it is (the
+    kernels address rows through its batch / head / row strides: the
+    transposed q / k / v views of a qkv projection cost no copy); any other
+    16-bit tensor, and every f32 one (the CUDA-core path), is copied
+    contiguous first."""
+    if t.dtype != torch.float32 and _aligned(t):
+        return t
+    t = t.contiguous()
+    return t if _aligned(t) else t.clone()
+
+
+def _aligned(t) -> bool:
+    return (t.stride(-1) == 1 and t.data_ptr() % 16 == 0
+            and all(st % 8 == 0 or n == 1
+                    for st, n in zip(t.stride()[:-1], t.shape[:-1])))
+
+
+def _strides(*ts):
+    """The batch / head / row element strides of each ``(b, h, s, d)``
+    operand, as the C entry points take them (host memory)."""
+    vals = [st for t in ts for st in t.stride()[:3]]
+    return (ctypes.c_longlong * len(vals))(*vals)
+
+
 def flash_attn_fwd(
     q, k, v, causal=False, valid_from=None, causal_shift=None, window=None
 ):
-    """Launch K1 on CUDA tensors; returns ``(out, lse)``. Raises on any
-    shape, dtype or device it does not take, and on a failed launch."""
+    """Launch K1 on CUDA tensors; returns ``(out, lse)``, both contiguous.
+    Raises on any shape, dtype or device it does not take, and on a failed
+    launch."""
     if not (q.is_cuda and k.is_cuda and v.is_cuda):
         raise ValueError("flash_attn_fwd launches on CUDA tensors only")
     if not q.dtype == k.dtype == v.dtype:
@@ -113,8 +141,8 @@ def flash_attn_fwd(
     if d not in KERNEL_HEAD_DIMS:
         raise ValueError(f"K1 serves head_dim {KERNEL_HEAD_DIMS}, got {d}")
     s_k = k.shape[2]
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-    out = torch.empty_like(q)
+    q, k, v = _operand(q), _operand(k), _operand(v)
+    out = torch.empty((b, h, s_q, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, s_q), dtype=torch.float32, device=q.device)
     vf = None
     if valid_from is not None:
@@ -124,11 +152,13 @@ def flash_attn_fwd(
     if causal_shift is not None:
         shift = torch.as_tensor(causal_shift, device=q.device)
         shift = shift.to(torch.int32).reshape(1).contiguous()
+    strides = _strides(q, k, v)
     lib = _build.load("flash_attn_fwd")
     err = lib.flash_attn_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         lse.data_ptr(), vf.data_ptr() if vf is not None else None,
         shift.data_ptr() if shift is not None else None,
+        ctypes.addressof(strides),
         b, h, s_q, s_k, d, _build.dtype_code(q.dtype), int(bool(causal)),
         int(window or 0), 1.0 / math.sqrt(d),
         torch.cuda.current_stream(q.device).cuda_stream,
@@ -173,10 +203,11 @@ def flash_attention_bwd_plain(q, k, v, out, lse, do, causal=False,
 
 def flash_attn_bwd(q, k, v, out, lse, do, causal=False, valid_from=None,
                    window=None):
-    """Launch K7 on CUDA tensors: ``(dq, dk, dv)`` in the inputs' dtype.
-    One call runs both passes (dQ, whose prologue writes ``delta``, then
-    dK/dV) and counts one launch. Raises on any shape, dtype or device it
-    does not take, and on a failed launch."""
+    """Launch K7 on CUDA tensors: ``(dq, dk, dv)`` in the inputs' dtype,
+    contiguous. 16-bit operands are read through their strides (see
+    :func:`_operand`). One call runs both passes (dQ, whose prologue
+    writes ``delta``, then dK/dV) and counts one launch. Raises on any
+    shape, dtype or device it does not take, and on a failed launch."""
     if not all(t.is_cuda for t in (q, k, v, out, lse, do)):
         raise ValueError("flash_attn_bwd launches on CUDA tensors only")
     if not q.dtype == k.dtype == v.dtype == out.dtype == do.dtype:
@@ -197,20 +228,23 @@ def flash_attn_bwd(q, k, v, out, lse, do, causal=False, valid_from=None,
     if window is not None and not causal:
         raise ValueError("window requires causal=True")
     s_k = k.shape[2]
-    q, k, v, out, do = (t.contiguous() for t in (q, k, v, out, do))
+    q, k, v, out, do = (_operand(t) for t in (q, k, v, out, do))
     lse = lse.contiguous()
-    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    dq = torch.empty((b, h, s_q, d), dtype=q.dtype, device=q.device)
+    dk, dv = (torch.empty((b, h, s_k, d), dtype=q.dtype, device=q.device)
+              for _ in range(2))
     delta = torch.empty((b, h, s_q), dtype=torch.float32, device=q.device)
     vf = None
     if valid_from is not None:
         vf = torch.as_tensor(valid_from, device=q.device).to(torch.int32)
         vf = vf.reshape(b).contiguous()
+    strides = _strides(q, k, v, out, do)
     lib = _build.load("flash_attn_bwd")
     err = lib.flash_attn_bwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
         dk.data_ptr(), dv.data_ptr(),
-        vf.data_ptr() if vf is not None else None,
+        vf.data_ptr() if vf is not None else None, ctypes.addressof(strides),
         b, h, s_q, s_k, d, _build.dtype_code(q.dtype), int(bool(causal)),
         int(window or 0), 1.0 / math.sqrt(d),
         torch.cuda.current_stream(q.device).cuda_stream,
@@ -251,7 +285,6 @@ class _FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, valid_from, causal, window):
-        q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
         if q.is_cuda:
             out, lse = flash_attn_fwd(q, k, v, causal, valid_from, None,
                                       window)

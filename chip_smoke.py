@@ -8,6 +8,12 @@
                                      # strips and paged pool, native and
                                      # int8 caches); two speculative ticks
 
+K1 and K7 run on the tensor cores for bf16 / f16 and on the CUDA cores for
+f32; phase 1 prints the compiler's registers and spills of the tensor-core
+kernels, and after phase 11 their device time per launch (``torch.profiler``)
+is measured beside SDPA's at the same shapes and written into the kernels'
+JSON line as ``device_ms`` / ``library_device_ms``.
+
 Phases (no phase failure is caught; any mismatch exits non-zero):
 
 1. the card's name and power limit, torch/CUDA versions; build every
@@ -84,7 +90,7 @@ Phases (no phase failure is caught; any mismatch exits non-zero):
    at their main-path shapes; plain dense ``verify_attention`` is timed
    beside them;
 11. training: K7 (``flash_attn_bwd``, the flash backward) against its plain
-   version on K1's ``(out, lse)`` in f32 (2e-4) and bf16 (1e-2 of the
+   version on K1's ``(out, lse)`` in f32 (2e-4) and bf16 / f16 (1e-2 of the
    largest reference magnitude) at the ViT shape b8 h12 s197 d64, causal
    s256, causal + window 64, ``valid_from``, head_dim 128 and s_q 70 x s_k
    197, two runs ``torch.equal``; then ViT-B/16 (patch 16, 768 / 12 blocks
@@ -98,7 +104,9 @@ Phases (no phase failure is caught; any mismatch exits non-zero):
    12 x 4 times a step each (K7's count is one per call, both passes), step
    ms, images/s, peak memory; then K7 and K1 timed at the ViT shape beside the plain
    version, SDPA (K7's library figure derived as SDPA forward + backward
-   minus forward) and the bound.
+   minus forward) and the bound; then the device time per launch of K1 (ViT
+   shape and LM prefill shape b1 h12 s512 d64 causal), K7 (ViT shape) and
+   SDPA's forward and forward + backward at the same shapes.
 
 The line before the last is the kernels' JSON; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -912,6 +920,21 @@ def agreement(out, ids, prompts, ref, cancelled):
     return same / max(total, 1)
 
 
+def kernel_rows(torch, prof, calls=1):
+    """Device time by kernel from a ``torch.profiler`` run of ``calls``
+    calls: ``[(ms per call, launches per call, name)]``, largest first."""
+    rows = []
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue  # host-side ops: their kernels are listed themselves
+        dev = getattr(e, "self_device_time_total", None)
+        if dev is None:
+            dev = getattr(e, "self_cuda_time_total", 0.0)
+        if dev > 0:
+            rows.append((dev / 1e3 / calls, e.count // calls, e.key))
+    return sorted(rows, reverse=True)
+
+
 def profile_decode(torch, lm, card, layout, kv="native"):
     """``--profile``: where a steady decode tick's time goes on one KV
     ``layout`` and cache dtype ``kv``. 8 slots decode (chunk 8, 256-token
@@ -940,16 +963,7 @@ def profile_decode(torch, lm, card, layout, kv="native"):
         for _ in range(4):
             bat.tick()
         torch.cuda.synchronize()
-    rows = []
-    for e in prof.key_averages():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
-            continue  # host-side ops: their kernels are listed themselves
-        dev = getattr(e, "self_device_time_total", None)
-        if dev is None:
-            dev = getattr(e, "self_cuda_time_total", 0.0)
-        if dev > 0:
-            rows.append((dev / 1e3, e.count, e.key))
-    rows.sort(reverse=True)
+    rows = kernel_rows(torch, prof)
     busy = sum(r[0] for r in rows)
     steps = 4 * bat.chunk
     print(f"profile[{layout} {kv}] on {card}: 4 steady ticks = {steps} decode "
@@ -993,16 +1007,7 @@ def profile_spec(torch, lm, draft, spec, card, kv, label):
         for _ in range(4):
             bat.tick()
         torch.cuda.synchronize()
-    rows = []
-    for e in prof.key_averages():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        dev = getattr(e, "self_device_time_total", None)
-        if dev is None:
-            dev = getattr(e, "self_cuda_time_total", 0.0)
-        if dev > 0:
-            rows.append((dev / 1e3, e.count, e.key))
-    rows.sort(reverse=True)
+    rows = kernel_rows(torch, prof)
     busy = sum(r[0] for r in rows)
     print(f"profile[spec {label}] on {card}: 4 steady ticks of 8 slots: wall "
           f"{wall_ms:.2f} ms ({wall_ms / 4:.3f} ms/tick), {ntok} tokens "
@@ -1028,12 +1033,13 @@ K7_CASES = [
 
 def check_k7(torch, A, dev, errs):
     """K7 vs its plain version on the same ``(out, lse)`` from K1, in f32
-    (atol = rtol = 2e-4, the JAX package's bar for its streaming backward)
-    and bf16 (within 1e-2 of the largest reference magnitude); dq compared
+    (atol = rtol = 2e-4, the JAX package's bar for its streaming backward,
+    CUDA cores) and bf16 / f16 (tensor cores; within 1e-2 of the largest
+    reference magnitude); dq compared
     on valid rows only under ``valid_from``. Two runs on the same inputs
     must be ``torch.equal``, and each case moves the launch count by 2."""
     g = torch.Generator(device=dev).manual_seed(11)
-    for dtype in (torch.float32, torch.bfloat16):
+    for dtype in (torch.float32, torch.bfloat16, torch.float16):
         for label, b, h, s_q, s_k, d, causal, window, vf in K7_CASES:
             def rnd(s):
                 return torch.randn(b, h, s, d, generator=g, device=dev).to(
@@ -1152,18 +1158,9 @@ def profile_train(torch, graph, x, y, num_micro, lr, card):
     with torch.profiler.profile(activities=acts) as prof:
         vit_step(torch, graph, x, y, num_micro, lr)
         torch.cuda.synchronize()
-    rows = []
-    for e in prof.key_averages():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        dev = getattr(e, "self_device_time_total", None)
-        if dev is None:
-            dev = getattr(e, "self_cuda_time_total", 0.0)
-        if dev > 0:
-            rows.append((dev / 1e3, e.count, e.key))
-    rows.sort(reverse=True)
+    rows = kernel_rows(torch, prof)
     busy = sum(r[0] for r in rows)
-    k1 = sum(r[0] for r in rows if "flash_fwd_kernel" in r[2])
+    k1 = sum(r[0] for r in rows if "flash_fwd_" in r[2])
     k7 = sum(r[0] for r in rows if "flash_bwd_" in r[2])
     print(f"profile[train] on {card}: one step of batch {x.shape[0]} in "
           f"{num_micro} microbatches: wall {wall_ms:.2f} ms; kernels "
@@ -1314,20 +1311,91 @@ def profile_library_backward(torch, card):
         for _ in range(5):
             fwd_bwd()
         torch.cuda.synchronize()
-    rows = []
-    for e in prof.key_averages():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        dev = getattr(e, "self_device_time_total", None)
-        if dev is None:
-            dev = getattr(e, "self_cuda_time_total", 0.0)
-        if dev > 0:
-            rows.append((dev / 1e3 / 5, e.count // 5, e.key))
-    rows.sort(reverse=True)
+    rows = kernel_rows(torch, prof, calls=5)
     print(f"profile[sdpa forward+backward] on {card}: b8 h12 s197 d64 bf16, "
           f"device {sum(r[0] for r in rows):.4f} ms a call")
     for ms, n, key in rows[:8]:
         print(f"  {ms:9.4f} ms  {n:4d} x  {key[:90]}")
+
+
+def device_ms_per_call(torch, fn, n=20):
+    """Device time of one ``fn()`` call, in ms: every kernel ``torch.profiler``
+    records over ``n`` calls (after 3 warm-up calls), summed, over ``n``."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(r[0] for r in kernel_rows(torch, prof, calls=n))
+    if total <= 0:
+        raise AssertionError("torch.profiler recorded no device time")
+    return total
+
+
+def flash_device_times(torch, A, card):
+    """Device time per launch of K1 (ViT shape b8 h12 s197 d64 and LM
+    prefill shape b1 h12 s512 d64 causal, bf16) and K7 (ViT shape) under
+    ``torch.profiler``, beside SDPA's forward and forward + backward (the
+    library's kernels: cuDNN / flash) at the same shapes in the same call.
+    Event times of these calls are host-bound; these are the device's."""
+    F = torch.nn.functional
+    g = torch.Generator(device="cuda").manual_seed(29)
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=g, device="cuda").to(
+            torch.bfloat16)
+
+    vit = [rnd(8, 12, 197, 64) for _ in range(4)]
+    lm = [rnd(1, 12, 512, 64) for _ in range(3)]
+    q, k, v, do = vit
+    out, lse = A.flash_attn_fwd(q, k, v, False)
+    qg, kg, vg = (t.clone().requires_grad_() for t in (q, k, v))
+    with torch.no_grad():
+        t = {
+            "k1_vit": device_ms_per_call(
+                torch, lambda: A.flash_attn_fwd(q, k, v, False)),
+            "k1_lm": device_ms_per_call(
+                torch, lambda: A.flash_attn_fwd(*lm, True)),
+            "k7_vit": device_ms_per_call(
+                torch, lambda: A.flash_attn_bwd(q, k, v, out, lse, do,
+                                                False)),
+            "sdpa_fwd_vit": device_ms_per_call(
+                torch, lambda: F.scaled_dot_product_attention(q, k, v)),
+            "sdpa_fwd_lm": device_ms_per_call(
+                torch, lambda: F.scaled_dot_product_attention(
+                    *lm, is_causal=True)),
+        }
+    t["sdpa_fwdbwd_vit"] = device_ms_per_call(
+        torch, lambda: torch.autograd.grad(
+            F.scaled_dot_product_attention(qg, kg, vg), (qg, kg, vg), do))
+    t["sdpa_bwd_vit"] = t["sdpa_fwdbwd_vit"] - t["sdpa_fwd_vit"]
+    print(f"device ms per launch on {card} (torch.profiler, 20 launches): "
+          f"K1 b8 h12 s197 d64 bf16 {t['k1_vit']:.4f} (SDPA forward "
+          f"{t['sdpa_fwd_vit']:.4f}); K1 b1 h12 s512 d64 causal bf16 "
+          f"{t['k1_lm']:.4f} (SDPA forward {t['sdpa_fwd_lm']:.4f}); K7 b8 "
+          f"h12 s197 d64 bf16 {t['k7_vit']:.4f} (SDPA backward "
+          f"{t['sdpa_bwd_vit']:.4f} = forward+backward "
+          f"{t['sdpa_fwdbwd_vit']:.4f} minus forward)")
+    return t
+
+
+def ptxas_report(_build, names=("flash_attn_fwd", "flash_attn_bwd")):
+    """The compiler's registers / spills lines of the 16-bit (tensor-core)
+    flash kernels, from this process's build."""
+    for name in names:
+        if name not in _build.LOGS:
+            print(f"ptxas {name}: built before this process, no report")
+            continue
+        lines = _build.LOGS[name].splitlines()
+        for i, line in enumerate(lines):
+            if "_tc_kernel" in line and "Compiling entry" in line:
+                kern = line.split("'")[1] if "'" in line else line
+                info = [x.strip() for x in lines[i + 1:i + 4]
+                        if "registers" in x or "spill" in x]
+                print(f"ptxas {name}: {kern}: {'; '.join(info)}")
 
 
 def main(argv) -> int:
@@ -1358,6 +1426,7 @@ def main(argv) -> int:
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"python {sys.version.split()[0]}")
     print(f"kernels built from adapt_tpu_torch/csrc in {_build.build_all():.1f} s")
+    ptxas_report(_build)
 
     errs: dict[str, float] = {}
     check_k1(torch, A, dev, errs)
@@ -2078,6 +2147,16 @@ def main(argv) -> int:
                                   vit_b16, 224, 1000)
     if msg:
         return _fail(msg)
+    dev_ms = flash_device_times(torch, A, card)
+    for kr in kernels:
+        if kr["name"] == "flash_attn_fwd":
+            kr.update(device_ms=dev_ms["k1_lm"],
+                      library_device_ms=dev_ms["sdpa_fwd_lm"],
+                      vit_device_ms=dev_ms["k1_vit"],
+                      vit_library_device_ms=dev_ms["sdpa_fwd_vit"])
+        elif kr["name"] == "flash_attn_bwd":
+            kr.update(device_ms=dev_ms["k7_vit"],
+                      library_device_ms=dev_ms["sdpa_bwd_vit"])
 
     if "--profile" in argv:
         profile_train(torch, *train_case, card)

@@ -8,7 +8,8 @@ no JAX, so it also runs on a machine that has none:
     python -m pytest tests/test_torch_kernels_gpu.py -q --noconftest
 
 Tolerances: f32 inputs at ``atol = rtol = 2e-5`` (only the summation
-order differs); bf16 at ``1e-2`` (one bf16 rounding of the output); the
+order differs); bf16 / f16 at ``1e-2`` (one rounding of the output, and of
+p before P V on the tensor cores); the
 logsumexp at ``1e-3``. Rows with no live key (and the left padding of
 ``valid_from`` rows) are unspecified and not compared. K3 must equal K2
 bit for bit on the same K/V laid out as a dense strip, quantized or not.
@@ -18,8 +19,11 @@ native ones. K5 with ``split == 1`` partials must equal the unsplit kernel
 bit for bit; K6 must be ``torch.equal`` to its plain version (values, scales
 and the round trip). K7's gradients are held at ``atol = rtol = 2e-4`` in
 f32 (the JAX package's bar for its streaming backward) and within 1e-2 of
-the largest reference magnitude in bf16, and two runs on the same inputs
-must be ``torch.equal`` (two passes, no atomics)."""
+the largest reference magnitude in bf16 / f16, and two runs on the same
+inputs must be ``torch.equal`` (two passes, no atomics). The 16-bit K1 and
+K7 (tensor cores) must give the same bits on the models' strided q / k / v
+views as on contiguous copies, and K1's rows must not depend on the batch,
+on padding of s_q or on key tiles a mask removes."""
 
 import pytest
 import torch
@@ -54,7 +58,8 @@ def _tol(dtype):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("d", [64, 128])
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
 @pytest.mark.parametrize("name", sorted(K1_CASES))
 def test_k1_matches_plain(cuda, name, dtype, d):
     b, h, s_q, s_k, kw = K1_CASES[name]
@@ -91,7 +96,8 @@ K7_CASES = {
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("d", [64, 128])
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
 @pytest.mark.parametrize("name", sorted(K7_CASES))
 def test_k7_matches_plain_and_is_deterministic(cuda, name, dtype, d):
     b, h, s_q, s_k, kw = K7_CASES[name]
@@ -117,6 +123,74 @@ def test_k7_matches_plain_and_is_deterministic(cuda, name, dtype, d):
         else:
             err = (a.float() - r.float()).abs().max()
             assert err <= 1e-2 * r.float().abs().max(), float(err)
+
+
+def _qkv_views(cuda, dtype, b, h, s, d, seed):
+    """q, k, v as the models pass them: transposed (b, h, s, d) views of
+    one (b, s, 3, h, d) projection output."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    qkv = torch.randn(b, s, 3, h, d, generator=g, device=cuda).to(dtype)
+    return tuple(t.transpose(1, 2) for t in qkv.unbind(2))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_k1_k7_strided_views_equal_contiguous_copies(cuda, dtype, d):
+    """The 16-bit kernels read q, k, v, out and do through their strides:
+    the models' transposed views give the same bits as contiguous copies,
+    with no copy, and the outputs come back contiguous."""
+    b, h, s = 2, 3, 197
+    q, k, v = _qkv_views(cuda, dtype, b, h, s, d, seed=41)
+    assert not q.is_contiguous() and TA._operand(q) is q
+    g = torch.Generator(device=cuda).manual_seed(42)
+    do = torch.randn(b, s, h, d, generator=g, device=cuda).to(
+        dtype).transpose(1, 2)
+    for causal in (False, True):
+        out, lse = TA.flash_attn_fwd(q, k, v, causal)
+        ref_out, ref_lse = TA.flash_attn_fwd(q.contiguous(), k.contiguous(),
+                                             v.contiguous(), causal)
+        got = TA.flash_attn_bwd(q, k, v, out, lse, do, causal)
+        want = TA.flash_attn_bwd(q.contiguous(), k.contiguous(),
+                                 v.contiguous(), out, lse, do.contiguous(),
+                                 causal)
+        torch.cuda.synchronize()
+        assert out.is_contiguous() and torch.equal(out, ref_out)
+        assert torch.equal(lse, ref_lse)
+        for a, w in zip(got, want):
+            assert a.is_contiguous() and torch.equal(a, w)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_k1_rows_are_invariant(cuda, dtype):
+    """A row's out and lse depend only on its own q row and its unmasked
+    keys (the batcher's token equality rests on it): the same bits at
+    batch 1 and 4, with s_q padded to the next power of two, and with two
+    extra key tiles that ``valid_from`` masks."""
+    h, s, d = 12, 100, 64
+    g = torch.Generator(device=cuda).manual_seed(43)
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=g, device=cuda).to(dtype)
+
+    q, k, v = rnd(1, h, s, d), rnd(1, h, s, d), rnd(1, h, s, d)
+    out, lse = TA.flash_attn_fwd(q, k, v, True)
+    # batch 4, the row in slot 2
+    q4, k4, v4 = rnd(4, h, s, d), rnd(4, h, s, d), rnd(4, h, s, d)
+    q4[2], k4[2], v4[2] = q[0], k[0], v[0]
+    o4, l4 = TA.flash_attn_fwd(q4, k4, v4, True)
+    # s_q (and s_k) padded to 128 with other rows after the prompt
+    pad = [torch.cat([t, rnd(1, h, 128 - s, d)], dim=2) for t in (q, k, v)]
+    op, lp = TA.flash_attn_fwd(*pad, True)
+    # two whole key tiles of left padding, masked by valid_from
+    left = [torch.cat([rnd(1, h, 128, d), t], dim=2) for t in (q, k, v)]
+    ol, ll = TA.flash_attn_fwd(*left, True, torch.tensor([128], device=cuda))
+    torch.cuda.synchronize()
+    assert torch.equal(o4[2], out[0]) and torch.equal(l4[2], lse[0])
+    assert torch.equal(op[:, :, :s], out) and torch.equal(lp[:, :, :s], lse)
+    assert torch.equal(ol[:, :, 128:], out)
+    assert torch.equal(ll[:, :, 128:], lse)
 
 
 @pytest.mark.gpu
