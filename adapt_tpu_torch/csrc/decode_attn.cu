@@ -13,24 +13,27 @@
 // emitting unnormalised partials (acc, m, l) that
 // ops/decode_attention._combine_splits reduces.
 //
-// Design. The body is decode_tile.cuh's, shared with K3 (paged_attn.cu)
-// through an address functor; here it addresses the dense strip. One block
-// per (b * kv_h) row, or per (row, split). All g folded query rows share
-// each staged cache tile, so the cache is read once per kv head: that is the
-// point of the GQA fold. `index` and `valid_from` are read from device
-// memory (no host sync). Any L is served: the ragged last tile is masked by
-// index, so the dense strip of length max_len + 1 (the batcher's trash slot)
-// runs here, where the TPU path refused it (and, for quantized caches, its
-// L % 1024 scale-tile rule). Tiles wholly past `index` or wholly inside the
-// left padding are skipped, as there.
+// Design. The unsplit kernel (K2, K2q) is decode_cluster.cuh's body over a
+// dense-strip address walk: a cluster of 8 blocks per (b * kv_h) row, tile
+// t of the row's 64-key tiles on rank t mod 8, raw cache bytes staged by
+// cp.async into a two-stage ring, the ranks' (acc, m, l) combined through
+// distributed shared memory in one launch. The split variant keeps
+// decode_tile.cuh's body (one block per (row, split), partials in device
+// memory). Both share K3's code (paged_attn.cu) through an address functor,
+// so a paged decode equals a dense one bit for bit. All g folded query rows
+// share each staged cache tile, so the cache is read once per kv head: that
+// is the point of the GQA fold. `index` and `valid_from` are read from
+// device memory (no host sync). Any L is served: the ragged last tile is
+// masked by index, so the dense strip of length max_len + 1 (the batcher's
+// trash slot) runs here, where the TPU path refused it (and, for quantized
+// caches, its L % 1024 scale-tile rule). Tiles wholly past `index` or
+// wholly inside the left padding are skipped, as there.
 //
 // Bound. One step reads the live cache once (2 * live * (w * value bytes +
 // scale bytes) per kv head) and does ~4 * g * live * hd operations: bytes
 // bound at every g the models use; int8 streams 0.53x and int4 0.28x of
-// bf16's bytes at hd 64. This first version stages each 64-key tile through
-// shared memory as f32 with plain (one byte per element) loads and one block
-// per kv head; the split variant is what spreads a long cache over more SMs.
-// cp.async/TMA double buffering is later work (PERF.md has its numbers).
+// bf16's bytes at hd 64. PERF.md has the kernels' device times against it.
+#include "decode_cluster.cuh"
 #include "decode_tile.cuh"
 
 // split == 1 with o_part == nullptr writes the normalised output (K2);
@@ -42,8 +45,14 @@ extern "C" int decode_attn(const void* q, const void* k, const void* v,
                            float* o_part, float* m_part, float* l_part, int b,
                            int kvh, int g, int L, int hd, int split, int dtype,
                            int kv, float sm_scale, void* stream) {
+  const auto st = static_cast<cudaStream_t>(stream);
+  if (split == 1 && o_part == nullptr)
+    return adapt::cluster::dispatch(dtype, kv, hd, q, k, v, k_scale, v_scale,
+                                    index, valid_from, out, b * kvh, kvh, g,
+                                    L, sm_scale,
+                                    adapt::cluster::DenseWalk{L}, st);
   return adapt::decode::dispatch(
       dtype, kv, hd, q, k, v, k_scale, v_scale, index, valid_from, out,
       o_part, m_part, l_part, b * kvh, kvh, g, L, split, sm_scale,
-      adapt::decode::DenseAddr{L}, static_cast<cudaStream_t>(stream));
+      adapt::decode::DenseAddr{L}, st);
 }

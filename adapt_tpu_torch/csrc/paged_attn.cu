@@ -15,21 +15,23 @@
 //
 // Design. On the TPU the table rides as a scalar-prefetch operand and the
 // K/V index_map fetches each grid step's physical page; the kernel body is
-// K2's. Here the body is K2's too (decode_tile.cuh): only the address
-// functor differs, mapping key p to table[b, p / page] at offset p % page,
-// read from device memory inside the kernel - no gather of pages into a
-// strip, no host sync, any page size (the TPU gate page % 128, and its
-// quantized page % 1024, are not carried over). The functor yields the
-// key's vector index; the cache-element policy scales it by the value width
-// for the values and uses it as is for the scales. K2 and K3 therefore run
-// the same arithmetic in the same 64-key tile order, and a paged decode
-// equals a dense decode bit for bit on the same K/V, quantized or not. A
-// negative `index` (an idle or mid-prefill row) skips every tile and writes
-// zeros; an all-dead split carries m = -1e30 and l = 0.
+// K2's. Here the body is K2's too: the unsplit kernel (K3, K3q) runs
+// decode_cluster.cuh over a paged walk, which reads the table row from
+// device memory once per page a 64-key tile touches and hands the keys'
+// vector indices to the cp.async staging; the split variant runs
+// decode_tile.cuh's body over PagedAddr. No gather of pages into a strip,
+// no host sync, any page size (the TPU gate page % 128, and its quantized
+// page % 1024, are not carried over). The walk yields the key's vector
+// index; the cache-element policy scales it by the value width for the
+// values and uses it as is for the scales. K2 and K3 therefore run the same
+// arithmetic on the same 64-key tiles, and a paged decode equals a dense
+// decode bit for bit on the same K/V, quantized or not. A negative `index`
+// (an idle or mid-prefill row) skips every tile and writes zeros; an
+// all-dead split carries m = -1e30 and l = 0.
 //
-// Bound. As K2: one step reads the live pages once, bytes bound. The table
-// is read once per staged key (it stays in L1/L2); a page-granular walk
-// with cp.async/TMA is later work (PERF.md has its numbers).
+// Bound. As K2: one step reads the live pages once, bytes bound; the table
+// adds 4 bytes a touched page.
+#include "decode_cluster.cuh"
 #include "decode_tile.cuh"
 
 // split == 1 with o_part == nullptr writes the normalised output (K3);
@@ -43,9 +45,14 @@ extern "C" int paged_attn(const void* q, const void* k_pool,
                           int kvh, int g, int pps, int page, int hd, int split,
                           int dtype, int kv, float sm_scale, void* stream) {
   if (pps < 1 || page < 1) return (int)cudaErrorInvalidValue;
+  const auto st = static_cast<cudaStream_t>(stream);
+  if (split == 1 && o_part == nullptr)
+    return adapt::cluster::dispatch(
+        dtype, kv, hd, q, k_pool, v_pool, k_scale, v_scale, index,
+        valid_from, out, b * kvh, kvh, g, pps * page, sm_scale,
+        adapt::cluster::PagedWalk{table, kvh, pps, page}, st);
   return adapt::decode::dispatch(
       dtype, kv, hd, q, k_pool, v_pool, k_scale, v_scale, index, valid_from,
       out, o_part, m_part, l_part, b * kvh, kvh, g, pps * page, split,
-      sm_scale, adapt::decode::PagedAddr{table, kvh, pps, page},
-      static_cast<cudaStream_t>(stream));
+      sm_scale, adapt::decode::PagedAddr{table, kvh, pps, page}, st);
 }

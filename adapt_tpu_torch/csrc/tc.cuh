@@ -65,9 +65,13 @@ struct Mma<__half> {
   }
 };
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
+// The cp.async helpers live in common.cuh (the decode kernels stage with
+// them too).
+using adapt::cp_async16;
+using adapt::cp_async4;
+using adapt::cp_commit;
+using adapt::cp_wait;
+using adapt::smem_addr;
 
 __device__ __forceinline__ void ldsm_x4(uint32_t r[4], uint32_t addr) {
   asm volatile(
@@ -81,27 +85,6 @@ __device__ __forceinline__ void ldsm_x4_t(uint32_t r[4], uint32_t addr) {
       "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
       : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
       : "r"(addr));
-}
-
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
-                                           bool in) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
-               "l"(src), "r"(in ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
-                                          bool in) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
-               "l"(src), "r"(in ? 4 : 0));
-}
-
-__device__ __forceinline__ void cp_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
 // Shared-memory row pitch of a D-wide 16-bit tile, in elements.

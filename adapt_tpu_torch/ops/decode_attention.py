@@ -10,9 +10,14 @@ L, hd)`` arrays or quantized ``(values, scales)`` pairs — int8 values
 and ``valid_from`` ``(b,)`` its first. A CUDA tensor launches K2
 (``split == 1``) or K2-split plus :func:`_combine_splits` (``split > 1``);
 for a quantized cache the kernel reads the int8 / int4 bytes and the scales
-itself (K2q). A CPU tensor runs :func:`decode_attention_plain`, which
-computes what the kernel computes tile for tile (64-key tiles, dead tiles
-skipped, per-split partials, the same combine). Any ``L`` is served. The
+itself (K2q). K2 spreads a row's 64-key tiles over a cluster of 8 blocks
+(tile t on rank t mod 8) and combines the ranks on the card, so its sums
+depend on key positions only: the same row gives the same bits on any
+strip length, alone or in a batch, and on a paged pool (K3). A CPU tensor
+runs :func:`decode_attention_plain`, which mirrors the split kernels' tiles
+(64-key tiles, dead tiles skipped, per-split partials, the same combine),
+not the unsplit kernel's cluster partition: K2 is held to it at a
+tolerance. Any ``L`` is served. The
 scales are applied in the reference's op order: ``(q . k_int) * k_scale *
 sm``, then ``softmax(...) * v_scale`` against ``v_int``.
 
@@ -247,7 +252,10 @@ def _split_partials(q, cache_k, cache_v, index, valid_from, split):
 def decode_attention_plain(q, cache_k, cache_v, index, valid_from=None,
                            split=1):
     """The plain version of K2 (``split == 1``) and K2-split, native or
-    quantized."""
+    quantized. It mirrors the split kernels' 64-key tiles and partials; the
+    unsplit kernel sums the same terms over its cluster's ranks in another
+    order, so it is held to this at a tolerance (1e-2 + 1e-2 |ref| in 16
+    bits, 2e-5 in f32), not bit for bit."""
     b, kvh, g, hd = q.shape
     o, m, l = _split_partials(q, cache_k, cache_v, index, valid_from, split)
     if split == 1:
@@ -307,7 +315,16 @@ def _check_kernel_args(q, cache_k, cache_v):
     if g > KERNEL_MAX_G:
         raise ValueError(f"K2 serves g <= {KERNEL_MAX_G} rows, got {g}")
     c = lambda t: None if t is None else t.contiguous()  # noqa: E731
-    return c(k), c(v), c(ks), c(vs), code
+    return aligned16(c(k)), aligned16(c(v)), c(ks), c(vs), code
+
+
+def aligned16(t):
+    """``t`` itself when its storage starts on a 16-byte boundary, which
+    the unsplit kernels' 16-byte ``cp.async`` copies of the K/V values
+    need, else an aligned contiguous copy."""
+    if t.data_ptr() % 16 == 0:
+        return t
+    return t.clone(memory_format=torch.contiguous_format)
 
 
 def _launch(q, kv, index, valid_from, split, out, parts):
@@ -330,8 +347,8 @@ def _launch(q, kv, index, valid_from, split, out, parts):
 
 
 def decode_attn(q, cache_k, cache_v, index, valid_from=None):
-    """Launch K2 (one block per (b, kv head)) on CUDA tensors; a quantized
-    cache launches its int8 / int4 branch (K2q)."""
+    """Launch K2 (a cluster of 8 blocks per (b, kv head)) on CUDA tensors;
+    a quantized cache launches its int8 / int4 branch (K2q)."""
     kv = _check_kernel_args(q, cache_k, cache_v)
     q = q.contiguous()
     out = torch.empty_like(q)

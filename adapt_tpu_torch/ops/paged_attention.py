@@ -22,8 +22,10 @@ package's:
 A CUDA tensor launches the kernel, which walks each slot's page-table row
 itself (no gather of pages into a strip); a CPU tensor runs the plain
 version. K3 is K2's body with a paged address (one attention discipline,
-two layouts), so its plain version is K2's on the slot's gathered window:
-the same 64-key tiles, dead-tile skip and split partials. Any page size
+two layouts; the unsplit one a cluster of 8 blocks per row, tile t on rank
+t mod 8), so K3 equals K2 bit for bit on the same K/V, and its plain
+version is K2's on the slot's gathered window: the split kernels' 64-key
+tiles, dead-tile skip and split partials. Any page size
 is served: the TPU gates ``page % 128`` (and ``page % 1024`` for quantized
 pools) are not carried over. A quantized pool launches the kernels' int8 /
 int4 branches (K3q, K4q, K5q), which read the bytes and scales themselves.
@@ -43,6 +45,7 @@ from adapt_tpu_torch.ops.decode_attention import (
     _pv,
     _qk,
     _row_index,
+    aligned16,
     cache_values,
     check_head_parity,
     decode_attention_plain,
@@ -90,9 +93,10 @@ def paged_attention_reference(q, k_pool, v_pool, page_table, index,
 
 def paged_attention_plain(q, k_pool, v_pool, page_table, index,
                           valid_from=None, split=1):
-    """The plain version of K3 (``split == 1``) and K3-split: K2's tile-
-    exact plain version over the slot's ``pps * page`` window, as K3 runs
-    K2's body over it."""
+    """The plain version of K3 (``split == 1``) and K3-split: K2's plain
+    version over the slot's ``pps * page`` window, as K3 runs K2's body
+    over it. It mirrors the split kernels' tiles, not the unsplit kernel's
+    cluster partition, which is held to it at a tolerance."""
     return decode_attention_plain(
         q, _gather_window(k_pool, page_table),
         _gather_window(v_pool, page_table), index, valid_from, split,
@@ -214,6 +218,7 @@ def _check_pools(q, k_pool, v_pool, what):
 def _launch_paged(q, k_pool, v_pool, page_table, index, valid_from, split,
                   out, parts):
     k, v, ks, vs, code = _check_pools(q, k_pool, v_pool, "K3")
+    k, v = aligned16(k), aligned16(v)  # K3 reads the pools, never writes
     b, kvh, g, hd = q.shape
     if g > KERNEL_MAX_G:
         raise ValueError(f"K3 serves g <= {KERNEL_MAX_G} rows, got {g}")
@@ -240,8 +245,8 @@ def _launch_paged(q, k_pool, v_pool, page_table, index, valid_from, split,
 
 
 def paged_attn(q, k_pool, v_pool, page_table, index, valid_from=None):
-    """Launch K3 (one block per (slot, kv head)) on CUDA tensors; a
-    quantized pool launches its int8 / int4 branch (K3q)."""
+    """Launch K3 (a cluster of 8 blocks per (slot, kv head)) on CUDA
+    tensors; a quantized pool launches its int8 / int4 branch (K3q)."""
     q = q.contiguous()
     out = torch.empty_like(q)
     _launch_paged(q, k_pool, v_pool, page_table, index, valid_from, 1, out,

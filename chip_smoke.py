@@ -9,10 +9,15 @@
                                      # int8 caches); two speculative ticks
 
 K1 and K7 run on the tensor cores for bf16 / f16 and on the CUDA cores for
-f32; phase 1 prints the compiler's registers and spills of the tensor-core
-kernels, and after phase 11 their device time per launch (``torch.profiler``)
-is measured beside SDPA's at the same shapes and written into the kernels'
-JSON line as ``device_ms`` / ``library_device_ms``.
+f32; the unsplit K2 / K3 (and K2q / K3q) spread each row over a cluster of
+8 blocks. Phase 1 prints the compiler's registers and spills of the
+tensor-core kernels and of the decode kernels' instantiations; after phase
+11 the device time per launch (``torch.profiler``) of K1 / K7 beside SDPA's,
+and of K2 / K3 / K2q / K3q at the steady-decode and phase 8 shapes beside
+(gather +) masked SDPA, plus K2-split, K3-split, K4, K5 and K6, is measured
+and written into the kernels' JSON line as ``device_ms`` (and
+``steady_device_ms``) / ``library_device_ms``. ``scripts/decode_ab.py``
+times another commit's decode kernels against this one's in turns.
 
 Phases (no phase failure is caught; any mismatch exits non-zero):
 
@@ -23,12 +28,16 @@ Phases (no phase failure is caught; any mismatch exits non-zero):
    head_dim-128 cases;
 3. K2 (``decode_attn``) and K2-split (``decode_attn_split``, split 4)
    against the plain version on the batcher's dense strip (L = 1025), plus
-   GQA and ``valid_from`` cases, and split 1 against split 4;
+   GQA and ``valid_from`` cases, and split 1 against split 4; then with
+   ``torch.equal``: K2 on strips of 1024, 1025, 1029 and 1031, each row
+   alone against the same row in a batch of 8, a second run against the
+   first, the dead row zeros;
 4. K3 (``paged_attn``) and K3-split (``paged_attn_split``, split 4)
    against the plain version at the paged path's shapes (8 slots, 12 kv
    heads, page 128, 8 pages a slot, a 65-page pool, shuffled tables, one
    dead row), plus GQA, ``valid_from``, page-16 and head_dim-128 cases, and
-   K3 against K2 with ``torch.equal`` on the same K/V as a dense strip;
+   K3 against K2 with ``torch.equal`` on the same K/V as dense strips of
+   1024, 1025, 1029 and 1031;
 5. K4 (``paged_chunk_attn``) against its plain version at C in {128,
    256}, pos0 in {0, 256, 512}, the window padded to a power of two with
    trash pages, plus window and GQA cases;
@@ -55,7 +64,8 @@ Phases (no phase failure is caught; any mismatch exits non-zero):
 9. the quantized branches (int8 and packed int4 K/V with one f32 scale per
    vector): K2q / K2q-split, K3q / K3q-split and K4q against their plain
    versions at the shapes of phases 3-5 (K3q equal to K2q with
-   ``torch.equal``); the dense batcher with ``kv_cache_dtype="int8"`` then
+   ``torch.equal`` on the four strip lengths; phase 3's K2 invariances for
+   K2q); the dense batcher with ``kv_cache_dtype="int8"`` then
    ``"int4"`` on 8 of phase 6's prompts (two staggered waves of 4, one
    cancel), every stream equal to ``generate(kv_cache_dtype=...)``; phase 7's
    paged traffic with ``"int8"``, whose prefix-hit and chunked streams pass
@@ -106,7 +116,8 @@ Phases (no phase failure is caught; any mismatch exits non-zero):
    version, SDPA (K7's library figure derived as SDPA forward + backward
    minus forward) and the bound; then the device time per launch of K1 (ViT
    shape and LM prefill shape b1 h12 s512 d64 causal), K7 (ViT shape) and
-   SDPA's forward and forward + backward at the same shapes.
+   SDPA's forward and forward + backward at the same shapes; then the decode
+   kernels' device times (``decode_device_times``).
 
 The line before the last is the kernels' JSON; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -256,6 +267,62 @@ def check_k2(torch, D, dev, errs):
                   "(tol 1e-2 + 1e-2|ref|)")
         e = close(outs[1], outs[4], 1e-2, 1e-2, f"split1 vs split4 {shp}")
         print(f"K2 split 1 vs split 4 {shp}: max abs err {e:.3e}")
+    check_invariance(torch, D, None, dev)
+
+
+#: Strip lengths on which the unsplit K2 must give the same bits: the
+#: pool's 1024, the batcher's max_len + 1 and speculative strips past it.
+STRIP_LENGTHS = (1024, 1025, 1029, 1031)
+
+
+def rows_of(c, sl):
+    """Rows ``sl`` of a cache operand (each member of a quantized pair)."""
+    return tuple(m[sl] for m in c) if isinstance(c, tuple) else c[sl]
+
+
+def first_keys(c, length):
+    """The first ``length`` positions of a cache operand, contiguous."""
+    if isinstance(c, tuple):
+        return tuple(first_keys(m, length) for m in c)
+    return c[:, :, :length].contiguous()
+
+
+def check_invariance(torch, D, Q, dev, kv="native"):
+    """The unsplit K2 (K2q for a quantized ``kv``) sums by key position
+    only: the same rows give the same bits (torch.equal) on strips of every
+    STRIP_LENGTHS length, each row alone equals the same row in the batch
+    of 8, a second run equals the first and the dead row is zeros."""
+    for shp in (dict(b=8, kvh=12, g=1, hd=64), dict(b=8, kvh=3, g=4, hd=64)):
+        q, ck, cv, _ = decode_inputs(torch, dev, L=max(STRIP_LENGTHS),
+                                     seed=5, **shp)
+        idx = torch.linspace(0, 1023, shp["b"], device=dev).round().to(
+            torch.int32)
+        idx[2] = -1  # a dead row
+        if kv != "native":
+            ck, cv = quantized(Q, ck, kv), quantized(Q, cv, kv)
+        strips = {n: (first_keys(ck, n), first_keys(cv, n))
+                  for n in STRIP_LENGTHS}
+        ref = D.decode_attn(q, *strips[1025], idx)
+        outs = {n: D.decode_attn(q, *strips[n], idx) for n in STRIP_LENGTHS}
+        again = D.decode_attn(q, *strips[1025], idx)
+        alone = [D.decode_attn(q[r:r + 1], rows_of(strips[1025][0],
+                                                   slice(r, r + 1)),
+                               rows_of(strips[1025][1], slice(r, r + 1)),
+                               idx[r:r + 1]) for r in range(shp["b"])]
+        torch.cuda.synchronize()
+        for n, out in outs.items():
+            if not torch.equal(out, ref):
+                raise AssertionError(f"K2[{kv}] on L={n} != L=1025 at {shp}")
+        if not torch.equal(again, ref):
+            raise AssertionError(f"K2[{kv}] second run differs at {shp}")
+        if not torch.equal(torch.cat(alone), ref):
+            raise AssertionError(f"K2[{kv}] row alone != row in batch at "
+                                 f"{shp}")
+        if ref[2].any():
+            raise AssertionError(f"K2[{kv}]'s dead row is not zero")
+        print(f"K2[{kv}] {shp}: strips of {list(STRIP_LENGTHS)} equal, each "
+              "row alone == in the batch of 8, second run equal, dead row "
+              "zeros (torch.equal)")
 
 
 def paged_inputs(torch, dev, b, kvh, g, hd, page, pps, npages, seed=6):
@@ -318,14 +385,18 @@ def check_k3(torch, D, P, dev, errs):
             print(f"{name} {shp} {extra}: max abs err {e:.3e} "
                   "(tol 1e-2 + 1e-2|ref|)")
             if split == 1:
-                dense = D.decode_attn(q, as_strip(torch, kp, table, 1025),
-                                      as_strip(torch, vp, table, 1025), idx, vf)
-                torch.cuda.synchronize()
-                if not torch.equal(got, dense):
-                    raise AssertionError(f"K3 != K2 bit for bit at {shp}")
+                for n in STRIP_LENGTHS:
+                    dense = D.decode_attn(q, as_strip(torch, kp, table, n),
+                                          as_strip(torch, vp, table, n), idx,
+                                          vf)
+                    torch.cuda.synchronize()
+                    if not torch.equal(got, dense):
+                        raise AssertionError(
+                            f"K3 != K2 (L={n}) bit for bit at {shp}")
                 if got[-1].any():
                     raise AssertionError("K3's dead row is not zero")
-                print(f"K3 == K2 bit for bit (torch.equal) at {shp} {extra}")
+                print(f"K3 == K2 bit for bit (torch.equal) at {shp} {extra}, "
+                      f"strips of {list(STRIP_LENGTHS)}")
 
 
 def chunk_inputs(torch, dev, kvh, g, hd, chunk, pos0, page=128, seed=8):
@@ -403,6 +474,7 @@ def check_k2q(torch, D, Q, dev, errs):
                 errs[key] = max(errs.get(key, 0.0), e)
                 print(f"{key} {shp} {extra}: max abs err {e:.3e} "
                       "(tol 1e-2 + 1e-2|ref|)")
+        check_invariance(torch, D, Q, dev, kv)
 
 
 def check_k3q(torch, D, P, Q, dev, errs):
@@ -435,17 +507,19 @@ def check_k3q(torch, D, P, Q, dev, errs):
                 print(f"{key} {shp} {extra}: max abs err {e:.3e} "
                       "(tol 1e-2 + 1e-2|ref|)")
                 if split == 1:
-                    strip = lambda pool: tuple(  # noqa: E731
-                        as_strip(torch, m, table, 1025) for m in pool)
-                    dense = D.decode_attn(q, strip(kp), strip(vp), idx, vf)
-                    torch.cuda.synchronize()
-                    if not torch.equal(got, dense):
-                        raise AssertionError(
-                            f"K3q != K2q bit for bit at {shp}")
+                    for n in STRIP_LENGTHS:
+                        strip = lambda pool, n=n: tuple(  # noqa: E731
+                            as_strip(torch, m, table, n) for m in pool)
+                        dense = D.decode_attn(q, strip(kp), strip(vp), idx,
+                                              vf)
+                        torch.cuda.synchronize()
+                        if not torch.equal(got, dense):
+                            raise AssertionError(
+                                f"K3q != K2q (L={n}) bit for bit at {shp}")
                     if got[-1].any():
                         raise AssertionError("K3q's dead row is not zero")
                     print(f"K3q == K2q bit for bit (torch.equal) [{kv}] at "
-                          f"{shp} {extra}")
+                          f"{shp} {extra}, strips of {list(STRIP_LENGTHS)}")
 
 
 def check_k4q(torch, P, Q, dev, errs):
@@ -1318,21 +1392,47 @@ def profile_library_backward(torch, card):
         print(f"  {ms:9.4f} ms  {n:4d} x  {key[:90]}")
 
 
-def device_ms_per_call(torch, fn, n=20):
-    """Device time of one ``fn()`` call, in ms: every kernel ``torch.profiler``
-    records over ``n`` calls (after 3 warm-up calls), summed, over ``n``."""
-    for _ in range(3):
-        fn()
-    torch.cuda.synchronize()
-    with torch.profiler.profile(
-            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
+def device_ms_each(torch, fns, n=20):
+    """Device ms per call of each ``fns[key]()`` from ONE ``torch.profiler``
+    session: each function's ``n`` calls (after 3 warm-up calls) end in a
+    synchronize, then the host sleeps 5 ms, so on the device's own timeline
+    each function's events (kernels, copies) form one group, more than
+    2 ms from the next; the groups, in order, are the functions' (the device
+    clock is never compared with the host's). A lead-in group of ``n``
+    one-element fills goes first and is dropped: the first events after the
+    profiler starts are sometimes not recorded. Raises unless there is one
+    group per function and each group's event count is a multiple of
+    ``n`` (no call lost an event)."""
+    for fn in fns.values():
+        for _ in range(3):
             fn()
-        torch.cuda.synchronize()
-    total = sum(r[0] for r in kernel_rows(torch, prof, calls=n))
-    if total <= 0:
-        raise AssertionError("torch.profiler recorded no device time")
-    return total
+    torch.cuda.synchronize()
+    keys = list(fns)
+    lead = torch.empty(1, device="cuda")
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        time.sleep(0.05)
+        for fn in [lead.zero_] + [fns[k] for k in keys]:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+            time.sleep(0.005)
+    dev = sorted((e.time_range.start, e.time_range.end)
+                 for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA)
+    groups, last_end = [], None  # [busy us, event count] per group
+    for start, end in dev:
+        if last_end is None or start - last_end > 2000:
+            groups.append([0.0, 0])
+        groups[-1][0] += end - start
+        groups[-1][1] += 1
+        last_end = end if last_end is None else max(last_end, end)
+    if len(groups) != len(keys) + 1 or any(c % n for _, c in groups[1:]):
+        raise AssertionError(
+            f"device event groups {[c for _, c in groups]} for the lead-in "
+            f"and {len(keys)} functions of {n} calls each")
+    return {key: us / 1e3 / n for key, (us, _) in zip(keys, groups[1:])}
 
 
 def flash_device_times(torch, A, card):
@@ -1353,24 +1453,16 @@ def flash_device_times(torch, A, card):
     q, k, v, do = vit
     out, lse = A.flash_attn_fwd(q, k, v, False)
     qg, kg, vg = (t.clone().requires_grad_() for t in (q, k, v))
-    with torch.no_grad():
-        t = {
-            "k1_vit": device_ms_per_call(
-                torch, lambda: A.flash_attn_fwd(q, k, v, False)),
-            "k1_lm": device_ms_per_call(
-                torch, lambda: A.flash_attn_fwd(*lm, True)),
-            "k7_vit": device_ms_per_call(
-                torch, lambda: A.flash_attn_bwd(q, k, v, out, lse, do,
-                                                False)),
-            "sdpa_fwd_vit": device_ms_per_call(
-                torch, lambda: F.scaled_dot_product_attention(q, k, v)),
-            "sdpa_fwd_lm": device_ms_per_call(
-                torch, lambda: F.scaled_dot_product_attention(
-                    *lm, is_causal=True)),
-        }
-    t["sdpa_fwdbwd_vit"] = device_ms_per_call(
-        torch, lambda: torch.autograd.grad(
-            F.scaled_dot_product_attention(qg, kg, vg), (qg, kg, vg), do))
+    t = device_ms_each(torch, {
+        "k1_vit": lambda: A.flash_attn_fwd(q, k, v, False),
+        "k1_lm": lambda: A.flash_attn_fwd(*lm, True),
+        "k7_vit": lambda: A.flash_attn_bwd(q, k, v, out, lse, do, False),
+        "sdpa_fwd_vit": lambda: F.scaled_dot_product_attention(q, k, v),
+        "sdpa_fwd_lm": lambda: F.scaled_dot_product_attention(
+            *lm, is_causal=True),
+        "sdpa_fwdbwd_vit": lambda: torch.autograd.grad(
+            F.scaled_dot_product_attention(qg, kg, vg), (qg, kg, vg), do),
+    })
     t["sdpa_bwd_vit"] = t["sdpa_fwdbwd_vit"] - t["sdpa_fwd_vit"]
     print(f"device ms per launch on {card} (torch.profiler, 20 launches): "
           f"K1 b8 h12 s197 d64 bf16 {t['k1_vit']:.4f} (SDPA forward "
@@ -1382,20 +1474,212 @@ def flash_device_times(torch, A, card):
     return t
 
 
-def ptxas_report(_build, names=("flash_attn_fwd", "flash_attn_bwd")):
-    """The compiler's registers / spills lines of the 16-bit (tensor-core)
-    flash kernels, from this process's build."""
-    for name in names:
+#: The decode kernels' device-time shapes (b8 kv_h12 g1 hd64 bf16 q, the
+#: strip L = 1025, the pool page 128 x 8 pages a slot in 65 pages): "a" the
+#: steady decode of ``--profile`` (8 slots after 256-token prompts, every
+#: row at 288 live keys), "b" phase 8's (indices spread over 0..1024).
+DECODE_SHAPES = ("a", "b")
+
+
+def decode_device_times(torch, D, P, Q, card, full=True):
+    """Device ms per launch (``torch.profiler``) of K2, K3, K2q and K3q
+    (int8, int4) at the two DECODE_SHAPES, beside the library's: masked
+    SDPA (K2), a gather of the pages + masked SDPA (K3); quantized caches
+    have no library call, so a dequantize + SDPA figure is printed. With
+    ``full``, also K2-split and K3-split (split 4, their torch combine
+    included) at shape b, K4 at phase 8's chunk shape, K5 at phase 10's
+    verify shape and K6 at a draft matrix. ``D``, ``P``, ``Q`` are the
+    ops modules of the tree under test (``scripts/decode_ab.py`` passes
+    another commit's). All of it is one ``torch.profiler`` session
+    (``device_ms_each``). Returns ``{(name, kv, shape): ms}`` and prints
+    one line per entry with its bound."""
+    fns, bounds = {}, {}
+
+    def rec(key, fn, nbytes, ops):
+        fns[key] = fn
+        bounds[key] = bound(ops, nbytes)
+
+    for shape in DECODE_SHAPES:
+        decode_shape_fns(torch, D, P, Q, shape, full, rec)
+    if full:
+        decode_side_fns(torch, P, Q, rec)
+    t = device_ms_each(torch, fns)
+    for key, ms in t.items():
+        bms, by = bounds[key]
+        print(f"device {key[0]}[{key[1]}] shape {key[2]} on {card}: {ms:.4f} "
+              f"ms a launch (bound {bms:.5f} by {by})")
+    return t
+
+
+def decode_shape_fns(torch, D, P, Q, shape, full, rec):
+    """``rec(key, fn, bytes, operations)`` for every decode call that
+    ``decode_device_times`` times at DECODE_SHAPES ``shape``."""
+    F = torch.nn.functional
+    dev = torch.device("cuda", 0)
+    B, kvh, G, hd, L = 8, 12, 1, 64, 1025
+    q, ck, cv, idx = decode_inputs(torch, dev, B, kvh, G, L, hd, seed=4)
+    _, kp, vp, table, pidx = paged_inputs(torch, dev, B, kvh, G, hd, 128, 8,
+                                          65, seed=9)
+    pidx[-1] = 1023  # all rows live, as phase 8
+    if shape == "a":
+        idx = torch.full_like(idx, 287)
+        pidx = torch.full_like(pidx, 287)
+    mask = torch.arange(L, device=dev)[None, :] <= idx[:, None].long()
+    pmask = torch.arange(1024, device=dev)[None, :] <= pidx[:, None].long()
+    live = float((idx.long() + 1).sum()) * kvh
+    plive = float((pidx.long() + 1).sum()) * kvh
+    qo = 2 * B * kvh * G * hd * 2 + B * 4
+    ops, pops = 4 * G * hd * live, 4 * G * hd * plive
+
+    def dequant(pair):
+        return (Q.kv_values(pair[0], hd).float() * pair[1]).to(torch.bfloat16)
+
+    def gather(pool):
+        return pool[table.long()].movedim(2, 1).reshape(B, kvh, -1, hd)
+
+    def sdpa(k, v, m):
+        return lambda: F.scaled_dot_product_attention(
+            q, k(), v(), attn_mask=m[:, None, None, :])
+
+    for kv in ("native",) + KV_DTYPES:
+        if kv == "native":
+            dk, dv, pk, pv, w = ck, cv, kp, vp, 2 * hd
+        else:
+            dk, dv = quantized(Q, ck, kv), quantized(Q, cv, kv)
+            pk, pv = quantized(Q, kp, kv), quantized(Q, vp, kv)
+            w = dk[0].shape[-1] + 4
+        rec(("decode_attn", kv, shape),
+            lambda dk=dk, dv=dv: D.decode_attn(q, dk, dv, idx),
+            2 * live * w + qo, ops)
+        rec(("paged_attn", kv, shape),
+            lambda pk=pk, pv=pv: P.paged_attn(q, pk, pv, table, pidx),
+            2 * plive * w + qo + table.numel() * 4, pops)
+        if kv == "native":
+            rec(("sdpa_masked", kv, shape), sdpa(lambda: ck, lambda: cv, mask),
+                2 * live * w + qo, ops)
+            rec(("gather_sdpa", kv, shape),
+                sdpa(lambda: gather(kp), lambda: gather(vp), pmask),
+                2 * plive * w + qo, pops)
+        else:
+            rec(("dequant_sdpa", kv, shape),
+                sdpa(lambda dk=dk: dequant(dk), lambda dv=dv: dequant(dv),
+                     mask), 2 * live * w + qo, ops)
+    if full and shape == "b":
+        rec(("decode_attn_split", "native", shape),
+            lambda: D.decode_attn_split(q, ck, cv, idx, None, 4),
+            2 * live * 2 * hd + qo, ops)
+        rec(("paged_attn_split", "native", shape),
+            lambda: P.paged_attn_split(q, kp, vp, table, pidx, None, 4),
+            2 * plive * 2 * hd + qo + table.numel() * 4, pops)
+
+
+def decode_side_fns(torch, P, Q, rec):
+    """``rec(key, fn, bytes, operations)`` for K4 at phase 8's chunk shape,
+    K5 at phase 10's verify shape and K6 at a draft matrix."""
+    dev = torch.device("cuda", 0)
+    B, kvh, G, hd = 8, 12, 1, 64
+    C, pos0 = 256, 512  # K4 at phase 8's chunked-prefill pass
+    cq, ckp, cvp, pages = chunk_inputs(torch, dev, kvh, 1, hd, C, pos0)
+    pairs = sum(pos0 + r + 1 for r in range(C)) * kvh
+    rec(("paged_chunk_attn", "native", f"C{C} pos0 {pos0}"),
+        lambda: P.paged_chunk_attn(cq, ckp, cvp, pages, pos0, C),
+        2 * (pos0 + C) * kvh * hd * 2 + 2 * kvh * C * hd * 2
+        + pages.numel() * 4, 4 * pairs * hd)
+    KC = 5  # K5 at phase 10's verify pass
+    q, kp, vp, table, idx = verify_inputs(torch, dev, B, kvh, G, KC, hd, 128,
+                                          8, 65)
+    vlive = float((idx.clamp(min=-KC).long() + KC).sum()) * kvh
+    pairs5 = float(sum((idx.clamp(min=-t - 1).long() + t + 1).sum()
+                       for t in range(KC))) * kvh
+    rec(("paged_verify_attn", "native", f"kc{KC}"),
+        lambda: P.paged_verify_attn(q, kp, vp, table, idx, KC),
+        2 * vlive * hd * 2 + 2 * B * kvh * G * KC * hd * 2
+        + table.numel() * 4, 4 * pairs5 * hd)
+    x = (torch.randn(768, 3072, device=dev) * 0.036).to(torch.bfloat16)
+    qt = Q.quantize_blocks(x)
+    n, nb = x.numel(), qt.scales.numel()
+    rec(("quantize_blocks", "bf16", "(768, 3072)"),
+        lambda: Q.quantize_blocks(x), n * 2 + n + nb * 4, 0)
+    rec(("dequantize_blocks", "bf16", "(768, 3072)"),
+        lambda: Q.dequantize_blocks(qt), n + nb * 4 + n * 2, 0)
+
+
+def add_device_times(kernels, dec_ms):
+    """Write ``decode_device_times``'s figures into the kernels' JSON rows:
+    ``device_ms`` at the row's shape (phase 8's, shape b) and, for K2 / K3
+    (and K2q / K3q), ``steady_device_ms`` at shape a; the library's device
+    time beside them (masked SDPA, gather + masked SDPA; a dequantize +
+    SDPA figure for the quantized branches, which have no library call)."""
+    libs = {"decode_attn": "sdpa_masked", "decode_attn_split": "sdpa_masked",
+            "paged_attn": "gather_sdpa", "paged_attn_split": "gather_sdpa"}
+    for kr in kernels:
+        base, _, kv = kr["name"].partition("[")
+        kv = kv.rstrip("]") or "native"
+        if base in ("decode_attn", "paged_attn"):
+            kr.update(device_ms=dec_ms[(base, kv, "b")],
+                      steady_device_ms=dec_ms[(base, kv, "a")])
+            if kv == "native":
+                kr.update(
+                    library_device_ms=dec_ms[(libs[base], kv, "b")],
+                    steady_library_device_ms=dec_ms[(libs[base], kv, "a")])
+            elif base == "decode_attn":
+                kr.update(dequant_sdpa_device_ms=dec_ms[("dequant_sdpa", kv,
+                                                         "b")])
+        elif base in ("decode_attn_split", "paged_attn_split"):
+            kr.update(device_ms=dec_ms[(base, "native", "b")],
+                      library_device_ms=dec_ms[(libs[base], "native", "b")])
+        elif kr["name"] in ("paged_chunk_attn", "paged_verify_attn",
+                            "quantize_blocks", "dequantize_blocks"):
+            kr.update(device_ms=next(v for k, v in dec_ms.items()
+                                     if k[0] == kr["name"]))
+
+
+def ptxas_entries(log, marker):
+    """``[(entry, registers, spill bytes)]`` of the kernels whose mangled
+    name holds ``marker``, from one ``-Xptxas -v`` build log."""
+    import re
+
+    out = []
+    lines = log.splitlines()
+    for i, line in enumerate(lines):
+        if marker in line and "Compiling entry" in line:
+            kern = line.split("'")[1] if "'" in line else line
+            info = " ".join(lines[i + 1:i + 4])
+            regs = re.search(r"Used (\d+) registers", info)
+            spill = re.findall(r"(\d+) bytes spill", info)
+            out.append((kern, int(regs.group(1)) if regs else -1,
+                        sum(int(x) for x in spill)))
+    return out
+
+
+def ptxas_report(_build):
+    """The compiler's registers and spills: each 16-bit (tensor-core) flash
+    kernel, and a summary of the unsplit decode kernels' instantiations
+    (K2 / K3, every dtype, head dim, cache element and padded g) with the
+    main path's (bf16, hd 64, g 1) named, from this process's build."""
+    for name, marker in (("flash_attn_fwd", "_tc_kernel"),
+                         ("flash_attn_bwd", "_tc_kernel"),
+                         ("decode_attn", "decode_cluster_kernel"),
+                         ("paged_attn", "decode_cluster_kernel")):
         if name not in _build.LOGS:
             print(f"ptxas {name}: built before this process, no report")
             continue
-        lines = _build.LOGS[name].splitlines()
-        for i, line in enumerate(lines):
-            if "_tc_kernel" in line and "Compiling entry" in line:
-                kern = line.split("'")[1] if "'" in line else line
-                info = [x.strip() for x in lines[i + 1:i + 4]
-                        if "registers" in x or "spill" in x]
-                print(f"ptxas {name}: {kern}: {'; '.join(info)}")
+        ents = ptxas_entries(_build.LOGS[name], marker)
+        if marker == "_tc_kernel":
+            for kern, regs, spill in ents:
+                print(f"ptxas {name}: {kern}: {regs} registers, {spill} "
+                      "bytes spilled")
+            continue
+        regs = [r for _, r, _ in ents]
+        print(f"ptxas {name}: {len(ents)} cluster instantiations, "
+              f"{min(regs)}-{max(regs)} registers, "
+              f"{sum(sp for _, _, sp in ents)} bytes spilled in all")
+        for kern, r, sp in ents:
+            if "13__nv_bfloat16Li64ELi1E" in kern:
+                elem = ("int8" if "Int8KV" in kern else "int4" if "Int4KV"
+                        in kern else "native")
+                print(f"ptxas {name}: bf16 hd64 g1 {elem}: {r} registers, "
+                      f"{sp} bytes spilled")
 
 
 def main(argv) -> int:
@@ -2157,6 +2441,7 @@ def main(argv) -> int:
         elif kr["name"] == "flash_attn_bwd":
             kr.update(device_ms=dev_ms["k7_vit"],
                       library_device_ms=dev_ms["sdpa_bwd_vit"])
+    add_device_times(kernels, decode_device_times(torch, D, P, Q, card))
 
     if "--profile" in argv:
         profile_train(torch, *train_case, card)
@@ -2176,7 +2461,9 @@ def main(argv) -> int:
                if "dequant_sdpa_ms" in kr else "")
         if "multi_call_ms" in kr:
             two = f" (multi-call {kr['multi_call_ms']:.4f})"
-        print(f"{kr['name']} on {card}: {kr['ms']:.4f} ms (plain "
+        devt = (f", device {kr['device_ms']:.4f} a launch"
+                if "device_ms" in kr else "")
+        print(f"{kr['name']} on {card}: {kr['ms']:.4f} ms{devt} (plain "
               f"{kr['plain_ms']:.4f}, library {lib}{two}, bound "
               f"{kr['bound_ms']:.4f} by {kr['bound_by']}) at {kr['shape']}")
     print(card)

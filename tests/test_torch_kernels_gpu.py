@@ -12,7 +12,10 @@ order differs); bf16 / f16 at ``1e-2`` (one rounding of the output, and of
 p before P V on the tensor cores); the
 logsumexp at ``1e-3``. Rows with no live key (and the left padding of
 ``valid_from`` rows) are unspecified and not compared. K3 must equal K2
-bit for bit on the same K/V laid out as a dense strip, quantized or not.
+bit for bit on the same K/V laid out as dense strips of 1024, 1025, 1029
+and 1031 keys, quantized or not; the unsplit K2 (a cluster of blocks per
+row) must give a row the same bits alone as in a batch of 8, on every strip
+length and on a second run, and add one launch per call.
 Quantized caches come from ``ops.quantize.quantize_kv_vectors`` on the
 card; the plain versions read the same bytes, so the tolerances stay the
 native ones. K5 with ``split == 1`` partials must equal the unsplit kernel
@@ -213,6 +216,19 @@ def test_k7_refuses_bad_operands(cuda):
 @pytest.mark.parametrize("g", [1, 4])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_k2_matches_plain(cuda, split, g, dtype):
+    _k2_matches_plain(cuda, split, g, dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("g", [1, 3, 8, 16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+def test_k2_unsplit_matches_plain_every_g(cuda, g, dtype):
+    """Every padded-row bucket of the unsplit kernel (g 1, <= 4, <= 16)."""
+    _k2_matches_plain(cuda, 1, g, dtype)
+
+
+def _k2_matches_plain(cuda, split, g, dtype):
     gen = torch.Generator(device=cuda).manual_seed(1)
     b, kvh, L, hd = 4, 3, 1025, 64
     q = torch.randn(b, kvh, g, hd, generator=gen, device=cuda).to(dtype)
@@ -294,19 +310,28 @@ def _strip(pool, table, length):
     return out
 
 
+#: Strip lengths on which the unsplit K2 must give the same bits as K3 on
+#: a pool of 1024 keys a slot: the pool's own, the batcher's max_len + 1 and
+#: speculative strips past it.
+STRIP_LENGTHS = (1024, 1025, 1029, 1031)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("page", [16, 128])
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
 def test_k3_equals_k2_bitwise(cuda, page, dtype):
     q, kp, vp, table, idx = _paged_case(cuda, dtype, 6, 3, 4, 64, page,
                                         1024 // page)
     vf = (idx.clamp(min=0) // 3).to(torch.int32)
     for valid_from in (None, vf):
         paged = TP.paged_attn(q, kp, vp, table, idx, valid_from)
-        dense = TD.decode_attn(q, _strip(kp, table, 1025),
-                               _strip(vp, table, 1025), idx, valid_from)
-        torch.cuda.synchronize()
-        assert torch.equal(paged, dense)
+        for length in STRIP_LENGTHS:
+            dense = TD.decode_attn(q, _strip(kp, table, length),
+                                   _strip(vp, table, length), idx,
+                                   valid_from)
+            torch.cuda.synchronize()
+            assert torch.equal(paged, dense), length
         assert not paged[-1].any()  # the dead row
 
 
@@ -415,11 +440,110 @@ def test_k3q_equals_k2q_bitwise(cuda, kv_dtype, page):
     vf = (idx.clamp(min=0) // 3).to(torch.int32)
     for valid_from in (None, vf):
         paged = TP.paged_attn(q, kp, vp, table, idx, valid_from)
-        dense = TD.decode_attn(q, _strip(kp, table, 1025),
-                               _strip(vp, table, 1025), idx, valid_from)
-        torch.cuda.synchronize()
-        assert torch.equal(paged, dense)
+        for length in STRIP_LENGTHS:
+            dense = TD.decode_attn(q, _strip(kp, table, length),
+                                   _strip(vp, table, length), idx,
+                                   valid_from)
+            torch.cuda.synchronize()
+            assert torch.equal(paged, dense), length
         assert not paged[-1].any()  # the dead row
+
+
+def _rows(c, sl):
+    """Rows ``sl`` of a cache operand (each member of a quantized pair)."""
+    return tuple(m[sl] for m in c) if isinstance(c, tuple) else c[sl]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kv_dtype", ["native", "int8", "int4"])
+@pytest.mark.parametrize("g,hd", [(1, 64), (4, 64), (2, 128), (16, 64),
+                                  (16, 128)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+def test_k2_row_alone_equals_row_in_batch(cuda, kv_dtype, g, hd, dtype):
+    """The unsplit K2 / K2q sums by key position only: each row alone
+    (b = 1) gives the bits it gives in a batch of 8, on every strip length;
+    a second run gives the same bits; a dead row is zeros; each call adds
+    exactly one launch."""
+    gen = torch.Generator(device=cuda).manual_seed(17)
+    b, kvh, L = 8, 2, max(STRIP_LENGTHS)
+    q = torch.randn(b, kvh, g, hd, generator=gen, device=cuda).to(dtype)
+    ck = torch.randn(b, kvh, L, hd, generator=gen, device=cuda).to(dtype)
+    cv = torch.randn(b, kvh, L, hd, generator=gen, device=cuda).to(dtype)
+    if kv_dtype != "native":
+        ck, cv = _q(ck.float(), kv_dtype), _q(cv.float(), kv_dtype)
+    idx = torch.tensor([1023, 0, -1, 63, 64, 517, 900, 130], device=cuda,
+                       dtype=torch.int32)
+    vf = torch.tensor([0, 0, 0, 10, 64, 200, 899, 129], device=cuda,
+                      dtype=torch.int32)
+    first = lambda c, n: (tuple(first(m, n) for m in c)  # noqa: E731
+                          if isinstance(c, tuple)
+                          else c[:, :, :n].contiguous())
+    for valid_from in (None, vf):
+        n0 = TD.decode_attn.launches
+        ref = TD.decode_attn(q, first(ck, 1025), first(cv, 1025), idx,
+                             valid_from)
+        again = TD.decode_attn(q, first(ck, 1025), first(cv, 1025), idx,
+                               valid_from)
+        torch.cuda.synchronize()
+        assert TD.decode_attn.launches == n0 + 2
+        assert torch.equal(ref, again)
+        assert not ref[2].any()  # the dead row
+        plain = TD.decode_attention_plain(q, first(ck, 1025), first(cv, 1025),
+                                          idx, valid_from)
+        live = idx >= 0
+        torch.testing.assert_close(ref[live].float(), plain[live].float(),
+                                   atol=_tol(dtype), rtol=_tol(dtype))
+        for n in STRIP_LENGTHS:
+            kk, vv = first(ck, n), first(cv, n)
+            assert torch.equal(TD.decode_attn(q, kk, vv, idx, valid_from),
+                               ref), n
+            for r in range(b):
+                sl = slice(r, r + 1)
+                alone = TD.decode_attn(
+                    q[sl], _rows(kk, sl), _rows(vv, sl), idx[sl],
+                    None if valid_from is None else valid_from[sl])
+                assert torch.equal(alone, ref[sl]), (n, r)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kv_dtype", ["native", "int8", "int4"])
+def test_k3_counts_one_launch_and_is_deterministic(cuda, kv_dtype):
+    q, kp, vp, table, idx = _paged_case(cuda, torch.bfloat16, 8, 12, 1, 64,
+                                        128, 8, seed=19)
+    if kv_dtype != "native":
+        kp, vp = _q(kp.float(), kv_dtype), _q(vp.float(), kv_dtype)
+    n0 = TP.paged_attn.launches
+    a = TP.paged_attn(q, kp, vp, table, idx)
+    assert TP.paged_attn.launches == n0 + 1
+    b = TP.paged_attention(q, kp, vp, table, idx)
+    torch.cuda.synchronize()
+    assert TP.paged_attn.launches == n0 + 2
+    assert torch.equal(a, b) and not a[-1].any()
+    for r in (0, 3, 6):
+        sl = slice(r, r + 1)
+        assert torch.equal(TP.paged_attn(q[sl], kp, vp, table[sl], idx[sl]),
+                           a[sl])
+
+
+@pytest.mark.gpu
+def test_k2_misaligned_cache_view_is_served(cuda):
+    """A cache view that does not start on a 16-byte boundary (the
+    kernel's cp.async copies need one) is copied by the wrapper, not
+    refused, and gives the bits of an aligned copy."""
+    gen = torch.Generator(device=cuda).manual_seed(23)
+    flat = torch.randn(2 * 3 * 300 * 64 + 1, generator=gen,
+                       device=cuda).to(torch.bfloat16)
+    ck = flat[1:].view(2, 3, 300, 64)
+    cv = torch.randn(2, 3, 300, 64, generator=gen,
+                     device=cuda).to(torch.bfloat16)
+    q = torch.randn(2, 3, 1, 64, generator=gen, device=cuda).to(torch.bfloat16)
+    idx = torch.tensor([299, 100], device=cuda, dtype=torch.int32)
+    assert ck.data_ptr() % 16 != 0
+    got = TD.decode_attn(q, ck, cv, idx)
+    want = TD.decode_attn(q, ck.clone(), cv, idx)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
 
 
 @pytest.mark.gpu
