@@ -52,6 +52,17 @@
 // The CUDA cores, not the tensor cores: at g <= 16 the work is ~2g
 // operations per byte staged, far below the card's ~295.
 //
+// K5's f32 instantiations (paged_verify_attn.cu; its 16-bit ones keep
+// this partition with the products on the tensor cores) run the same body
+// under another row policy (`Rows`, below): each folded row attends keys
+// up to its own diagonal, the folded rows tile over the grid's z axis in
+// tiles of G in {4, 16}, splits over its y axis (each split a cluster
+// over its key run, rank 0 writing the combined (acc, m, l) as the split's
+// partials), and the combine slots live in the staging ring, filled once
+// every rank has left its walk (two cluster barriers). K2 / K3's row
+// policy keeps the slots of their own and the early arrive: their
+// arithmetic and shared-memory plan are unchanged.
+//
 // Bound. One step reads the live cache once (2 * live * (value bytes +
 // scale bytes) per kv head, plus q and the indices) and does ~4 g live hd
 // operations: bytes bound. At decode sizes the kernel is far from it:
@@ -63,6 +74,8 @@
 #pragma once
 
 #include <cooperative_groups.h>
+
+#include <climits>
 
 #include "common.cuh"
 
@@ -77,20 +90,69 @@ constexpr int NW = NT / 32;  // warps per block
 constexpr int C = 8;         // blocks per (b * kv_h) row: the cluster
 constexpr int PS = TK + 1;   // score row pitch (floats): rows on other banks
 
-// The live keys [lo, hi] of one row, and which 64-key tiles rank `rank`
-// walks: t0, t0 + C, ... (n of them). Depends on positions only.
+// The live keys [lo, hi] of one row (lo >= 0; none when lo > hi), and
+// which 64-key tiles rank `rank` walks: t0, t0 + C, ... (n of them).
+// Depends on positions only.
 struct Span {
   int lo, hi, t0, n;
-  __device__ __forceinline__ Span(int idx, int vfrom, int L, int rank) {
-    lo = max(vfrom, 0);
-    hi = min(idx, L - 1);
+  __device__ __forceinline__ Span(int lo_, int hi_, int rank) {
+    lo = lo_;
+    hi = hi_;
     t0 = 0;
     n = 0;
-    if (idx >= 0 && lo <= hi) {
+    if (lo <= hi) {
       const int tf = lo / TK, tl = hi / TK;
       t0 = tf + ((rank - tf % C) + C) % C;
       n = t0 > tl ? 0 : (tl - t0) / C + 1;
     }
+  }
+};
+
+// Row policies: which keys the folded rows of one (b * kv_h) row attend.
+// K2 / K3: every row attends [max(valid_from, 0), min(index, L - 1)]; a
+// row with index < 0 (or valid_from past index) has none.
+struct DecodeRows {
+  static constexpr bool kVerify = false;
+  struct Row {};
+  const int* valid_from;
+  __device__ __forceinline__ Span span(int idx, int bi, int L, int,
+                                       int rank) const {
+    return Span(max(valid_from ? valid_from[bi] : 0, 0), min(idx, L - 1),
+                rank);
+  }
+  __device__ __forceinline__ Row row(int, int) const { return {}; }
+  __device__ __forceinline__ bool live(const Row&, int) const {
+    return true;
+  }
+};
+
+// K5 / K5-split: folded row r is chunk position t = r % chunk; it attends
+// p <= edge = idx + min(t, chunk - 1 - tree_tail), banded below by
+// p > edge - window when window > 0, and a tree leaf also its own slot
+// p == idx + t. The span is the union over rows, cut to split sp's run of
+// `kps` keys; a slot with idx + chunk - 1 < 0 has none. Keys are >= 0, so
+// own = -1 (no leaf) and floor = INT_MIN (no window) never match.
+struct VerifyRows {
+  static constexpr bool kVerify = true;
+  int chunk, window, tree_tail, kps;
+  __device__ __forceinline__ Span span(int idx, int, int L, int sp,
+                                       int rank) const {
+    const int lo = window > 0 ? max(idx - window + 1, 0) : 0;
+    const int hi = min(idx + chunk - 1, L - 1);
+    return Span(max(lo, sp * kps), min(hi, sp * kps + kps - 1), rank);
+  }
+  // Folded row r's edge, band floor and own slot (-1: none), once a block.
+  struct Row {
+    int edge, floor, own;
+  };
+  __device__ __forceinline__ Row row(int r, int idx) const {
+    const int t = r % chunk;
+    const int edge = idx + min(t, chunk - 1 - tree_tail);
+    return {edge, window > 0 ? edge - window : INT_MIN,
+            tree_tail > 0 ? idx + t : -1};
+  }
+  __device__ __forceinline__ bool live(const Row& w, int p) const {
+    return (p <= w.edge && p > w.floor) || p == w.own;
   }
 };
 
@@ -157,36 +219,50 @@ struct Map {
 // partials of the KS key subsets; the two vector-index tables; the combine
 // slots (C ranks x (acc, m, l), filled through distributed shared memory:
 // m and l by every rank, acc by the live ones; only rank 0's are read);
-// scores / probabilities; m, l and the rescale factor per row.
-template <int G, int HD, typename KV>
+// scores / probabilities; m, l and the rescale factor per row. With LATE
+// (K5) the combine slots take the ring's place at offset 0 instead.
+template <int G, int HD, typename KV, bool LATE = false>
 struct Smem {
   static constexpr int SLOTS = 3;
   static constexpr int SB = TK * KV::kRowBytes + (KV::kScaled ? TK * 4 : 0);
   static constexpr int RING = SLOTS * SB;
   static constexpr int RED = Map<G, HD>::KS * G * HD * 4;
-  static constexpr int VIDX = ((RING > RED ? RING : RED) + 15) / 16 * 16;
+  static constexpr int COMB = C * G * HD * 4 + 2 * C * G * 4;
+  static constexpr int R0 = RING > RED ? RING : RED;
+  static constexpr int R1 = LATE && COMB > R0 ? COMB : R0;
+  static constexpr int VIDX = (R1 + 15) / 16 * 16;
   static constexpr int OS = VIDX + 2 * TK * 8;  // C x G x HD acc
-  static constexpr int MLS = OS + C * G * HD * 4;     // C x G m, C x G l
-  static constexpr int SS = MLS + 2 * C * G * 4;
+  static constexpr int MLS = OS + (LATE ? 0 : C * G * HD * 4);  // m, l
+  static constexpr int SS = MLS + (LATE ? 0 : 2 * C * G * 4);
   static constexpr int MS = SS + G * PS * 4;
   static constexpr int BYTES = MS + 3 * G * 4;
 };
 
-template <typename T, int HD, int G, typename KV, typename Walk>
+// Grid (rows * C, split, row tiles): blockIdx.x / C is the (b * kv_h)
+// row; a verify Rows policy takes the split from blockIdx.y and its folded
+// rows [blockIdx.z * G, + G) of the row's g, K2 / K3's all g <= G rows.
+// Output: `out` (normalised), or with o_part (K5-split) rank 0 writes the
+// combined (acc, m, l) of the split: o_part (rows, split, g, HD), m_part /
+// l_part (rows, split, g).
+template <typename T, int HD, int G, typename KV, typename Walk,
+          typename Rows>
 __global__ void __cluster_dims__(C, 1, 1) __launch_bounds__(NT)
     decode_cluster_kernel(const T* __restrict__ q, KV kv,
-                          const int* __restrict__ index,
-                          const int* __restrict__ valid_from,
-                          T* __restrict__ out, int kvh, int g, int L,
-                          float sm_scale, Walk walk) {
+                          const int* __restrict__ index, T* __restrict__ out,
+                          float* __restrict__ o_part,
+                          float* __restrict__ m_part,
+                          float* __restrict__ l_part, int kvh, int g, int L,
+                          float sm_scale, Walk walk, Rows rows) {
+  constexpr bool LATE = Rows::kVerify;
   using Mp = Map<G, HD>;
-  using Sm = Smem<G, HD, KV>;
+  using Sm = Smem<G, HD, KV, LATE>;
   constexpr int RB = KV::kRowBytes;
   constexpr int RW = Mp::RW, LPK = Mp::LPK, KS = Mp::KS;
   extern __shared__ __align__(16) unsigned char smem[];
   long long* vidx = reinterpret_cast<long long*>(smem + Sm::VIDX);
-  float* o_slot = reinterpret_cast<float*>(smem + Sm::OS);
-  float* m_slot = reinterpret_cast<float*>(smem + Sm::MLS);
+  float* o_slot = reinterpret_cast<float*>(smem + (LATE ? 0 : Sm::OS));
+  float* m_slot = LATE ? o_slot + C * G * HD
+                       : reinterpret_cast<float*>(smem + Sm::MLS);
   float* l_slot = m_slot + C * G;
   float* s_s = reinterpret_cast<float*>(smem + Sm::SS);
   float* m_s = reinterpret_cast<float*>(smem + Sm::MS);
@@ -197,11 +273,16 @@ __global__ void __cluster_dims__(C, 1, 1) __launch_bounds__(NT)
   const int rank = (int)cluster.block_rank();
   // First half of a split cluster barrier: its wait, before the writes into
   // rank 0's slots, guarantees every block of the cluster has started.
-  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+  if constexpr (!LATE)
+    asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
   const int row = blockIdx.x / C;  // b * kvh + kv head
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
   const int bi = row / kvh;
-  const Span sp(index[bi], valid_from ? valid_from[bi] : 0, L, rank);
+  const int split = LATE ? (int)blockIdx.y : 0;
+  const int row0 = LATE ? (int)blockIdx.z * G : 0;  // first folded row
+  const int gh = LATE ? min(G, g - row0) : g;       // folded rows here
+  const int idx = index[bi];
+  const Span sp = rows.span(idx, bi, L, split, rank);
 
   if (tid < G) {
     m_s[tid] = kNegInf;
@@ -216,13 +297,17 @@ __global__ void __cluster_dims__(C, 1, 1) __launch_bounds__(NT)
     const int r = qrg * RW + rr;
 #pragma unroll
     for (int e = 0; e < 8; ++e)
-      qr[rr][e] = r < g ? to_f(q[((size_t)row * g + r) * HD +
-                                 KV::col8(li, e)])
-                        : 0.f;
+      qr[rr][e] = r < gh ? to_f(q[((size_t)row * g + row0 + r) * HD +
+                                  KV::col8(li, e)])
+                         : 0.f;
   }
   // PV map: thread -> (8-column group, row group, key subset).
   const int dg = tid % LPK, prg = (tid / LPK) % Mp::NRG;
   const int ks = tid / (LPK * Mp::NRG);
+  typename Rows::Row rmask[RW];  // each QK row's mask, once a block
+#pragma unroll
+  for (int rr = 0; rr < RW; ++rr)
+    rmask[rr] = rows.row(row0 + qrg * RW + rr, idx);
   float acc[RW][8];
 #pragma unroll
   for (int rr = 0; rr < RW; ++rr)
@@ -290,7 +375,9 @@ __global__ void __cluster_dims__(C, 1, 1) __launch_bounds__(NT)
         for (int rr = 0; rr < RW; ++rr) {
           float d = dot[rr];  // (q . k_int) * k_scale * sm_scale
           if constexpr (KV::kScaled) d *= ksc[c];
-          s_s[(qrg * RW + rr) * PS + c] = live ? d * sm_scale : kNegInf;
+          bool ok = live;
+          if constexpr (Rows::kVerify) ok = ok && rows.live(rmask[rr], p);
+          s_s[(qrg * RW + rr) * PS + c] = ok ? d * sm_scale : kNegInf;
         }
       }
     }
@@ -367,14 +454,40 @@ __global__ void __cluster_dims__(C, 1, 1) __launch_bounds__(NT)
   // rank with no live tile (m = -1e30, l = 0, acc = 0) would add exactly 0
   // to every sum of the combine: it writes only its m, and the combine
   // skips it.
-  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
-  if (sp.n > 0) {
-    float* o_dst = cluster.map_shared_rank(o_slot, 0) + rank * G * HD;
-    for (int o = tid; o < G * HD; o += NT) {
-      float a = 0.f;
+  if constexpr (!LATE) {
+    asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+    if (sp.n > 0) {
+      float* o_dst = cluster.map_shared_rank(o_slot, 0) + rank * G * HD;
+      for (int o = tid; o < G * HD; o += NT) {
+        float a = 0.f;
 #pragma unroll
-      for (int k = 0; k < KS; ++k) a += red[k * G * HD + o];
-      o_dst[o] = a;
+        for (int k = 0; k < KS; ++k) a += red[k * G * HD + o];
+        o_dst[o] = a;
+      }
+    }
+  } else {
+    // The slots overlay rank 0's ring: each rank sums its key subsets into
+    // registers, and writes once every rank has left its walk.
+    constexpr int NO = (G * HD + NT - 1) / NT;
+    float mine[NO];
+#pragma unroll
+    for (int i = 0; i < NO; ++i) {
+      const int o = tid + i * NT;
+      float a = 0.f;
+      if (o < G * HD) {
+#pragma unroll
+        for (int k = 0; k < KS; ++k) a += red[k * G * HD + o];
+      }
+      mine[i] = a;
+    }
+    cluster.sync();  // every rank's walk and reads of its ring are done
+    if (sp.n > 0) {
+      float* o_dst = cluster.map_shared_rank(o_slot, 0) + rank * G * HD;
+#pragma unroll
+      for (int i = 0; i < NO; ++i) {
+        const int o = tid + i * NT;
+        if (o < G * HD) o_dst[o] = mine[i];
+      }
     }
   }
   if (tid < G) {
@@ -385,7 +498,9 @@ __global__ void __cluster_dims__(C, 1, 1) __launch_bounds__(NT)
   if (rank != 0) return;
 
   // Rank 0 combines the live ranks in rank order and writes the output.
-  for (int o = tid; o < g * HD; o += NT) {
+  const size_t obase = LATE ? ((size_t)row * gridDim.y + split) * g + row0
+                            : (size_t)row * g;
+  for (int o = tid; o < gh * HD; o += NT) {
     const int r = o / HD;
     float mj[C];
     float mx = kNegInf;
@@ -403,25 +518,46 @@ __global__ void __cluster_dims__(C, 1, 1) __launch_bounds__(NT)
         l += l_slot[j * G + r] * w;
       }
     }
-    out[(size_t)row * g * HD + o] = from_f<T>(a / fmaxf(l, 1e-30f));
+    if (LATE && o_part != nullptr) {
+      o_part[obase * HD + o] = a;
+      if (o % HD == 0) {
+        m_part[obase + r] = mx;
+        l_part[obase + r] = l;
+      }
+    } else {  // one split: obase is the row's
+      out[obase * HD + o] = from_f<T>(a / fmaxf(l, 1e-30f));
+    }
   }
 }
 
-// One launch: rows * C blocks of NT threads. The shared-memory opt-in is
-// set once per instantiation (a function-local static), not per launch.
+// One launch of `grid` blocks of NT threads (grid.x = rows * C). The
+// shared-memory opt-in is set once per instantiation (a function-local
+// static), not per launch; `static` keeps that flag this library's when
+// another build of it is loaded into the same process.
+template <typename T, int HD, int G, typename KV, typename Walk,
+          typename Rows>
+static int launch_grid(dim3 grid, const void* q, KV kv, const int* index,
+                       void* out, float* o_part, float* m_part,
+                       float* l_part, int kvh, int g, int L, float sm_scale,
+                       Walk walk, Rows rows, cudaStream_t stream) {
+  constexpr int bytes = Smem<G, HD, KV, Rows::kVerify>::BYTES;
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      decode_cluster_kernel<T, HD, G, KV, Walk, Rows>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (attr != cudaSuccess) return (int)attr;
+  decode_cluster_kernel<T, HD, G, KV, Walk, Rows><<<grid, NT, bytes, stream>>>(
+      static_cast<const T*>(q), kv, index, static_cast<T*>(out), o_part,
+      m_part, l_part, kvh, g, L, sm_scale, walk, rows);
+  return (int)cudaGetLastError();
+}
+
 template <typename T, int HD, int G, typename KV, typename Walk>
 int launch(const void* q, KV kv, const int* index, const int* vf, void* out,
            int rows, int kvh, int g, int L, float sm_scale, Walk walk,
            cudaStream_t stream) {
-  constexpr int bytes = Smem<G, HD, KV>::BYTES;
-  static const cudaError_t attr = cudaFuncSetAttribute(
-      decode_cluster_kernel<T, HD, G, KV, Walk>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (attr != cudaSuccess) return (int)attr;
-  decode_cluster_kernel<T, HD, G, KV, Walk><<<rows * C, NT, bytes, stream>>>(
-      static_cast<const T*>(q), kv, index, vf, static_cast<T*>(out), kvh, g,
-      L, sm_scale, walk);
-  return (int)cudaGetLastError();
+  return launch_grid<T, HD, G>(dim3(rows * C), q, kv, index, out, nullptr,
+                               nullptr, nullptr, kvh, g, L, sm_scale, walk,
+                               DecodeRows{vf}, stream);
 }
 
 // Folded rows g padded to G in {1, 4, 16}.

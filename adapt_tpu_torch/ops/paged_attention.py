@@ -25,7 +25,12 @@ version. K3 is K2's body with a paged address (one attention discipline,
 two layouts; the unsplit one a cluster of 8 blocks per row, tile t on rank
 t mod 8), so K3 equals K2 bit for bit on the same K/V, and its plain
 version is K2's on the slot's gathered window: the split kernels' 64-key
-tiles, dead-tile skip and split partials. Any page size
+tiles, dead-tile skip and split partials. K5 and K5-split run the same
+cluster body with each row's own diagonal as a mask (one cluster per slot,
+kv head, split and tile of up to 16 folded rows; the 16-bit tiles'
+products on the tensor cores). K4 runs K1's tensor-core body (16-bit q)
+with the page walk, so a chunk's rows equal a whole-prompt K1 pass's on
+the same K/V bit for bit. Any page size
 is served: the TPU gates ``page % 128`` (and ``page % 1024`` for quantized
 pools) are not carried over. A quantized pool launches the kernels' int8 /
 int4 branches (K3q, K4q, K5q), which read the bytes and scales themselves.
@@ -275,10 +280,12 @@ def paged_attn_split(q, k_pool, v_pool, page_table, index, valid_from=None,
 
 def paged_chunk_attn(q, k_pool, v_pool, pages, pos0: int, chunk: int,
                      window: int | None = None):
-    """Launch K4 (one block per (kv head, 64 folded query rows)) on CUDA
-    tensors; ``pos0`` is the chunk's first position (a host int). A
-    quantized pool launches its int8 / int4 branch (K4q)."""
+    """Launch K4 (one block per (kv head, 64 folded query rows); tensor
+    cores for bf16 / f16 q) on CUDA tensors; ``pos0`` is the chunk's first
+    position (a host int). A quantized pool launches its int8 / int4
+    branch (K4q)."""
     k, v, ks, vs, code = _check_pools(q, k_pool, v_pool, "K4")
+    k, v = aligned16(k), aligned16(v)  # 16-byte copies; K4 never writes
     _, kvh, gc, hd = q.shape
     if q.shape[0] != 1:
         raise ValueError(f"K4 takes one chunk (batch 1), got {q.shape[0]}")
@@ -304,6 +311,7 @@ def paged_chunk_attn(q, k_pool, v_pool, pages, pos0: int, chunk: int,
 def _launch_verify(q, k_pool, v_pool, page_table, index, chunk, window,
                    tree_tail, split, out, parts):
     k, v, ks, vs, code = _check_pools(q, k_pool, v_pool, "K5")
+    k, v = aligned16(k), aligned16(v)  # 16-byte copies; K5 never writes
     b, kvh, gc, hd = q.shape
     if chunk < 1 or gc % chunk:
         raise ValueError(f"{gc} folded rows are not a multiple of {chunk}")
@@ -332,8 +340,9 @@ def _launch_verify(q, k_pool, v_pool, page_table, index, chunk, window,
 
 def paged_verify_attn(q, k_pool, v_pool, page_table, index, chunk: int,
                       window: int | None = None, tree_tail: int = 0):
-    """Launch K5 (one block per (slot, kv head, 16 folded rows)) on CUDA
-    tensors; a quantized pool launches its int8 / int4 branch (K5q)."""
+    """Launch K5 (a cluster of 8 blocks per (slot, kv head, tile of up to
+    16 folded rows)) on CUDA tensors; a quantized pool launches its int8 /
+    int4 branch (K5q)."""
     q = q.contiguous()
     out = torch.empty_like(q)
     _launch_verify(q, k_pool, v_pool, page_table, index, chunk, window,
@@ -345,8 +354,11 @@ def paged_verify_attn(q, k_pool, v_pool, page_table, index, chunk: int,
 def paged_verify_attn_split(q, k_pool, v_pool, page_table, index, chunk: int,
                             window: int | None = None, tree_tail: int = 0,
                             split: int = 2):
-    """Launch K5-split (one block per (slot, kv head, split, 16 folded
-    rows)) on CUDA tensors and combine its partials."""
+    """Launch K5-split (a cluster of 8 blocks per (slot, kv head, split,
+    tile of up to 16 folded rows), rank 0 writing the split's partials) on
+    CUDA tensors and combine them. With ``split == 1`` the partials are
+    the unsplit kernel's sums, so the combined output equals K5's bit for
+    bit."""
     q = q.contiguous()
     b, kvh, gc, hd = q.shape
     f32 = dict(dtype=torch.float32, device=q.device)

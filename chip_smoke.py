@@ -6,16 +6,21 @@
                                      # ViT-B/16 train step and SDPA's
                                      # forward + backward; decode (dense
                                      # strips and paged pool, native and
-                                     # int8 caches); two speculative ticks
+                                     # int8 caches); a chunked paged
+                                     # prefill; two speculative ticks
+                                     # (K4 / K5's share of kernel time)
 
-K1 and K7 run on the tensor cores for bf16 / f16 and on the CUDA cores for
-f32; the unsplit K2 / K3 (and K2q / K3q) spread each row over a cluster of
-8 blocks. Phase 1 prints the compiler's registers and spills of the
-tensor-core kernels and of the decode kernels' instantiations; after phase
+K1, K7, K4 and K5 run on the tensor cores for bf16 / f16 and on the CUDA
+cores for f32; the unsplit K2 / K3 (and K2q / K3q) and K5 / K5-split (and
+K5q) spread each row over a cluster of 8 blocks. Phase 1 prints the
+compiler's registers and spills of the tensor-core kernels and of the
+cluster kernels' instantiations; after phase
 11 the device time per launch (``torch.profiler``) of K1 / K7 beside SDPA's,
-and of K2 / K3 / K2q / K3q at the steady-decode and phase 8 shapes beside
-(gather +) masked SDPA, plus K2-split, K3-split, K4, K5 and K6, is measured
-and written into the kernels' JSON line as ``device_ms`` (and
+of K2 / K3 / K2q / K3q at the steady-decode and phase 8 shapes beside
+(gather +) masked SDPA, of K4 / K4q beside a gather + masked SDPA at phase
+8's chunk shape, of K5 / K5q / K5-split beside a gather + masked SDPA at
+phase 10's verify shape, and of K2-split, K3-split and K6, is measured and
+written into the kernels' JSON line as ``device_ms`` (and
 ``steady_device_ms``) / ``library_device_ms``. ``scripts/decode_ab.py``
 times another commit's decode kernels against this one's in turns.
 
@@ -40,7 +45,8 @@ Phases (no phase failure is caught; any mismatch exits non-zero):
    1024, 1025, 1029 and 1031;
 5. K4 (``paged_chunk_attn``) against its plain version at C in {128,
    256}, pos0 in {0, 256, 512}, the window padded to a power of two with
-   trash pages, plus window and GQA cases;
+   trash pages, plus window and GQA cases; at C 256 its rows equal to a
+   causal K1 pass over the window as a dense strip with ``torch.equal``;
 6. GPT-2-small widths (50257 / 768 / 12 layers / 12 heads / 3072, learned
    positions, max_len 1024, bf16, random weights from seed 0):
    ``generate()`` on 4 ragged prompts, then a ``ContinuousBatcher(slots=8,
@@ -419,8 +425,10 @@ def chunk_inputs(torch, dev, kvh, g, hd, chunk, pos0, page=128, seed=8):
     return q, kp, vp, pages.to(torch.int32).to(dev)
 
 
-def check_k4(torch, P, dev, errs):
-    """K4 vs its plain version at atol 1e-2, rtol 1e-2 (bf16 outputs)."""
+def check_k4(torch, P, A, dev, errs):
+    """K4 vs its plain version at atol 1e-2, rtol 1e-2 (bf16 outputs); at C
+    256 (g 1) K4's rows equal to the same rows of a causal K1 pass (``A``)
+    over the window as a dense strip, with ``torch.equal``."""
     cases = [dict(kvh=12, g=1, hd=64, chunk=c, pos0=p, window=None)
              for c in (128, 256) for p in (0, 256, 512)]
     cases += [dict(kvh=12, g=1, hd=64, chunk=256, pos0=512, window=300),
@@ -438,6 +446,24 @@ def check_k4(torch, P, dev, errs):
         errs["paged_chunk_attn"] = max(errs.get("paged_chunk_attn", 0.0), e)
         print(f"paged_chunk_attn {c}: max abs err {e:.3e} "
               "(tol 1e-2 + 1e-2|ref|)")
+        if c["g"] != 1 or c["chunk"] != 256:
+            continue
+        n = c["pos0"] + c["chunk"]
+        q_all = torch.zeros(1, c["kvh"], n, c["hd"], device=dev,
+                            dtype=q.dtype)
+        q_all[:, :, c["pos0"]:] = q
+
+        def strip(pool):
+            return pool[pages.long()].movedim(1, 0).reshape(
+                1, c["kvh"], -1, c["hd"])[:, :, :n].contiguous()
+
+        ref1, _ = A.flash_attn_fwd(q_all, strip(kp), strip(vp), True,
+                                   window=c["window"])
+        torch.cuda.synchronize()
+        if not torch.equal(got, ref1[:, :, c["pos0"]:]):
+            raise AssertionError(f"K4 rows != K1 rows at {c}")
+        print(f"K4 == K1 bit for bit (torch.equal) on the chunk's rows at "
+              f"{c}")
 
 
 KV_DTYPES = ("int8", "int4")
@@ -1009,6 +1035,68 @@ def kernel_rows(torch, prof, calls=1):
     return sorted(rows, reverse=True)
 
 
+#: Substrings of the device kernels' names: K4 (the tensor-core and the f32
+#: chunk kernels) and K5 (both of its bodies take the verify row policy).
+SHARE_OF = {"K4": ("chunk_tc_kernel", "chunk_kernel"),
+            "K5": ("VerifyRows",)}
+
+
+def kernel_share(rows, label):
+    """One line: each of SHARE_OF's kernels' ms and launches per call and
+    its share of the kernel time in ``rows`` (``kernel_rows``)."""
+    busy = sum(r[0] for r in rows)
+    parts = []
+    for name, marks in SHARE_OF.items():
+        hit = [r for r in rows if any(m in r[2] for m in marks)]
+        ms = sum(r[0] for r in hit)
+        parts.append(f"{name} {ms:.3f} ms, {sum(r[1] for r in hit)} launches"
+                     f" = {ms / max(busy, 1e-9):.3f} of {busy:.3f} ms")
+    print(f"  kernel share[{label}]: " + "; ".join(parts))
+
+
+def profile_prefill(torch, lm, card, kv):
+    """``--profile``: where the paged path's chunked prefill goes. 8
+    prompts of 768 tokens, one new token each, through
+    ``ContinuousBatcher(kv_layout="paged", page_size=128,
+    prefill_chunk=256)`` (each prompt's second and third chunks attend
+    their window through K4); once unprofiled, then the same under
+    ``torch.profiler``."""
+    from adapt_tpu_torch.runtime.continuous import ContinuousBatcher
+
+    def run():
+        rng = torch.Generator().manual_seed(6)
+        bat = ContinuousBatcher(lm, slots=8, chunk=8, kv_layout="paged",
+                                page_size=128, prefill_chunk=256,
+                                kv_cache_dtype=kv)
+        for _ in range(8):
+            bat.submit(torch.randint(0, lm.vocab, (768,),
+                                     generator=rng).numpy(), 1)
+        ticks = 0
+        while bat.stats()["active"] or bat.stats()["queued"]:
+            bat.tick()
+            ticks += 1
+        torch.cuda.synchronize()
+        return ticks
+
+    run()
+    t0 = time.perf_counter()
+    run()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        ticks = run()
+    rows = kernel_rows(torch, prof)
+    busy = sum(r[0] for r in rows)
+    print(f"profile[paged prefill {kv}] on {card}: 8 prompts of 768 tokens "
+          f"in chunks of 256, {ticks} ticks: wall {wall_ms:.2f} ms; kernels "
+          f"{busy:.2f} ms = {busy / wall_ms:.3f} of the wall "
+          f"({sum(r[1] for r in rows)} launches)")
+    for ms, n, key in rows[:10]:
+        print(f"  {ms:9.3f} ms  {n:6d} x  {key[:90]}")
+    kernel_share(rows, f"paged prefill {kv}")
+
+
 def profile_decode(torch, lm, card, layout, kv="native"):
     """``--profile``: where a steady decode tick's time goes on one KV
     ``layout`` and cache dtype ``kv``. 8 slots decode (chunk 8, 256-token
@@ -1048,6 +1136,8 @@ def profile_decode(torch, lm, card, layout, kv="native"):
           f"({sum(r[1] for r in rows) / steps:.0f} launches/step)")
     for ms, n, key in rows[:15]:
         print(f"  {ms:9.3f} ms  {n:6d} x  {key[:90]}")
+    if layout == "paged":
+        kernel_share(rows, f"paged {kv}, 4 steady ticks")
 
 
 def profile_spec(torch, lm, draft, spec, card, kv, label):
@@ -1092,6 +1182,7 @@ def profile_spec(torch, lm, draft, spec, card, kv, label):
           f"({sum(r[1] for r in rows) / 4:.0f} launches/tick)")
     for ms, n, key in rows[:12]:
         print(f"  {ms:9.3f} ms  {n:6d} x  {key[:90]}")
+    kernel_share(rows, f"spec {label}, 4 steady ticks")
 
 
 K7_CASES = [
@@ -1395,10 +1486,11 @@ def profile_library_backward(torch, card):
 def device_ms_each(torch, fns, n=20):
     """Device ms per call of each ``fns[key]()`` from ONE ``torch.profiler``
     session: each function's ``n`` calls (after 3 warm-up calls) end in a
-    synchronize, then the host sleeps 5 ms, so on the device's own timeline
-    each function's events (kernels, copies) form one group, more than
-    2 ms from the next; the groups, in order, are the functions' (the device
-    clock is never compared with the host's). A lead-in group of ``n``
+    synchronize, then the host sleeps 25 ms, so on the device's own
+    timeline each function's events (kernels, copies) form one group, more
+    than 10 ms from the next (a host stall of 2 ms inside one function's
+    calls once split its group); the groups, in order, are the functions'
+    (the device clock is never compared with the host's). A lead-in group of ``n``
     one-element fills goes first and is dropped: the first events after the
     profiler starts are sometimes not recorded. Raises unless there is one
     group per function and each group's event count is a multiple of
@@ -1417,13 +1509,13 @@ def device_ms_each(torch, fns, n=20):
             for _ in range(n):
                 fn()
             torch.cuda.synchronize()
-            time.sleep(0.005)
+            time.sleep(0.025)
     dev = sorted((e.time_range.start, e.time_range.end)
                  for e in prof.events()
                  if e.device_type == torch.autograd.DeviceType.CUDA)
     groups, last_end = [], None  # [busy us, event count] per group
     for start, end in dev:
-        if last_end is None or start - last_end > 2000:
+        if last_end is None or start - last_end > 10000:
             groups.append([0.0, 0])
         groups[-1][0] += end - start
         groups[-1][1] += 1
@@ -1487,8 +1579,9 @@ def decode_device_times(torch, D, P, Q, card, full=True):
     SDPA (K2), a gather of the pages + masked SDPA (K3); quantized caches
     have no library call, so a dequantize + SDPA figure is printed. With
     ``full``, also K2-split and K3-split (split 4, their torch combine
-    included) at shape b, K4 at phase 8's chunk shape, K5 at phase 10's
-    verify shape and K6 at a draft matrix. ``D``, ``P``, ``Q`` are the
+    included) at shape b, K4 / K4q at phase 8's chunk shape and K5 / K5q /
+    K5-split at phase 10's verify shape (each beside a gather + masked
+    SDPA), and K6 at a draft matrix. ``D``, ``P``, ``Q`` are the
     ops modules of the tree under test (``scripts/decode_ab.py`` passes
     another commit's). All of it is one ``torch.profiler`` session
     (``device_ms_each``). Returns ``{(name, kv, shape): ms}`` and prints
@@ -1574,27 +1667,69 @@ def decode_shape_fns(torch, D, P, Q, shape, full, rec):
 
 
 def decode_side_fns(torch, P, Q, rec):
-    """``rec(key, fn, bytes, operations)`` for K4 at phase 8's chunk shape,
-    K5 at phase 10's verify shape and K6 at a draft matrix."""
+    """``rec(key, fn, bytes, operations)`` for K4 / K4q (int8, int4) at
+    phase 8's chunk shape beside a gather of the pages + masked SDPA, K5 /
+    K5q (int8, int4) / K5-split (split 4) at phase 10's verify shape beside
+    a gather + masked SDPA, and K6 at a draft matrix."""
+    F = torch.nn.functional
     dev = torch.device("cuda", 0)
     B, kvh, G, hd = 8, 12, 1, 64
     C, pos0 = 256, 512  # K4 at phase 8's chunked-prefill pass
     cq, ckp, cvp, pages = chunk_inputs(torch, dev, kvh, 1, hd, C, pos0)
     pairs = sum(pos0 + r + 1 for r in range(C)) * kvh
-    rec(("paged_chunk_attn", "native", f"C{C} pos0 {pos0}"),
-        lambda: P.paged_chunk_attn(cq, ckp, cvp, pages, pos0, C),
-        2 * (pos0 + C) * kvh * hd * 2 + 2 * kvh * C * hd * 2
-        + pages.numel() * 4, 4 * pairs * hd)
+    cshape = f"C{C} pos0 {pos0}"
+    cmask = (torch.arange(pages.numel() * 128, device=dev)[None, :]
+             <= pos0 + torch.arange(C, device=dev)[:, None])
+    cio = 2 * kvh * C * hd * 2 + pages.numel() * 4
+
+    def gather_sdpa_chunk():
+        ks = ckp[pages.long()].movedim(1, 0).reshape(1, kvh, -1, hd)
+        vs = cvp[pages.long()].movedim(1, 0).reshape(1, kvh, -1, hd)
+        return F.scaled_dot_product_attention(cq, ks, vs, attn_mask=cmask)
+
+    for kv in ("native",) + KV_DTYPES:
+        if kv == "native":
+            kp, vp, w = ckp, cvp, 2 * hd
+        else:
+            kp, vp = quantized(Q, ckp, kv), quantized(Q, cvp, kv)
+            w = kp[0].shape[-1] + 4
+        rec(("paged_chunk_attn", kv, cshape),
+            lambda kp=kp, vp=vp: P.paged_chunk_attn(cq, kp, vp, pages, pos0,
+                                                    C),
+            2 * (pos0 + C) * kvh * w + cio, 4 * pairs * hd)
+    rec(("gather_sdpa_chunk", "native", cshape), gather_sdpa_chunk,
+        2 * (pos0 + C) * kvh * hd * 2 + cio, 4 * pairs * hd)
     KC = 5  # K5 at phase 10's verify pass
     q, kp, vp, table, idx = verify_inputs(torch, dev, B, kvh, G, KC, hd, 128,
                                           8, 65)
     vlive = float((idx.clamp(min=-KC).long() + KC).sum()) * kvh
     pairs5 = float(sum((idx.clamp(min=-t - 1).long() + t + 1).sum()
                        for t in range(KC))) * kvh
-    rec(("paged_verify_attn", "native", f"kc{KC}"),
-        lambda: P.paged_verify_attn(q, kp, vp, table, idx, KC),
-        2 * vlive * hd * 2 + 2 * B * kvh * G * KC * hd * 2
-        + table.numel() * 4, 4 * pairs5 * hd)
+    vio = 2 * B * kvh * G * KC * hd * 2 + table.numel() * 4
+    vmask = P.verify_live(idx, B, G * KC, 8 * 128, KC, None, 0, dev)
+
+    def sdpa_verify():
+        ks = kp[table.long()].movedim(2, 1).reshape(B, kvh, -1, hd)
+        vs = vp[table.long()].movedim(2, 1).reshape(B, kvh, -1, hd)
+        return F.scaled_dot_product_attention(q, ks, vs,
+                                              attn_mask=vmask[:, None])
+
+    for kv in ("native",) + KV_DTYPES:
+        if kv == "native":
+            pk, pv, w = kp, vp, 2 * hd
+        else:
+            pk, pv = quantized(Q, kp, kv), quantized(Q, vp, kv)
+            w = pk[0].shape[-1] + 4
+        rec(("paged_verify_attn", kv, f"kc{KC}"),
+            lambda pk=pk, pv=pv: P.paged_verify_attn(q, pk, pv, table, idx,
+                                                     KC),
+            2 * vlive * w + vio, 4 * pairs5 * hd)
+    rec(("paged_verify_attn_split", "native", f"kc{KC}"),
+        lambda: P.paged_verify_attn_split(q, kp, vp, table, idx, KC, None, 0,
+                                          4),
+        2 * vlive * 2 * hd + vio, 4 * pairs5 * hd)
+    rec(("sdpa_verify", "native", f"kc{KC}"), sdpa_verify,
+        2 * vlive * 2 * hd + vio, 4 * pairs5 * hd)
     x = (torch.randn(768, 3072, device=dev) * 0.036).to(torch.bfloat16)
     qt = Q.quantize_blocks(x)
     n, nb = x.numel(), qt.scales.numel()
@@ -1628,8 +1763,16 @@ def add_device_times(kernels, dec_ms):
         elif base in ("decode_attn_split", "paged_attn_split"):
             kr.update(device_ms=dec_ms[(base, "native", "b")],
                       library_device_ms=dec_ms[(libs[base], "native", "b")])
-        elif kr["name"] in ("paged_chunk_attn", "paged_verify_attn",
-                            "quantize_blocks", "dequantize_blocks"):
+        elif base in ("paged_chunk_attn", "paged_verify_attn",
+                      "paged_verify_attn_split"):
+            kr["device_ms"] = next(v for k, v in dec_ms.items()
+                                   if k[:2] == (base, kv))
+            if kv == "native":
+                lib = ("gather_sdpa_chunk" if base == "paged_chunk_attn"
+                       else "sdpa_verify")
+                kr["library_device_ms"] = next(
+                    v for k, v in dec_ms.items() if k[0] == lib)
+        elif kr["name"] in ("quantize_blocks", "dequantize_blocks"):
             kr.update(device_ms=next(v for k, v in dec_ms.items()
                                      if k[0] == kr["name"]))
 
@@ -1653,19 +1796,25 @@ def ptxas_entries(log, marker):
 
 
 def ptxas_report(_build):
-    """The compiler's registers and spills: each 16-bit (tensor-core) flash
-    kernel, and a summary of the unsplit decode kernels' instantiations
-    (K2 / K3, every dtype, head dim, cache element and padded g) with the
-    main path's (bf16, hd 64, g 1) named, from this process's build."""
-    for name, marker in (("flash_attn_fwd", "_tc_kernel"),
-                         ("flash_attn_bwd", "_tc_kernel"),
-                         ("decode_attn", "decode_cluster_kernel"),
-                         ("paged_attn", "decode_cluster_kernel")):
+    """The compiler's registers and spills: each tensor-core kernel (K1, K7
+    and K4 / K5's 16-bit instantiations, every cache element), and a
+    summary of the CUDA-core cluster kernels' instantiations (K2 / K3, and
+    K5's f32 ones: every head dim, cache element and padded g) with K2 /
+    K3's main path's (bf16, hd 64, g 1) named, from this process's
+    build."""
+    for name, marker, main in (
+            ("flash_attn_fwd", "_tc_kernel", None),
+            ("flash_attn_bwd", "_tc_kernel", None),
+            ("paged_chunk_attn", "chunk_tc_kernel", None),
+            ("paged_verify_attn", "verify_tc_kernel", None),
+            ("decode_attn", "decode_cluster_kernel", "Li64ELi1E"),
+            ("paged_attn", "decode_cluster_kernel", "Li64ELi1E"),
+            ("paged_verify_attn", "decode_cluster_kernel", "f32")):
         if name not in _build.LOGS:
             print(f"ptxas {name}: built before this process, no report")
             continue
         ents = ptxas_entries(_build.LOGS[name], marker)
-        if marker == "_tc_kernel":
+        if main is None:
             for kern, regs, spill in ents:
                 print(f"ptxas {name}: {kern}: {regs} registers, {spill} "
                       "bytes spilled")
@@ -1675,11 +1824,11 @@ def ptxas_report(_build):
               f"{min(regs)}-{max(regs)} registers, "
               f"{sum(sp for _, _, sp in ents)} bytes spilled in all")
         for kern, r, sp in ents:
-            if "13__nv_bfloat16Li64ELi1E" in kern:
+            if "13__nv_bfloat16" + main in kern:
                 elem = ("int8" if "Int8KV" in kern else "int4" if "Int4KV"
                         in kern else "native")
-                print(f"ptxas {name}: bf16 hd64 g1 {elem}: {r} registers, "
-                      f"{sp} bytes spilled")
+                print(f"ptxas {name}: bf16 hd64 G{main[-2]} {elem}: {r} "
+                      f"registers, {sp} bytes spilled")
 
 
 def main(argv) -> int:
@@ -1716,7 +1865,7 @@ def main(argv) -> int:
     check_k1(torch, A, dev, errs)
     check_k2(torch, D, dev, errs)
     check_k3(torch, D, P, dev, errs)
-    check_k4(torch, P, dev, errs)
+    check_k4(torch, P, A, dev, errs)
     # -- phase 6: the full-width dense path ------------------------------
     VOCAB, DIM, DEPTH, HEADS, MLP = 50257, 768, 12, 12, 3072
     t0 = time.perf_counter()
@@ -2449,6 +2598,7 @@ def main(argv) -> int:
         for kv in ("native", "int8"):
             for layout in ("slots", "paged"):
                 profile_decode(torch, lm, card, layout, kv)
+            profile_prefill(torch, lm, card, kv)
         profile_spec(torch, lm, lm, SpeculativeConfig(draft_k=4), card,
                      "native", "self draft, native pool")
         profile_spec(torch, lm, draft2,

@@ -19,7 +19,8 @@ length and on a second run, and add one launch per call.
 Quantized caches come from ``ops.quantize.quantize_kv_vectors`` on the
 card; the plain versions read the same bytes, so the tolerances stay the
 native ones. K5 with ``split == 1`` partials must equal the unsplit kernel
-bit for bit; K6 must be ``torch.equal`` to its plain version (values, scales
+bit for bit, and K4 / K5 must give the same bits on a second run (K4 a
+row's bits from its own q and the keys' positions only); K6 must be ``torch.equal`` to its plain version (values, scales
 and the round trip). K7's gradients are held at ``atol = rtol = 2e-4`` in
 f32 (the JAX package's bar for its streaming backward) and within 1e-2 of
 the largest reference magnitude in bf16 / f16, and two runs on the same
@@ -601,6 +602,102 @@ def test_k4q_matches_plain(cuda, kv_dtype, window, g, hd):
                                    rtol=1e-2)
 
 
+def _chunk_case(cuda, kv_dtype, dtype, kvh, g, hd, chunk, pos0, page,
+                seed):
+    """A chunk's folded q and pools; the window's pages shuffled and padded
+    to a power of two with trash page 0."""
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    n_strip = -(-(pos0 + chunk) // page)
+    n_pad = 1 << (n_strip - 1).bit_length()
+    npages = n_strip + 3
+    q = torch.randn(1, kvh, g * chunk, hd, generator=gen,
+                    device=cuda).to(dtype)
+    kp = torch.randn(npages, kvh, page, hd, generator=gen, device=cuda)
+    vp = torch.randn(npages, kvh, page, hd, generator=gen, device=cuda)
+    if kv_dtype == "native":
+        kp, vp = kp.to(dtype), vp.to(dtype)
+    else:
+        kp, vp = _q(kp, kv_dtype), _q(vp, kv_dtype)
+    live = torch.randperm(npages - 1, generator=torch.Generator(
+    ).manual_seed(seed))[:n_strip] + 1
+    pages = torch.cat([live, torch.zeros(n_pad - n_strip, dtype=live.dtype)])
+    return q, kp, vp, pages.to(torch.int32).to(cuda)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kv_dtype", ["native", "int8", "int4"])
+@pytest.mark.parametrize("page", [16, 128])
+@pytest.mark.parametrize("g,chunk,pos0,window", [
+    (1, 100, 0, None),   # 100 folded rows: a ragged second row tile
+    (3, 96, 300, None),  # 288 rows, positions wrapping inside a tile
+    (2, 200, 517, 150),  # unaligned pos0, a window
+])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_k4_ragged_rows_any_page_and_deterministic(cuda, kv_dtype, page, g,
+                                                   chunk, pos0, window,
+                                                   dtype):
+    """The tensor-core K4 / K4q at pages 16 and 128 with folded rows that
+    are not a multiple of its 64-row tile, against the plain version; a
+    second run gives the same bits; each call adds one launch."""
+    q, kp, vp, pages = _chunk_case(cuda, kv_dtype, dtype, 3, g, 64, chunk,
+                                   pos0, page, 23)
+    n0 = TP.paged_chunk_attn.launches
+    got = TP.paged_chunk_attn(q, kp, vp, pages, pos0, chunk, window)
+    again = TP.paged_chunk_attention(q, kp, vp, pages, pos0, chunk,
+                                     window=window)
+    torch.cuda.synchronize()
+    assert TP.paged_chunk_attn.launches == n0 + 2
+    assert torch.equal(got, again)
+    ref = TP.paged_chunk_attention_reference(q, kp, vp, pages, pos0, chunk,
+                                             window)
+    torch.testing.assert_close(got.float(), ref.float(), atol=1e-2,
+                               rtol=1e-2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("page", [16, 128])
+@pytest.mark.parametrize("pos0,chunk,window", [(0, 256, None),
+                                               (512, 256, None),
+                                               (256, 128, 200)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_k4_rows_equal_k1_rows_bitwise(cuda, page, pos0, chunk, window,
+                                       dtype):
+    """The 16-bit K4 walks a row's key tiles in K1's order with K1's
+    arithmetic: a chunk's rows equal the same rows of a causal K1 pass over
+    the whole window's K/V as a dense strip, bit for bit (so a chunked or
+    prefix-hit admission differs from the whole-prompt pass only by its
+    matmuls' shapes)."""
+    q, kp, vp, pages = _chunk_case(cuda, "native", dtype, 3, 1, 64, chunk,
+                                   pos0, page, 37)
+    n = pos0 + chunk
+    strip = lambda pool: pool[pages.long()].movedim(1, 0).reshape(  # noqa
+        1, 3, -1, 64)[:, :, :n].contiguous()
+    gen = torch.Generator(device=cuda).manual_seed(41)
+    q_all = torch.randn(1, 3, n, 64, generator=gen, device=cuda).to(dtype)
+    q_all[:, :, pos0:] = q[:, :, :chunk]
+    got = TP.paged_chunk_attn(q, kp, vp, pages, pos0, chunk, window)
+    ref, _ = TA.flash_attn_fwd(q_all, strip(kp), strip(vp), True,
+                               window=window)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref[:, :, pos0:])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kv_dtype", ["native", "int8", "int4"])
+def test_k4_rows_depend_on_their_own_position_only(cuda, kv_dtype):
+    """A row's K4 result depends on its q and the keys' positions only:
+    rows 64..127 of a 256-row chunk at pos0 512 equal the same rows run as
+    a chunk of 64 at pos0 576 (another row tile, another grid) bit for
+    bit."""
+    q, kp, vp, pages = _chunk_case(cuda, kv_dtype, torch.bfloat16, 2, 1, 64,
+                                   256, 512, 128, 29)
+    full = TP.paged_chunk_attn(q, kp, vp, pages, 512, 256)
+    part = TP.paged_chunk_attn(q[:, :, 64:128].contiguous(), kp, vp, pages,
+                               576, 64)
+    torch.cuda.synchronize()
+    assert torch.equal(full[:, :, 64:128], part)
+
+
 @pytest.mark.gpu
 def test_quantized_operands_are_checked(cuda):
     q = torch.zeros(1, 1, 1, 64, device=cuda)
@@ -675,6 +772,33 @@ def test_k5_matches_plain(cuda, dtype, g, hd, page, window, tree_tail,
                                                  window, tree_tail)
     torch.testing.assert_close(out[:-1].float(), oracle[:-1].float(),
                                atol=tol, rtol=tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kv_dtype", ["native", "int8", "int4"])
+@pytest.mark.parametrize("kc,tree_tail", [(5, 0), (7, 0), (7, 2)])
+@pytest.mark.parametrize("g", [1, 4])
+def test_k5_row_folds_match_plain_and_split_one(cuda, kv_dtype, kc,
+                                                tree_tail, g):
+    """The 16-bit K5 / K5q at 5 and 7 chunk rows with g 1 and 4 (5, 7, 20
+    and 28 folded rows: one and two 16-row tiles) against the plain
+    version; split 1 equals the unsplit kernel bit for bit; a second run
+    gives the same bits; the dead slot is zeros."""
+    q, kp, vp, table, idx = _verify_case(cuda, torch.bfloat16, kv_dtype, g,
+                                         kc, 64, 128, b=8, kvh=3, seed=31)
+    n0 = TP.paged_verify_attn.launches
+    out = TP.paged_verify_attn(q, kp, vp, table, idx, kc, None, tree_tail)
+    again = TP.paged_verify_attn(q, kp, vp, table, idx, kc, None, tree_tail)
+    one = TP.paged_verify_attn_split(q, kp, vp, table, idx, kc, None,
+                                     tree_tail, split=1)
+    torch.cuda.synchronize()
+    assert TP.paged_verify_attn.launches == n0 + 2
+    assert torch.equal(out, again) and torch.equal(out, one)
+    assert not out[-1].any()
+    ref = TP.paged_verify_attention_plain(q, kp, vp, table, idx, kc, None,
+                                          tree_tail)
+    torch.testing.assert_close(out.float(), ref.float(), atol=1e-2,
+                               rtol=1e-2)
 
 
 @pytest.mark.gpu
