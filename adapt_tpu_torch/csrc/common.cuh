@@ -126,11 +126,11 @@ __device__ __forceinline__ int sbyte(uint32_t w, int k) {
 
 // Cache-element policies: how a kernel stages `N` consecutive columns,
 // from column c0, of cached vector `vec` (the vector's index in the K/V
-// buffers) into f32 shared memory, and where a vector's scale lives. The
-// address functors of decode_tile.cuh and K4's page walk produce `vec`;
-// the policy turns it into a value address (vec * the value width) and a
-// scale address (vec itself), so one kernel body serves every layout and
-// every cache dtype. `in` false stages zeros (and a zero scale).
+// buffers) into f32 shared memory, and where a vector's scale lives. K4's
+// f32 page walk produces `vec`; the policy turns it into a value address
+// (vec * the value width) and a scale address (vec itself), so one kernel
+// body serves every cache dtype. `in` false stages zeros (and a zero
+// scale).
 
 // K/V in the query's type: the scale is 1 and never applied.
 template <typename T, int HD>

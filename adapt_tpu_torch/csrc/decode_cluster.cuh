@@ -1,15 +1,16 @@
-// The unsplit decode-attention body of K2 (dense strips, decode_attn.cu) and
-// K3 (paged pools, paged_attn.cu), native and quantized (K2q, K3q): one
-// decode step spread over a thread-block cluster.
+// The decode-attention body of K2 / K2-split (dense strips, decode_attn.cu)
+// and K3 / K3-split (paged pools, paged_attn.cu), native and quantized (K2q,
+// K3q): one decode step spread over thread-block clusters.
 //
-// What it computes is decode_tile.cuh's split == 1 (the TPU kernels
+// What it computes (the TPU kernels
 // adapt_tpu/ops/decode_attention.py:_decode_kernel and
-// adapt_tpu/ops/paged_attention.py:_paged_kernel): the group-folded q (b,
-// kv_h, g, hd) attends its row's live keys [max(valid_from, 0), min(index,
-// L - 1)] with an f32 online softmax; a quantized cache scores (q . k_int) *
-// k_scale * sm_scale, sums l over the unscaled p and weights V by p *
-// v_scale; a row with no live key (index < 0, or valid_from past index)
-// writes zeros.
+// adapt_tpu/ops/paged_attention.py:_paged_kernel; with a split axis
+// _decode_split_kernel / _paged_split_kernel and _combine_splits): the
+// group-folded q (b, kv_h, g, hd) attends its row's live keys
+// [max(valid_from, 0), min(index, L - 1)] with an f32 online softmax; a
+// quantized cache scores (q . k_int) * k_scale * sm_scale, sums l over the
+// unscaled p and weights V by p * v_scale; a row with no live key (index <
+// 0, or valid_from past index) writes zeros.
 //
 // Why a new body. One block per (b * kv_h) row walking the row's 64-key
 // tiles in series left 96 blocks on 132 SMs, each waiting on one tile's
@@ -51,6 +52,26 @@
 //    16} (padded rows are computed and never written).
 // The CUDA cores, not the tensor cores: at g <= 16 the work is ~2g
 // operations per byte staged, far below the card's ~295.
+//
+// The splits (K2-split, K3-split and their q branches; flash decoding). The
+// row's 64-key tiles are cut into `split` runs of tps = ceil(ceil(L / 64) /
+// split) tiles, run sp owning tiles [sp tps, (sp + 1) tps): the plain
+// version's boundaries (ops/decode_attention._split_partials), set by L and
+// split only. Each (row, split) is a cluster of its own over grid y, with
+// the unsplit partition inside its run (tile t on rank t mod C, the ranks
+// combined in rank order), so split fans a long row over split x C blocks.
+// Rank 0 writes the split's (acc, m, l) to an f32 workspace and one thread
+// arrives on the row's counter (fence, atomic add, fence); the cluster that
+// arrives last combines every split of the row in split order with the
+// reference's rescale (m* = max m_s, a_s = exp(m_s - m*), out = sum acc_s
+// a_s / max(sum l_s a_s, 1e-30)), writes the output and resets the counter
+// to 0, so the counters need no clearing between launches. The sums never
+// depend on which cluster arrives last; a split with no live tile arrives
+// too, with m = -1e30, l = 0, acc = 0, and adds exactly 0. With one split,
+// a_0 = exp(0) = 1 and the division sees the unsplit kernel's acc and l:
+// split 1 equals the unsplit output bit for bit (no fast math,
+// ops/_build.py). A counter buffer serves one stream: the wrappers keep one
+// for each (device, stream) they launch on.
 //
 // K5's f32 instantiations (paged_verify_attn.cu; its 16-bit ones keep
 // this partition with the products on the tensor cores) run the same body
@@ -113,6 +134,7 @@ struct Span {
 // row with index < 0 (or valid_from past index) has none.
 struct DecodeRows {
   static constexpr bool kVerify = false;
+  static constexpr bool kSplit = false;
   struct Row {};
   const int* valid_from;
   __device__ __forceinline__ Span span(int idx, int bi, int L, int,
@@ -126,6 +148,22 @@ struct DecodeRows {
   }
 };
 
+// K2-split / K3-split: DecodeRows' keys cut to split sp's run of `kps` keys
+// (a whole number of tiles), the splits combined in the launch through the
+// rows' arrival counters (combine_splits). Its own policy, so the unsplit
+// kernels keep their code.
+struct SplitRows : DecodeRows {
+  static constexpr bool kSplit = true;
+  int kps;
+  unsigned* counter;  // one arrival counter per row, 0 between launches
+  __device__ __forceinline__ Span span(int idx, int bi, int L, int sp,
+                                       int rank) const {
+    const int lo = max(valid_from ? valid_from[bi] : 0, 0);
+    return Span(max(lo, sp * kps), min(min(idx, L - 1), sp * kps + kps - 1),
+                rank);
+  }
+};
+
 // K5 / K5-split: folded row r is chunk position t = r % chunk; it attends
 // p <= edge = idx + min(t, chunk - 1 - tree_tail), banded below by
 // p > edge - window when window > 0, and a tree leaf also its own slot
@@ -134,6 +172,7 @@ struct DecodeRows {
 // own = -1 (no leaf) and floor = INT_MIN (no window) never match.
 struct VerifyRows {
   static constexpr bool kVerify = true;
+  static constexpr bool kSplit = false;
   int chunk, window, tree_tail, kps;
   __device__ __forceinline__ Span span(int idx, int, int L, int sp,
                                        int rank) const {
@@ -238,12 +277,67 @@ struct Smem {
   static constexpr int BYTES = MS + 3 * G * 4;
 };
 
+// Arrival on a split counter, by one thread of a block whose partial
+// stores a barrier has ordered before it: a fence (cumulative, so it
+// releases those stores with the add), a relaxed atomic add, and a fence
+// (so the last arriver acquires every earlier arriver's stores; a barrier
+// then carries that order to the block). Returns the count before the add.
+__device__ __forceinline__ unsigned arrive(unsigned* p) {
+  __threadfence();
+  const unsigned old = atomicAdd(p, 1u);
+  __threadfence();
+  return old;
+}
+
+// A strong (relaxed, GPU-scope) load of another cluster's partial, kept
+// after the arrival by asm volatile + "memory" (a plain __ldcg is neither).
+__device__ __forceinline__ float ld_relaxed_gpu(const float* p) {
+  float v;
+  asm volatile("ld.relaxed.gpu.global.f32 %0, [%1];"
+               : "=f"(v) : "l"(p) : "memory");
+  return v;
+}
+
+// The splits' cross-split combine, by rank 0 of each (row, split) cluster
+// once its split's (acc, m, l) are in o_part (rows, split, g, HD) and m_part
+// / l_part (rows, split, g): a barrier, thread 0's arrival on the row's
+// counter (arrive), a barrier, and if this cluster arrived last, read
+// every split's partials with strong loads and combine them in split
+// order. `flag` is one word of shared memory.
+template <typename T, int HD>
+__device__ __forceinline__ void combine_splits(
+    const float* o_part, const float* m_part, const float* l_part,
+    unsigned* counter, T* out, int row, int nsplit, int g, int* flag) {
+  __syncthreads();  // the block's partials are stored
+  if (threadIdx.x == 0)
+    *flag = arrive(counter + row) == (unsigned)nsplit - 1;
+  __syncthreads();
+  if (!*flag) return;
+  const size_t base = (size_t)row * nsplit * g;
+  for (int o = threadIdx.x; o < g * HD; o += NT) {
+    const int r = o / HD;
+    float mx = ld_relaxed_gpu(m_part + base + r);
+    for (int s = 1; s < nsplit; ++s)
+      mx = fmaxf(mx, ld_relaxed_gpu(m_part + base + (size_t)s * g + r));
+    float a = 0.f, l = 0.f;
+    for (int s = 0; s < nsplit; ++s) {
+      const size_t ps = base + (size_t)s * g;
+      const float w = expf(ld_relaxed_gpu(m_part + ps + r) - mx);
+      a += ld_relaxed_gpu(o_part + ps * HD + o) * w;
+      l += ld_relaxed_gpu(l_part + ps + r) * w;
+    }
+    out[(size_t)row * g * HD + o] = from_f<T>(a / fmaxf(l, 1e-30f));
+  }
+  if (threadIdx.x == 0) counter[row] = 0;  // every split has arrived
+}
+
 // Grid (rows * C, split, row tiles): blockIdx.x / C is the (b * kv_h)
-// row; a verify Rows policy takes the split from blockIdx.y and its folded
-// rows [blockIdx.z * G, + G) of the row's g, K2 / K3's all g <= G rows.
-// Output: `out` (normalised), or with o_part (K5-split) rank 0 writes the
-// combined (acc, m, l) of the split: o_part (rows, split, g, HD), m_part /
-// l_part (rows, split, g).
+// row, blockIdx.y the split; a verify Rows policy takes its folded rows
+// [blockIdx.z * G, + G) of the row's g, K2 / K3's all g <= G rows.
+// Output: `out` (normalised), or with o_part rank 0 writes the combined
+// (acc, m, l) of the split: o_part (rows, split, g, HD), m_part / l_part
+// (rows, split, g); K5-split leaves them to the caller, K2-split /
+// K3-split combine them here (combine_splits).
 template <typename T, int HD, int G, typename KV, typename Walk,
           typename Rows>
 __global__ void __cluster_dims__(C, 1, 1) __launch_bounds__(NT)
@@ -278,7 +372,8 @@ __global__ void __cluster_dims__(C, 1, 1) __launch_bounds__(NT)
   const int row = blockIdx.x / C;  // b * kvh + kv head
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
   const int bi = row / kvh;
-  const int split = LATE ? (int)blockIdx.y : 0;
+  constexpr bool PARTS = LATE || Rows::kSplit;  // a split over grid y
+  const int split = PARTS ? (int)blockIdx.y : 0;
   const int row0 = LATE ? (int)blockIdx.z * G : 0;  // first folded row
   const int gh = LATE ? min(G, g - row0) : g;       // folded rows here
   const int idx = index[bi];
@@ -497,9 +592,10 @@ __global__ void __cluster_dims__(C, 1, 1) __launch_bounds__(NT)
   cluster.sync();  // rank 0's slots are full; the other blocks may leave
   if (rank != 0) return;
 
-  // Rank 0 combines the live ranks in rank order and writes the output.
-  const size_t obase = LATE ? ((size_t)row * gridDim.y + split) * g + row0
-                            : (size_t)row * g;
+  // Rank 0 combines the live ranks in rank order and writes the output
+  // (or the split's partials).
+  const size_t obase = PARTS ? ((size_t)row * gridDim.y + split) * g + row0
+                             : (size_t)row * g;
   for (int o = tid; o < gh * HD; o += NT) {
     const int r = o / HD;
     float mj[C];
@@ -518,7 +614,7 @@ __global__ void __cluster_dims__(C, 1, 1) __launch_bounds__(NT)
         l += l_slot[j * G + r] * w;
       }
     }
-    if (LATE && o_part != nullptr) {
+    if (PARTS && o_part != nullptr) {
       o_part[obase * HD + o] = a;
       if (o % HD == 0) {
         m_part[obase + r] = mx;
@@ -528,6 +624,9 @@ __global__ void __cluster_dims__(C, 1, 1) __launch_bounds__(NT)
       out[obase * HD + o] = from_f<T>(a / fmaxf(l, 1e-30f));
     }
   }
+  if constexpr (Rows::kSplit)
+    combine_splits<T, HD>(o_part, m_part, l_part, rows.counter, out, row,
+                          (int)gridDim.y, g, reinterpret_cast<int*>(a_s));
 }
 
 // One launch of `grid` blocks of NT threads (grid.x = rows * C). The
@@ -551,38 +650,51 @@ static int launch_grid(dim3 grid, const void* q, KV kv, const int* index,
   return (int)cudaGetLastError();
 }
 
+// K2 / K3's launch arguments past q and the cache. `ws` (rows x split x g
+// x (HD + 2) floats: acc, then m, then l) and `counter` (rows words, all 0)
+// are the splits' workspace; nullptr for the unsplit kernel (split 1).
+struct DecodeArgs {
+  const int* index;
+  const int* vf;
+  void* out;
+  float* ws;
+  unsigned* counter;
+  int rows, kvh, g, L, split;
+  float sm_scale;
+  cudaStream_t st;
+};
+
 template <typename T, int HD, int G, typename KV, typename Walk>
-int launch(const void* q, KV kv, const int* index, const int* vf, void* out,
-           int rows, int kvh, int g, int L, float sm_scale, Walk walk,
-           cudaStream_t stream) {
-  return launch_grid<T, HD, G>(dim3(rows * C), q, kv, index, out, nullptr,
-                               nullptr, nullptr, kvh, g, L, sm_scale, walk,
-                               DecodeRows{vf}, stream);
+int launch(const void* q, KV kv, const DecodeArgs& a, Walk walk) {
+  if (a.ws == nullptr)
+    return launch_grid<T, HD, G>(dim3(a.rows * C), q, kv, a.index, a.out,
+                                 nullptr, nullptr, nullptr, a.kvh, a.g, a.L,
+                                 a.sm_scale, walk, DecodeRows{a.vf}, a.st);
+  const int tps = ((a.L + TK - 1) / TK + a.split - 1) / a.split;
+  float* m_part = a.ws + (size_t)a.rows * a.split * a.g * HD;
+  float* l_part = m_part + (size_t)a.rows * a.split * a.g;
+  SplitRows rows;
+  rows.valid_from = a.vf;
+  rows.kps = tps * TK;
+  rows.counter = a.counter;
+  return launch_grid<T, HD, G>(dim3(a.rows * C, a.split), q, kv, a.index,
+                               a.out, a.ws, m_part, l_part, a.kvh, a.g, a.L,
+                               a.sm_scale, walk, rows, a.st);
 }
 
 // Folded rows g padded to G in {1, 4, 16}.
 template <typename T, int HD, typename KV, typename Walk>
-int by_g(const void* q, KV kv, const int* index, const int* vf, void* out,
-         int rows, int kvh, int g, int L, float sm_scale, Walk walk,
-         cudaStream_t st) {
-  if (g == 1)
-    return launch<T, HD, 1>(q, kv, index, vf, out, rows, kvh, g, L, sm_scale,
-                            walk, st);
-  if (g <= 4)
-    return launch<T, HD, 4>(q, kv, index, vf, out, rows, kvh, g, L, sm_scale,
-                            walk, st);
-  return launch<T, HD, 16>(q, kv, index, vf, out, rows, kvh, g, L, sm_scale,
-                           walk, st);
+int by_g(const void* q, KV kv, const DecodeArgs& a, Walk walk) {
+  if (a.g == 1) return launch<T, HD, 1>(q, kv, a, walk);
+  if (a.g <= 4) return launch<T, HD, 4>(q, kv, a, walk);
+  return launch<T, HD, 16>(q, kv, a, walk);
 }
 
 template <typename T, typename Walk>
 int by_dim(int hd, int kvc, const void* q, const void* k, const void* v,
-           const float* ks, const float* vs, const int* index, const int* vf,
-           void* out, int rows, int kvh, int g, int L, float sm_scale,
-           Walk walk, cudaStream_t st) {
+           const float* ks, const float* vs, const DecodeArgs& a, Walk walk) {
   auto go = [&](auto kv) {
-    return by_g<T, decltype(kv)::kHeadDim>(q, kv, index, vf, out, rows, kvh,
-                                           g, L, sm_scale, walk, st);
+    return by_g<T, decltype(kv)::kHeadDim>(q, kv, a, walk);
   };
   if (hd == 64) return with_kv<T, 64>(kvc, k, v, ks, vs, go);
   if (hd == 128) return with_kv<T, 128>(kvc, k, v, ks, vs, go);
@@ -591,24 +703,24 @@ int by_dim(int hd, int kvc, const void* q, const void* k, const void* v,
 
 // `dtype` is q's (and the output's) dtype code, `kvc` the cache's KVCode;
 // k / v the value buffers (16-byte aligned), ks / vs the scale planes
-// (nullptr for a native cache); `L` the key range (strip length, or pps *
-// page). Any L >= 1, head dims 64 and 128, 1 <= g <= 16.
+// (nullptr for a native cache); `a.L` the key range (strip length, or pps
+// * page). Any L >= 1, head dims 64 and 128, 1 <= g <= 16, split >= 1 (> 1
+// only with the workspace).
 template <typename Walk>
 int dispatch(int dtype, int kvc, int hd, const void* q, const void* k,
              const void* v, const float* ks, const float* vs,
-             const int* index, const int* vf, void* out, int rows, int kvh,
-             int g, int L, float sm_scale, Walk walk, cudaStream_t st) {
-  if (g < 1 || g > 16 || rows < 1 || L < 1) return (int)cudaErrorInvalidValue;
+             const DecodeArgs& a, Walk walk) {
+  if (a.g < 1 || a.g > 16 || a.rows < 1 || a.L < 1 || a.split < 1 ||
+      a.split > 65535 || (a.ws == nullptr) != (a.counter == nullptr) ||
+      (a.ws == nullptr && a.split != 1))
+    return (int)cudaErrorInvalidValue;
   switch (dtype) {
     case kF32:
-      return by_dim<float>(hd, kvc, q, k, v, ks, vs, index, vf, out, rows,
-                           kvh, g, L, sm_scale, walk, st);
+      return by_dim<float>(hd, kvc, q, k, v, ks, vs, a, walk);
     case kBF16:
-      return by_dim<__nv_bfloat16>(hd, kvc, q, k, v, ks, vs, index, vf, out,
-                                   rows, kvh, g, L, sm_scale, walk, st);
+      return by_dim<__nv_bfloat16>(hd, kvc, q, k, v, ks, vs, a, walk);
     case kF16:
-      return by_dim<__half>(hd, kvc, q, k, v, ks, vs, index, vf, out, rows,
-                            kvh, g, L, sm_scale, walk, st);
+      return by_dim<__half>(hd, kvc, q, k, v, ks, vs, a, walk);
     default:
       return (int)cudaErrorInvalidValue;
   }

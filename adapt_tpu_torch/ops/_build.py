@@ -31,8 +31,8 @@ _P, _I, _F, _L = (ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
 KERNELS = {
     "flash_attn_fwd": [_P] * 8 + [_I] * 8 + [_F, _P],
     "flash_attn_bwd": [_P] * 12 + [_I] * 8 + [_F, _P],
-    "decode_attn": [_P] * 11 + [_I] * 8 + [_F, _P],
-    "paged_attn": [_P] * 12 + [_I] * 9 + [_F, _P],
+    "decode_attn": [_P] * 10 + [_I] * 8 + [_F, _P],
+    "paged_attn": [_P] * 11 + [_I] * 9 + [_F, _P],
     "paged_chunk_attn": [_P] * 7 + [_I] * 10 + [_F, _P],
     "paged_verify_attn": [_P] * 11 + [_I] * 12 + [_F, _P],
     "quantize_blocks": [_P] * 3 + [_L, _I, _I, _P],

@@ -8,16 +8,18 @@ L, hd)`` arrays or quantized ``(values, scales)`` pairs — int8 values
 (``ops/quantize``), with one f32 scale per cached vector ``(b, kv_h, L,
 1)`` — ``index`` (scalar or ``(b,)``) is each row's newest live position
 and ``valid_from`` ``(b,)`` its first. A CUDA tensor launches K2
-(``split == 1``) or K2-split plus :func:`_combine_splits` (``split > 1``);
-for a quantized cache the kernel reads the int8 / int4 bytes and the scales
+(``split == 1``) or K2-split (``split > 1``), one launch either way; for a
+quantized cache the kernel reads the int8 / int4 bytes and the scales
 itself (K2q). K2 spreads a row's 64-key tiles over a cluster of 8 blocks
-(tile t on rank t mod 8) and combines the ranks on the card, so its sums
-depend on key positions only: the same row gives the same bits on any
-strip length, alone or in a batch, and on a paged pool (K3). A CPU tensor
-runs :func:`decode_attention_plain`, which mirrors the split kernels' tiles
-(64-key tiles, dead tiles skipped, per-split partials, the same combine),
-not the unsplit kernel's cluster partition: K2 is held to it at a
-tolerance. Any ``L`` is served. The
+(tile t on rank t mod 8) and combines the ranks on the card; K2-split runs
+one such cluster per (row, split) over the split's run of tiles and
+combines the splits in split order in the same launch. Their sums depend
+on key positions (and, split, on ``L`` and ``split``) only: the same row
+gives the same bits alone or in a batch and on a paged pool (K3), and K2
+on any strip length. A CPU tensor runs :func:`decode_attention_plain`,
+which takes the same split boundaries (64-key tiles, dead tiles skipped,
+per-split partials, :func:`_combine_splits`) but not the clusters' order of
+sums: the kernels are held to it at a tolerance. Any ``L`` is served. The
 scales are applied in the reference's op order: ``(q . k_int) * k_scale *
 sm``, then ``softmax(...) * v_scale`` against ``v_int``.
 
@@ -36,10 +38,10 @@ from adapt_tpu_torch.ops.quantize import kv_values
 
 _NEG_INF = -1e30
 
-#: Keys per tile of K2 (``TK`` in ``csrc/decode_attn.cu``): the plain
-#: version skips dead tiles at the same granularity.
+#: Keys per tile of K2 (``TK`` in ``csrc/decode_cluster.cuh``): the plain
+#: version skips dead tiles and cuts splits at the same granularity.
 DECODE_TILE = 64
-#: Folded query rows per kv head K2 serves (``MAX_G``).
+#: Folded query rows per kv head K2 serves (padded to 1, 4 or 16).
 KERNEL_MAX_G = 16
 KERNEL_HEAD_DIMS = (64, 128)
 
@@ -252,9 +254,9 @@ def _split_partials(q, cache_k, cache_v, index, valid_from, split):
 def decode_attention_plain(q, cache_k, cache_v, index, valid_from=None,
                            split=1):
     """The plain version of K2 (``split == 1``) and K2-split, native or
-    quantized. It mirrors the split kernels' 64-key tiles and partials; the
-    unsplit kernel sums the same terms over its cluster's ranks in another
-    order, so it is held to this at a tolerance (1e-2 + 1e-2 |ref| in 16
+    quantized. It takes the kernels' 64-key tiles and split boundaries; the
+    kernels sum the same terms over their clusters' ranks in another
+    order, so they are held to this at a tolerance (1e-2 + 1e-2 |ref| in 16
     bits, 2e-5 in f32), not bit for bit."""
     b, kvh, g, hd = q.shape
     o, m, l = _split_partials(q, cache_k, cache_v, index, valid_from, split)
@@ -327,7 +329,31 @@ def aligned16(t):
     return t.clone(memory_format=torch.contiguous_format)
 
 
-def _launch(q, kv, index, valid_from, split, out, parts):
+_COUNTERS: dict = {}
+
+
+def split_workspace(q, split):
+    """The splits' scratch for one launch on q's device: ``(ws, counter)``,
+    ``ws`` rows x split x g x (hd + 2) f32 partials (acc, then m, then l),
+    made anew, and ``counter`` one int32 arrival word per row from the
+    buffer of q's device and its current stream (the one the wrappers
+    launch on), grown as needed. The kernels leave every counter at 0, so
+    a buffer is never cleared again; keying it by stream keeps splits
+    launched on two streams of one device off each other's counters."""
+    b, kvh, g, hd = q.shape
+    rows = b * kvh
+    ws = torch.empty(rows * split * g * (hd + 2), dtype=torch.float32,
+                     device=q.device)
+    key = (q.device, torch.cuda.current_stream(q.device).cuda_stream)
+    counter = _COUNTERS.get(key)
+    if counter is None or counter.numel() < rows:
+        counter = torch.zeros(max(rows, 1024), dtype=torch.int32,
+                              device=q.device)
+        _COUNTERS[key] = counter
+    return ws, counter
+
+
+def _launch(q, kv, index, valid_from, split, out, scratch):
     b, kvh, g, hd = q.shape
     k, v, ks, vs, code = kv
     idx = _row_index(index, b, q.device)
@@ -335,11 +361,11 @@ def _launch(q, kv, index, valid_from, split, out, parts):
     if valid_from is not None:
         vf = torch.as_tensor(valid_from, device=q.device).to(torch.int32)
         vf = vf.reshape(b).contiguous()
-    o_p, m_p, l_p = parts if parts is not None else (None, None, None)
+    ws, counter = scratch if scratch is not None else (None, None)
     ptr = lambda t: t.data_ptr() if t is not None else None  # noqa: E731
     err = _build.load("decode_attn").decode_attn(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), ptr(ks), ptr(vs),
-        idx.data_ptr(), ptr(vf), ptr(out), ptr(o_p), ptr(m_p), ptr(l_p), b,
+        idx.data_ptr(), ptr(vf), out.data_ptr(), ptr(ws), ptr(counter), b,
         kvh, g, k.shape[2], hd, split, _build.dtype_code(q.dtype), code,
         1.0 / (hd ** 0.5), torch.cuda.current_stream(q.device).cuda_stream,
     )
@@ -358,20 +384,16 @@ def decode_attn(q, cache_k, cache_v, index, valid_from=None):
 
 
 def decode_attn_split(q, cache_k, cache_v, index, valid_from=None, split=2):
-    """Launch K2-split (one block per (b, kv head, split)) on CUDA tensors
-    and combine its partials."""
+    """Launch K2-split (a cluster of 8 blocks per (b, kv head, split), the
+    splits combined in the same launch) on CUDA tensors; a quantized cache
+    launches its int8 / int4 branch. ``split == 1`` equals
+    :func:`decode_attn` bit for bit."""
     kv = _check_kernel_args(q, cache_k, cache_v)
     q = q.contiguous()
-    b, kvh, g, hd = q.shape
-    f32 = dict(dtype=torch.float32, device=q.device)
-    parts = (
-        torch.empty((b * kvh, split, g, hd), **f32),
-        torch.empty((b * kvh, split, g), **f32),
-        torch.empty((b * kvh, split, g), **f32),
-    )
-    _launch(q, kv, index, valid_from, split, None, parts)
+    out = torch.empty_like(q)
+    _launch(q, kv, index, valid_from, split, out, split_workspace(q, split))
     decode_attn_split.launches += 1
-    return _combine_splits(*parts, q.dtype).reshape(b, kvh, g, hd)
+    return out
 
 
 #: Launches of K2 / K2-split (kernel calls only).

@@ -21,11 +21,13 @@ package's:
 
 A CUDA tensor launches the kernel, which walks each slot's page-table row
 itself (no gather of pages into a strip); a CPU tensor runs the plain
-version. K3 is K2's body with a paged address (one attention discipline,
-two layouts; the unsplit one a cluster of 8 blocks per row, tile t on rank
-t mod 8), so K3 equals K2 bit for bit on the same K/V, and its plain
-version is K2's on the slot's gathered window: the split kernels' 64-key
-tiles, dead-tile skip and split partials. K5 and K5-split run the same
+version. K3 / K3-split are K2 / K2-split's body with a paged address (one
+attention discipline, two layouts: a cluster of 8 blocks per row, or per
+row and split with the splits combined in the same launch; tile t on rank
+t mod 8), so K3 equals K2 bit for bit on the same K/V (the splits on the
+same key range), and its plain version is K2's on the slot's gathered
+window: 64-key tiles, dead-tile skip and split partials. K5 and K5-split
+run the same
 cluster body with each row's own diagonal as a mask (one cluster per slot,
 kv head, split and tile of up to 16 folded rows; the 16-bit tiles'
 products on the tensor cores). K4 runs K1's tensor-core body (16-bit q)
@@ -57,6 +59,7 @@ from adapt_tpu_torch.ops.decode_attention import (
     decode_attention_reference,
     kernel_kv,
     split_kv,
+    split_workspace,
     verify_attention,
     verify_live,
 )
@@ -221,7 +224,7 @@ def _check_pools(q, k_pool, v_pool, what):
 
 
 def _launch_paged(q, k_pool, v_pool, page_table, index, valid_from, split,
-                  out, parts):
+                  out, combine):
     k, v, ks, vs, code = _check_pools(q, k_pool, v_pool, "K3")
     k, v = aligned16(k), aligned16(v)  # K3 reads the pools, never writes
     b, kvh, g, hd = q.shape
@@ -237,12 +240,12 @@ def _launch_paged(q, k_pool, v_pool, page_table, index, valid_from, split,
     if valid_from is not None:
         vf = torch.as_tensor(valid_from, device=q.device).to(torch.int32)
         vf = vf.reshape(b).contiguous()
-    o_p, m_p, l_p = parts if parts is not None else (None, None, None)
+    ws, counter = split_workspace(q, split) if combine else (None, None)
     ptr = lambda t: t.data_ptr() if t is not None else None  # noqa: E731
     err = _build.load("paged_attn").paged_attn(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), ptr(ks), ptr(vs),
-        table.data_ptr(), idx.data_ptr(), ptr(vf), ptr(out), ptr(o_p),
-        ptr(m_p), ptr(l_p), b, kvh, g, table.shape[1], k.shape[2], hd, split,
+        table.data_ptr(), idx.data_ptr(), ptr(vf), out.data_ptr(), ptr(ws),
+        ptr(counter), b, kvh, g, table.shape[1], k.shape[2], hd, split,
         _build.dtype_code(q.dtype), code, 1.0 / math.sqrt(hd),
         torch.cuda.current_stream(q.device).cuda_stream,
     )
@@ -255,27 +258,23 @@ def paged_attn(q, k_pool, v_pool, page_table, index, valid_from=None):
     q = q.contiguous()
     out = torch.empty_like(q)
     _launch_paged(q, k_pool, v_pool, page_table, index, valid_from, 1, out,
-                  None)
+                  False)
     paged_attn.launches += 1
     return out
 
 
 def paged_attn_split(q, k_pool, v_pool, page_table, index, valid_from=None,
                      split=2):
-    """Launch K3-split (one block per (slot, kv head, split)) on CUDA
-    tensors and combine its partials."""
+    """Launch K3-split (a cluster of 8 blocks per (slot, kv head, split),
+    the splits combined in the same launch) on CUDA tensors; a quantized
+    pool launches its int8 / int4 branch. ``split == 1`` equals
+    :func:`paged_attn` bit for bit."""
     q = q.contiguous()
-    b, kvh, g, hd = q.shape
-    f32 = dict(dtype=torch.float32, device=q.device)
-    parts = (
-        torch.empty((b * kvh, split, g, hd), **f32),
-        torch.empty((b * kvh, split, g), **f32),
-        torch.empty((b * kvh, split, g), **f32),
-    )
+    out = torch.empty_like(q)
     _launch_paged(q, k_pool, v_pool, page_table, index, valid_from, split,
-                  None, parts)
+                  out, True)
     paged_attn_split.launches += 1
-    return _combine_splits(*parts, q.dtype).reshape(b, kvh, g, hd)
+    return out
 
 
 def paged_chunk_attn(q, k_pool, v_pool, pages, pos0: int, chunk: int,
@@ -412,8 +411,8 @@ def paged_chunk_attention(q, k_pool, v_pool, pages, pos0, chunk: int,
 def paged_attention(q, k_pool, v_pool, page_table, index, valid_from=None,
                     prefer=None, split=None):
     """Decode attention over a paged KV cache: K3 (``split`` 1 or None)
-    or K3-split plus the rescale combine on CUDA, the plain version on
-    CPU. Pools may be quantized pairs. ``prefer="xla"`` selects the plain
+    or K3-split (its combine inside the launch) on CUDA, the plain version
+    on CPU. Pools may be quantized pairs. ``prefer="xla"`` selects the plain
     version, which a CUDA tensor refuses."""
     check_head_parity(q.shape[1], pool_values(k_pool).shape[1])
     _check_prefer(prefer, q)

@@ -14,8 +14,8 @@ JAX's on the same f32 input. int8 keeps one value per int8 lane; int4
 quantizes to the 15-level [-7, 7] lattice and packs two nibbles per int8
 lane (element ``2i`` in the low nibble of byte ``i``, ``2i + 1`` in the
 high one). The attention kernels consume these bytes directly
-(``csrc/decode_tile.cuh``'s cache-element policies); nothing here
-dequantizes a cache for them.
+(``csrc/common.cuh``'s cache-element policies); nothing here dequantizes a
+cache for them.
 
 Blockwise int8 (the speculative draft's resident weights): the tensor is
 flattened, viewed as ``(rows, 128)`` and cut into blocks of ``64 * 128``

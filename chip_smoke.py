@@ -6,20 +6,24 @@
                                      # ViT-B/16 train step and SDPA's
                                      # forward + backward; decode (dense
                                      # strips and paged pool, native and
-                                     # int8 caches); a chunked paged
-                                     # prefill; two speculative ticks
-                                     # (K4 / K5's share of kernel time)
+                                     # int8 caches, native at split 4); a
+                                     # chunked paged prefill; two
+                                     # speculative ticks (K4 / K5's share
+                                     # of kernel time)
 
 K1, K7, K4 and K5 run on the tensor cores for bf16 / f16 and on the CUDA
-cores for f32; the unsplit K2 / K3 (and K2q / K3q) and K5 / K5-split (and
-K5q) spread each row over a cluster of 8 blocks. Phase 1 prints the
+cores for f32; K2 / K3 (and K2q / K3q) spread each row, and their splits
+each (row, split), over a cluster of 8 blocks, the splits combined inside
+the launch; K5 / K5-split (and K5q) keep that partition. Phase 1 prints the
 compiler's registers and spills of the tensor-core kernels and of the
 cluster kernels' instantiations; after phase
 11 the device time per launch (``torch.profiler``) of K1 / K7 beside SDPA's,
 of K2 / K3 / K2q / K3q at the steady-decode and phase 8 shapes beside
-(gather +) masked SDPA, of K4 / K4q beside a gather + masked SDPA at phase
+(gather +) masked SDPA, of K2-split / K3-split (and q) at phase 8's shape,
+of K4 / K4q beside a gather + masked SDPA at phase
 8's chunk shape, of K5 / K5q / K5-split beside a gather + masked SDPA at
-phase 10's verify shape, and of K2-split, K3-split and K6, is measured and
+phase 10's verify shape, of K6, and of K2 against K2-split (split 2, 4, 8)
+on b1 strips of 1025, 4097 and 16385 keys, is measured and
 written into the kernels' JSON line as ``device_ms`` (and
 ``steady_device_ms``) / ``library_device_ms``. ``scripts/decode_ab.py``
 times another commit's decode kernels against this one's in turns.
@@ -36,13 +40,16 @@ Phases (no phase failure is caught; any mismatch exits non-zero):
    GQA and ``valid_from`` cases, and split 1 against split 4; then with
    ``torch.equal``: K2 on strips of 1024, 1025, 1029 and 1031, each row
    alone against the same row in a batch of 8, a second run against the
-   first, the dead row zeros;
+   first, the dead row zeros; K2-split at split 1 against K2, each row
+   alone against the batch at split 4, second runs at splits 4 and 16;
 4. K3 (``paged_attn``) and K3-split (``paged_attn_split``, split 4)
    against the plain version at the paged path's shapes (8 slots, 12 kv
    heads, page 128, 8 pages a slot, a 65-page pool, shuffled tables, one
    dead row), plus GQA, ``valid_from``, page-16 and head_dim-128 cases, and
    K3 against K2 with ``torch.equal`` on the same K/V as dense strips of
-   1024, 1025, 1029 and 1031;
+   1024, 1025, 1029 and 1031; K3-split's equalities as K2-split's, and
+   K3-split against K2-split on the same K/V as a strip of 1024 (pages 128
+   and 16, split 4);
 5. K4 (``paged_chunk_attn``) against its plain version at C in {128,
    256}, pos0 in {0, 256, 512}, the window padded to a power of two with
    trash pages, plus window and GQA cases; at C 256 its rows equal to a
@@ -71,7 +78,8 @@ Phases (no phase failure is caught; any mismatch exits non-zero):
    vector): K2q / K2q-split, K3q / K3q-split and K4q against their plain
    versions at the shapes of phases 3-5 (K3q equal to K2q with
    ``torch.equal`` on the four strip lengths; phase 3's K2 invariances for
-   K2q); the dense batcher with ``kv_cache_dtype="int8"`` then
+   K2q; phases 3 and 4's split equalities for K2q / K3q-split); the dense
+   batcher with ``kv_cache_dtype="int8"`` then
    ``"int4"`` on 8 of phase 6's prompts (two staggered waves of 4, one
    cancel), every stream equal to ``generate(kv_cache_dtype=...)``; phase 7's
    paged traffic with ``"int8"``, whose prefix-hit and chunked streams pass
@@ -274,6 +282,7 @@ def check_k2(torch, D, dev, errs):
         e = close(outs[1], outs[4], 1e-2, 1e-2, f"split1 vs split4 {shp}")
         print(f"K2 split 1 vs split 4 {shp}: max abs err {e:.3e}")
     check_invariance(torch, D, None, dev)
+    check_split_bits(torch, D, None, None, dev, "dense")
 
 
 #: Strip lengths on which the unsplit K2 must give the same bits: the
@@ -329,6 +338,67 @@ def check_invariance(torch, D, Q, dev, kv="native"):
         print(f"K2[{kv}] {shp}: strips of {list(STRIP_LENGTHS)} equal, each "
               "row alone == in the batch of 8, second run equal, dead row "
               "zeros (torch.equal)")
+
+
+def check_split_bits(torch, D, P, Q, dev, layout, kv="native"):
+    """The splits' bit-equalities (torch.equal) on one ``layout`` ("dense":
+    K2-split, "paged": K3-split; K2q / K3q-split for a quantized ``kv``):
+    (1) split 1 equals the unsplit kernel; (2, paged) K3-split equals
+    K2-split on the same K/V as a dense strip of the same key range, 1024,
+    at pages 128 and 16, split 4; (3) each row alone equals the same row in
+    the batch of 8 at split 4; (4) a second run equals the first at splits
+    4 and 16; the dead row is zeros."""
+    for shp in (dict(b=8, kvh=12, g=1, hd=64), dict(b=8, kvh=3, g=4, hd=64)):
+        for page in (128, 16) if layout == "paged" else (128,):
+            q, kp, vp, table, idx = paged_inputs(
+                torch, dev, page=page, pps=1024 // page,
+                npages=8 * 1024 // page + 1, seed=14, **shp)
+            if kv != "native":
+                kp, vp = quantized(Q, kp, kv), quantized(Q, vp, kv)
+
+            def strip(pool, n, table=table):
+                if isinstance(pool, tuple):
+                    return tuple(as_strip(torch, m, table, n) for m in pool)
+                return as_strip(torch, pool, table, n)
+
+            tag = f"[{kv}] {layout} {shp} page {page}"
+            if layout == "paged":
+                def run(sl, split):
+                    return P.paged_attn_split(q[sl], kp, vp, table[sl],
+                                              idx[sl], None, split)
+                one = P.paged_attn(q, kp, vp, table, idx)
+                dense = D.decode_attn_split(q, strip(kp, 1024),
+                                            strip(vp, 1024), idx, None, 4)
+            else:
+                ck, cv = strip(kp, 1025), strip(vp, 1025)
+
+                def run(sl, split):
+                    return D.decode_attn_split(q[sl], rows_of(ck, sl),
+                                               rows_of(cv, sl), idx[sl],
+                                               None, split)
+                one = D.decode_attn(q, ck, cv, idx)
+                dense = None
+            every = slice(0, shp["b"])
+            ref = run(every, 4)
+            checks = [("split 1 != unsplit", run(every, 1), one),
+                      ("second run differs at split 4", run(every, 4), ref),
+                      ("second run differs at split 16", run(every, 16),
+                       run(every, 16))]
+            if dense is not None:
+                checks.append(("K3-split != K2-split (L=1024)", ref, dense))
+            checks += [(f"row {r} alone != row in batch at split 4",
+                        run(slice(r, r + 1), 4), ref[r:r + 1])
+                       for r in range(shp["b"])]
+            torch.cuda.synchronize()
+            for what, a, b in checks:
+                if not torch.equal(a, b):
+                    raise AssertionError(f"split{tag}: {what}")
+            if ref[-1].any():
+                raise AssertionError(f"split{tag}: the dead row is not zero")
+            print(f"split{tag}: split 1 == unsplit, "
+                  + ("K3-split == K2-split on L=1024, " if dense is not None
+                     else "") + "rows alone == in the batch of 8 and second "
+                  "runs equal (splits 4, 16), dead row zeros (torch.equal)")
 
 
 def paged_inputs(torch, dev, b, kvh, g, hd, page, pps, npages, seed=6):
@@ -403,6 +473,7 @@ def check_k3(torch, D, P, dev, errs):
                     raise AssertionError("K3's dead row is not zero")
                 print(f"K3 == K2 bit for bit (torch.equal) at {shp} {extra}, "
                       f"strips of {list(STRIP_LENGTHS)}")
+    check_split_bits(torch, D, P, None, dev, "paged")
 
 
 def chunk_inputs(torch, dev, kvh, g, hd, chunk, pos0, page=128, seed=8):
@@ -501,6 +572,7 @@ def check_k2q(torch, D, Q, dev, errs):
                 print(f"{key} {shp} {extra}: max abs err {e:.3e} "
                       "(tol 1e-2 + 1e-2|ref|)")
         check_invariance(torch, D, Q, dev, kv)
+        check_split_bits(torch, D, None, Q, dev, "dense", kv)
 
 
 def check_k3q(torch, D, P, Q, dev, errs):
@@ -546,6 +618,7 @@ def check_k3q(torch, D, P, Q, dev, errs):
                         raise AssertionError("K3q's dead row is not zero")
                     print(f"K3q == K2q bit for bit (torch.equal) [{kv}] at "
                           f"{shp} {extra}, strips of {list(STRIP_LENGTHS)}")
+        check_split_bits(torch, D, P, Q, dev, "paged", kv)
 
 
 def check_k4q(torch, P, Q, dev, errs):
@@ -1097,17 +1170,20 @@ def profile_prefill(torch, lm, card, kv):
     kernel_share(rows, f"paged prefill {kv}")
 
 
-def profile_decode(torch, lm, card, layout, kv="native"):
+def profile_decode(torch, lm, card, layout, kv="native", split=None):
     """``--profile``: where a steady decode tick's time goes on one KV
-    ``layout`` and cache dtype ``kv``. 8 slots decode (chunk 8, 256-token
-    prompts); 4 ticks are timed on the host clock without the profiler,
-    then 4 more run under ``torch.profiler`` for device time by kernel.
-    Busy share = kernel time / unprofiled wall."""
+    ``layout`` and cache dtype ``kv`` (with ``split``, at
+    ``KernelConfig(decode_split=split)``). 8 slots decode (chunk 8,
+    256-token prompts); 4 ticks are timed on the host clock without the
+    profiler, then 4 more run under ``torch.profiler`` for device time by
+    kernel. Busy share = kernel time / unprofiled wall."""
+    from adapt_tpu_torch.config import KernelConfig
     from adapt_tpu_torch.runtime.continuous import ContinuousBatcher
 
     rng = torch.Generator().manual_seed(5)
     bat = ContinuousBatcher(lm, slots=8, chunk=8, kv_layout=layout,
-                            kv_cache_dtype=kv)
+                            kv_cache_dtype=kv,
+                            kernel=KernelConfig(decode_split=split))
     for _ in range(8):
         bat.submit(torch.randint(0, lm.vocab, (256,), generator=rng).numpy(),
                    400)
@@ -1128,7 +1204,8 @@ def profile_decode(torch, lm, card, layout, kv="native"):
     rows = kernel_rows(torch, prof)
     busy = sum(r[0] for r in rows)
     steps = 4 * bat.chunk
-    print(f"profile[{layout} {kv}] on {card}: 4 steady ticks = {steps} decode "
+    label = f"{layout} {kv}" + (f" split{split}" if split else "")
+    print(f"profile[{label}] on {card}: 4 steady ticks = {steps} decode "
           f"steps of 8 "
           f"slots: wall {wall_ms:.2f} ms ({wall_ms / steps:.3f} ms/step, "
           f"{8 * steps / wall_ms * 1e3:.1f} tok/s); kernels "
@@ -1483,18 +1560,19 @@ def profile_library_backward(torch, card):
         print(f"  {ms:9.4f} ms  {n:4d} x  {key[:90]}")
 
 
-def device_ms_each(torch, fns, n=20):
+def device_ms_each(torch, fns, n=20, by_name=None):
     """Device ms per call of each ``fns[key]()`` from ONE ``torch.profiler``
     session: each function's ``n`` calls (after 3 warm-up calls) end in a
-    synchronize, then the host sleeps 25 ms, so on the device's own
-    timeline each function's events (kernels, copies) form one group, more
-    than 10 ms from the next (a host stall of 2 ms inside one function's
-    calls once split its group); the groups, in order, are the functions'
-    (the device clock is never compared with the host's). A lead-in group of ``n``
-    one-element fills goes first and is dropped: the first events after the
-    profiler starts are sometimes not recorded. Raises unless there is one
-    group per function and each group's event count is a multiple of
-    ``n`` (no call lost an event)."""
+    synchronize and one marker kernel (``torch.cuda._sleep``'s
+    ``spin_kernel``), so on the device's own timeline the markers cut the
+    events (kernels, copies) into one group per function, in order, however
+    long the host stalls (gaps of 10 ms once split a group when a stall
+    outlasted them). A lead-in group of ``n`` one-element fills goes first
+    and is dropped: the first events after the profiler starts are
+    sometimes not recorded. Raises unless there is one group per function
+    and each group's event count is a multiple of ``n`` (no call lost an
+    event). A dict ``by_name`` receives, per key, the device ms per call of
+    each kernel (or copy) name in its group."""
     for fn in fns.values():
         for _ in range(3):
             fn()
@@ -1509,22 +1587,30 @@ def device_ms_each(torch, fns, n=20):
             for _ in range(n):
                 fn()
             torch.cuda.synchronize()
-            time.sleep(0.025)
-    dev = sorted((e.time_range.start, e.time_range.end)
+            torch.cuda._sleep(1000)
+        torch.cuda.synchronize()
+    dev = sorted((e.time_range.start, e.time_range.end, e.name)
                  for e in prof.events()
                  if e.device_type == torch.autograd.DeviceType.CUDA)
-    groups, last_end = [], None  # [busy us, event count] per group
-    for start, end in dev:
-        if last_end is None or start - last_end > 10000:
-            groups.append([0.0, 0])
+    groups = [[0.0, 0, {}]]  # [busy us, event count, {name: us}]
+    for start, end, name in dev:
+        if "spin_kernel" in name:
+            groups.append([0.0, 0, {}])
+            continue
         groups[-1][0] += end - start
         groups[-1][1] += 1
-        last_end = end if last_end is None else max(last_end, end)
-    if len(groups) != len(keys) + 1 or any(c % n for _, c in groups[1:]):
+        short = name.split("(")[0].split("<")[0].replace("void ", "")
+        groups[-1][2][short] = groups[-1][2].get(short, 0.0) + end - start
+    groups.pop()  # after the last marker: empty
+    if len(groups) != len(keys) + 1 or any(c % n for _, c, _ in groups[1:]):
         raise AssertionError(
-            f"device event groups {[c for _, c in groups]} for the lead-in "
-            f"and {len(keys)} functions of {n} calls each")
-    return {key: us / 1e3 / n for key, (us, _) in zip(keys, groups[1:])}
+            f"device event groups {[c for _, c, _ in groups]} for the "
+            f"lead-in and {len(keys)} functions of {n} calls each")
+    if by_name is not None:
+        for key, (_, c, names) in zip(keys, groups[1:]):
+            by_name[key] = {k: us / 1e3 / n for k, us in names.items()}
+            by_name[key]["launches"] = c // n
+    return {key: us / 1e3 / n for key, (us, _, _) in zip(keys, groups[1:])}
 
 
 def flash_device_times(torch, A, card):
@@ -1596,12 +1682,42 @@ def decode_device_times(torch, D, P, Q, card, full=True):
         decode_shape_fns(torch, D, P, Q, shape, full, rec)
     if full:
         decode_side_fns(torch, P, Q, rec)
-    t = device_ms_each(torch, fns)
+        decode_crossover_fns(torch, D, rec)
+    names = {}
+    t = device_ms_each(torch, fns, by_name=names)
     for key, ms in t.items():
         bms, by = bounds[key]
         print(f"device {key[0]}[{key[1]}] shape {key[2]} on {card}: {ms:.4f} "
               f"ms a launch (bound {bms:.5f} by {by})")
+        if "split" in key[0]:
+            parts = ", ".join(f"{k} {v:.4f}" for k, v in sorted(
+                names[key].items(), key=lambda kv: -kv[1]) if k != "launches")
+            print(f"  by kernel name ({names[key]['launches']} device events "
+                  f"a call): {parts}")
     return t
+
+
+#: b1 strips on which the unsplit K2 is timed against K2-split (split 2, 4,
+#: 8): one kv-head row of 12 per slot, every key live.
+CROSSOVER_LENGTHS = (1025, 4097, 16385)
+
+
+def decode_crossover_fns(torch, D, rec):
+    """``rec(key, fn, bytes, operations)`` for K2 and K2-split (split 2, 4
+    and 8) on b1 kv_h12 g1 hd64 bf16 strips of CROSSOVER_LENGTHS keys,
+    index L - 1: where a split starts to beat the unsplit kernel."""
+    dev = torch.device("cuda", 0)
+    for L in CROSSOVER_LENGTHS:
+        q, ck, cv, _ = decode_inputs(torch, dev, 1, 12, 1, L, 64, seed=12)
+        idx = torch.full((1,), L - 1, dtype=torch.int32, device=dev)
+        nbytes, ops = 2 * 12 * L * 2 * 64 + 2 * 12 * 64 * 2 + 4, 4 * 64 * 12 * L
+        rec(("decode_attn", "native", f"b1 L{L}"),
+            lambda q=q, ck=ck, cv=cv, idx=idx: D.decode_attn(q, ck, cv, idx),
+            nbytes, ops)
+        for split in (2, 4, 8):
+            rec(("decode_attn_split", "native", f"b1 L{L} split{split}"),
+                lambda q=q, ck=ck, cv=cv, idx=idx, sp=split:
+                D.decode_attn_split(q, ck, cv, idx, None, sp), nbytes, ops)
 
 
 def decode_shape_fns(torch, D, P, Q, shape, full, rec):
@@ -1657,13 +1773,15 @@ def decode_shape_fns(torch, D, P, Q, shape, full, rec):
             rec(("dequant_sdpa", kv, shape),
                 sdpa(lambda dk=dk: dequant(dk), lambda dv=dv: dequant(dv),
                      mask), 2 * live * w + qo, ops)
-    if full and shape == "b":
-        rec(("decode_attn_split", "native", shape),
-            lambda: D.decode_attn_split(q, ck, cv, idx, None, 4),
-            2 * live * 2 * hd + qo, ops)
-        rec(("paged_attn_split", "native", shape),
-            lambda: P.paged_attn_split(q, kp, vp, table, pidx, None, 4),
-            2 * plive * 2 * hd + qo + table.numel() * 4, pops)
+        if full and shape == "b":
+            rec(("decode_attn_split", kv, shape),
+                lambda dk=dk, dv=dv: D.decode_attn_split(q, dk, dv, idx, None,
+                                                         4),
+                2 * live * w + qo, ops)
+            rec(("paged_attn_split", kv, shape),
+                lambda pk=pk, pv=pv: P.paged_attn_split(q, pk, pv, table,
+                                                        pidx, None, 4),
+                2 * plive * w + qo + table.numel() * 4, pops)
 
 
 def decode_side_fns(torch, P, Q, rec):
@@ -1761,8 +1879,9 @@ def add_device_times(kernels, dec_ms):
                 kr.update(dequant_sdpa_device_ms=dec_ms[("dequant_sdpa", kv,
                                                          "b")])
         elif base in ("decode_attn_split", "paged_attn_split"):
-            kr.update(device_ms=dec_ms[(base, "native", "b")],
-                      library_device_ms=dec_ms[(libs[base], "native", "b")])
+            kr["device_ms"] = dec_ms[(base, kv, "b")]
+            if kv == "native":
+                kr["library_device_ms"] = dec_ms[(libs[base], kv, "b")]
         elif base in ("paged_chunk_attn", "paged_verify_attn",
                       "paged_verify_attn_split"):
             kr["device_ms"] = next(v for k, v in dec_ms.items()
@@ -2599,6 +2718,8 @@ def main(argv) -> int:
             for layout in ("slots", "paged"):
                 profile_decode(torch, lm, card, layout, kv)
             profile_prefill(torch, lm, card, kv)
+        for layout in ("slots", "paged"):
+            profile_decode(torch, lm, card, layout, "native", split=4)
         profile_spec(torch, lm, lm, SpeculativeConfig(draft_k=4), card,
                      "native", "self draft, native pool")
         profile_spec(torch, lm, draft2,

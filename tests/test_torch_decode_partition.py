@@ -81,6 +81,17 @@ def emulate(q, fetch, idx, vf, L):
     (b, kvh, TK) f32 scales or None) for absolute positions ``pos`` (b, TK),
     zero where ``live`` is false; idx / vf (b,) int. Returns (b, kvh, g, hd)
     f32."""
+    lo = torch.clamp(vf, min=0)
+    hi = torch.minimum(idx, torch.full_like(idx, L - 1))
+    a, _, den = cluster_partials(q, fetch, lo, hi)
+    return a / torch.clamp(den, min=1e-30)[..., None]
+
+
+def cluster_partials(q, fetch, lo, hi):
+    """One cluster's (acc, m, l) over the live keys [lo, hi] (b,) of each
+    row (none where lo > hi): the ranks' walks and their combine in rank
+    order, as rank 0 holds them before it normalises. Returns (b, kvh, g,
+    hd), (b, kvh, g), (b, kvh, g) f32."""
     b, kvh, g, hd = q.shape
     lpk = hd // 8
     G = _padded_g(g)
@@ -89,9 +100,7 @@ def emulate(q, fetch, idx, vf, L):
     cols = _cols(hd)
     qx = q[..., cols]  # (b, kvh, g, lpk, 8)
     sm = torch.tensor(1.0 / np.sqrt(hd), dtype=torch.float32)
-    lo = torch.clamp(vf, min=0)
-    hi = torch.minimum(idx, torch.full_like(idx, L - 1))
-    alive = (idx >= 0) & (lo <= hi)
+    alive = lo <= hi
     tf, tl = lo // TK, hi // TK
     ranks = []
     for rank in range(C):
@@ -141,7 +150,7 @@ def emulate(q, fetch, idx, vf, L):
         w = torch.exp(m - mx)
         den = torch.where(on, den + l * w, den)
         a = torch.where(on[..., None], a + o * w[..., None], a)
-    return a / torch.clamp(den, min=1e-30)[..., None]
+    return a, mx, den
 
 
 def strip_fetch(k, v, hd):

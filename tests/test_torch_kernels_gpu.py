@@ -18,7 +18,10 @@ row) must give a row the same bits alone as in a batch of 8, on every strip
 length and on a second run, and add one launch per call.
 Quantized caches come from ``ops.quantize.quantize_kv_vectors`` on the
 card; the plain versions read the same bytes, so the tolerances stay the
-native ones. K5 with ``split == 1`` partials must equal the unsplit kernel
+native ones. K2-split / K3-split (each one CUDA kernel a call) at split 1
+must equal K2 / K3 bit for bit, K3-split equal K2-split on the same key
+range, and a split row give the same bits alone, in a batch of 8 and on a
+second run. K5 with ``split == 1`` partials must equal the unsplit kernel
 bit for bit, and K4 / K5 must give the same bits on a second run (K4 a
 row's bits from its own q and the keys' positions only); K6 must be ``torch.equal`` to its plain version (values, scales
 and the round trip). K7's gradients are held at ``atol = rtol = 2e-4`` in
@@ -213,11 +216,13 @@ def test_k7_refuses_bad_operands(cuda):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("split", [1, 4])
+@pytest.mark.parametrize("split", [1, 2, 3, 4, 16])
 @pytest.mark.parametrize("g", [1, 4])
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
 def test_k2_matches_plain(cuda, split, g, dtype):
-    _k2_matches_plain(cuda, split, g, dtype)
+    for hd in (64, 128):
+        _k2_matches_plain(cuda, split, g, dtype, hd)
 
 
 @pytest.mark.gpu
@@ -229,9 +234,9 @@ def test_k2_unsplit_matches_plain_every_g(cuda, g, dtype):
     _k2_matches_plain(cuda, 1, g, dtype)
 
 
-def _k2_matches_plain(cuda, split, g, dtype):
+def _k2_matches_plain(cuda, split, g, dtype, hd=64):
     gen = torch.Generator(device=cuda).manual_seed(1)
-    b, kvh, L, hd = 4, 3, 1025, 64
+    b, kvh, L = 4, 3, 1025
     q = torch.randn(b, kvh, g, hd, generator=gen, device=cuda).to(dtype)
     ck = torch.randn(b, kvh, L, hd, generator=gen, device=cuda).to(dtype)
     cv = torch.randn(b, kvh, L, hd, generator=gen, device=cuda).to(dtype)
@@ -337,10 +342,11 @@ def test_k3_equals_k2_bitwise(cuda, page, dtype):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("split", [1, 4])
+@pytest.mark.parametrize("split", [1, 2, 3, 4, 16])
 @pytest.mark.parametrize("g", [1, 4])
 @pytest.mark.parametrize("page", [16, 128])
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
 def test_k3_matches_plain(cuda, split, g, page, dtype):
     q, kp, vp, table, idx = _paged_case(cuda, dtype, 5, 2, g, 64, page,
                                         512 // page, seed=4)
@@ -406,9 +412,10 @@ def _q(t, kv_dtype):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("kv_dtype", ["int8", "int4"])
-@pytest.mark.parametrize("split", [1, 4])
+@pytest.mark.parametrize("split", [1, 2, 3, 4, 16])
 @pytest.mark.parametrize("g", [1, 4])
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
 def test_k2q_matches_plain(cuda, kv_dtype, split, g, dtype):
     gen = torch.Generator(device=cuda).manual_seed(11)
     b, kvh, L = 4, 3, 1025
@@ -549,9 +556,10 @@ def test_k2_misaligned_cache_view_is_served(cuda):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("kv_dtype", ["int8", "int4"])
-@pytest.mark.parametrize("split", [1, 4])
+@pytest.mark.parametrize("split", [1, 2, 3, 4, 16])
 @pytest.mark.parametrize("page", [16, 128])
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
 def test_k3q_matches_plain(cuda, kv_dtype, split, page, dtype):
     q, kp, vp, table, idx = _paged_case(cuda, dtype, 5, 2, 4, 64, page,
                                         512 // page, seed=13)
@@ -869,3 +877,181 @@ def test_k6_params_round_trip_on_the_card(cuda):
     step = float(q["w"].scales.max())
     assert float((back["w"].float() - tree["w"].float()).abs().max()) \
         <= step / 2 + 0.01 * float(tree["w"].float().abs().max())
+
+
+# K2-split / K3-split (and their int8 / int4 branches): one cluster of 8
+# blocks per (row, split), the splits combined inside the launch.
+
+def _kv(t, kv_dtype, dtype):
+    """``t`` as a cache operand: native in ``dtype``, or a quantized pair."""
+    return t.to(dtype) if kv_dtype == "native" else _q(t.float(), kv_dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kv_dtype", ["native", "int8", "int4"])
+@pytest.mark.parametrize("g", [1, 4, 16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+def test_split_one_equals_unsplit_bitwise(cuda, kv_dtype, g, dtype):
+    """Equality 1: with one split the span, tile -> rank map and rank
+    combine are the unsplit kernel's and the rescale is exp(0) = 1, so
+    K2-split / K3-split at split 1 equal K2 / K3 bit for bit."""
+    q, kp, vp, table, idx = _paged_case(cuda, dtype, 6, 3, g, 64, 128, 8,
+                                        seed=33)
+    kp, vp = _kv(kp, kv_dtype, dtype), _kv(vp, kv_dtype, dtype)
+    ck, cv = _strip(kp, table, 1025), _strip(vp, table, 1025)
+    vf = (idx.clamp(min=0) // 3).to(torch.int32)
+    for valid_from in (None, vf):
+        dense = TD.decode_attn(q, ck, cv, idx, valid_from)
+        dense1 = TD.decode_attn_split(q, ck, cv, idx, valid_from, 1)
+        paged = TP.paged_attn(q, kp, vp, table, idx, valid_from)
+        paged1 = TP.paged_attn_split(q, kp, vp, table, idx, valid_from, 1)
+        torch.cuda.synchronize()
+        assert torch.equal(dense1, dense)
+        assert torch.equal(paged1, paged)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kv_dtype", ["native", "int8", "int4"])
+@pytest.mark.parametrize("page", [16, 128])
+@pytest.mark.parametrize("split", [3, 4])
+def test_k3_split_equals_k2_split_bitwise(cuda, kv_dtype, page, split):
+    """Equality 2: on the same K/V and the same key range L = 1024, a
+    pool of pages 16 or 128 and a dense strip give the same bits: the
+    split boundaries depend on L and split only."""
+    q, kp, vp, table, idx = _paged_case(cuda, torch.bfloat16, 6, 3, 4, 64,
+                                        page, 1024 // page, seed=34)
+    kp, vp = (_kv(kp, kv_dtype, torch.bfloat16),
+              _kv(vp, kv_dtype, torch.bfloat16))
+    vf = (idx.clamp(min=0) // 3).to(torch.int32)
+    for valid_from in (None, vf):
+        paged = TP.paged_attn_split(q, kp, vp, table, idx, valid_from, split)
+        dense = TD.decode_attn_split(q, _strip(kp, table, 1024),
+                                     _strip(vp, table, 1024), idx,
+                                     valid_from, split)
+        torch.cuda.synchronize()
+        assert torch.equal(paged, dense)
+        assert not paged[-1].any()  # the dead row
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kv_dtype", ["native", "int8", "int4"])
+@pytest.mark.parametrize("layout", ["dense", "paged"])
+def test_split_row_alone_equals_batch_and_second_run(cuda, kv_dtype, layout):
+    """Equalities 3 and 4 at split 4: each row alone gives the bits it
+    gives in a batch of 8, and a second run (another arrival order of the
+    clusters) gives the first run's bits."""
+    q, kp, vp, table, idx = _paged_case(cuda, torch.bfloat16, 8, 12, 1, 64,
+                                        128, 8, seed=35)
+    kp, vp = (_kv(kp, kv_dtype, torch.bfloat16),
+              _kv(vp, kv_dtype, torch.bfloat16))
+    ck, cv = _strip(kp, table, 1025), _strip(vp, table, 1025)
+
+    def run(sl):
+        if layout == "dense":
+            return TD.decode_attn_split(q[sl], _rows(ck, sl), _rows(cv, sl),
+                                        idx[sl], None, 4)
+        return TP.paged_attn_split(q[sl], kp, vp, table[sl], idx[sl], None,
+                                   4)
+
+    ref = run(slice(0, 8))
+    for _ in range(3):
+        assert torch.equal(run(slice(0, 8)), ref)
+    for r in range(8):
+        assert torch.equal(run(slice(r, r + 1)), ref[r:r + 1]), r
+    torch.cuda.synchronize()
+    assert not ref[-1].any()  # the dead row
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("split", [2, 4, 8])
+def test_k2_split_long_strip(cuda, split):
+    """b1 kv_h12 on a strip of 16385 keys (every key live, and a row
+    starting inside the strip): the splits against the plain version and
+    the unsplit kernel."""
+    gen = torch.Generator(device=cuda).manual_seed(36)
+    L = 16385
+    q = torch.randn(1, 12, 1, 64, generator=gen, device=cuda).to(
+        torch.bfloat16)
+    ck = torch.randn(1, 12, L, 64, generator=gen, device=cuda).to(
+        torch.bfloat16)
+    cv = torch.randn(1, 12, L, 64, generator=gen, device=cuda).to(
+        torch.bfloat16)
+    idx = torch.full((1,), L - 1, device=cuda, dtype=torch.int32)
+    for valid_from in (None, torch.full((1,), 5000, device=cuda,
+                                        dtype=torch.int32)):
+        got = TD.decode_attn_split(q, ck, cv, idx, valid_from, split)
+        whole = TD.decode_attn(q, ck, cv, idx, valid_from)
+        torch.cuda.synchronize()
+        ref = TD.decode_attention_plain(q, ck, cv, idx, valid_from, split)
+        torch.testing.assert_close(got.float(), ref.float(), atol=1e-2,
+                                   rtol=1e-2)
+        torch.testing.assert_close(got.float(), whole.float(), atol=1e-2,
+                                   rtol=1e-2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kv_dtype", ["native", "int8", "int4"])
+@pytest.mark.parametrize("layout", ["dense", "paged"])
+def test_split_call_is_one_kernel(cuda, kv_dtype, layout):
+    """A K2-split / K3-split call launches exactly one CUDA kernel, the
+    cluster kernel: no torch combine runs on the card."""
+    q, kp, vp, table, idx = _paged_case(cuda, torch.bfloat16, 8, 12, 1, 64,
+                                        128, 8, seed=37)
+    kp, vp = (_kv(kp, kv_dtype, torch.bfloat16),
+              _kv(vp, kv_dtype, torch.bfloat16))
+    ck, cv = _strip(kp, table, 1025), _strip(vp, table, 1025)
+    def call():
+        if layout == "dense":
+            return TD.decode_attn_split(q, ck, cv, idx, None, 4)
+        return TP.paged_attn_split(q, kp, vp, table, idx, None, 4)
+
+    call()
+    torch.cuda.synchronize()
+    lead = torch.empty(1, device=cuda)
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(20):  # the first events of a session may be lost
+            lead.zero_()
+        torch.cuda.synchronize()
+        torch.cuda._sleep(1000)  # marker: the calls' events come after it
+        for _ in range(5):
+            call()
+        torch.cuda.synchronize()
+    names = [e.name for e in sorted(
+        (e for e in prof.events()
+         if e.device_type == torch.autograd.DeviceType.CUDA),
+        key=lambda e: e.time_range.start)]
+    after = names[max(i for i, n in enumerate(names) if "spin_kernel" in n)
+                  + 1:]
+    assert len(after) == 5 and all("decode_cluster_kernel" in n
+                                   for n in after), after
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("layout", ["dense", "paged"])
+def test_split_on_two_streams(cuda, layout):
+    """Split calls queued on two streams of one device at once keep to
+    their own arrival counters: each stream's outputs equal the bits the
+    same call gives alone."""
+    q, kp, vp, table, idx = _paged_case(cuda, torch.bfloat16, 8, 12, 1, 64,
+                                        128, 8, seed=38)
+    ck, cv = _strip(kp, table, 1025), _strip(vp, table, 1025)
+
+    def call(split):
+        if layout == "dense":
+            return TD.decode_attn_split(q, ck, cv, idx, None, split)
+        return TP.paged_attn_split(q, kp, vp, table, idx, None, split)
+
+    want = {sp: call(sp) for sp in (3, 4)}
+    torch.cuda.synchronize()
+    streams = {sp: torch.cuda.Stream(cuda) for sp in want}
+    got = {sp: [] for sp in want}
+    for _ in range(20):
+        for sp, st in streams.items():
+            with torch.cuda.stream(st):
+                got[sp].append(call(sp))
+    torch.cuda.synchronize()
+    for sp, outs in got.items():
+        assert all(torch.equal(o, want[sp]) for o in outs), sp
