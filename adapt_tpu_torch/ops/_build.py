@@ -36,7 +36,8 @@ KERNELS = {
     "paged_chunk_attn": [_P] * 7 + [_I] * 10 + [_F, _P],
     "paged_verify_attn": [_P] * 11 + [_I] * 12 + [_F, _P],
     "quantize_blocks": [_P] * 3 + [_L, _I, _I, _P],
-    "dequantize_blocks": [_P] * 3 + [_L, _I, _P],
+    # host arrays: values, scales, outputs, sizes, dtypes, chunk prefix sums
+    "dequantize_blocks": [_P] * 6 + [_I, _P],
 }
 
 NVCC_FLAGS = [

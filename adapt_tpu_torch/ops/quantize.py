@@ -24,11 +24,14 @@ elements (the tail zero-padded); each block gets one f32 scale
 -127, 127)``. A CUDA tensor launches K6, a CPU tensor runs the plain
 version; both are bit-equal to the JAX package's on the same input (a true
 division, round half to even, one rounding into the target dtype on the way
-back).
+back), non-finite input included (a NaN block scale, an Inf one, 0 for a
+NaN quotient). ``dequantize_params`` dequantizes a whole weight tree in one
+launch per 32 leaves (:func:`dequantize_plan`).
 """
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import math
 
@@ -117,7 +120,9 @@ def _num_blocks(n: int) -> int:
 
 def quantize_reference(x) -> QuantizedTensor:
     """The plain version of K6-quantize (``adapt_tpu.ops.quantize.
-    quantize_reference``)."""
+    quantize_reference``). Non-finite input follows the JAX package: a
+    block holding a NaN gets a NaN scale, one holding ±Inf (and no NaN) an
+    Inf scale, and an element whose quotient is NaN stores 0."""
     flat = x.to(torch.float32).reshape(-1)
     nb = _num_blocks(flat.numel())
     flat = torch.nn.functional.pad(flat, (0, nb * BLOCK - flat.numel()))
@@ -127,7 +132,10 @@ def quantize_reference(x) -> QuantizedTensor:
     # multiplies by the reciprocal, which is not the true division the
     # scheme defines (the results differ in the last bit).
     scales = torch.clamp(amax, min=1e-12) / torch.full_like(amax, 127.0)
-    q = torch.round(blocks / scales).clamp(-127.0, 127.0).to(torch.int8)
+    q = torch.round(blocks / scales).clamp(-127.0, 127.0)
+    # A NaN -> int8 cast is undefined; XLA and PyTorch's CPU give 0, and
+    # nothing promises that on CUDA, so NaN becomes 0 here.
+    q = torch.nan_to_num(q, nan=0.0).to(torch.int8)
     return QuantizedTensor(q.reshape(-1, LANES), scales, tuple(x.shape),
                            x.dtype)
 
@@ -141,13 +149,50 @@ def dequantize_reference(qt: QuantizedTensor):
     return out[: math.prod(qt.shape)].reshape(qt.shape).to(qt.dtype)
 
 
+#: K6-dequantize's work split (``csrc/dequantize_blocks.cu`` holds the same
+#: constants): a thread reads VEC int8 values with one 16-byte load, a CTA
+#: of DEQ_THREADS threads dequantizes one CHUNK of one leaf (two vectors a
+#: thread), and one launch takes a table of at most MAX_LEAVES leaves.
+VEC = 16
+DEQ_THREADS = 128
+CHUNK = DEQ_THREADS * VEC * 2
+MAX_LEAVES = 32
+
+
+def dequantize_plan(sizes):
+    """The grouped K6-dequantize launches for leaves of ``sizes`` elements,
+    in order: ``[(leaf indices, chunk prefix sums)]``, one entry a launch.
+    Leaf ``i`` takes ``ceil(sizes[i] / CHUNK)`` chunks (so a chunk never
+    straddles two leaves) and a launch at most MAX_LEAVES leaves; CTA ``c``
+    of a launch works on the leaf ``j`` with ``first[j] <= c < first[j +
+    1]``. Empty leaves take no chunk and no place in a table."""
+    live = [i for i, n in enumerate(sizes) if n > 0]
+    plan = []
+    for k in range(0, len(live), MAX_LEAVES):
+        idx = live[k:k + MAX_LEAVES]
+        first = [0]
+        for i in idx:
+            first.append(first[-1] + -(-sizes[i] // CHUNK))
+        plan.append((idx, first))
+    return plan
+
+
+def _aligned(t, what):
+    if t.data_ptr() % 16:
+        raise ValueError(f"K6 reads and writes {what} in 16-byte vectors: "
+                         f"its base must be 16-byte aligned (storage offset "
+                         f"{t.storage_offset()})")
+    return t
+
+
 def quantize_blocks(x) -> QuantizedTensor:
-    """Launch K6-quantize on a CUDA tensor (f32 / bf16 / f16): one block
-    per 8192-element quantization block, the input read in its own dtype
-    and the ragged tail zero-padded in the kernel."""
+    """Launch K6-quantize on a CUDA tensor (f32 / bf16 / f16): a cluster of
+    4 CTAs per 8192-element quantization block, the input read in its own
+    dtype with 16-byte loads (its base 16-byte aligned) and the ragged
+    tail zero-padded in the kernel."""
     if not x.is_cuda:
         raise ValueError("K6 launches on CUDA tensors only")
-    x = x.contiguous()
+    x = _aligned(x.contiguous(), "the input")
     n = x.numel()
     nb = _num_blocks(n)
     vals = torch.empty((nb * BLOCK_ROWS, LANES), dtype=torch.int8,
@@ -164,27 +209,53 @@ def quantize_blocks(x) -> QuantizedTensor:
     return QuantizedTensor(vals, scales, tuple(x.shape), x.dtype)
 
 
+def _dequantize_launch(qts, outs, first):
+    """One K6-dequantize launch over the table ``qts`` (CUDA payloads on
+    one device, none empty) writing ``outs``; ``first`` is the table's
+    chunk prefix sums from :func:`dequantize_plan`. The table reaches the
+    kernel as a by-value parameter: nothing is copied host -> device."""
+    k = len(qts)
+    vals, scales = [], []
+    for qt in qts:
+        n = math.prod(qt.shape)
+        v, s = qt.values.contiguous(), qt.scales.contiguous()
+        if v.numel() < _num_blocks(n) * BLOCK or s.numel() != _num_blocks(n):
+            raise ValueError(
+                f"payload {tuple(v.shape)} / {tuple(s.shape)} does not "
+                f"cover shape {qt.shape} in whole blocks")
+        vals.append(_aligned(v, "the int8 values"))
+        scales.append(s)
+    ptrs = ctypes.c_void_p * k
+    err = _build.load("dequantize_blocks").dequantize_blocks(
+        ptrs(*[v.data_ptr() for v in vals]),
+        ptrs(*[s.data_ptr() for s in scales]),
+        ptrs(*[_aligned(o, "the output").data_ptr() for o in outs]),
+        (ctypes.c_longlong * k)(*[o.numel() for o in outs]),
+        (ctypes.c_int * k)(*[_build.dtype_code(o.dtype) for o in outs]),
+        (ctypes.c_int * (k + 1))(*first), k,
+        torch.cuda.current_stream(outs[0].device).cuda_stream,
+    )
+    _build.check(err, "dequantize_blocks")
+    dequantize_blocks.launches += 1
+
+
+def _dequantize_grouped(qts):
+    """Dequantize CUDA payloads of one device: one launch per table of
+    :func:`dequantize_plan`; returns the logical-dtype tensors in order."""
+    outs = [torch.empty(qt.shape, dtype=qt.dtype, device=qt.values.device)
+            for qt in qts]
+    for idx, first in dequantize_plan([o.numel() for o in outs]):
+        _dequantize_launch([qts[i] for i in idx], [outs[i] for i in idx],
+                           first)
+    return outs
+
+
 def dequantize_blocks(qt: QuantizedTensor):
-    """Launch K6-dequantize on a CUDA payload: writes the logical-size
-    tensor directly in the logical dtype."""
+    """Launch K6-dequantize on a CUDA payload (a one-leaf table): writes
+    the logical-size tensor directly in the logical dtype."""
     if not (qt.values.is_cuda and qt.scales.is_cuda):
         raise ValueError("K6 launches on CUDA tensors only")
-    n = math.prod(qt.shape)
-    out = torch.empty(qt.shape, dtype=qt.dtype, device=qt.values.device)
-    if n:
-        vals, scales = qt.values.contiguous(), qt.scales.contiguous()
-        if vals.numel() < n or scales.numel() != _num_blocks(n):
-            raise ValueError(
-                f"payload {tuple(vals.shape)} / {tuple(scales.shape)} does "
-                f"not cover shape {qt.shape}")
-        err = _build.load("dequantize_blocks").dequantize_blocks(
-            vals.data_ptr(), scales.data_ptr(), out.data_ptr(), n,
-            _build.dtype_code(qt.dtype),
-            torch.cuda.current_stream(out.device).cuda_stream,
-        )
-        _build.check(err, "dequantize_blocks")
-        dequantize_blocks.launches += 1
-    return out
+    return _dequantize_grouped([qt])[0]
 
 
 #: Launches of K6-quantize / K6-dequantize (kernel calls only).
@@ -216,13 +287,39 @@ def quantize_params(tree):
     return tree
 
 
+def _quantized_leaves(tree, found):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            _quantized_leaves(v, found)
+    elif isinstance(tree, QuantizedTensor):
+        found.append(tree)
+    return found
+
+
+def _replace_leaves(tree, it):
+    if isinstance(tree, dict):
+        return {k: _replace_leaves(v, it) for k, v in tree.items()}
+    if isinstance(tree, QuantizedTensor):
+        return next(it)
+    return tree
+
+
 def dequantize_params(tree):
     """Inverse of :func:`quantize_params`: every :class:`QuantizedTensor`
     leaf dequantized, everything else passed through. Called inside each
     draft scan and draft prefill, so the float weights live only for that
-    call."""
-    if isinstance(tree, dict):
-        return {k: dequantize_params(v) for k, v in tree.items()}
-    if isinstance(tree, QuantizedTensor):
-        return dequantize(tree)
-    return tree
+    call. The CUDA leaves of a device go to K6 together, in tree order:
+    one launch per MAX_LEAVES of them (a 2-layer GPT-2 draft's 11 matrices
+    are one launch); CPU leaves take the plain version."""
+    qts = _quantized_leaves(tree, [])
+    outs = [None] * len(qts)
+    by_dev = {}
+    for i, qt in enumerate(qts):
+        if qt.values.is_cuda:
+            by_dev.setdefault(qt.values.device, []).append(i)
+        else:
+            outs[i] = dequantize_reference(qt)
+    for idx in by_dev.values():
+        for i, out in zip(idx, _dequantize_grouped([qts[i] for i in idx])):
+            outs[i] = out
+    return _replace_leaves(tree, iter(outs))

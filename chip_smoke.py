@@ -22,7 +22,9 @@ of K2 / K3 / K2q / K3q at the steady-decode and phase 8 shapes beside
 (gather +) masked SDPA, of K2-split / K3-split (and q) at phase 8's shape,
 of K4 / K4q beside a gather + masked SDPA at phase
 8's chunk shape, of K5 / K5q / K5-split beside a gather + masked SDPA at
-phase 10's verify shape, of K6, and of K2 against K2-split (split 2, 4, 8)
+phase 10's verify shape, of K6 quantize / dequantize at every draft matrix
+shape and of one whole grouped ``dequantize_params`` of the draft's tree,
+and of K2 against K2-split (split 2, 4, 8)
 on b1 strips of 1025, 4097 and 16385 keys, is measured and
 written into the kernels' JSON line as ``device_ms`` (and
 ``steady_device_ms``) / ``library_device_ms``. ``scripts/decode_ab.py``
@@ -97,8 +99,12 @@ Phases (no phase failure is caught; any mismatch exits non-zero):
    int8 and int4 pools; window, tree leaves, GQA row tiling, page 16,
    head_dim 128, a dead slot in every case, split 1 equal to the unsplit
    kernel with ``torch.equal``) and K6 (``quantize_blocks`` /
-   ``dequantize_blocks``, ``torch.equal`` to the plain version) against
-   their plain versions; then the 12-layer model through
+   ``dequantize_blocks``, ``torch.equal`` to the plain version at every
+   draft matrix shape, ragged, all-zero and NaN / +-Inf blocks, NaN-aware)
+   against their plain versions; ``dequantize_params`` of the 2-layer
+   draft's tree in one K6 launch, 40 leaves in two, each leaf equal to
+   ``dequantize_blocks`` alone and to the plain version; then the 12-layer
+   model through
    ``ContinuousBatcher(draft_lm=..., speculative=SpeculativeConfig(draft_k=
    4))``: (a) phase 7's paged traffic with the target as its own draft, (b)
    a 2-layer draft of the same widths held in int8 on an int8 pool, (c) a
@@ -110,9 +116,11 @@ Phases (no phase failure is caught; any mismatch exits non-zero):
    measured first-token logit error of a verify pass against the decode
    step; the self draft's
    acceptance is at least 0.9 (of what a tree round can accept); pools drain; a steady speculative tick stages
-   nothing host->device and fetches once. K5, K5q, K5-split and K6 are timed
-   at their main-path shapes; plain dense ``verify_attention`` is timed
-   beside them;
+   nothing host->device and fetches once; (b)'s K6 dequantize launches
+   equal its draft calls (one launch a weight swap). K5, K5q, K5-split and
+   K6 (and one whole ``dequantize_params`` of the draft) are timed at
+   their main-path shapes; plain dense ``verify_attention`` is timed beside
+   them;
 11. training: K7 (``flash_attn_bwd``, the flash backward) against its plain
    version on K1's ``(out, lse)`` in f32 (2e-4) and bf16 / f16 (1e-2 of the
    largest reference magnitude) at the ViT shape b8 h12 s197 d64, causal
@@ -140,6 +148,7 @@ The line before the last is the kernels' JSON; the last line is
 from __future__ import annotations
 
 import json
+import math
 import os
 import subprocess
 import sys
@@ -715,44 +724,139 @@ def check_k5(torch, P, Q, dev, errs):
     print("K5 split 1 == unsplit bit for bit (torch.equal) in every case")
 
 
+#: The 2-layer GPT-2-small draft's quantized matrices in ``state_dict``
+#: order (phase 10 holds ``draft2`` to it): (name, shape, dtype name).
+DRAFT_LEAVES = (
+    ("embed.pos_embed", (1024, 768), "float32"),
+    ("embed.tok.weight", (50257, 768), "bfloat16"),
+    *((f"decoder_block_{i}.{m}", shape, "bfloat16") for i in range(2)
+      for m, shape in (("attn.qkv.weight", (2304, 768)),
+                       ("attn.out.weight", (768, 768)),
+                       ("mlp_in.weight", (3072, 768)),
+                       ("mlp_out.weight", (768, 3072)))),
+    ("head.logits.weight", (50257, 768), "float32"),
+)
+
+
+def draft_tree(torch, Q, seed=17, device="cuda"):
+    """``Q.quantize_params`` of random tensors at DRAFT_LEAVES (values x
+    0.036, as GPT-2's init), on the card."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    return Q.quantize_params({
+        name: (torch.randn(*shape, generator=g, device=device) * 0.036).to(
+            getattr(torch, dt)) for name, shape, dt in DRAFT_LEAVES})
+
+
+def same_bits(torch, a, b):
+    """``torch.equal``, a NaN counting equal to a NaN (the kernel's and the
+    plain version's NaN payloads may differ)."""
+    if not a.is_floating_point():
+        return torch.equal(a, b)
+    na, nb = torch.isnan(a), torch.isnan(b)
+    return torch.equal(na, nb) and torch.equal(a[~na], b[~nb])
+
+
 def check_k6(torch, Q, dev, errs):
     """K6 quantize / dequantize vs the plain version with torch.equal
-    (values, scales, the round trip)."""
+    (values, scales, the round trip; NaN-aware): every draft matrix shape
+    and dtype, a ragged size, an all-zero block, NaN / +-Inf blocks."""
     gen = torch.Generator(device=dev).manual_seed(13)
     zero = torch.randn(3, 8192, generator=gen, device=dev)
     zero[1] = 0.0
-    cases = {
-        "(768, 3072) bf16": (torch.randn(768, 3072, generator=gen, device=dev)
-                             * 0.036).to(torch.bfloat16),
-        "(50257, 768) bf16": (torch.randn(50257, 768, generator=gen,
-                                          device=dev) * 0.036).to(
-                                              torch.bfloat16),
+    nan_inf = torch.randn(3, 8192, generator=gen, device=dev)
+    nan_inf[0, 17], nan_inf[1, 4000], nan_inf[2, 8191] = (
+        float("nan"), float("inf"), float("-inf"))
+    inf = torch.randn(2, 8192, generator=gen, device=dev)
+    inf[0, 2047], inf[1, 2048] = float("inf"), float("-inf")
+    leaf_kinds = dict.fromkeys((shape, dt) for _, shape, dt in DRAFT_LEAVES)
+    cases = {f"{shape} {dt}": (torch.randn(*shape, generator=gen, device=dev)
+                               * 0.036).to(getattr(torch, dt))
+             for shape, dt in leaf_kinds}
+    cases.update({
         "(1000, 37) f32, no multiple of 8192": torch.randn(
             1000, 37, generator=gen, device=dev),
         "(3, 8192) f32 with an all-zero block": zero,
-    }
+        "(3, 8192) f32, NaN / +Inf / -Inf blocks": nan_inf,
+        "(2, 8192) bf16, +Inf / -Inf blocks": inf.to(torch.bfloat16),
+    })
     for what, x in cases.items():
         qt = Q.quantize_blocks(x)
         back = Q.dequantize_blocks(qt)
         torch.cuda.synchronize()
         ref = Q.quantize_reference(x)
         ref_back = Q.dequantize_reference(ref)
-        ev = float((qt.values.int() - ref.values.int()).abs().max())
-        es = float((qt.scales - ref.scales).abs().max())
-        eb = float((back.float() - ref_back.float()).abs().max())
+        fin = torch.isfinite(ref.scales)
+        ok_b = torch.isfinite(ref_back)
+
+        def worst(d):  # largest |difference| over finite entries, or 0
+            return float(d.abs().max()) if d.numel() else 0.0
+
+        ev = worst(qt.values.int() - ref.values.int())
+        es = worst((qt.scales - ref.scales)[fin])
+        eb = worst((back.float() - ref_back.float())[ok_b])
         if not (torch.equal(qt.values, ref.values)
-                and torch.equal(qt.scales, ref.scales)):
+                and same_bits(torch, qt.scales, ref.scales)):
             raise AssertionError(f"quantize_blocks != plain at {what}: values "
-                                 f"differ by {ev}, scales by {es}")
-        if not torch.equal(back, ref_back) or back.dtype != x.dtype:
+                                 f"differ by {ev}, finite scales by {es}")
+        if not same_bits(torch, back, ref_back) or back.dtype != x.dtype:
             raise AssertionError(f"dequantize_blocks != plain at {what}: "
-                                 f"differs by {eb}")
+                                 f"finite values differ by {eb}")
+        if not bool(torch.isfinite(x).all()) and bool(fin.all()):
+            raise AssertionError(f"K6 at {what}: non-finite input gave "
+                                 "finite scales")
         errs["quantize_blocks"] = max(errs.get("quantize_blocks", 0.0), ev, es)
         errs["dequantize_blocks"] = max(errs.get("dequantize_blocks", 0.0), eb)
-        rt = float((back.float() - x.float()).abs().max())
+        rt = worst((back.float() - x.float())[ok_b])
         print(f"K6 {what}: values, scales and round trip torch.equal to the "
-              f"plain version (round-trip error {rt:.3e}, largest step "
-              f"{float(qt.scales.max()):.3e})")
+              f"plain version (NaN-aware; scales {qt.scales.flatten()[:3].tolist()}"
+              f"{'...' if qt.scales.numel() > 3 else ''}; finite round-trip "
+              f"error {rt:.3e})")
+
+
+def check_k6_grouped(torch, Q, draft_state):
+    """``dequantize_params`` on the card: the 2-layer draft's quantized
+    ``state_dict`` (its matrices must be DRAFT_LEAVES) in one K6 launch and
+    40 leaves in two, each leaf ``torch.equal`` to ``dequantize_blocks``
+    of that leaf alone and to the plain version, a second run equal to the
+    first. Returns (the draft tree, K6 launches per call)."""
+    q = Q.quantize_params(draft_state)
+    leaves = [(k, v) for k, v in q.items() if isinstance(v, Q.QuantizedTensor)]
+    got = [(k, tuple(v.shape), str(v.dtype).split(".")[-1])
+           for k, v in leaves]
+    if got != list(DRAFT_LEAVES):
+        raise AssertionError(f"the draft's quantized leaves {got} are not "
+                             f"DRAFT_LEAVES {list(DRAFT_LEAVES)}")
+    dev = next(iter(draft_state.values())).device
+    g = torch.Generator(device=dev).manual_seed(19)
+    shapes = [((8, 7), torch.float32), ((33, 17), torch.bfloat16),
+              ((2, 4100), torch.float16), ((129, 64), torch.bfloat16)]
+    forty = Q.quantize_params({f"w{i}": torch.randn(
+        *shapes[i % 4][0], generator=g, device=dev).to(shapes[i % 4][1])
+        for i in range(40)})
+    per_call = {}
+    for name, tree, want in (("draft2", q, 1), ("forty", forty, 2)):
+        n0 = Q.dequantize_blocks.launches
+        back = Q.dequantize_params(tree)
+        torch.cuda.synchronize()
+        per_call[name] = Q.dequantize_blocks.launches - n0
+        if per_call[name] != want:
+            raise AssertionError(f"dequantize_params({name}) made "
+                                 f"{per_call[name]} K6 launches, want {want}")
+        again = Q.dequantize_params(tree)
+        for k, v in tree.items():
+            if not isinstance(v, Q.QuantizedTensor):
+                continue
+            if not (torch.equal(back[k], Q.dequantize_blocks(v))
+                    and torch.equal(back[k], Q.dequantize_reference(v))
+                    and torch.equal(back[k], again[k])
+                    and back[k].dtype == v.dtype):
+                raise AssertionError(f"dequantize_params({name})[{k}] != "
+                                     "dequantize_blocks / plain / a second run")
+    print(f"dequantize_params on the card: the 2-layer draft's "
+          f"{len(leaves)} matrices in {per_call['draft2']} K6 launch, 40 "
+          f"leaves in {per_call['forty']}; every leaf torch.equal to "
+          "dequantize_blocks alone, to the plain version and to a second run")
+    return q, per_call["draft2"]
 
 
 def drive_spec(torch, lm, draft, spec, kernel, layout, kv, waves, steps,
@@ -1667,28 +1771,41 @@ def decode_device_times(torch, D, P, Q, card, full=True):
     ``full``, also K2-split and K3-split (split 4, their torch combine
     included) at shape b, K4 / K4q at phase 8's chunk shape and K5 / K5q /
     K5-split at phase 10's verify shape (each beside a gather + masked
-    SDPA), and K6 at a draft matrix. ``D``, ``P``, ``Q`` are the
+    SDPA), and K6 (``k6_fns``). ``D``, ``P``, ``Q`` are the
     ops modules of the tree under test (``scripts/decode_ab.py`` passes
     another commit's). All of it is one ``torch.profiler`` session
     (``device_ms_each``). Returns ``{(name, kv, shape): ms}`` and prints
     one line per entry with its bound."""
+
+    def build(rec):
+        for shape in DECODE_SHAPES:
+            decode_shape_fns(torch, D, P, Q, shape, full, rec)
+        if full:
+            decode_side_fns(torch, P, Q, rec)
+            decode_crossover_fns(torch, D, rec)
+
+    return device_times(torch, card, build)
+
+
+def device_times(torch, card, build):
+    """Device ms a call of every function ``build(rec)`` records with
+    ``rec(key, fn, bytes, operations)``, in one ``torch.profiler`` session
+    (``device_ms_each``); prints one line per entry with its bound and its
+    share of it. Returns ``{key: ms}``."""
     fns, bounds = {}, {}
 
     def rec(key, fn, nbytes, ops):
         fns[key] = fn
         bounds[key] = bound(ops, nbytes)
 
-    for shape in DECODE_SHAPES:
-        decode_shape_fns(torch, D, P, Q, shape, full, rec)
-    if full:
-        decode_side_fns(torch, P, Q, rec)
-        decode_crossover_fns(torch, D, rec)
+    build(rec)
     names = {}
     t = device_ms_each(torch, fns, by_name=names)
     for key, ms in t.items():
         bms, by = bounds[key]
         print(f"device {key[0]}[{key[1]}] shape {key[2]} on {card}: {ms:.4f} "
-              f"ms a launch (bound {bms:.5f} by {by})")
+              f"ms a call, {names[key]['launches']} device events (bound "
+              f"{bms:.5f} by {by}, {100 * bms / ms:.1f}% of it)")
         if "split" in key[0]:
             parts = ", ".join(f"{k} {v:.4f}" for k, v in sorted(
                 names[key].items(), key=lambda kv: -kv[1]) if k != "launches")
@@ -1788,7 +1905,7 @@ def decode_side_fns(torch, P, Q, rec):
     """``rec(key, fn, bytes, operations)`` for K4 / K4q (int8, int4) at
     phase 8's chunk shape beside a gather of the pages + masked SDPA, K5 /
     K5q (int8, int4) / K5-split (split 4) at phase 10's verify shape beside
-    a gather + masked SDPA, and K6 at a draft matrix."""
+    a gather + masked SDPA, and K6 (``k6_fns``)."""
     F = torch.nn.functional
     dev = torch.device("cuda", 0)
     B, kvh, G, hd = 8, 12, 1, 64
@@ -1848,13 +1965,31 @@ def decode_side_fns(torch, P, Q, rec):
         2 * vlive * 2 * hd + vio, 4 * pairs5 * hd)
     rec(("sdpa_verify", "native", f"kc{KC}"), sdpa_verify,
         2 * vlive * 2 * hd + vio, 4 * pairs5 * hd)
-    x = (torch.randn(768, 3072, device=dev) * 0.036).to(torch.bfloat16)
-    qt = Q.quantize_blocks(x)
-    n, nb = x.numel(), qt.scales.numel()
-    rec(("quantize_blocks", "bf16", "(768, 3072)"),
-        lambda: Q.quantize_blocks(x), n * 2 + n + nb * 4, 0)
-    rec(("dequantize_blocks", "bf16", "(768, 3072)"),
-        lambda: Q.dequantize_blocks(qt), n + nb * 4 + n * 2, 0)
+    k6_fns(torch, Q, rec)
+
+
+def k6_fns(torch, Q, rec):
+    """``rec(key, fn, bytes, operations)`` for K6 quantize and dequantize at
+    each draft matrix's shape and dtype (DRAFT_LEAVES) and for one whole
+    ``dequantize_params`` of the draft's tree (``("dequantize_params",
+    "draft2", "11 leaves")``: every launch it makes). Dequantize moves n
+    int8 + the scales + n outputs, quantize n inputs + the padded int8
+    payload + the scales."""
+    tree = draft_tree(torch, Q)
+    for shape, dt in dict.fromkeys((s_, d_) for _, s_, d_ in DRAFT_LEAVES):
+        qt = next(v for v in tree.values() if v.shape == shape
+                  and str(v.dtype).endswith(dt))
+        x = Q.dequantize_reference(qt)
+        n, nb, es = x.numel(), qt.scales.numel(), x.element_size()
+        tag = {"float32": "f32", "bfloat16": "bf16"}[dt]
+        rec(("quantize_blocks", tag, str(shape)),
+            lambda x=x: Q.quantize_blocks(x), n * es + nb * 8192 + nb * 4, 0)
+        rec(("dequantize_blocks", tag, str(shape)),
+            lambda qt=qt: Q.dequantize_blocks(qt), n + nb * 4 + n * es, 0)
+    total = sum(math.prod(qt.shape) * (1 + torch.finfo(qt.dtype).bits // 8)
+                + qt.scales.numel() * 4 for qt in tree.values())
+    rec(("dequantize_params", "draft2", f"{len(tree)} leaves"),
+        lambda: Q.dequantize_params(tree), total, 0)
 
 
 def add_device_times(kernels, dec_ms):
@@ -1862,7 +1997,9 @@ def add_device_times(kernels, dec_ms):
     ``device_ms`` at the row's shape (phase 8's, shape b) and, for K2 / K3
     (and K2q / K3q), ``steady_device_ms`` at shape a; the library's device
     time beside them (masked SDPA, gather + masked SDPA; a dequantize +
-    SDPA figure for the quantized branches, which have no library call)."""
+    SDPA figure for the quantized branches, which have no library call);
+    K6's at (768, 3072) bf16 and, for dequantize, ``call_device_ms`` of one
+    whole ``dequantize_params`` of the draft's tree."""
     libs = {"decode_attn": "sdpa_masked", "decode_attn_split": "sdpa_masked",
             "paged_attn": "gather_sdpa", "paged_attn_split": "gather_sdpa"}
     for kr in kernels:
@@ -1892,8 +2029,10 @@ def add_device_times(kernels, dec_ms):
                 kr["library_device_ms"] = next(
                     v for k, v in dec_ms.items() if k[0] == lib)
         elif kr["name"] in ("quantize_blocks", "dequantize_blocks"):
-            kr.update(device_ms=next(v for k, v in dec_ms.items()
-                                     if k[0] == kr["name"]))
+            kr["device_ms"] = dec_ms[(kr["name"], "bf16", "(768, 3072)")]
+            if kr["name"] == "dequantize_blocks":
+                kr["call_device_ms"] = next(
+                    v for k, v in dec_ms.items() if k[0] == "dequantize_params")
 
 
 def ptxas_entries(log, marker):
@@ -1916,7 +2055,8 @@ def ptxas_entries(log, marker):
 
 def ptxas_report(_build):
     """The compiler's registers and spills: each tensor-core kernel (K1, K7
-    and K4 / K5's 16-bit instantiations, every cache element), and a
+    and K4 / K5's 16-bit instantiations, every cache element), K6's
+    kernels (quantize per input dtype, the grouped dequantize), and a
     summary of the CUDA-core cluster kernels' instantiations (K2 / K3, and
     K5's f32 ones: every head dim, cache element and padded g) with K2 /
     K3's main path's (bf16, hd 64, g 1) named, from this process's
@@ -1926,6 +2066,8 @@ def ptxas_report(_build):
             ("flash_attn_bwd", "_tc_kernel", None),
             ("paged_chunk_attn", "chunk_tc_kernel", None),
             ("paged_verify_attn", "verify_tc_kernel", None),
+            ("quantize_blocks", "quantize_kernel", None),
+            ("dequantize_blocks", "dequantize_kernel", None),
             ("decode_attn", "decode_cluster_kernel", "Li64ELi1E"),
             ("paged_attn", "decode_cluster_kernel", "Li64ELi1E"),
             ("paged_verify_attn", "decode_cluster_kernel", "f32")):
@@ -2455,6 +2597,8 @@ def main(argv) -> int:
     # -- phase 10: speculative decoding (K5, K6) ---------------------------
     check_k5(torch, P, Q, dev, errs)
     check_k6(torch, Q, dev, errs)
+    from adapt_tpu_torch.models import speculative as S
+
     t0 = time.perf_counter()
     draft2 = transformer_lm(VOCAB, DIM, 2, HEADS, MLP, max_len=1024,
                             dtype=torch.bfloat16, name="gpt2_small_draft",
@@ -2466,6 +2610,7 @@ def main(argv) -> int:
                             if k in draft2.state_dict()})
     print(f"2-layer draft of the same widths built in "
           f"{time.perf_counter() - t0:.1f} s")
+    qdraft, call_launches = check_k6_grouped(torch, Q, draft2.state_dict())
     spec_counters = {
         "flash_attn_fwd": A.flash_attn_fwd, "decode_attn": D.decode_attn,
         "decode_attn_split": D.decode_attn_split,
@@ -2522,15 +2667,35 @@ def main(argv) -> int:
          KernelConfig(), qwaves, 1, None, sampled,
          ("flash_attn_fwd", "decode_attn")),
     ):
+        # The draft's weight swaps (each dequantizes its whole tree),
+        # counted apart from the kernel's own counter.
+        draft_calls = [0]
+        deq = S.dequantize_params
+
+        def counted(tree, deq=deq, calls=draft_calls):
+            calls[0] += 1
+            return deq(tree)
+
+        S.dequantize_params = counted
         for fn in spec_counters.values():
             fn.launches = 0
-        (bat, sprompts, out, cancelled, sampled_id, wall, ntok,
-         steady) = drive_spec(torch, lm, draft, spec, kernel, layout, kv,
-                              waves, 64, cancel_at, pchunk, samp)
+        try:
+            (bat, sprompts, out, cancelled, sampled_id, wall, ntok,
+             steady) = drive_spec(torch, lm, draft, spec, kernel, layout, kv,
+                                  waves, 64, cancel_at, pchunk, samp)
+        finally:
+            S.dequantize_params = deq
         launches = {k: fn.launches for k, fn in spec_counters.items()}
         runs[path] = launches
         if any(launches[k] == 0 for k in want):
             return _fail(f"{path} path did not launch its kernels: {launches}")
+        if launches["dequantize_blocks"] != draft_calls[0] * call_launches:
+            return _fail(f"{path}: {launches['dequantize_blocks']} K6 "
+                         f"dequantize launches for {draft_calls[0]} draft "
+                         f"calls (want {call_launches} a call)")
+        if draft_calls[0]:
+            print(f"{path}: {draft_calls[0]} draft calls, "
+                  f"{launches['dequantize_blocks']} K6 dequantize launches")
         if layout == "slots" and (launches["paged_verify_attn"]
                                   or launches["paged_verify_attn_split"]):
             return _fail(f"{path}: the dense verify launched K5: {launches}")
@@ -2690,6 +2855,19 @@ def main(argv) -> int:
                 print(f"{name} on {card}: {ms:.4f} ms (plain {plain:.4f}, "
                       f"library none (multi-call {plain:.4f}), bound "
                       f"{bms:.4f} by {by}) at {what}")
+    # One whole dequantize_params of the draft's quantized state_dict: what
+    # each draft scan and draft prefill pays.
+    call_bytes = sum(
+        math.prod(qt.shape) * (1 + torch.finfo(qt.dtype).bits // 8)
+        + qt.scales.numel() * 4 for qt in qdraft.values()
+        if isinstance(qt, Q.QuantizedTensor))
+    next(kr for kr in kernels if kr["name"] == "dequantize_blocks").update(
+        call_ms=time_ms(lambda: Q.dequantize_params(qdraft)),
+        call_plain_ms=time_ms(lambda: {
+            k: Q.dequantize_reference(v) if isinstance(v, Q.QuantizedTensor)
+            else v for k, v in qdraft.items()}),
+        call_bound_ms=call_bytes / PEAK_BYTES * 1e3,
+        call_launches=call_launches, call_shape="2-layer draft, 11 matrices")
 
     # -- phase 11: training ViT-B/16 (K1 forward, K7 backward) -------------
     check_k7(torch, A, dev, errs)
@@ -2734,9 +2912,17 @@ def main(argv) -> int:
             two = f" (multi-call {kr['multi_call_ms']:.4f})"
         devt = (f", device {kr['device_ms']:.4f} a launch"
                 if "device_ms" in kr else "")
+        call = ""
+        if "call_ms" in kr:
+            call = (f"; one dequantize_params of the {kr['call_shape']}: "
+                    f"{kr['call_launches']} launch, {kr['call_ms']:.4f} ms, "
+                    f"device {kr['call_device_ms']:.4f} (plain "
+                    f"{kr['call_plain_ms']:.4f}, bound "
+                    f"{kr['call_bound_ms']:.4f})")
         print(f"{kr['name']} on {card}: {kr['ms']:.4f} ms{devt} (plain "
               f"{kr['plain_ms']:.4f}, library {lib}{two}, bound "
-              f"{kr['bound_ms']:.4f} by {kr['bound_by']}) at {kr['shape']}")
+              f"{kr['bound_ms']:.4f} by {kr['bound_by']}) at {kr['shape']}"
+              f"{call}")
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -24,7 +24,10 @@ range, and a split row give the same bits alone, in a batch of 8 and on a
 second run. K5 with ``split == 1`` partials must equal the unsplit kernel
 bit for bit, and K4 / K5 must give the same bits on a second run (K4 a
 row's bits from its own q and the keys' positions only); K6 must be ``torch.equal`` to its plain version (values, scales
-and the round trip). K7's gradients are held at ``atol = rtol = 2e-4`` in
+and the round trip; NaN counted equal to NaN) at every draft matrix shape
+and on NaN / +-Inf blocks, raise on a base not 16-byte aligned, and
+dequantize a weight tree in one launch per 32 leaves, each leaf equal to
+``dequantize_blocks`` alone. K7's gradients are held at ``atol = rtol = 2e-4`` in
 f32 (the JAX package's bar for its streaming backward) and within 1e-2 of
 the largest reference magnitude in bf16 / f16, and two runs on the same
 inputs must be ``torch.equal`` (two passes, no atomics). The 16-bit K1 and
@@ -830,28 +833,63 @@ def test_k5_cuda_refuses_plain_and_bad_operands(cuda):
 
 # -- K6: blockwise int8 quantize / dequantize --------------------------------
 
+#: The 2-layer GPT-2-small draft's quantized matrices (chip_smoke phase 10):
+#: name -> (shape, dtype).
+K6_DRAFT = {
+    "pos_embed_f32": ((1024, 768), torch.float32),
+    "tok_bf16": ((50257, 768), torch.bfloat16),
+    "qkv_bf16": ((2304, 768), torch.bfloat16),
+    "out_bf16": ((768, 768), torch.bfloat16),
+    "mlp_in_bf16": ((3072, 768), torch.bfloat16),
+    "mlp_out_bf16": ((768, 3072), torch.bfloat16),
+    "head_f32": ((50257, 768), torch.float32),
+}
 
-def _k6_inputs(cuda):
+
+def _k6_inputs(cuda, name):
     gen = torch.Generator(device=cuda).manual_seed(31)
+    if name in K6_DRAFT:
+        shape, dtype = K6_DRAFT[name]
+        return (torch.randn(*shape, generator=gen, device=cuda)
+                * 0.036).to(dtype)
     blocks = torch.randn(4, 8192, generator=gen, device=cuda)
     blocks[1] = 0.0
     blocks[2] = -0.37
+    nan_inf = torch.randn(3, 8192, generator=gen, device=cuda)
+    nan_inf[0, 17], nan_inf[1, 4000], nan_inf[2, 8191] = (
+        float("nan"), float("inf"), float("-inf"))
+    inf = torch.randn(2, 8192, generator=gen, device=cuda)
+    inf[0, 2047], inf[1, 2048] = float("inf"), float("-inf")
     return {
-        "matrix_bf16": (torch.randn(768, 3072, generator=gen, device=cuda)
-                        * 0.04).to(torch.bfloat16),
-        "ragged_f32": torch.randn(1000, 37, generator=gen, device=cuda) * 3,
-        "zero_const": blocks,
-        "ties": torch.arange(-300, 301, device=cuda).float() / 2.0,
-        "small_f16": torch.randn(17, generator=gen, device=cuda).to(
+        "matrix_bf16": lambda: (torch.randn(768, 3072, generator=gen,
+                                            device=cuda) * 0.04).to(
+                                                torch.bfloat16),
+        "ragged_f32": lambda: torch.randn(1000, 37, generator=gen,
+                                          device=cuda) * 3,
+        "zero_const": lambda: blocks,
+        "ties": lambda: torch.arange(-300, 301, device=cuda).float() / 2.0,
+        "small_f16": lambda: torch.randn(17, generator=gen, device=cuda).to(
             torch.float16),
-    }
+        # NaN / +Inf / -Inf blocks: NaN and Inf scales, 0 for NaN quotients.
+        "nan_inf_f32": lambda: nan_inf,
+        "nan_inf_f16": lambda: nan_inf.to(torch.float16),
+        "inf_bf16": lambda: inf.to(torch.bfloat16),
+    }[name]()
+
+
+def _same_bits(a, b):
+    """``torch.equal``, a NaN counting equal to a NaN (the kernel's and the
+    plain version's NaN payloads may differ)."""
+    na, nb = torch.isnan(a), torch.isnan(b)
+    return torch.equal(na, nb) and torch.equal(a[~na], b[~nb])
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("name", ["matrix_bf16", "ragged_f32", "zero_const",
-                                  "ties", "small_f16"])
+                                  "ties", "small_f16", "nan_inf_f32",
+                                  "nan_inf_f16", "inf_bf16", *K6_DRAFT])
 def test_k6_bit_equal_to_plain(cuda, name):
-    x = _k6_inputs(cuda)[name]
+    x = _k6_inputs(cuda, name)
     n0, n1 = TQ.quantize_blocks.launches, TQ.dequantize_blocks.launches
     qt = TQ.quantize(x)
     back = TQ.dequantize(qt)
@@ -861,9 +899,31 @@ def test_k6_bit_equal_to_plain(cuda, name):
     ref = TQ.quantize_reference(x)
     assert qt.values.shape == ref.values.shape and qt.shape == tuple(x.shape)
     assert torch.equal(qt.values, ref.values)
-    assert torch.equal(qt.scales, ref.scales)
+    assert _same_bits(qt.scales, ref.scales)
     assert back.dtype == x.dtype and back.shape == x.shape
-    assert torch.equal(back, TQ.dequantize_reference(ref))
+    assert _same_bits(back, TQ.dequantize_reference(ref))
+    if not bool(torch.isfinite(x).all()):
+        assert not bool(torch.isfinite(qt.scales).all())
+
+
+@pytest.mark.gpu
+def test_k6_unaligned_base_raises(cuda):
+    """16-byte vector access needs 16-byte-aligned bases: a storage-offset
+    view raises, it never falls back to the plain version."""
+    buf = torch.randn(8192 * 2 + 1, device=cuda).to(torch.bfloat16)
+    x = buf[1:].view(2, 8192)
+    with pytest.raises(ValueError, match="aligned"):
+        TQ.quantize_blocks(x)
+    qt = TQ.quantize_blocks(buf[:-1].view(2, 8192))
+    shifted = torch.empty(qt.values.numel() + 1, dtype=torch.int8,
+                          device=cuda)
+    shifted[1:] = qt.values.reshape(-1)
+    bad = TQ.QuantizedTensor(shifted[1:].view(-1, 128), qt.scales, qt.shape,
+                             qt.dtype)
+    n1 = TQ.dequantize_blocks.launches
+    with pytest.raises(ValueError, match="aligned"):
+        TQ.dequantize_blocks(bad)
+    assert TQ.dequantize_blocks.launches == n1
 
 
 @pytest.mark.gpu
@@ -877,6 +937,57 @@ def test_k6_params_round_trip_on_the_card(cuda):
     step = float(q["w"].scales.max())
     assert float((back["w"].float() - tree["w"].float()).abs().max()) \
         <= step / 2 + 0.01 * float(tree["w"].float().abs().max())
+
+
+def _k6_trees(cuda):
+    from adapt_tpu_torch.models.transformer_lm import transformer_lm
+
+    draft = transformer_lm(50257, 768, 2, 12, 3072, max_len=1024,
+                           dtype=torch.bfloat16, seed=1, device=cuda)
+    gen = torch.Generator(device=cuda).manual_seed(37)
+    shapes = [((8, 7), torch.float32), ((33, 17), torch.bfloat16),
+              ((2, 4100), torch.float16), ((129, 64), torch.bfloat16)]
+    forty = {f"w{i}": torch.randn(*shapes[i % 4][0], generator=gen,
+                                  device=cuda).to(shapes[i % 4][1])
+             for i in range(40)}
+    forty["nested"] = {"empty": torch.zeros(0, 16, device=cuda),
+                       "bias": torch.randn(7, device=cuda)}
+    return {"draft2": (draft.state_dict(), 11, 1), "forty": (forty, 41, 2)}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["draft2", "forty"])
+def test_k6_dequantize_params_grouped_launch(cuda, name):
+    """``dequantize_params`` launches K6 once per 32 leaves (the 2-layer
+    draft's 11 matrices: one launch; 40 leaves and an empty one: two), each
+    leaf ``torch.equal`` to ``dequantize_blocks`` of that leaf alone and to
+    the plain version, and a second run equal to the first."""
+    tree, n_q, launches = _k6_trees(cuda)[name]
+    q = TQ.quantize_params(tree)
+    quant = {k: v for k, v in _k6_leaves(q)
+             if isinstance(v, TQ.QuantizedTensor)}
+    assert len(quant) == n_q
+    n1 = TQ.dequantize_blocks.launches
+    got = dict(_k6_leaves(TQ.dequantize_params(q)))
+    torch.cuda.synchronize()
+    assert TQ.dequantize_blocks.launches == n1 + launches
+    again = dict(_k6_leaves(TQ.dequantize_params(q)))
+    for key, qt in quant.items():
+        assert got[key].dtype == qt.dtype and got[key].shape == qt.shape
+        assert torch.equal(got[key], TQ.dequantize_blocks(qt)), key
+        assert torch.equal(got[key], TQ.dequantize_reference(qt)), key
+        assert torch.equal(got[key], again[key]), key
+    for key, leaf in _k6_leaves(tree):
+        if key not in quant:
+            assert got[key] is leaf  # 1-D leaves pass through
+
+
+def _k6_leaves(tree, prefix=""):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _k6_leaves(v, prefix + k + ".")
+        else:
+            yield prefix + k, v
 
 
 # K2-split / K3-split (and their int8 / int4 branches): one cluster of 8

@@ -8,8 +8,9 @@
   128) at ``2e-5``, and emits zeros for dead rows.
 - K6's plain versions are BIT-EQUAL to the JAX package's ``quantize``
   (interpret mode) and ``quantize_reference`` / ``dequantize``: bf16 input,
-  a ragged size, zero and constant blocks; ``quantize_params`` quantizes
-  exactly the float leaves with ``ndim >= 2``.
+  a ragged size, zero and constant blocks, NaN / +Inf / -Inf blocks (NaN
+  scales compared NaN-aware); ``quantize_params`` quantizes exactly the
+  float leaves with ``ndim >= 2``.
 - ``speculative_sample`` alone: ``top_k = 1`` equals greedy, and over 2400
   seeds on a 16-token vocabulary the committed token's distribution is
   within total variation 0.05 of the target's softmax."""
@@ -165,12 +166,20 @@ def _quant_inputs():
     blocks[1] = 0.0  # an all-zero block
     blocks[2] = -0.37  # a constant block
     halves = (np.arange(-40, 41, dtype=np.float32) / 2.0)  # .5 ties
+    nan_inf = rng.standard_normal((3, 8192)).astype(np.float32)
+    nan_inf[0, 17], nan_inf[1, 4000], nan_inf[2, 8191] = np.nan, np.inf, -np.inf
+    inf = rng.standard_normal((2, 8192)).astype(np.float32)
+    inf[0, 5], inf[1, 6000] = np.inf, -np.inf  # Inf blocks, no NaN
     return {
         "ragged": ragged,
         "matrix": rng.standard_normal((96, 256)).astype(np.float32) * 0.05,
         "zero_const": blocks,
         "ties": np.concatenate([halves, [127.0]]).astype(np.float32),
         "tiny": rng.standard_normal((7,)).astype(np.float32) * 1e-14,
+        # Non-finite input: a NaN block gets a NaN scale, an Inf block an
+        # Inf scale, and a NaN quotient (NaN, or Inf / Inf) stores 0.
+        "nan_inf": nan_inf,
+        "inf": inf,
     }
 
 
@@ -181,23 +190,34 @@ def test_k6_plain_bit_equal_to_jax(name, dtype):
     jx = jnp.asarray(x).astype(dtype)
     tx = torch.from_numpy(x).to(getattr(torch, dtype))
     assert np.array_equal(np.asarray(jx.astype(jnp.float32)),
-                          tx.float().numpy())
+                          tx.float().numpy(), equal_nan=True)
     jq = JQ.quantize(jx)  # the Pallas kernel, interpreted
     jr = JQ.quantize_reference(jx)
     tq = TQ.quantize(tx)
     assert tq.shape == tuple(x.shape) and tq.dtype == tx.dtype
     for want in (jq, jr):
         assert np.array_equal(tq.values.numpy(), np.asarray(want.values))
-        assert np.array_equal(tq.scales.numpy(), np.asarray(want.scales))
+        # NaN-aware: a NaN scale must be NaN on both sides.
+        assert np.array_equal(tq.scales.numpy(), np.asarray(want.scales),
+                              equal_nan=True)
     back = TQ.dequantize(tq)
     assert back.dtype == tx.dtype and back.shape == tx.shape
     for want in (JQ.dequantize(jq), JQ.dequantize_reference(jr)):
         assert np.array_equal(back.float().numpy(),
-                              np.asarray(want.astype(jnp.float32)))
-    # The round trip stays within half a quantization step per block.
-    step = tq.scales.max().item()
-    slack = 0.0 if dtype == "float32" else 0.01 * np.abs(x).max()
-    assert (back.float() - tx.float()).abs().max() <= step / 2 + slack + 1e-12
+                              np.asarray(want.astype(jnp.float32)),
+                              equal_nan=True)
+    # The round trip stays within half a quantization step per block (the
+    # blocks with a finite scale: every block of finite input).
+    fin = torch.isfinite(tq.scales).reshape(-1)
+    blk = torch.arange(tx.numel()) // TQ.BLOCK
+    keep = fin[blk]
+    assert keep.all() == bool(np.isfinite(x).all())
+    if keep.any():
+        step = tq.scales.reshape(-1)[fin].max().item()
+        slack = (0.0 if dtype == "float32"
+                 else 0.01 * np.abs(x.reshape(-1)[keep.numpy()]).max())
+        err = (back.float().reshape(-1) - tx.float().reshape(-1))[keep]
+        assert err.abs().max() <= step / 2 + slack + 1e-12
 
 
 def test_quantize_params_leaf_selection():
