@@ -1,8 +1,17 @@
 """Typed configuration the ported serving core reads — copies of
-``adapt_tpu/config.py``'s ``KernelConfig``, ``SpeculativeConfig``,
-``SchedulerConfig`` (with ``TenantQuota``, which the latter names) and
-``PipelineConfig``, same field names and defaults, so one config means the
-same thing in both packages.
+``adapt_tpu/config.py``'s ``FaultConfig``, ``CodecConfig``,
+``KernelConfig``, ``SpeculativeConfig``, ``SchedulerConfig`` (with
+``TenantQuota``, which the latter names), ``PipelineConfig``, the
+``ObservabilityConfig`` fields the dispatcher reads, and ``ServeConfig``
+over those, same field names and defaults, so one config means the same
+thing in both packages.
+
+``ServeConfig`` holds the subsystem configs the port has. The others
+(``ParallelConfig``, ``RecoveryConfig``, ``DisaggConfig``,
+``PrefillConfig``, ``RuntimeConfig``, ``CapacityConfig``,
+``RouterConfig``, ``CacheTierConfig``) come with the slices that port
+those subsystems. ``CodecConfig`` takes only ``name="none"`` so far: the
+activation codecs are ``comm/``, the pipeline's step 3.
 
 What differs is what ``KernelConfig`` selects on this card:
 
@@ -184,3 +193,99 @@ class PipelineConfig:
             raise ValueError("microbatches must be >= 1")
         if self.hop_buffers < 2:
             raise ValueError("hop_buffers must be >= 2")
+
+
+@dataclasses.dataclass(frozen=True)
+class FaultConfig:
+    """Timeouts and retry policy of the adaptive dispatcher."""
+
+    #: Worker lease TTL (the reference's etcd lease on /workers/<ip>).
+    lease_ttl_s: float = 2.0
+    #: Heartbeat period (must be < lease_ttl_s).
+    heartbeat_s: float = 0.5
+    #: Per-task deadline before the watchdog re-dispatches (host time: a
+    #: worker waits for its stage's device work before it answers).
+    task_deadline_s: float = 60.0
+    #: Watchdog scan period.
+    watchdog_period_s: float = 0.25
+    #: Startup wait for the first worker, then a clean shutdown.
+    startup_wait_s: float = 5.0
+    #: Max re-dispatch attempts per task before failing the request.
+    max_retries: int = 3
+    #: Deadline misses before a still-heartbeating worker (a hang) is
+    #: quarantined: the scheduler acquires it only as a last resort.
+    quarantine_strikes: int = 2
+    #: A worker silent (no completed task or probe) longer than this gets a
+    #: canary ping task; a ping that misses the task deadline is a strike.
+    #: None -> task_deadline_s. Set very large to disable probing.
+    probe_silence_s: float | None = None
+    #: Worker-configuration handshake timeout.
+    configure_timeout_s: float = 60.0
+    #: Bound on a cross-host socket send. Nothing reads it until ``comm/``
+    #: (item 8 step 3) lands.
+    send_timeout_s: float = 10.0
+
+
+@dataclasses.dataclass(frozen=True)
+class CodecConfig:
+    """Activation / weights codecs at host boundaries. Only ``"none"`` is
+    ported: in-process hops move device tensors and need no codec; the
+    others (``bf16``, ``int8``, ``int8dev``, ``zfp``, ``lz``) are ``comm/``,
+    item 8 step 3 of ROADMAP.md queue 1."""
+
+    name: str = "none"  # none | bf16 | int8 | int8dev | zfp | lz
+    #: The lossy codecs' error bound and the weights codec: nothing reads
+    #: them until ``comm/`` lands.
+    tolerance: float = 1e-3
+    weights: str = "lz"
+
+    def __post_init__(self):
+        if self.name != "none":
+            raise NotImplementedError(
+                f"codec {self.name!r} is not ported yet: activation codecs "
+                "are comm/, item 8 step 3 of ROADMAP.md queue 1"
+            )
+
+
+@dataclasses.dataclass(frozen=True)
+class ObservabilityConfig:
+    """The tracing / flight-recorder knobs the dispatcher applies to the
+    process-global tracer and recorder (``utils.tracing``): tracing is
+    enable-only, and a capacity applies only when it differs from these
+    defaults (a default-config dispatcher never truncates a ring another
+    component sized). The engine-profiling fields (``obs_engine``,
+    ``compile_warmup``, ``goodput_window_s``) and
+    ``snapshot_on_recovery`` come with ``utils/profiling.py`` (queue 1
+    item 9) and ``Dispatcher.recover`` (item 8 step 3)."""
+
+    trace_enabled: bool = False
+    trace_capacity: int = 65536
+    flight_capacity: int = 2048
+
+    def __post_init__(self):
+        if self.trace_capacity < 1:
+            raise ValueError("trace_capacity must be >= 1")
+        if self.flight_capacity < 1:
+            raise ValueError("flight_capacity must be >= 1")
+
+
+@dataclasses.dataclass(frozen=True)
+class ServeConfig:
+    """Top-level serving configuration."""
+
+    #: Bounded request concurrency (the reference's semaphore).
+    max_inflight: int = 8
+    fault: FaultConfig = dataclasses.field(default_factory=FaultConfig)
+    codec: CodecConfig = dataclasses.field(default_factory=CodecConfig)
+    #: ``pipeline``, ``spec``, ``kernel`` and ``scheduler`` carry the JAX
+    #: package's field names: ``Dispatcher`` and the pipelines read none of
+    #: them (the LM path takes those configs as arguments of its own).
+    pipeline: PipelineConfig = dataclasses.field(
+        default_factory=PipelineConfig)
+    obs: ObservabilityConfig = dataclasses.field(
+        default_factory=ObservabilityConfig)
+    spec: SpeculativeConfig = dataclasses.field(
+        default_factory=SpeculativeConfig)
+    kernel: KernelConfig = dataclasses.field(default_factory=KernelConfig)
+    scheduler: SchedulerConfig = dataclasses.field(
+        default_factory=SchedulerConfig)

@@ -1,4 +1,4 @@
-"""Load the JAX package's flax ``variables`` into the port's LM and ViT.
+"""Load the JAX package's flax ``variables`` into the port's LM, ViT and CNNs.
 
 ``from_flax(variables)`` takes the per-node variables of
 ``adapt_tpu.models.transformer_lm`` (nested dicts of numpy arrays — pass
@@ -23,6 +23,18 @@ Mapping (flax -> torch):
   carries it into the port's ``QuantizedTensor``, and :func:`from_flax`
   dequantizes it with the port's own ``dequantize`` before mapping — so the
   very int8 payload JAX produced loads as the draft's weights.
+
+``cnn_from_flax(variables)`` does the same for the JAX package's ResNets
+and EfficientNets (``adapt_tpu.models.resnet`` / ``efficientnet``: every
+node's ``params`` and ``batch_stats``) and the port's CNN ``LayerGraph``:
+conv kernels are HWIO and become torch's OIHW (a depthwise kernel
+``(k, k, 1, C)`` becomes ``(C, 1, k, k)``); BatchNorm ``scale`` / ``bias``
+(parameters) and ``mean`` / ``var`` (``batch_stats``, buffers in the port)
+keep their names; the SE block's two 1x1 convs carry their biases, and the
+classifier's Dense its bias. A ``ConvBN``'s flax children ``ConvBN_k``
+map to the port's ``conv0``, ``conv1``, ``conv2`` (bottleneck branch),
+``conv`` (stem, projection) or ``expand`` / ``depthwise`` / ``project``
+(MBConv branch, in the order flax created them).
 
 ``vit_from_flax(variables)`` does the same for ``adapt_tpu.models.vit``'s
 per-node variables and the port's ViT ``LayerGraph`` (keys
@@ -136,4 +148,56 @@ def vit_from_flax(variables) -> dict[str, torch.Tensor]:
     head = variables["head"]["params"]
     _norm(sd, "layers.head.ln", head["LayerNorm_0"])
     _dense(sd, "layers.head.fc", head["Dense_0"])
+    return sd
+
+
+def _conv_kernel(k) -> torch.Tensor:
+    return _t(np.transpose(_arr(k), (3, 2, 0, 1)))
+
+
+def _convbn(out: dict, prefix: str, p: dict, stats: dict) -> None:
+    out[f"{prefix}.weight"] = _conv_kernel(p["Conv_0"]["kernel"])
+    _norm(out, prefix, p["BatchNorm_0"])
+    out[f"{prefix}.mean"] = _t(stats["BatchNorm_0"]["mean"])
+    out[f"{prefix}.var"] = _t(stats["BatchNorm_0"]["var"])
+
+
+def _convbns(p: dict) -> list[str]:
+    return sorted((k for k in p if k.startswith("ConvBN_")),
+                  key=lambda k: int(k.rsplit("_", 1)[1]))
+
+
+def cnn_from_flax(variables) -> dict[str, torch.Tensor]:
+    """flax ResNet / EfficientNet variables -> the port's CNN
+    ``state_dict`` (f32 CPU tensors, BatchNorm statistics included)."""
+    sd: dict[str, torch.Tensor] = {}
+    for node, v in variables.items():
+        p, stats = v.get("params", {}), v.get("batch_stats", {})
+        if not p:
+            continue  # a merge node
+        pre = f"layers.{node}"
+        convs = _convbns(p)
+        if "Conv_0" in p:  # the node is a ConvBN
+            _convbn(sd, pre, p, stats)
+            continue
+        if "Dense_0" in p:  # ClassifierHead
+            _dense(sd, f"{pre}.fc", p["Dense_0"])
+            continue
+        if "SqueezeExcite_0" in p:  # MBConvBranch
+            roles = (["expand"] if len(convs) == 3 else []) + [
+                "depthwise", "project"]
+            se = p["SqueezeExcite_0"]
+            for name, conv in (("reduce", "Conv_0"), ("expand", "Conv_1")):
+                sd[f"{pre}.se.{name}_weight"] = _conv_kernel(
+                    se[conv]["kernel"])
+                sd[f"{pre}.se.{name}_bias"] = _t(se[conv]["bias"])
+        elif len(convs) == 3:  # BottleneckBranch
+            roles = ["conv0", "conv1", "conv2"]
+        elif len(convs) == 1:  # stem, Projection
+            roles = ["conv"]
+        else:
+            raise ValueError(f"node {node!r}: unknown CNN module layout "
+                             f"{sorted(p)}")
+        for role, conv in zip(roles, convs, strict=True):
+            _convbn(sd, f"{pre}.{role}", p[conv], stats[conv])
     return sd

@@ -1,1 +1,2 @@
-"""The layer-graph IR of the port (``ir``)."""
+"""The layer-graph IR of the port (``ir``), its partitioner
+(``partition``) and its architecture-by-value specs (``spec``)."""

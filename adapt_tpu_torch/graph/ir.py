@@ -11,11 +11,20 @@ parameters live in the modules, so ``apply`` takes only the input.
 
 Nodes must be added in topological order (every input must already exist),
 which makes insertion order a valid execution order.
+
+A node module that subclasses :class:`NodeModule` records its constructor
+arguments (``spec_args``): :func:`rebuild` makes a fresh module of the same
+kind on another device from them (a pipeline stage, a worker's binding, the
+meta-device pass of :meth:`LayerGraph.eval_shapes`), and ``graph.spec``
+writes them into a graph's spec. :class:`Lambda` nodes hold no state and are
+shared, not rebuilt.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
+import inspect
 from collections.abc import Callable, Mapping, Sequence
 
 import torch
@@ -23,6 +32,49 @@ from torch import nn
 
 #: Sentinel name for the graph's input tensor.
 INPUT = "__input__"
+
+
+class NodeModule(nn.Module):
+    """A node module that records the arguments it was constructed with as
+    ``spec_args`` (every argument but ``device``; defaults filled in).
+    Subclasses take a ``device=`` argument and allocate their parameters
+    and buffers there; ``type(m)(**m.spec_args, device=d)`` builds the same
+    node, with uninitialised weights, on ``d``."""
+
+    def __init_subclass__(cls, **kwargs):
+        super().__init_subclass__(**kwargs)
+        init = cls.__dict__.get("__init__")
+        if init is None:
+            return
+        sig = inspect.signature(init)
+
+        @functools.wraps(init)
+        def recording_init(self, *args, **kw):
+            init(self, *args, **kw)
+            if type(self).__init__ is recording_init:  # the outermost class
+                bound = sig.bind(self, *args, **kw)
+                bound.apply_defaults()
+                spec_args = dict(bound.arguments)
+                del spec_args["self"]
+                spec_args.pop("device", None)
+                self.spec_args = spec_args
+
+        cls.__init__ = recording_init
+
+
+def rebuild(module: nn.Module, device) -> nn.Module:
+    """A fresh module of ``module``'s kind and arguments on ``device``
+    (weights uninitialised: load a state into it); a :class:`Lambda` is
+    returned as it is."""
+    if isinstance(module, Lambda):
+        return module
+    spec_args = getattr(module, "spec_args", None)
+    if spec_args is None:
+        raise TypeError(
+            f"cannot rebuild {type(module).__qualname__}: node modules must "
+            "subclass graph.ir.NodeModule (or be a Lambda)"
+        )
+    return type(module)(**spec_args, device=device)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -132,6 +184,19 @@ class LayerGraph(nn.Module):
             node = self._nodes[name]
             cache[name] = node.apply(*(cache[dep] for dep in node.inputs))
         return cache[output if output is not None else node_names[-1]]
+
+    def eval_shapes(self, x) -> dict[str, torch.Tensor]:
+        """Per-node outputs as meta tensors (shape and dtype, no storage),
+        without running the model: every node is rebuilt on the meta device
+        and fed meta tensors. ``x`` is a tensor or a meta tensor of the
+        input's shape and dtype."""
+        shapes = {INPUT: torch.empty(x.shape, dtype=x.dtype, device="meta")}
+        with torch.no_grad():
+            for node in self._nodes.values():
+                meta = rebuild(node.module, "meta")
+                shapes[node.name] = meta(*(shapes[d] for d in node.inputs))
+        del shapes[INPUT]
+        return shapes
 
     def extra_repr(self) -> str:
         return f"{self.name!r}, nodes={len(self._nodes)}, output={self._output!r}"

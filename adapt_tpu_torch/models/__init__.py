@@ -1,2 +1,3 @@
-"""Models of the port: the decoder LM (``transformer_lm``, ``speculative``)
-and the ViT (``vit``)."""
+"""Models of the port: the decoder LM (``transformer_lm``, ``speculative``),
+the ViT (``vit``) and the CNN zoo (``layers``, ``resnet``,
+``efficientnet``)."""

@@ -15,7 +15,6 @@ Load the JAX package's weights with ``convert.vit_from_flax``.
 
 from __future__ import annotations
 
-import math
 from collections.abc import Callable
 
 import torch
@@ -23,24 +22,10 @@ import torch.nn.functional as F
 from torch import nn
 
 from adapt_tpu_torch import resolve_device
-from adapt_tpu_torch.graph.ir import INPUT, LayerGraph
+from adapt_tpu_torch.graph.ir import INPUT, LayerGraph, NodeModule
+from adapt_tpu_torch.models.layers import Dense, init_weights
 from adapt_tpu_torch.models.transformer_lm import LayerNorm
 from adapt_tpu_torch.ops.attention import flash_attention
-
-
-class Dense(nn.Module):
-    """flax ``nn.Dense(dtype=...)``: f32 ``(out, in)`` weight and bias, cast
-    with the input to ``dtype`` for the product."""
-
-    def __init__(self, d_in, d_out, dtype=torch.float32, device=None):
-        super().__init__()
-        self.dtype = dtype
-        self.weight = nn.Parameter(torch.empty(d_out, d_in, device=device))
-        self.bias = nn.Parameter(torch.zeros(d_out, device=device))
-
-    def forward(self, x):
-        dt = self.dtype
-        return F.linear(x.to(dt), self.weight.to(dt), self.bias.to(dt))
 
 
 class MultiHeadSelfAttention(nn.Module):
@@ -73,7 +58,7 @@ class MultiHeadSelfAttention(nn.Module):
         return self.out(o.transpose(1, 2).reshape(b, s, d))
 
 
-class PatchEmbed(nn.Module):
+class PatchEmbed(NodeModule):
     """Patchify conv + [CLS] token + learned position embeddings. The conv
     weight is torch's ``(dim, in_chans, patch, patch)``; a stride-``patch``
     VALID conv is one product over flattened ``(c, ph, pw)`` patches, which
@@ -105,7 +90,7 @@ class PatchEmbed(nn.Module):
         return torch.cat([cls, x], dim=1) + self.pos_embed.to(dt)
 
 
-class EncoderBlock(nn.Module):
+class EncoderBlock(NodeModule):
     """Pre-LN transformer encoder block (residuals kept inside the node, so
     inter-block edges are clean pipeline boundaries)."""
 
@@ -126,7 +111,7 @@ class EncoderBlock(nn.Module):
         return x + self.mlp_out(y)
 
 
-class ViTHead(nn.Module):
+class ViTHead(NodeModule):
     """Final LN + CLS-token classifier (the classifier in f32)."""
 
     def __init__(self, dim, num_classes, dtype=torch.float32, device=None):
@@ -138,33 +123,12 @@ class ViTHead(nn.Module):
         return self.fc(self.ln(x)[:, 0].float())
 
 
-@torch.no_grad()
-def init_vit_weights(graph: LayerGraph, seed: int = 0) -> LayerGraph:
-    """Random weights from ``seed``, drawn on the CPU (the same numbers on
-    any device): Dense and patch weights N(0, 1/fan_in) (flax's
-    lecun_normal without truncation), position embeddings N(0, 0.02^2),
-    zero biases and CLS token, unit LN scales."""
-    gen = torch.Generator().manual_seed(seed)
-    for name, p in graph.named_parameters():
-        leaf = name.rsplit(".", 1)[-1]
-        if leaf in ("bias", "cls"):
-            p.zero_()
-        elif leaf == "scale":
-            p.fill_(1.0)
-        elif leaf == "pos_embed":
-            p.copy_(torch.randn(p.shape, generator=gen) * 0.02)
-        else:  # (out, in) or (out, c, ph, pw)
-            fan_in = math.prod(p.shape[1:])
-            p.copy_(torch.randn(p.shape, generator=gen) / math.sqrt(fan_in))
-    return graph
-
-
 def vit(patch, dim, depth, heads, mlp_dim, num_classes=1000,
         dtype=torch.float32, name="vit", attn_prefer=None, img_size=224,
         device=None, seed=0) -> LayerGraph:
     """A ViT LayerGraph on ``device`` (the CUDA card unless ``"cpu"`` is
-    asked for) with random weights from ``seed``: nodes ``patch_embed``,
-    ``encoder_block_{i}`` and ``head``."""
+    asked for) with random weights from ``seed`` (``layers.init_weights``):
+    nodes ``patch_embed``, ``encoder_block_{i}`` and ``head``."""
     dev = resolve_device(device)
     g = LayerGraph(name)
     prev = g.add("patch_embed",
@@ -177,7 +141,7 @@ def vit(patch, dim, depth, heads, mlp_dim, num_classes=1000,
             prev,
         )
     g.add("head", ViTHead(dim, num_classes, dtype, dev), prev)
-    return init_vit_weights(g, seed)
+    return init_weights(g, seed)
 
 
 def vit_b16(num_classes=1000, dtype=torch.float32, attn_prefer=None,

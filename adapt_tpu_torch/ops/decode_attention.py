@@ -34,7 +34,7 @@ from __future__ import annotations
 import torch
 
 from adapt_tpu_torch.ops import _build
-from adapt_tpu_torch.ops.quantize import kv_values
+from adapt_tpu_torch.ops.quantize import aligned16, kv_values
 
 _NEG_INF = -1e30
 
@@ -318,15 +318,6 @@ def _check_kernel_args(q, cache_k, cache_v):
         raise ValueError(f"K2 serves g <= {KERNEL_MAX_G} rows, got {g}")
     c = lambda t: None if t is None else t.contiguous()  # noqa: E731
     return aligned16(c(k)), aligned16(c(v)), c(ks), c(vs), code
-
-
-def aligned16(t):
-    """``t`` itself when its storage starts on a 16-byte boundary, which
-    the unsplit kernels' 16-byte ``cp.async`` copies of the K/V values
-    need, else an aligned contiguous copy."""
-    if t.data_ptr() % 16 == 0:
-        return t
-    return t.clone(memory_format=torch.contiguous_format)
 
 
 _COUNTERS: dict = {}

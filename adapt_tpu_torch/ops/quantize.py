@@ -26,7 +26,11 @@ version; both are bit-equal to the JAX package's on the same input (a true
 division, round half to even, one rounding into the target dtype on the way
 back), non-finite input included (a NaN block scale, an Inf one, 0 for a
 NaN quotient). ``dequantize_params`` dequantizes a whole weight tree in one
-launch per 32 leaves (:func:`dequantize_plan`).
+launch per 32 leaves (:func:`dequantize_plan`). The kernels read and write
+16-byte vectors and their entry points (``quantize_blocks``,
+``dequantize_blocks``) refuse a base that is not 16-byte aligned; the
+public ``quantize`` / ``dequantize`` / ``dequantize_params`` take any view,
+copying such an operand to an aligned buffer first (:func:`aligned16`).
 """
 
 from __future__ import annotations
@@ -177,6 +181,15 @@ def dequantize_plan(sizes):
     return plan
 
 
+def aligned16(t):
+    """``t`` itself when its storage starts on a 16-byte boundary, which
+    the kernels' 16-byte vector and ``cp.async`` copies need, else an
+    aligned contiguous copy."""
+    if t.data_ptr() % 16 == 0:
+        return t
+    return t.clone(memory_format=torch.contiguous_format)
+
+
 def _aligned(t, what):
     if t.data_ptr() % 16:
         raise ValueError(f"K6 reads and writes {what} in 16-byte vectors: "
@@ -263,16 +276,28 @@ quantize_blocks.launches = 0
 dequantize_blocks.launches = 0
 
 
+def _aligned_payload(qt: QuantizedTensor) -> QuantizedTensor:
+    """``qt`` with its int8 values contiguous at a 16-byte-aligned base
+    (copied only when they are not)."""
+    v = aligned16(qt.values.contiguous())
+    return qt if v is qt.values else dataclasses.replace(qt, values=v)
+
+
 def quantize(x) -> QuantizedTensor:
-    """Blockwise int8-quantize a tensor of any shape: K6 on CUDA, the
-    plain version on CPU."""
-    return quantize_blocks(x) if x.is_cuda else quantize_reference(x)
+    """Blockwise int8-quantize a tensor of any shape, any view included:
+    K6 on CUDA (an input whose base is not 16-byte aligned is copied to
+    one that is first), the plain version on CPU."""
+    if x.is_cuda:
+        return quantize_blocks(aligned16(x.contiguous()))
+    return quantize_reference(x)
 
 
 def dequantize(qt: QuantizedTensor):
-    """Inverse of :func:`quantize`: K6 on CUDA, the plain version on CPU."""
+    """Inverse of :func:`quantize`: K6 on CUDA (int8 values whose base is
+    not 16-byte aligned are copied to one that is first), the plain
+    version on CPU."""
     if qt.values.is_cuda:
-        return dequantize_blocks(qt)
+        return dequantize_blocks(_aligned_payload(qt))
     return dequantize_reference(qt)
 
 
@@ -320,6 +345,7 @@ def dequantize_params(tree):
         else:
             outs[i] = dequantize_reference(qt)
     for idx in by_dev.values():
-        for i, out in zip(idx, _dequantize_grouped([qts[i] for i in idx])):
+        for i, out in zip(idx, _dequantize_grouped(
+                [_aligned_payload(qts[i]) for i in idx])):
             outs[i] = out
     return _replace_leaves(tree, iter(outs))

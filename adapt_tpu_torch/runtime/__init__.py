@@ -1,1 +1,2 @@
-"""Serving runtime of the port (the dense continuous batcher so far)."""
+"""Serving runtime of the port: the continuous batcher (``continuous``,
+``paged``, ``scheduler``) and the partitioned pipelines (``pipeline``)."""

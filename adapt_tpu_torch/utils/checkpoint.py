@@ -1,7 +1,19 @@
-"""Step-numbered train-state checkpoints with retention and resume.
+"""Checkpoints: one weights snapshot with a metadata sidecar, and
+step-numbered train state with retention and resume.
 
-Counterpart of ``adapt_tpu/utils/checkpoint.py``'s ``TrainCheckpointer``,
-saved with ``torch.save`` (no orbax): one file ``step_<n>.pt`` per step
+Counterpart of ``adapt_tpu/utils/checkpoint.py``, saved with
+``torch.save`` / ``torch.load(weights_only=True)`` (no orbax).
+
+``save_variables(path, variables, metadata)`` writes a tree of tensors
+(a ``state_dict``, or the per-stage ``{node: state dict}`` of a plan) to
+``path/variables.pt`` with every tensor on the host, and ``metadata``
+(model name, partition cuts, step: anything JSON takes) to
+``path/adapt_meta.json``, the JAX package's sidecar name.
+``restore_variables(path)`` gives both back, the tensors on the CPU:
+placement is the caller's (a pipeline's stages, a dispatcher's workers),
+so a snapshot restores onto any device list.
+
+``TrainCheckpointer`` writes one file ``step_<n>.pt`` per step
 under the directory, holding ``{"params", "opt_state"}`` with every tensor
 on the host, and only the newest ``max_to_keep`` steps kept. Restores are
 host-first, as in the JAX package: ``restore`` loads the saved parameters
@@ -12,6 +24,7 @@ Nothing stays open between calls, so there is nothing to close.
 
 from __future__ import annotations
 
+import json
 import os
 import re
 from typing import Any
@@ -19,6 +32,8 @@ from typing import Any
 import torch
 
 _NAME = re.compile(r"^step_(\d+)\.pt$")
+_META_NAME = "adapt_meta.json"
+_VARIABLES_NAME = "variables.pt"
 
 
 def _to_host(tree: Any) -> Any:
@@ -33,6 +48,42 @@ def _to_host(tree: Any) -> Any:
 
 def _state(obj: Any) -> Any:
     return obj.state_dict() if hasattr(obj, "state_dict") else obj
+
+
+def _replace(path: str, write) -> None:
+    """Write ``path`` through a temporary file and an atomic rename."""
+    tmp = f"{path}.{os.getpid()}.tmp"
+    write(tmp)
+    os.replace(tmp, path)
+
+
+def save_variables(path: str | os.PathLike, variables: Any,
+                   metadata: dict | None = None) -> None:
+    """Write one tree of tensors (+ JSON metadata sidecar) under the
+    directory ``path``."""
+    path = os.path.abspath(os.fspath(path))
+    os.makedirs(path, exist_ok=True)
+    _replace(os.path.join(path, _VARIABLES_NAME),
+             lambda tmp: torch.save(_to_host(variables), tmp))
+    if metadata is not None:
+        def dump(tmp):
+            with open(tmp, "w") as f:
+                json.dump(metadata, f)
+        _replace(os.path.join(path, _META_NAME), dump)
+
+
+def restore_variables(path: str | os.PathLike) -> tuple[Any, dict]:
+    """``(variables, metadata)`` saved under ``path``, the tensors on the
+    CPU (``{}`` when no metadata was saved)."""
+    path = os.path.abspath(os.fspath(path))
+    variables = torch.load(os.path.join(path, _VARIABLES_NAME),
+                           map_location="cpu", weights_only=True)
+    metadata: dict = {}
+    meta_path = os.path.join(path, _META_NAME)
+    if os.path.exists(meta_path):
+        with open(meta_path) as f:
+            metadata = json.load(f)
+    return variables, metadata
 
 
 class TrainCheckpointer:
@@ -57,10 +108,9 @@ class TrainCheckpointer:
         """Write step ``step`` (params: a module-like object with a
         ``state_dict``, or a tree of tensors) atomically, then drop all but
         the newest ``max_to_keep`` steps."""
-        tmp = self._path(step) + f".{os.getpid()}.tmp"
-        torch.save({"params": _to_host(_state(params)),
-                    "opt_state": _to_host(opt_state)}, tmp)
-        os.replace(tmp, self._path(step))
+        _replace(self._path(step), lambda tmp: torch.save(
+            {"params": _to_host(_state(params)),
+             "opt_state": _to_host(opt_state)}, tmp))
         for old in self.steps()[:-self._keep]:
             os.remove(self._path(old))
 

@@ -100,7 +100,10 @@ Phases (no phase failure is caught; any mismatch exits non-zero):
    head_dim 128, a dead slot in every case, split 1 equal to the unsplit
    kernel with ``torch.equal``) and K6 (``quantize_blocks`` /
    ``dequantize_blocks``, ``torch.equal`` to the plain version at every
-   draft matrix shape, ragged, all-zero and NaN / +-Inf blocks, NaN-aware)
+   draft matrix shape, ragged, all-zero and NaN / +-Inf blocks, NaN-aware;
+   the public ``quantize`` / ``dequantize`` on a bf16 view at storage
+   offset 1 and an int8 payload at an odd offset, copied aligned and
+   launched once each)
    against their plain versions; ``dequantize_params`` of the 2-layer
    draft's tree in one K6 launch, 40 leaves in two, each leaf equal to
    ``dequantize_blocks`` alone and to the plain version; then the 12-layer
@@ -139,7 +142,31 @@ Phases (no phase failure is caught; any mismatch exits non-zero):
    minus forward) and the bound; then the device time per launch of K1 (ViT
    shape and LM prefill shape b1 h12 s512 d64 causal), K7 (ViT shape) and
    SDPA's forward and forward + backward at the same shapes; then the decode
-   kernels' device times (``decode_device_times``).
+   kernels' device times (``decode_device_times``);
+12. the paper's pipeline (``pipeline_phase``; TF32 off, so its f32 gates are
+   real f32): ``LocalPipeline`` (3 stages on the card, ``infer`` and
+   ``stream``) over ResNet-50 (``conv7`` stem, 1000 classes, 224 x 224 x 3,
+   batch 8, ``RESNET50_3STAGE_CUTS``) and EfficientNet-B4 (380 x 380, batch
+   4, ``balanced_cuts``) in f32 and bf16 compute and ViT-B/16 (bf16, batch
+   8, ``vit_block_cuts(12, 3)``), 32 requests each, random weights from
+   seed 0: every output within 1e-4 (f32) / 1e-2 (bf16) of the largest
+   ``graph.apply`` logit on the card (bit-equality printed); for the ViT,
+   K1 within 1e-2 + 1e-2|ref| of its plain version on every block's own
+   q / k / v, and every stream output as close to the f32 truth (the same
+   weights in f32, every attention on the plain version) as the bf16 model
+   on the plain versions comes (bar max(1e-2, 2 x its error)); images/s of
+   ``graph.apply``, ``infer`` and ``stream``, the card's busy share under
+   ``infer`` (``torch.profiler`` device ms over the wall ms a request),
+   ``eval_shapes`` at the cuts,
+   K1 launched 12 times a request on the ViT's stream (the K1 row's
+   ``pipeline_launches``); then the graft scenario: ViT-B/16 in 3 stages
+   behind ``ServingPipeline`` on four workers of the card, 16 requests of
+   batch 8, worker 0 crashed at request 5 and worker 1 hung at request 9:
+   every result within 1e-2 of ``graph.apply``, none failed, at least 16
+   completed, the hung worker not DEAD, no stage module built by the
+   failover (``dispatcher.stage_builds``), the last result within 10 x
+   (deadline + lease TTL) of the crash; recovery seconds, images/s,
+   re-dispatches and quarantines printed, and the phase's seconds.
 
 The line before the last is the kernels' JSON; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -219,6 +246,7 @@ def check_k1(torch, A, dev, errs):
              (32, 128, 512, 1024)]
     cases += [
         (dict(b=2, h=12, s=197, d=64, causal=False), {}),  # ViT ragged
+        (dict(b=8, h=12, s=197, d=64, causal=False), {}),  # phase 12's ViT
         (dict(b=1, h=12, s=197, d=64, causal=True), {}),
         (dict(b=4, h=12, s=128, d=64, causal=True),
          {"valid_from": torch.tensor([0, 5, 64, 127], device=dev)}),
@@ -811,6 +839,35 @@ def check_k6(torch, Q, dev, errs):
               f"plain version (NaN-aware; scales {qt.scales.flatten()[:3].tolist()}"
               f"{'...' if qt.scales.numel() > 3 else ''}; finite round-trip "
               f"error {rt:.3e})")
+    # The public entry points on bases no 16-byte vector access may start
+    # at (the kernels refuse them): a view at storage offset 1 and an int8
+    # payload stored at an odd offset are copied aligned, then launched.
+    buf = torch.randn(2 * 8192 + 1, generator=gen, device=dev).to(
+        torch.bfloat16)
+    x = buf[1:].view(2, 8192)
+    n_q, n_d = Q.quantize_blocks.launches, Q.dequantize_blocks.launches
+    qt = Q.quantize(x)
+    shifted = torch.empty(qt.values.numel() + 1, dtype=torch.int8,
+                          device=dev)
+    shifted[1:] = qt.values.reshape(-1)
+    odd = Q.QuantizedTensor(shifted[1:].view(-1, 128), qt.scales, qt.shape,
+                            qt.dtype)
+    back = Q.dequantize(odd)
+    torch.cuda.synchronize()
+    ref = Q.quantize_reference(x)
+    if (Q.quantize_blocks.launches, Q.dequantize_blocks.launches) != (
+            n_q + 1, n_d + 1):
+        raise AssertionError("K6's public quantize / dequantize on unaligned "
+                             "bases did not launch the kernels once each")
+    if not (torch.equal(qt.values, ref.values)
+            and same_bits(torch, qt.scales, ref.scales)
+            and same_bits(torch, back, Q.dequantize_reference(ref))):
+        raise AssertionError("K6's public quantize / dequantize on unaligned "
+                             "bases differ from the plain version")
+    print(f"K6 public quantize of a bf16 view at storage offset "
+          f"{x.storage_offset()} and dequantize of an int8 payload at offset "
+          f"{odd.values.storage_offset()}: copied aligned, one launch each, "
+          "torch.equal to the plain version")
 
 
 def check_k6_grouped(torch, Q, draft_state):
@@ -2092,6 +2149,332 @@ def ptxas_report(_build):
                       f"registers, {sp} bytes spilled")
 
 
+def device_ms_sum(torch, fn, n=5):
+    """(device ms, device events) per call of ``fn()``, from one
+    ``torch.profiler`` session of ``n`` calls after a warm-up call: the sum
+    of every device event's duration (kernels, copies; one stream runs them
+    one at a time). No markers: with a session a model, the profiler once
+    lost ``device_ms_each``'s markers and its first events; so the sum is
+    a floor, and the event count shows a loss."""
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    dev = [e.time_range.end - e.time_range.start for e in prof.events()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    return sum(dev) / 1e3 / n, len(dev) / n
+
+
+def local_pipeline_case(torch, A, dev, card, label, graph, cuts, xs, tol,
+                        k1_per_request=0, oracle=None):
+    """Phase 12, one model: ``graph`` cut at ``cuts`` into a LocalPipeline
+    of 3 stages on ``dev``; ``infer`` and ``stream`` over the requests
+    ``xs``, every output within ``tol`` x max|ref| of ``graph.apply`` on
+    the same card. With ``oracle`` (x -> (the f32 truth, the graph's own
+    output with every kernel on its plain version)), every stream output
+    also lies within max(``tol``, 2 x the plain output's error) x
+    max|truth| of the truth: as close to it as the plain versions come,
+    in the compute dtype's own rounding noise. Images/s of
+    ``graph.apply`` alone, ``infer`` and ``stream`` (host clock around work
+    ending in a synchronize); the card's busy share under ``infer``
+    (device ms a request under ``torch.profiler`` over the unprofiled wall
+    ms a request); with ``k1_per_request``, K1's launches over the stream
+    (counts set to 0 just before it) must be that many per request.
+    Returns K1's count."""
+    from adapt_tpu_torch.graph.partition import partition
+    from adapt_tpu_torch.runtime.pipeline import LocalPipeline
+
+    plan = partition(graph, cuts)
+    n_img = sum(x.shape[0] for x in xs)
+    shapes = graph.eval_shapes(xs[0])
+    cut_desc = ", ".join(
+        f"{c} {tuple(shapes[c].shape)} {str(shapes[c].dtype)[6:]} "
+        f"{shapes[c].numel() * shapes[c].element_size() / 1e6:.1f} MB"
+        for c in plan.cuts)
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    with torch.no_grad():
+        refs = [graph.apply(x) for x in xs]  # also the warm-up
+        refs, t_apply = timed(lambda: [graph.apply(x) for x in xs])
+        truths = [oracle(x) for x in xs] if oracle is not None else []
+    pipe = LocalPipeline(plan, devices=[dev] * plan.num_stages)
+    pipe.warmup(xs[0])
+    infer, t_infer = timed(lambda: [pipe.infer(x) for x in xs])
+    A.flash_attn_fwd.launches = 0
+    stream, t_stream = timed(lambda: pipe.stream(xs))
+    k1 = A.flash_attn_fwd.launches
+    dev_ms, launches = device_ms_sum(torch, lambda: pipe.infer(xs[0]))
+    stage_ms, acts = [], xs  # each stage alone over every request
+    for stage in pipe.stages:
+        acts, t = timed(lambda: [stage(a) for a in acts])
+        stage_ms.append(t / len(xs) * 1e3)
+    if len(stream) != len(xs):
+        raise AssertionError(f"{label}: stream returned {len(stream)} of "
+                             f"{len(xs)} outputs")
+    worst, bit_equal = 0.0, True
+    for i, (y, ref) in enumerate(zip(infer + stream, refs + refs)):
+        scale = float(ref.float().abs().max())
+        err = float((y.float() - ref.float()).abs().max())
+        if not err <= tol * scale:
+            raise AssertionError(
+                f"{label}: output {i} differs from graph.apply by {err:.3e} "
+                f"> {tol} x max|ref| {scale:.3e}")
+        worst = max(worst, err / scale)
+        bit_equal = bit_equal and torch.equal(y, ref)
+    worst_truth = worst_plain = 0.0
+    for i, (y, (truth, plain)) in enumerate(zip(stream, truths)):
+        scale = float(truth.float().abs().max())
+        err = float((y.float() - truth.float()).abs().max()) / scale
+        err_plain = float((plain.float() - truth.float()).abs().max()) / scale
+        if not err <= max(tol, 2 * err_plain):
+            raise AssertionError(
+                f"{label}: output {i} differs from the f32 truth by {err:.3e}"
+                f" x max|truth|, over max({tol}, 2 x the plain versions' "
+                f"{err_plain:.3e})")
+        worst_truth = max(worst_truth, err)
+        worst_plain = max(worst_plain, err_plain)
+    if k1_per_request and k1 != k1_per_request * len(xs):
+        raise AssertionError(f"{label}: K1 launched {k1} times over "
+                             f"{len(xs)} requests, want {k1_per_request} "
+                             "each")
+    print(f"{label} LocalPipeline ({plan.num_stages} stages {list(plan.cuts)}) "
+          f"on {card}: {len(xs)} requests of batch {xs[0].shape[0]}; "
+          f"images/s graph.apply {n_img / t_apply:.1f}, infer "
+          f"{n_img / t_infer:.1f}, stream {n_img / t_stream:.1f}; outputs "
+          f"vs graph.apply: largest error {worst:.3e} x max|ref| (gate "
+          f"{tol}), bit-equal {bit_equal}"
+          + (f"; vs the f32 truth (plain versions, f32): stream's largest "
+             f"error {worst_truth:.3e} x max|truth|, the plain versions' "
+             f"own {worst_plain:.3e} (bar max({tol}, 2 x that a request))"
+             if truths else "")
+          + f"; infer wall {t_infer / len(xs) * 1e3:.3f} ms a request, "
+          f"device {dev_ms:.3f} ms in {launches:g} device events "
+          f"(torch.profiler): busy share "
+          f"{dev_ms / (t_infer / len(xs) * 1e3):.3f}; stage ms a request "
+          f"(each alone) "
+          f"{[round(t, 3) for t in stage_ms]}, no hop (stage outputs stay on "
+          f"the card); eval_shapes at the cuts: "
+          f"{cut_desc}" + (f"; K1 launches {k1} ({k1 // len(xs)} a request)"
+                           if k1_per_request else ""))
+    return k1
+
+
+def serving_case(torch, A, dev, card, graph, cuts, x, n_req, tol):
+    """Phase 12, the graft scenario on the card: ``graph`` cut at ``cuts``
+    behind ``ServingPipeline`` with four workers on ``dev``; ``n_req``
+    requests of ``x``, worker 0 crashed at request 5 and worker 1 hung at
+    request 9. Gates: every result within ``tol`` x max|ref| of
+    ``graph.apply``, none failed, at least ``n_req`` completed, worker 1
+    not DEAD, no stage module built by the failover, the last result
+    within 10 x (deadline + lease TTL) of the crash."""
+    from adapt_tpu_torch.config import FaultConfig, ServeConfig
+    from adapt_tpu_torch.control.worker import WorkerState
+    from adapt_tpu_torch.graph.partition import partition
+    from adapt_tpu_torch.runtime.pipeline import ServingPipeline
+    from adapt_tpu_torch.utils.metrics import global_metrics
+
+    plan = partition(graph, cuts)
+    with torch.no_grad():
+        ref = graph.apply(x)
+    scale = float(ref.float().abs().max())
+    cfg = ServeConfig(max_inflight=8, fault=FaultConfig(
+        lease_ttl_s=0.5, heartbeat_s=0.1, task_deadline_s=2.0,
+        watchdog_period_s=0.05, startup_wait_s=10.0, max_retries=4,
+        quarantine_strikes=2))
+    global_metrics().reset()
+    with ServingPipeline(plan, None, [dev] * 4, cfg) as pipe:
+        pipe.warmup(x)
+        builds = pipe.dispatcher.stage_builds
+        A.flash_attn_fwd.launches = 0
+        t0 = time.perf_counter()
+        futures, t_kill = [], None
+        for i in range(n_req):
+            futures.append(pipe.dispatcher.submit(x))
+            if i == 5:
+                pipe.kill_worker(0, mode="crash")
+                t_kill = time.monotonic()
+            elif i == 9:
+                pipe.kill_worker(1, mode="hang")
+        results = [f.result(120.0) for f in futures]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        recovery_s = time.monotonic() - t_kill
+        k1 = A.flash_attn_fwd.launches
+        snap = global_metrics().snapshot()
+        counters = snap["counters"]
+        stage_p50 = [round(snap["histograms"][f"stage{i}.latency_s"]["p50"]
+                           * 1e3, 3) for i in range(plan.num_stages)]
+        hung_state = pipe.workers[1].state
+        after = pipe.dispatcher.stage_builds
+    errs = [float((y.float() - ref.float()).abs().max()) for y in results]
+    budget = 10 * (cfg.fault.task_deadline_s + cfg.fault.lease_ttl_s)
+    failures = [
+        (f"a result differs from graph.apply by {max(errs):.3e} > {tol} x "
+         f"max|ref| {scale:.3e}") if not max(errs) <= tol * scale else None,
+        (f"{counters.get('dispatcher.failed', 0)} requests failed")
+        if counters.get("dispatcher.failed", 0) else None,
+        (f"{counters.get('dispatcher.completed', 0)} completed < {n_req}")
+        if counters.get("dispatcher.completed", 0) < n_req else None,
+        "the hung worker was marked DEAD"
+        if hung_state is WorkerState.DEAD else None,
+        f"the failover built stage modules ({builds} -> {after})"
+        if after != builds else None,
+        f"recovery {recovery_s:.2f} s over the budget {budget} s"
+        if not recovery_s < budget else None,
+    ]
+    failures = [f for f in failures if f]
+    if failures:
+        raise AssertionError("ServingPipeline graft scenario: "
+                             + "; ".join(failures))
+    n_img = n_req * x.shape[0]
+    print(f"ServingPipeline graft scenario ({plan.num_stages} stages, 4 "
+          f"workers on one card, {n_req} requests of batch {x.shape[0]}, "
+          f"crash at 5, hang at 9) on {card}: recovery {recovery_s:.3f} s "
+          f"(budget {budget} s), {n_img / wall:.1f} images/s over the run, "
+          f"re-dispatches {counters.get('dispatcher.redispatched', 0):.0f}, "
+          f"quarantines {counters.get('dispatcher.quarantined', 0):.0f}, "
+          f"completed {counters.get('dispatcher.completed', 0):.0f}, failed "
+          f"0, stage builds {builds} before and after, K1 launches {k1}; "
+          f"stage dispatch-to-result ms p50 {stage_p50}; "
+          f"largest error vs graph.apply {max(errs) / scale:.3e} x max|ref| "
+          f"(gate {tol}), bit-equal {all(e == 0 for e in errs)}")
+    return k1
+
+
+def vit_oracle(torch, A, graph, graph32, x, errs):
+    """For a ViT ``graph`` and its f32 twin ``graph32`` (same weights):
+    first K1 against its plain version on the q / k / v every block of
+    ``graph`` gives it on ``x`` (``check_k1``'s tolerance; the largest
+    error goes into ``errs``); then x -> (``graph32``'s output with every
+    attention on K1's plain version, the f32 truth; ``graph``'s with the
+    same), without autograd."""
+    plain = plain_attention(torch, A)
+
+    def blocks(g):
+        return [g.node(n).module.attn for n in g.topo_order()
+                if n.startswith("encoder_block_")]
+
+    def on_plain(g, x):
+        for b in blocks(g):
+            b.attn_fn = plain
+        try:
+            return g.apply(x)
+        finally:
+            for b in blocks(g):
+                b.attn_fn = None
+
+    worst, shape = [], []
+
+    def both(q, k, v):
+        shape[:] = [q.shape, q.dtype]
+        out, _ = A.flash_attn_fwd(q, k, v, False)
+        ref, _ = A._reference_with_lse(q, k, v, False)
+        worst.append(close(out, ref, 1e-2, 1e-2,
+                           f"K1 on ViT block {len(worst)}'s own q / k / v"))
+        return out
+
+    with torch.no_grad():
+        for b in blocks(graph):
+            b.attn_fn = both
+        try:
+            graph.apply(x)
+        finally:
+            for b in blocks(graph):
+                b.attn_fn = None
+    errs["flash_attn_fwd"] = max(errs.get("flash_attn_fwd", 0.0), *worst)
+    print(f"K1 vs plain on the q / k / v of {len(worst)} ViT blocks "
+          f"({tuple(shape[0])} {str(shape[1])[6:]}): max abs err "
+          f"{max(worst):.3e} (tol 1e-2 + 1e-2|ref|)")
+
+    def run(x):
+        with torch.no_grad():
+            return on_plain(graph32, x), on_plain(graph, x)
+
+    return run
+
+
+def pipeline_phase(torch, A, dev, card, kernels, cases, serve):
+    """Phase 12: the paper's pipeline on the card. ``cases``: (label,
+    build(dtype) -> graph, cuts or None for ``balanced_cuts(graph, 3)``,
+    image size, batch, requests, dtype, K1 launches a request); ``serve``:
+    (build, cuts, image size, batch, requests) for the graft scenario,
+    bf16 (None: no graft scenario). Returns K1's launches on the ViT
+    LocalPipeline's stream."""
+    from adapt_tpu_torch.graph.partition import balanced_cuts
+
+    t_phase = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(29)
+    k1_pipeline, path_errs = None, {}
+    for label, build, cuts, img, batch, n_req, dtype, k1_each in cases:
+        graph = build(dtype)
+        xs = [torch.randn(batch, img, img, 3, generator=gen, device=dev)
+              for _ in range(n_req)]
+        tol = 1e-4 if dtype == torch.float32 else 1e-2
+        oracle = (vit_oracle(torch, A, graph, build(torch.float32), xs[0],
+                             path_errs) if k1_each else None)
+        k1 = local_pipeline_case(
+            torch, A, dev, card, f"{label} {str(dtype)[6:]}", graph,
+            cuts or balanced_cuts(graph, 3), xs, tol, k1_each, oracle)
+        if k1_each:
+            k1_pipeline = k1
+        del graph, xs, oracle
+    if serve is not None:
+        build, cuts, img, batch, n_req = serve
+        x = torch.randn(batch, img, img, 3, generator=gen, device=dev)
+        serving_case(torch, A, dev, card, build(torch.bfloat16), cuts, x,
+                     n_req, 1e-2)
+    print(f"phase 12 (pipelines) took {time.perf_counter() - t_phase:.1f} s "
+          f"on {card}")
+    for kr in kernels:
+        if kr["name"] == "flash_attn_fwd" and k1_pipeline is not None:
+            kr.update(pipeline_launches=k1_pipeline,
+                      pipeline_shape="ViT-B/16 LocalPipeline stream, 3 "
+                      "stages, 32 requests of batch 8, bf16",
+                      pipeline_max_abs_err=path_errs["flash_attn_fwd"])
+    return k1_pipeline
+
+
+def pipeline_cases(torch, dev):
+    """Phase 12's models at full width and depth, random weights from seed
+    0: ResNet-50 (``conv7`` stem, 1000 classes, 224 x 224 x 3, batch 8, the
+    3-stage cuts) and EfficientNet-B4 (380 x 380, batch 4, 3 stages from
+    ``balanced_cuts``) in f32 and bf16 compute, ViT-B/16 (bf16, batch 8,
+    ``vit_block_cuts(12, 3)``, 12 K1 launches a request), 32 requests each;
+    the graft scenario on ViT-B/16, 16 requests of batch 8."""
+    from adapt_tpu_torch.models.efficientnet import efficientnet_b4
+    from adapt_tpu_torch.models.resnet import RESNET50_3STAGE_CUTS, resnet50
+    from adapt_tpu_torch.models.vit import vit_b16, vit_block_cuts
+
+    def res(dt):
+        return resnet50(1000, dt, device=dev, seed=0)
+
+    def eff(dt):
+        return efficientnet_b4(1000, dt, device=dev, seed=0)
+
+    def vit(dt):
+        return vit_b16(1000, dt, device=dev, seed=0)
+
+    r50, vcuts = RESNET50_3STAGE_CUTS, vit_block_cuts(12, 3)
+    f32, bf16 = torch.float32, torch.bfloat16
+    return [
+        ("ResNet-50", res, r50, 224, 8, 32, f32, 0),
+        ("ResNet-50", res, r50, 224, 8, 32, bf16, 0),
+        ("EfficientNet-B4", eff, None, 380, 4, 32, f32, 0),
+        ("EfficientNet-B4", eff, None, 380, 4, 32, bf16, 0),
+        ("ViT-B/16", vit, vcuts, 224, 8, 32, bf16, 12),
+    ], (vit, vcuts, 224, 8, 16)
+
+
 def main(argv) -> int:
     try:
         import torch
@@ -2888,6 +3271,9 @@ def main(argv) -> int:
             kr.update(device_ms=dev_ms["k7_vit"],
                       library_device_ms=dev_ms["sdpa_bwd_vit"])
     add_device_times(kernels, decode_device_times(torch, D, P, Q, card))
+
+    # -- phase 12: the paper's pipeline (LocalPipeline, ServingPipeline) ----
+    pipeline_phase(torch, A, dev, card, kernels, *pipeline_cases(torch, dev))
 
     if "--profile" in argv:
         profile_train(torch, *train_case, card)

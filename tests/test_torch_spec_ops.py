@@ -220,6 +220,41 @@ def test_k6_plain_bit_equal_to_jax(name, dtype):
         assert err.abs().max() <= step / 2 + slack + 1e-12
 
 
+def test_k6_storage_offset_views_equal_jax():
+    """A contiguous view at storage offset 1 (``buf[1:].view(2, 8192)`` of
+    a bf16 ``buf``: a base no 16-byte vector load may start at) quantizes to
+    JAX's values and scales, and an int8 payload stored at an odd offset
+    dequantizes to JAX's values, bit for bit. The copy the public
+    ``quantize`` / ``dequantize`` make on the card for such bases
+    (``aligned16``) lands 16-byte aligned and holds the same elements."""
+    rng = np.random.default_rng(12)
+    buf = torch.from_numpy(rng.standard_normal(2 * 8192 + 1).astype(
+        np.float32)).to(torch.bfloat16)
+    x = buf[1:].view(2, 8192)
+    assert x.storage_offset() == 1 and x.is_contiguous()
+    jx = jnp.asarray(x.float().numpy()).astype(jnp.bfloat16)
+    jq = JQ.quantize(jx)
+    tq = TQ.quantize(x)
+    assert np.array_equal(tq.values.numpy(), np.asarray(jq.values))
+    assert np.array_equal(tq.scales.numpy(), np.asarray(jq.scales))
+    shifted = torch.empty(tq.values.numel() + 1, dtype=torch.int8)
+    shifted[1:] = tq.values.reshape(-1)
+    odd = TQ.QuantizedTensor(shifted[1:].view(-1, 128), tq.scales, tq.shape,
+                             tq.dtype)
+    assert odd.values.storage_offset() == 1
+    assert np.array_equal(TQ.dequantize(odd).float().numpy(),
+                          np.asarray(JQ.dequantize(jq).astype(jnp.float32)))
+    for t in (x, odd.values):
+        copy = TQ.aligned16(t)
+        assert copy.data_ptr() % 16 == 0 and torch.equal(copy, t)
+    fixed = TQ._aligned_payload(odd)
+    assert fixed.values.data_ptr() % 16 == 0
+    assert torch.equal(fixed.values, tq.values)
+    aligned = buf[:-1].view(2, 8192)
+    if aligned.data_ptr() % 16 == 0:  # an aligned base is never copied
+        assert TQ.aligned16(aligned) is aligned
+
+
 def test_quantize_params_leaf_selection():
     tree = {
         "w": torch.randn(8, 8),
