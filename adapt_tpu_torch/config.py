@@ -10,8 +10,7 @@ thing in both packages.
 (``ParallelConfig``, ``RecoveryConfig``, ``DisaggConfig``,
 ``PrefillConfig``, ``RuntimeConfig``, ``CapacityConfig``,
 ``RouterConfig``, ``CacheTierConfig``) come with the slices that port
-those subsystems. ``CodecConfig`` takes only ``name="none"`` so far: the
-activation codecs are ``comm/``, the pipeline's step 3.
+those subsystems.
 
 What differs is what ``KernelConfig`` selects on this card:
 
@@ -221,30 +220,33 @@ class FaultConfig:
     probe_silence_s: float | None = None
     #: Worker-configuration handshake timeout.
     configure_timeout_s: float = 60.0
-    #: Bound on a cross-host socket send. Nothing reads it until ``comm/``
-    #: (item 8 step 3) lands.
+    #: Bound on a send to a remote worker (``comm.remote``): a peer that
+    #: stops draining its socket drops the link after this long.
     send_timeout_s: float = 10.0
+
+
+#: The codecs of ``comm.codec``.
+CODEC_NAMES = ("none", "bf16", "int8", "int8dev", "zfp", "lz")
 
 
 @dataclasses.dataclass(frozen=True)
 class CodecConfig:
-    """Activation / weights codecs at host boundaries. Only ``"none"`` is
-    ported: in-process hops move device tensors and need no codec; the
-    others (``bf16``, ``int8``, ``int8dev``, ``zfp``, ``lz``) are ``comm/``,
-    item 8 step 3 of ROADMAP.md queue 1."""
+    """Activation / weights codecs at process boundaries (``comm.codec``):
+    the activation codec of every remote worker a dispatcher drives, and of
+    ``LocalPipeline.from_config``'s hops (``runtime.pipeline.
+    codec_hop_transform``; ``"none"``: no hop transform)."""
 
     name: str = "none"  # none | bf16 | int8 | int8dev | zfp | lz
-    #: The lossy codecs' error bound and the weights codec: nothing reads
-    #: them until ``comm/`` lands.
+    #: The ``zfp`` codec's error bound.
     tolerance: float = 1e-3
+    #: The codec stage weights travel in to remote workers (lossless).
     weights: str = "lz"
 
     def __post_init__(self):
-        if self.name != "none":
-            raise NotImplementedError(
-                f"codec {self.name!r} is not ported yet: activation codecs "
-                "are comm/, item 8 step 3 of ROADMAP.md queue 1"
-            )
+        for what, name in (("name", self.name), ("weights", self.weights)):
+            if name not in CODEC_NAMES:
+                raise ValueError(f"CodecConfig.{what}={name!r}: expected one "
+                                 f"of {CODEC_NAMES}")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -253,14 +255,15 @@ class ObservabilityConfig:
     process-global tracer and recorder (``utils.tracing``): tracing is
     enable-only, and a capacity applies only when it differs from these
     defaults (a default-config dispatcher never truncates a ring another
-    component sized). The engine-profiling fields (``obs_engine``,
-    ``compile_warmup``, ``goodput_window_s``) and
-    ``snapshot_on_recovery`` come with ``utils/profiling.py`` (queue 1
-    item 9) and ``Dispatcher.recover`` (item 8 step 3)."""
+    component sized). ``snapshot_on_recovery``: ``Dispatcher.recover``
+    writes the flight recorder beside the journal. The engine-profiling
+    fields (``obs_engine``, ``compile_warmup``, ``goodput_window_s``) come
+    with ``utils/profiling.py`` (queue 1 item 9)."""
 
     trace_enabled: bool = False
     trace_capacity: int = 65536
     flight_capacity: int = 2048
+    snapshot_on_recovery: bool = True
 
     def __post_init__(self):
         if self.trace_capacity < 1:

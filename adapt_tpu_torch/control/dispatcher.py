@@ -19,17 +19,24 @@ later configure to take, so a failover configure only moves weights; every
 build is counted in :attr:`Dispatcher.stage_builds` (and the
 ``dispatcher.stage_builds`` counter).
 
-The parts only remote workers use wait for ``comm/`` (item 8 step 3 of
-ROADMAP.md queue 1): chain forwarding (``setup_chain`` /
-``disable_chain``), crash recovery from a journal (``recover``, the
-``journal=`` argument) and the worker gateway. Each raises and says so.
+Remote workers (``comm.remote.RemoteWorkerProxy``) join the same pool:
+they build their own stage modules, so no module is built here for them.
+Over remote workers the dispatcher also offers chain forwarding
+(:meth:`Dispatcher.setup_chain`: stage outputs hop worker to worker, only
+the tail's result returns, and any chain failure falls back to the hub
+and replays the request from its retained input) and crash recovery from
+a write-ahead journal (``journal=``, :meth:`Dispatcher.recover`: the
+journaled dial-out workers are re-adopted and every accepted request that
+never completed is replayed exactly once).
 """
 
 from __future__ import annotations
 
 import itertools
+import os
 import queue
 import random
+import socket
 import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
@@ -51,8 +58,6 @@ from adapt_tpu_torch.utils.metrics import global_metrics
 from adapt_tpu_torch.utils.tracing import global_flight_recorder, global_tracer
 
 log = get_logger("dispatcher")
-
-_COMM_STEP = "remote workers (comm/, item 8 step 3 of ROADMAP.md queue 1)"
 
 
 class RequestFailed(RuntimeError):
@@ -103,6 +108,10 @@ class _Inflight:
     #: Workers that already failed or stalled this request: a re-dispatch
     #: excludes all of them, not only the latest.
     tried: set[str] = field(default_factory=set)
+    #: Chain mode: the stage whose result completes the request (None: hub
+    #: routing). A chain entry keeps the request's stage-0 input, so any
+    #: chain failure replays it end to end through the hub.
+    final_stage: int | None = None
 
 
 class Dispatcher:
@@ -113,12 +122,12 @@ class Dispatcher:
                  config: ServeConfig | None = None, journal=None):
         """``variables``: ``{node: state dict}`` of the plan's graph (None:
         the graph's own weights), kept on the host per stage for every
-        configure."""
-        if journal is not None:
-            raise NotImplementedError(
-                f"the dispatcher journal serves crash recovery of "
-                f"{_COMM_STEP}")
+        configure. ``journal``: a ``control.journal.DispatcherJournal``:
+        accepted requests and the dial-out worker table survive a crash of
+        this process, and :meth:`recover` rebuilds a dispatcher from them
+        (one host fetch and fsync per submit)."""
         self.plan = plan
+        self._journal = journal
         self.config = config or ServeConfig()
         # Observability knobs onto the process-global tracer / recorder:
         # tracing is enable-only, and a default capacity never clobbers a
@@ -149,7 +158,10 @@ class Dispatcher:
         self._inflight: dict[int, _Inflight] = {}
         self._inflight_lock = threading.Lock()
         self._sem = threading.Semaphore(self.config.max_inflight)
-        self._req_ids = itertools.count(0)
+        # Over an existing journal, start past every id it holds: a
+        # recycled id would clear a crashed request's pending mark.
+        self._req_ids = itertools.count(
+            journal.next_request_id if journal is not None else 0)
         self._watchdog_paused = False
         # Strike-based quarantine: a worker that keeps missing deadlines
         # while heartbeating (a hang) is never evicted by lease expiry;
@@ -181,6 +193,9 @@ class Dispatcher:
         self._shutdown = threading.Event()
         self._threads: list[threading.Thread] = []
         self._started = False
+        #: Chain forwarding: worker ids in stage order (None: hub routing).
+        self._chain: list[str] | None = None
+        self._chain_lock = threading.Lock()
 
     @property
     def stage_builds(self) -> int:
@@ -220,6 +235,16 @@ class Dispatcher:
     def attach_worker(self, worker: StageWorker) -> None:
         with self._workers_lock:
             self._workers[worker.worker_id] = worker
+        # A remote worker with a listen address outlives this process and
+        # can be re-adopted: journal its address and configure recipe.
+        # In-process workers die with this process.
+        addr = getattr(worker, "chain_address", None)
+        if self._journal is not None and addr is not None:
+            self._journal.record_worker(
+                worker.worker_id, addr[0], addr[1],
+                meta={"model_config": worker._model_config,
+                      "codec": worker._codec_name,
+                      "weights_codec": worker._wcodec.name})
 
     # -- lifecycle ----------------------------------------------------------
 
@@ -249,25 +274,179 @@ class Dispatcher:
 
     def hard_stop(self) -> None:
         """Crash simulation: abandon everything NOW — no draining, no
-        future completion, no deregistration."""
+        future completion, no journal marks, no deregistration. Remote
+        worker processes keep running; :meth:`recover` is the other
+        half."""
+        # Detach the journal first: threads failing on the closed links
+        # must not write done marks a real crash could not write.
+        self._journal = None
         self._shutdown.set()
         self.result_queue.put(None)  # type: ignore[arg-type]
+        with self._workers_lock:
+            workers = list(self._workers.values())
+        for w in workers:
+            sock = getattr(w, "_sock", None)  # a remote worker's link
+            if sock is not None:
+                for end in (lambda: sock.shutdown(socket.SHUT_RDWR),
+                            sock.close):
+                    try:
+                        end()
+                    except OSError:
+                        pass
         self._forward_pool.shutdown(wait=False, cancel_futures=True)
         self.registry.stop()
 
     @classmethod
-    def recover(cls, *args, **kwargs):
-        """Rebuilding a crashed dispatcher from its journal re-adopts
-        dial-out workers: it waits for :data:`_COMM_STEP`."""
-        raise NotImplementedError(f"Dispatcher.recover waits for {_COMM_STEP}")
+    def recover(cls, plan: PartitionPlan, variables, journal,
+                config: ServeConfig | None = None, result_device=None,
+                ) -> tuple["Dispatcher", dict[int, PipelineFuture]]:
+        """Rebuild a serving dispatcher from a crashed one's journal:
+        re-adopt every journaled worker whose server still answers (the
+        unreachable are pruned from the journal), seed the request ids past
+        every journaled one and replay each request that was accepted and
+        never completed. Returns ``(dispatcher, {request id: future})`` for
+        the replayed requests, each completing exactly once.
+        ``result_device``: where the re-adopted proxies dequantize
+        ``int8dev`` results. Weights come from ``plan`` / ``variables``;
+        the journal holds control-plane state only."""
+        from adapt_tpu_torch.comm.remote import RemoteWorkerProxy
 
-    def setup_chain(self, worker_ids=None):
-        """Chain forwarding is a cross-host topology: it waits for
-        :data:`_COMM_STEP`."""
-        raise NotImplementedError(f"setup_chain waits for {_COMM_STEP}")
+        workers, pending, _ = journal.load()
+        disp = cls(plan, variables, config=config, journal=journal)
+        proxies = []
+        for worker_id, info in workers.items():
+            meta = info.get("meta", {})
+            proxies.append(RemoteWorkerProxy(
+                worker_id, (info["host"], info["port"]), disp.registry,
+                disp.result_queue, model_config=meta.get("model_config", {}),
+                codec_name=meta.get("codec", "none"),
+                weights_codec=meta.get("weights_codec", "lz"),
+                fault=disp.config.fault, result_device=result_device))
+        if not proxies:
+            raise RequestFailed(
+                "journal holds no re-adoptable workers; nothing to recover")
 
-    def disable_chain(self, reason: str = "requested"):
-        raise NotImplementedError(f"disable_chain waits for {_COMM_STEP}")
+        def _dial(proxy):
+            try:
+                return proxy, proxy.start(), None
+            except Exception as e:  # noqa: BLE001
+                return proxy, None, e
+
+        alive = []
+        with ThreadPoolExecutor(max_workers=min(16, len(proxies)),
+                                thread_name_prefix="recover-dial") as pool:
+            for proxy, started, err in pool.map(_dial, proxies):
+                if err is not None:
+                    log.warning("recovery: worker %s at %s not re-adoptable "
+                                "(%s); pruned from the journal",
+                                proxy.worker_id, proxy.address, err)
+                    journal.forget_worker(proxy.worker_id)
+                    continue
+                with disp._workers_lock:
+                    disp._workers[proxy.worker_id] = started
+                alive.append(started)
+        if not alive:
+            raise RequestFailed(
+                "no journaled worker answered; cannot recover the pool")
+        disp.start()
+        futures: dict[int, PipelineFuture] = {}
+        for rid, payload in pending.items():
+            disp._sem.acquire()
+            futures[rid] = future = PipelineFuture(rid)
+            try:
+                disp._dispatch(rid, 0, payload, future, attempt=0, retries=0)
+            except Exception as e:  # noqa: BLE001
+                disp._finish(future, error=str(e))
+        log.info("recovered: %d workers re-adopted, %d requests replayed",
+                 len(alive), len(futures))
+        global_metrics().inc("dispatcher.recovered")
+        recorder = global_flight_recorder()
+        recorder.record("recovery", workers=len(alive), replayed=len(futures))
+        if disp.config.obs.snapshot_on_recovery:
+            # The fault timeline before the crash, beside the journal.
+            try:
+                recorder.snapshot_to(os.path.join(
+                    journal.root, f"flight-{int(time.time())}.json"))
+            except Exception as e:  # noqa: BLE001 — best effort
+                log.warning("flight-recorder snapshot failed: %s", e)
+        return disp, futures
+
+    # -- chain forwarding ---------------------------------------------------
+
+    def setup_chain(self, worker_ids: list[str] | None = None) -> list[str]:
+        """Direct worker-to-worker forwarding for a static healthy pool of
+        remote workers: stage i's output hops straight to stage i + 1's
+        worker and only the tail's result returns to the hub. The hub keeps
+        the control plane (probes, deadlines, exactly-once, re-dispatch);
+        any chain failure disables the chain and replays the request end
+        to end through the hub. ``worker_ids``: one per stage, in stage
+        order (default: the workers with a listen address, in attach
+        order); every member past the head needs a listen address."""
+        with self._workers_lock:
+            pool = {wid: w for wid, w in self._workers.items()
+                    if w.state is not WorkerState.DEAD}
+        if worker_ids is None:
+            worker_ids = [wid for wid, w in pool.items()
+                          if getattr(w, "chain_address", None) is not None
+                          ][:self.plan.num_stages]
+        if len(worker_ids) != self.plan.num_stages:
+            raise ValueError(f"chain needs exactly {self.plan.num_stages} "
+                             f"workers (one per stage), got "
+                             f"{len(worker_ids)}")
+        workers = []
+        for i, wid in enumerate(worker_ids):
+            w = pool.get(wid)
+            if w is None:
+                raise ValueError(f"worker {wid!r} is not in the live pool")
+            if not hasattr(w, "send_route"):
+                raise TypeError(
+                    f"worker {wid!r} cannot chain (in-process workers share "
+                    "the hub's memory; chaining is a cross-process "
+                    "topology)")
+            if i > 0 and w.chain_address is None:
+                raise ValueError(f"worker {wid!r} has no listen address for "
+                                 "its predecessor to dial")
+            workers.append(w)
+        for i, w in enumerate(workers):
+            if not w.is_configured(i):
+                self._configure_with_timeout(w, i)
+        # Tail first: no hop forwards into a worker without its route.
+        for i in reversed(range(len(workers))):
+            nxt = workers[i + 1].chain_address if i + 1 < len(workers) else None
+            workers[i].send_route(i, nxt, i + 1 if nxt else -1)
+        with self._chain_lock:
+            self._chain = list(worker_ids)
+        log.info("chain forwarding enabled: %s", " -> ".join(worker_ids))
+        global_metrics().inc("dispatcher.chain_enabled")
+        return list(worker_ids)
+
+    def disable_chain(self, reason: str = "requested") -> None:
+        """Back to hub routing. Route clears are best effort: hub traffic
+        is plain MSG_DATA, which ignores any stale route."""
+        with self._chain_lock:
+            chain, self._chain = self._chain, None
+        if chain is None:
+            return
+        log.warning("chain forwarding disabled (%s); hub routing resumes",
+                    reason)
+        global_metrics().inc("dispatcher.chain_disabled")
+        global_flight_recorder().record("chain_disabled", reason=reason)
+        with self._workers_lock:
+            pool = dict(self._workers)
+
+        def _clear(stage: int, worker) -> None:
+            try:
+                worker.send_route(stage, None, clear=True)
+            except Exception:  # noqa: BLE001 — the link may be down
+                pass
+
+        for i, wid in enumerate(chain):
+            w = pool.get(wid)
+            if w is not None and hasattr(w, "send_route"):
+                try:
+                    self._forward_pool.submit(_clear, i, w)
+                except RuntimeError:  # pool shut down
+                    break
 
     def shutdown(self) -> None:
         self._shutdown.set()
@@ -287,6 +466,8 @@ class Dispatcher:
         for w in workers:
             w.stop()
         self.registry.stop()
+        if self._journal is not None:
+            self._journal.close()
 
     # -- request API --------------------------------------------------------
 
@@ -298,6 +479,14 @@ class Dispatcher:
         self._sem.acquire()
         request_id = next(self._req_ids)
         future = PipelineFuture(request_id)
+        if self._journal is not None:
+            # Write-ahead, before dispatch: a submit the journal cannot
+            # record is refused, not silently volatile.
+            try:
+                self._journal.record_submit(request_id, x)
+            except Exception as e:
+                self._sem.release()
+                raise RequestFailed(f"journal write failed: {e}") from e
         try:
             self._dispatch(request_id, 0, x, future, attempt=0, retries=0)
         except Exception as e:  # no worker at all -> fail fast
@@ -322,12 +511,14 @@ class Dispatcher:
         """Build a stage module on the meta device for every (stage, live
         worker) pair that has neither a binding nor such a module yet, for
         a later configure to take: a failover then moves weights and builds
-        nothing. Meta modules hold no device memory."""
+        nothing. Meta modules hold no device memory. Remote workers build
+        their own."""
         if self._shutdown.is_set():
             return
         with self._workers_lock:
             workers = [w for w in self._workers.values()
-                       if w.state is not WorkerState.DEAD]
+                       if w.state is not WorkerState.DEAD
+                       and getattr(w, "device", None) is not None]
         for w in workers:
             for stage_index in range(self.plan.num_stages):
                 key = (stage_index, w.worker_id)
@@ -431,7 +622,9 @@ class Dispatcher:
             return
         abandoned = threading.Event()
         errors: list[Exception] = []
-        module = self._take_module(stage_index, worker.worker_id)
+        # A remote worker builds its own module from the recipe.
+        module = (self._take_module(stage_index, worker.worker_id)
+                  if getattr(worker, "device", None) is not None else None)
 
         def _cfg():
             try:
@@ -464,6 +657,37 @@ class Dispatcher:
                   future: PipelineFuture, attempt: int, retries: int,
                   exclude: set[str] | None = None) -> None:
         exclude = exclude or set()
+        with self._chain_lock:
+            chain = self._chain
+        if chain is not None and stage_index == 0 and not retries \
+                and not exclude:
+            # Chain fast path: one submit to the head; the result arrives
+            # on the tail's link. Retries never take it.
+            with self._workers_lock:
+                head = self._workers.get(chain[0])
+            if head is not None and head.state is not WorkerState.DEAD:
+                entry = _Inflight(
+                    request_id=request_id, stage_index=0, attempt=attempt,
+                    payload=payload, worker_id=head.worker_id,
+                    start_time=time.monotonic(), retries=retries,
+                    future=future, tried={head.worker_id},
+                    final_stage=self.plan.num_stages - 1)
+                with self._inflight_lock:
+                    self._inflight[request_id] = entry
+                try:
+                    head.submit(Task(request_id=request_id, stage_index=0,
+                                     attempt=attempt, payload=payload,
+                                     chained=True))
+                except Exception as e:  # noqa: BLE001 — the link died
+                    with self._inflight_lock:
+                        self._inflight.pop(request_id, None)
+                    self.disable_chain(f"chain head submit failed: {e}")
+                else:
+                    global_metrics().inc("dispatcher.tasks_sent")
+                    global_metrics().inc("dispatcher.chain_dispatched")
+                    return
+            else:
+                self.disable_chain("chain head worker gone")
         worker = self._acquire(stage_index, exclude)
         entry = _Inflight(
             request_id=request_id, stage_index=stage_index, attempt=attempt,
@@ -472,8 +696,21 @@ class Dispatcher:
             tried=exclude | {worker.worker_id})
         with self._inflight_lock:
             self._inflight[request_id] = entry
-        worker.submit(Task(request_id=request_id, stage_index=stage_index,
-                           attempt=attempt, payload=payload))
+        try:
+            worker.submit(Task(request_id=request_id, stage_index=stage_index,
+                               attempt=attempt, payload=payload))
+        except Exception as e:  # noqa: BLE001 — a remote link died under us
+            # The request is not lost with the link: whoever takes the
+            # entry out of the in-flight table re-dispatches it, this
+            # thread or the membership handler the dropped link fired.
+            with self._inflight_lock:
+                ours = self._inflight.get(request_id) is entry
+                if ours:
+                    del self._inflight[request_id]
+            if ours:
+                self._redispatch(entry, f"submit to {worker.worker_id} "
+                                        f"failed: {e}")
+            return
         global_metrics().inc("dispatcher.tasks_sent")
 
     def _forward(self, result: TaskResult, entry: _Inflight,
@@ -488,7 +725,10 @@ class Dispatcher:
 
     def _redispatch(self, entry: _Inflight, reason: str) -> None:
         """Watchdog / failure path: re-send the kept payload to a worker
-        that has not tried it yet."""
+        that has not tried it yet. A chain entry replays its stage-0 input
+        through the hub, the chain disabled first."""
+        if entry.final_stage is not None:
+            self.disable_chain(f"chain request replay: {reason}")
         if entry.retries + 1 > self.config.fault.max_retries:
             with self._inflight_lock:
                 self._inflight.pop(entry.request_id, None)
@@ -519,6 +759,15 @@ class Dispatcher:
     def _finish(self, future: PipelineFuture, value=None, error=None) -> None:
         if not future._complete(value, error):
             return
+        journal = self._journal
+        if journal is not None:
+            # Terminal either way: replay is for requests that never
+            # completed. A crash before this mark replays it once.
+            try:
+                journal.record_done(future.request_id)
+            except Exception:  # noqa: BLE001 — worst case: one replay
+                log.warning("journal done-mark failed for request %d",
+                            future.request_id)
         self._sem.release()
         global_metrics().inc("dispatcher.completed" if error is None
                              else "dispatcher.failed")
@@ -571,13 +820,25 @@ class Dispatcher:
                 continue
             with self._inflight_lock:
                 entry = self._inflight.get(result.request_id)
-                if (entry is None or entry.stage_index != result.stage_index
-                        or entry.attempt != result.attempt):
+                if entry is not None and entry.final_stage is not None:
+                    # Chain entry: success comes from the tail, an error
+                    # from any hop.
+                    matches = entry.attempt == result.attempt and (
+                        result.error is not None
+                        or result.stage_index == entry.final_stage)
+                else:
+                    matches = (entry is not None
+                               and entry.stage_index == result.stage_index
+                               and entry.attempt == result.attempt)
+                if not matches:
                     # A stale duplicate (late completion after re-dispatch).
                     global_metrics().inc("dispatcher.stale_results")
                     continue
                 del self._inflight[result.request_id]
             if result.error is not None:
+                if entry.final_stage is not None:
+                    self.disable_chain(f"chain error at stage "
+                                       f"{result.stage_index}: {result.error}")
                 self._forward_pool.submit(self._redispatch, entry,
                                           f"error: {result.error}")
                 continue
@@ -699,13 +960,20 @@ class Dispatcher:
             try:
                 now = time.monotonic()
                 with self._inflight_lock:
+                    # A chain entry spans the whole pipeline: its deadline
+                    # scales with the stage count.
                     overdue = [e for e in self._inflight.values()
-                               if now - e.start_time > deadline]
+                               if now - e.start_time > deadline * (
+                                   self.plan.num_stages
+                                   if e.final_stage is not None else 1)]
                     for e in overdue:
                         del self._inflight[e.request_id]
                 for entry in overdue:
-                    self._add_strike(entry.worker_id,
-                                     "task deadline exceeded")
+                    if entry.final_stage is None:
+                        # A chain stall may be at any hop: the probes find
+                        # the hung worker, not a strike on the head.
+                        self._add_strike(entry.worker_id,
+                                         "task deadline exceeded")
                     self._forward_pool.submit(self._redispatch, entry,
                                               "deadline exceeded")
                 self._probe_silent_workers(now, deadline)
@@ -730,9 +998,16 @@ class Dispatcher:
         with self._shell_lock:
             for key in [k for k in self._shells if k[1] == worker_id]:
                 del self._shells[key]
+        # A chain member's death breaks every in-flight chain request,
+        # whatever hop each is at.
+        with self._chain_lock:
+            in_chain = self._chain is not None and worker_id in self._chain
+        if in_chain:
+            self.disable_chain(f"chain member {worker_id} left")
         with self._inflight_lock:
             orphaned = [e for e in self._inflight.values()
-                        if e.worker_id == worker_id]
+                        if e.worker_id == worker_id
+                        or (in_chain and e.final_stage is not None)]
             for e in orphaned:
                 del self._inflight[e.request_id]
         for e in orphaned:

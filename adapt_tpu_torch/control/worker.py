@@ -71,6 +71,10 @@ class Task:
     stage_index: int
     attempt: int
     payload: Any  # a tensor on any device
+    #: A chain-mode head submit to a remote worker
+    #: (``Dispatcher.setup_chain``): the result returns on another
+    #: worker's link.
+    chained: bool = False
     #: Stamped by StageWorker.submit (perf-counter clock): the inbox wait
     #: feeds the ``worker.queue_wait_s`` histogram.
     t_enqueue: float = 0.0

@@ -154,6 +154,17 @@ class PartitionPlan:
         return "\n".join(lines)
 
 
+def stage_weight_keys(stage_state: Mapping[str, Mapping]) -> list[
+        tuple[str, str]]:
+    """The order in which a stage's weights travel as separate arrays (a
+    remote configure): node by node in the state's order (the stage's
+    topological order), each node's state-dict keys sorted. The sender
+    applies it to ``extract_variables()``'s state and the receiver to the
+    state dict of the stage module it built, so both agree on which array
+    is which."""
+    return [(n, k) for n, sd in stage_state.items() for k in sorted(sd)]
+
+
 def _backward_slice(graph: LayerGraph, end: str,
                     boundary: str) -> tuple[str, ...]:
     """All nodes needed to compute ``end`` from ``boundary``'s output,

@@ -11,16 +11,16 @@ request r+1 while stage i+1 computes r. No adaptivity; maximum throughput.
 
 ``ServingPipeline``: the adaptive path, ``control.Dispatcher`` + workers
 (late binding, membership, watchdog re-dispatch) behind the same
-queue-in / queue-out API.
+queue-in / queue-out API. With ``gateway_model_config`` remote worker
+processes join it at run time (``comm.remote.WorkerGateway``); with
+``journal_dir`` accepted requests and the dial-out workers survive a crash
+of the serving process (``control.journal``, ``Dispatcher.recover``).
 
 Both run on the CUDA card unless given CPU devices (``devices="cpu"`` or a
 list of CPU devices), and raise without a card otherwise; they never fall
 back to the CPU. Calls run without autograd (serving is inference). The
-codec hop transform of the JAX package (``codec_hop_transform``), the
-gateway that lets remote workers join (``gateway_model_config``) and the
-request journal (``journal_dir``) wait for ``comm/`` (item 8 step 3 of
-ROADMAP.md queue 1); the observability exporter (``serve_observability``)
-for queue 1 item 9.
+observability exporter (``serve_observability``) waits for queue 1 item 9
+of ROADMAP.md.
 """
 
 from __future__ import annotations
@@ -39,8 +39,11 @@ from adapt_tpu_torch.control.registry import WorkerRegistry
 from adapt_tpu_torch.core.mesh import device_list
 from adapt_tpu_torch.core.stage import CompiledStage, compile_stages
 from adapt_tpu_torch.graph.partition import PartitionPlan
+from adapt_tpu_torch.utils.logging import get_logger
 from adapt_tpu_torch.utils.metrics import global_metrics
 from adapt_tpu_torch.utils.tracing import global_tracer
+
+log = get_logger("pipeline")
 
 _SENTINEL = object()
 
@@ -52,6 +55,24 @@ class _StageError:
     def __init__(self, stage_index: int, exc: Exception):
         self.stage_index = stage_index
         self.exc = exc
+
+
+def codec_hop_transform(codec_cfg):
+    """A ``hop_transform`` from a ``config.CodecConfig``: every activation
+    hop pays the codec's round trip (``pack`` then ``unpack``) and lands
+    back on the device it left, as a hop between two processes would.
+    None for ``"none"``: in-process hops need no transform."""
+    from adapt_tpu_torch.comm.codec import get_codec, pack, unpack
+
+    if codec_cfg.name == "none":
+        return None
+    codec = get_codec(codec_cfg.name, tolerance=codec_cfg.tolerance)
+
+    def hop(activation, stage_index):
+        dev = activation.device
+        return unpack(pack(codec, activation), device=dev).to(dev)
+
+    return hop
 
 
 def _synchronize(x) -> None:
@@ -77,11 +98,12 @@ class LocalPipeline:
     @classmethod
     def from_config(cls, plan: PartitionPlan, variables=None, devices=None,
                     config: ServeConfig | None = None) -> "LocalPipeline":
-        """LocalPipeline with the hop transform ``config.codec`` names:
-        none for ``"none"``, the only codec ported so far (the others are
-        ``comm/``, and ``CodecConfig`` refuses them)."""
-        del config  # CodecConfig(name="none"): no hop transform
-        return cls(plan, variables, devices)
+        """LocalPipeline with the hop transform ``config.codec`` names
+        (:func:`codec_hop_transform`), the knob that also sets every
+        remote worker's codec."""
+        config = config or ServeConfig()
+        return cls(plan, variables, devices,
+                   hop_transform=codec_hop_transform(config.codec))
 
     def infer(self, x: torch.Tensor) -> torch.Tensor:
         """Single-request path (latency)."""
@@ -237,31 +259,87 @@ class LocalPipeline:
 
 class ServingPipeline:
     """Adaptive serving: dispatcher + workers + membership + watchdog.
-    ``devices`` lists one worker's device each (a device may repeat:
-    ``[cuda:0] * 4`` is four workers on one card)."""
+    ``devices`` lists one in-process worker's device each (a device may
+    repeat: ``[cuda:0] * 4`` is four workers on one card; ``[]``: none).
+
+    ``gateway_model_config`` opens a ``comm.remote.WorkerGateway`` with
+    the pipeline: any process can then join the pool with ``python -m
+    adapt_tpu_torch.comm.remote --connect HOST:{gateway_port}``. The dict
+    is the recipe joiners rebuild stages from (``model``, ``cuts``,
+    ``num_classes``, ``model_kwargs``; or ``graph_spec``), and must
+    rebuild the graph ``plan`` partitioned; codecs come from
+    ``config.codec``. ``gateway_device``: where the joined workers'
+    ``int8dev`` results are dequantized (None: the first of ``devices``,
+    else the CUDA card). ``journal_dir``: journal accepted requests and
+    the dial-out workers there (``control.journal``), so a crashed
+    serving process can be rebuilt with ``Dispatcher.recover``."""
 
     def __init__(self, plan: PartitionPlan, variables=None, devices=None,
                  config: ServeConfig | None = None,
                  gateway_model_config: dict | None = None,
+                 gateway_host: str = "127.0.0.1", gateway_port: int = 0,
+                 gateway_secret: str | None = None, gateway_device=None,
                  journal_dir: str | None = None):
-        if gateway_model_config is not None or journal_dir is not None:
-            raise NotImplementedError(
-                "the worker gateway and the request journal serve remote "
-                "workers: they wait for comm/ (item 8 step 3 of ROADMAP.md "
-                "queue 1)")
         devices = device_list(devices)
         self.config = config or ServeConfig()
         self.registry = WorkerRegistry(
             default_ttl_s=self.config.fault.lease_ttl_s)
+        journal = None
+        if journal_dir is not None:
+            from adapt_tpu_torch.control.journal import DispatcherJournal
+
+            journal = DispatcherJournal(journal_dir)
         self.dispatcher = Dispatcher(plan, variables, registry=self.registry,
-                                     config=self.config)
+                                     config=self.config, journal=journal)
         self.workers = self.dispatcher.spawn_workers(devices)
+        self._journal_dir = journal_dir
+        self.gateway = None
+        if gateway_model_config is not None:
+            from adapt_tpu_torch.comm.remote import WorkerGateway
+
+            if gateway_device is None and devices:
+                gateway_device = devices[0]
+            self.gateway = WorkerGateway(
+                self.dispatcher, gateway_model_config, host=gateway_host,
+                port=gateway_port, secret=gateway_secret,
+                result_device=gateway_device)
+
+    @property
+    def gateway_port(self) -> int | None:
+        """The port joiners dial: None until :meth:`start` binds it (or
+        without a gateway)."""
+        if self.gateway is None or not self.gateway.port:
+            return None
+        return self.gateway.port
 
     def start(self) -> "ServingPipeline":
-        self.dispatcher.start()
+        """Start the gateway (joiners count toward the dispatcher's wait
+        for its first worker), then the dispatcher."""
+        if self._journal_dir is not None:
+            # Only workers with a listen address are journaled: a journal
+            # over none can replay requests but never re-adopt a worker.
+            with self.dispatcher._workers_lock:
+                pool = list(self.dispatcher._workers.values())
+            if not any(getattr(w, "chain_address", None) is not None
+                       for w in pool):
+                log.warning(
+                    "journal_dir=%r configured but the worker pool holds no "
+                    "journaled (dial-out remote) workers: after a crash, "
+                    "recovery cannot re-adopt any worker from this journal",
+                    self._journal_dir)
+        if self.gateway is not None:
+            self.gateway.start()
+        try:
+            self.dispatcher.start()
+        except Exception:
+            if self.gateway is not None:
+                self.gateway.stop()
+            raise
         return self
 
     def shutdown(self) -> None:
+        if self.gateway is not None:
+            self.gateway.stop()
         self.dispatcher.shutdown()
 
     def __enter__(self) -> "ServingPipeline":

@@ -166,7 +166,37 @@ Phases (no phase failure is caught; any mismatch exits non-zero):
    completed, the hung worker not DEAD, no stage module built by the
    failover (``dispatcher.stage_builds``), the last result within 10 x
    (deadline + lease TTL) of the crash; recovery seconds, images/s,
-   re-dispatches and quarantines printed, and the phase's seconds.
+   re-dispatches and quarantines printed, and the phase's seconds;
+13. the paper's pipeline across processes (``remote_phase``; TF32 off):
+   worker processes started with ``subprocess`` (``python -m
+   adapt_tpu_torch.comm.remote --port 0 --device cuda:0``) on the one card,
+   and one ``RemoteStageServer`` in this process over loopback TCP, whose
+   launches are counted here. (a) ResNet-50 f32 (1000 classes, batch 8,
+   ``RESNET50_3STAGE_CUTS``, 32 requests) behind a ``ServingPipeline``
+   with no in-process worker, the three workers joining its
+   ``WorkerGateway``, stage i configured on worker i: codecs ``none`` and
+   ``lz`` ``torch.equal`` to ``graph.apply``, ``int8dev`` within max(1e-2,
+   2 x ``LocalPipeline.from_config(codec="int8dev")``'s error) x the
+   largest logit; (b) K6 ``torch.equal`` to its plain version at the two
+   cut shapes (in ``check_k6``), and on the ``int8dev`` run K6 launched in
+   this process once for every stage input the hub sends and every result
+   it receives plus once each way for every stage run of its own server
+   (4 hops a request each way); (f) ``setup_chain`` over the same workers,
+   32 requests ``torch.equal``, the hub receiving only the tail's results,
+   then the middle worker SIGKILLed mid-burst: the chain falls back to the
+   hub and each request completes once, ``torch.equal``; (e) a journaled
+   dispatcher over the survivors as dial-out workers, ``hard_stop()`` with
+   requests in flight, ``Dispatcher.recover``: the journal's pending set
+   replayed once each, ``torch.equal``, the journal drained; (c) ViT-B/16
+   bf16 (``vit_block_cuts(12, 3)``, 16 requests of batch 8) over three
+   worker processes, ``torch.equal`` (K1 in the workers); (d) the graft
+   faults over four workers (the three + this process's server): SIGKILL
+   of worker 0 at request 5, an ``MSG_KILL`` hang of worker 1 at 9, phase
+   12's gates, K1 launched 4 times a stage run of this process's server.
+   Printed: images/s of every run beside phase 12's in-process
+   ``ServingPipeline``, wire over raw bytes and stage dispatch-to-result
+   p50 ms per codec, recovery seconds, K6 at the hop shapes beside its
+   plain version and bound, and the phase's seconds.
 
 The line before the last is the kernels' JSON; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -787,7 +817,8 @@ def same_bits(torch, a, b):
 def check_k6(torch, Q, dev, errs):
     """K6 quantize / dequantize vs the plain version with torch.equal
     (values, scales, the round trip; NaN-aware): every draft matrix shape
-    and dtype, a ragged size, an all-zero block, NaN / +-Inf blocks."""
+    and dtype, a ragged size, an all-zero block, NaN / +-Inf blocks, and
+    phase 13's int8dev hops (ResNet-50's cuts at batch 8, f32)."""
     gen = torch.Generator(device=dev).manual_seed(13)
     zero = torch.randn(3, 8192, generator=gen, device=dev)
     zero[1] = 0.0
@@ -806,6 +837,11 @@ def check_k6(torch, Q, dev, errs):
         "(3, 8192) f32 with an all-zero block": zero,
         "(3, 8192) f32, NaN / +Inf / -Inf blocks": nan_inf,
         "(2, 8192) bf16, +Inf / -Inf blocks": inf.to(torch.bfloat16),
+        # Phase 13's int8dev hops: ResNet-50's cut activations at batch 8.
+        "(8, 56, 56, 256) f32, a hop": torch.randn(
+            8, 56, 56, 256, generator=gen, device=dev).relu(),
+        "(8, 28, 28, 512) f32, a hop": torch.randn(
+            8, 28, 28, 512, generator=gen, device=dev).relu(),
     })
     for what, x in cases.items():
         qt = Q.quantize_blocks(x)
@@ -2348,7 +2384,7 @@ def serving_case(torch, A, dev, card, graph, cuts, x, n_req, tol):
           f"stage dispatch-to-result ms p50 {stage_p50}; "
           f"largest error vs graph.apply {max(errs) / scale:.3e} x max|ref| "
           f"(gate {tol}), bit-equal {all(e == 0 for e in errs)}")
-    return k1
+    return k1, n_img / wall
 
 
 def vit_oracle(torch, A, graph, graph32, x, errs):
@@ -2409,12 +2445,12 @@ def pipeline_phase(torch, A, dev, card, kernels, cases, serve):
     image size, batch, requests, dtype, K1 launches a request); ``serve``:
     (build, cuts, image size, batch, requests) for the graft scenario,
     bf16 (None: no graft scenario). Returns K1's launches on the ViT
-    LocalPipeline's stream."""
+    LocalPipeline's stream and the graft scenario's images/s."""
     from adapt_tpu_torch.graph.partition import balanced_cuts
 
     t_phase = time.perf_counter()
     gen = torch.Generator(device=dev).manual_seed(29)
-    k1_pipeline, path_errs = None, {}
+    k1_pipeline, path_errs, serve_rate = None, {}, None
     for label, build, cuts, img, batch, n_req, dtype, k1_each in cases:
         graph = build(dtype)
         xs = [torch.randn(batch, img, img, 3, generator=gen, device=dev)
@@ -2431,8 +2467,9 @@ def pipeline_phase(torch, A, dev, card, kernels, cases, serve):
     if serve is not None:
         build, cuts, img, batch, n_req = serve
         x = torch.randn(batch, img, img, 3, generator=gen, device=dev)
-        serving_case(torch, A, dev, card, build(torch.bfloat16), cuts, x,
-                     n_req, 1e-2)
+        _, serve_rate = serving_case(torch, A, dev, card,
+                                     build(torch.bfloat16), cuts, x, n_req,
+                                     1e-2)
     print(f"phase 12 (pipelines) took {time.perf_counter() - t_phase:.1f} s "
           f"on {card}")
     for kr in kernels:
@@ -2441,7 +2478,7 @@ def pipeline_phase(torch, A, dev, card, kernels, cases, serve):
                       pipeline_shape="ViT-B/16 LocalPipeline stream, 3 "
                       "stages, 32 requests of batch 8, bf16",
                       pipeline_max_abs_err=path_errs["flash_attn_fwd"])
-    return k1_pipeline
+    return k1_pipeline, serve_rate
 
 
 def pipeline_cases(torch, dev):
@@ -2473,6 +2510,565 @@ def pipeline_cases(torch, dev):
         ("EfficientNet-B4", eff, None, 380, 4, 32, bf16, 0),
         ("ViT-B/16", vit, vcuts, 224, 8, 32, bf16, 12),
     ], (vit, vcuts, 224, 8, 16)
+
+
+# -- phase 13: the paper's pipeline across processes ---------------------------
+
+
+def remote_fault(FaultConfig, **kw):
+    """Phase 13's fault settings: phase 12's deadline and watchdog, leases
+    renewed by the worker processes' pings (every 0.2 s), and waits long
+    enough for a worker process to reach the card and for a stage's
+    weights to cross a socket."""
+    base = dict(lease_ttl_s=1.0, heartbeat_s=0.2, task_deadline_s=2.0,
+                watchdog_period_s=0.05, startup_wait_s=90.0, max_retries=4,
+                quarantine_strikes=2, configure_timeout_s=120.0,
+                send_timeout_s=30.0)
+    base.update(kw)
+    return FaultConfig(**base)
+
+
+class WorkerProcs:
+    """Stage-worker processes on the card (``python -m
+    adapt_tpu_torch.comm.remote --port 0 --device cuda:0 --no-tf32``: TF32
+    off, as in this process), started with ``subprocess`` (never a fork of
+    this CUDA process); each prints its
+    port once it listens. stderr goes to a file whose tail a failure
+    prints; :meth:`close` stops every one."""
+
+    def __init__(self, root, logdir, device):
+        self.root, self.logdir, self.device = root, logdir, device
+        self.procs, self.logs = [], []
+
+    def start(self, *args):
+        env = dict(os.environ, PYTHONPATH=self.root)
+        log = open(os.path.join(self.logdir, f"worker{len(self.procs)}.log"),
+                   "w")
+        self.logs.append(log)
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "adapt_tpu_torch.comm.remote", "--port",
+             "0", "--device", self.device, "--heartbeat", "0.2",
+             "--no-tf32", *args],
+            cwd=self.root, env=env, stdout=subprocess.PIPE, stderr=log,
+            text=True)
+        self.procs.append(proc)
+        return proc
+
+    @staticmethod
+    def port(proc) -> int:
+        """The port a worker printed (``listening HOST:PORT``): printed
+        after its device is resolved, so the card is up in it."""
+        line = proc.stdout.readline().split()
+        if not line or line[0] != "listening":
+            raise AssertionError(f"worker process {proc.pid} did not start "
+                                 f"(exit {proc.poll()}): {line}")
+        return int(line[1].rpartition(":")[2])
+
+    def tails(self) -> str:
+        out = []
+        for log in self.logs:
+            log.flush()
+            with open(log.name) as f:
+                tail = f.read()[-2000:]
+            if tail.strip():
+                out.append(f"--- {os.path.basename(log.name)}\n{tail}")
+        return "\n".join(out)
+
+    def close(self):
+        for p in self.procs:
+            if p.poll() is None:
+                p.terminate()
+        for p in self.procs:
+            try:
+                p.wait(timeout=15)
+            except subprocess.TimeoutExpired:
+                p.kill()
+                p.wait(timeout=15)
+            p.stdout.close()
+        for log in self.logs:
+            log.close()
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def wait_for(cond, what, timeout=120.0):
+    deadline = time.monotonic() + timeout
+    while not cond():
+        if time.monotonic() > deadline:
+            raise AssertionError(f"phase 13: {what} not within {timeout} s")
+        time.sleep(0.02)
+
+
+def rel_err(y, ref) -> float:
+    return float((y.to(ref.device).float() - ref.float()).abs().max()
+                 / ref.float().abs().max())
+
+
+def served(torch, dispatcher, xs, label):
+    """Submit every request of ``xs`` (``max_inflight`` at a time) and wait
+    for all: (outputs, wall s, counters, stage dispatch-to-result p50 ms).
+    Fails unless each request completed exactly once and none failed."""
+    from adapt_tpu_torch.utils.metrics import global_metrics
+
+    global_metrics().reset()
+    t0 = time.perf_counter()
+    futures = [dispatcher.submit(x) for x in xs]
+    outs = [f.result(300.0) for f in futures]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    snap = global_metrics().snapshot()
+    c = snap["counters"]
+    done, failed = c.get("dispatcher.completed", 0), c.get(
+        "dispatcher.failed", 0)
+    if failed or done != len(xs) or len({f.request_id for f in futures}) \
+            != len(xs):
+        raise AssertionError(f"{label}: {done:.0f} completed, {failed:.0f} "
+                             f"failed of {len(xs)} requests")
+    p50 = [round(snap["histograms"][f"stage{i}.latency_s"]["p50"] * 1e3, 3)
+           for i in range(3) if f"stage{i}.latency_s" in snap["histograms"]]
+    return outs, wall, c, p50
+
+
+def check_equal(torch, outs, refs, label):
+    bad = [i for i, (y, r) in enumerate(zip(outs, refs))
+           if not torch.equal(y.to(r.device), r)]
+    if bad:
+        raise AssertionError(
+            f"{label}: outputs {bad[:4]} differ from graph.apply (largest "
+            f"{max(rel_err(outs[i], refs[i]) for i in bad):.3e} x max|ref|)")
+
+
+def resnet_remote_runs(torch, Q, dev, card, procs, srv, kernels, tmp, case):
+    """Phase 13 (a), (b), (f), (e) on ``case`` = (graph, 3-stage cuts,
+    the recipe workers rebuild it from, requests): a ``ServingPipeline``
+    with no in-process worker and a gateway, joined by two worker processes
+    and by ``srv`` (a server in this process, over loopback TCP, so its K6
+    counts are this process's). Stage i is configured on worker i (``srv``
+    stage 0). Returns the images/s of the hub runs and the chain."""
+    from adapt_tpu_torch.comm.remote import RemoteWorkerProxy
+    from adapt_tpu_torch.config import CodecConfig, FaultConfig, ServeConfig
+    from adapt_tpu_torch.control.dispatcher import Dispatcher
+    from adapt_tpu_torch.control.journal import DispatcherJournal
+    from adapt_tpu_torch.graph.partition import partition
+    from adapt_tpu_torch.runtime.pipeline import LocalPipeline, ServingPipeline
+
+    import signal
+    import threading
+
+    graph, cuts, recipe, xs = case
+    plan = partition(graph, cuts)
+    gen = torch.Generator(device=dev).manual_seed(37)
+    with torch.no_grad():
+        refs = [graph.apply(x) for x in xs]
+    shapes = graph.eval_shapes(xs[0])
+    hop_raw = (xs[0].numel() * 4 + 2 * sum(
+        shapes[c].numel() * 4 for c in cuts) + refs[0].numel() * 4)
+    # The int8dev bar: the error of the same hops inside one process.
+    local = LocalPipeline.from_config(
+        plan, devices=[dev] * 3,
+        config=ServeConfig(codec=CodecConfig(name="int8dev")))
+    local_err = max(rel_err(y, r) for y, r in zip(local.stream(xs), refs))
+    del local
+
+    gw = free_port()
+    cfg = ServeConfig(fault=remote_fault(FaultConfig))
+    pipe = ServingPipeline(plan, None, devices=[], config=cfg,
+                           gateway_model_config=recipe, gateway_port=gw,
+                           gateway_device=dev)
+    joiners = [procs.start("--connect", f"127.0.0.1:{gw}", "--worker-id",
+                           f"w{i}") for i in (1, 2)]
+    threading.Thread(target=srv.connect_and_serve,
+                     args=(("127.0.0.1", gw), "w0"), daemon=True).start()
+    t0 = time.perf_counter()
+    pipe.start()
+    ports = [procs.port(p) for p in joiners]
+    wait_for(lambda: {"w0", "w1", "w2"} <= set(pipe.registry.alive()),
+             "three workers joining the gateway")
+    print(f"phase 13: 2 worker processes and this process's server joined "
+          f"the gateway in {time.perf_counter() - t0:.1f} s")
+    by_id = {p.worker_id: p for p in pipe.gateway.proxies}
+    order = [by_id["w0"], by_id["w1"], by_id["w2"]]
+    host = plan.extract_variables()
+
+    def pin(codec):
+        for i, p in enumerate(order):
+            p.set_codec(codec)
+            p.configure(i, None, host[i])
+
+    rates = {}
+    try:
+        for codec in ("none", "int8dev", "lz"):
+            pin(codec)
+            pipe.dispatcher.warmup(xs[0])  # first calls in every process
+            for p in order:
+                p.bytes_sent = p.result_bytes_received = 0
+            Q.quantize_blocks.launches = Q.dequantize_blocks.launches = 0
+            ex0 = srv.executed
+            got_before = sum(p.results_received for p in order)
+            outs, wall, c, p50 = served(torch, pipe.dispatcher, xs,
+                                        f"hub {codec}")
+            nq, nd = Q.quantize_blocks.launches, Q.dequantize_blocks.launches
+            wire = sum(p.bytes_sent + p.result_bytes_received for p in order)
+            rates[codec] = len(xs) * 8 / wall
+            extra = ""
+            if codec == "int8dev":
+                err = max(rel_err(y, r) for y, r in zip(outs, refs))
+                bar = max(1e-2, 2 * local_err)
+                if not err <= bar:
+                    raise AssertionError(
+                        f"hub int8dev: error {err:.3e} x max|ref| over "
+                        f"max(1e-2, 2 x LocalPipeline int8dev's "
+                        f"{local_err:.3e})")
+                # This process quantizes every stage input the hub sends and
+                # its own stage's outputs, and dequantizes every result the
+                # hub receives and its own stage's inputs: with no
+                # re-dispatch, 3 + 1 hops each way a request.
+                here = srv.executed - ex0
+                sent = c.get("dispatcher.tasks_sent", 0)
+                got = sum(p.results_received for p in order) - got_before
+                if (nq, nd) != (sent + here, got + here) or not here:
+                    raise AssertionError(
+                        f"hub int8dev: K6 quantize {nq} / dequantize {nd} "
+                        f"launches in this process for {sent:.0f} stage "
+                        f"inputs sent, {got} results received and {here} "
+                        f"stage runs here; want {sent + here:.0f} / "
+                        f"{got + here}")
+                for kr in kernels:
+                    if kr["name"] in ("quantize_blocks", "dequantize_blocks"):
+                        kr.update(remote_launches=(
+                            nq if kr["name"] == "quantize_blocks" else nd),
+                            remote_path=(
+                                f"phase 13 hub int8dev run, {graph.name} "
+                                f"f32, {len(xs)} requests of batch "
+                                f"{xs[0].shape[0]}: launches in the smoke's "
+                                "process (hub + its own stage-0 server), 4 a "
+                                "request without re-dispatch"))
+                extra = (f"; error {err:.3e} x max|ref| (LocalPipeline "
+                         f"int8dev {local_err:.3e}, bar {bar:.3e}); K6 "
+                         f"launches here {nq} quantize / {nd} dequantize "
+                         f"({nq / len(xs):g} / {nd / len(xs):g} hops a "
+                         f"request over {len(xs)} requests, {here} stage "
+                         "runs here)")
+            else:
+                check_equal(torch, outs, refs, f"hub {codec}")
+                extra = "; every output torch.equal to graph.apply"
+            print(f"phase 13 (a) hub over 3 workers (2 processes + 1 in this "
+                  f"process), {graph.name} f32, codec {codec}, on {card}: "
+                  f"{rates[codec]:.1f} images/s, wire / raw bytes "
+                  f"{wire / (hop_raw * len(xs)):.4f}, stage dispatch-to-"
+                  f"result p50 ms {p50}, re-dispatches "
+                  f"{c.get('dispatcher.redispatched', 0):.0f}{extra}")
+
+        # (f) the chain over the same workers, then the middle one killed
+        # mid-burst.
+        pin("none")
+        pipe.dispatcher.setup_chain(["w0", "w1", "w2"])
+        got0 = [p.results_received for p in order]
+        outs, wall, c, _ = served(torch, pipe.dispatcher, xs, "chain")
+        check_equal(torch, outs, refs, "chain")
+        got = [p.results_received - g for p, g in zip(order, got0)]
+        if got != [0, 0, len(xs)]:
+            raise AssertionError(f"chain: results per hub link {got}, want "
+                                 f"[0, 0, {len(xs)}]")
+        rates["chain"] = len(xs) * 8 / wall
+        box = {}
+        burst = threading.Thread(target=lambda: box.update(
+            r=served(torch, pipe.dispatcher, xs, "chain kill")), daemon=True)
+        tail0 = order[2].results_received
+        burst.start()
+        wait_for(lambda: order[2].results_received - tail0 >= len(xs) // 4,
+                 "a quarter of the burst's chained results before the kill")
+        os.kill(joiners[0].pid, signal.SIGKILL)
+        burst.join(300.0)
+        if "r" not in box:
+            raise AssertionError("chain kill: the burst did not finish")
+        outs, wall_k, c, _ = box["r"]
+        check_equal(torch, outs, refs, "chain kill")
+        if pipe.dispatcher._chain is not None:
+            raise AssertionError("chain kill: the chain is still enabled")
+        print(f"phase 13 (f) chain w0 -> w1 -> w2 (codec none) on {card}: "
+              f"{rates['chain']:.1f} images/s, the hub received only the "
+              f"tail's {len(xs)} results, every output torch.equal to "
+              f"graph.apply; middle worker SIGKILLed after {len(xs) // 4} "
+              f"chained results: the chain fell back to the hub, all {len(xs)} "
+              f"completed once ({c.get('dispatcher.redispatched', 0):.0f} "
+              f"re-dispatched, {c.get('dispatcher.chain_disabled', 0):.0f} "
+              f"chain disable), torch.equal, {len(xs) * 8 / wall_k:.1f} "
+              f"images/s over the burst")
+    finally:
+        pipe.shutdown()
+
+    # (e) a journaled dispatcher over the survivors as dial-out workers,
+    # crashed with requests in flight, then recovered.
+    jroot = os.path.join(tmp, "journal")
+    journal = DispatcherJournal(jroot)
+    disp = Dispatcher(plan, None, config=cfg, journal=journal)
+    for wid, port in (("r0", srv.port), ("r2", ports[1])):
+        disp.attach_worker(RemoteWorkerProxy(
+            wid, ("127.0.0.1", port), disp.registry, disp.result_queue,
+            model_config=recipe, fault=cfg.fault, result_device=dev))
+    disp_b = None
+    try:
+        disp.start()
+        disp.warmup(xs[0])
+        futures = [disp.submit(x) for x in xs[:8]]
+        futures[0].result(120.0)
+        disp.hard_stop()
+        # Two requests accepted but never dispatched: the replay set is
+        # never empty, however fast the pool drained the eight.
+        last = max(f.request_id for f in futures)
+        for rid, x in ((last + 1, xs[8]), (last + 2, xs[9])):
+            journal.record_submit(rid, x)
+        journal.close()
+        _, pending, _ = DispatcherJournal(jroot).load()
+        t0 = time.perf_counter()
+        disp_b, recovered = Dispatcher.recover(
+            plan, None, DispatcherJournal(jroot), config=cfg,
+            result_device=dev)
+        outs = {rid: f.result(120.0) for rid, f in recovered.items()}
+        torch.cuda.synchronize()
+        rec_s = time.perf_counter() - t0
+        if set(recovered) != set(pending):
+            raise AssertionError(f"recovery replayed {sorted(recovered)}, "
+                                 f"the journal held {sorted(pending)}")
+        with torch.no_grad():
+            check_equal(torch, list(outs.values()),
+                        [graph.apply(pending[r].to(dev)) for r in outs],
+                        "recovery")
+        wait_for(lambda: not disp_b._journal.pending_ids(),
+                 "the replayed requests' done marks", 30.0)
+    finally:
+        if disp_b is not None:
+            disp_b.shutdown()
+        else:
+            disp.shutdown()
+    left = DispatcherJournal(jroot).load()[1]
+    if left:
+        raise AssertionError(f"recovery left {sorted(left)} pending")
+    print(f"phase 13 (e) dispatcher hard_stop with {len(pending)} journaled "
+          f"requests pending (of 8 submitted and 2 accepted but never "
+          f"dispatched), recovered over 2 re-adopted dial-out workers in "
+          f"{rec_s:.3f} s (recover() to the last replayed result) "
+          f"on {card}: each completed once, torch.equal to graph.apply, "
+          "the journal drained")
+
+    # (b) K6 at the hop shapes, timed beside the plain version and the
+    # bound (ops against 67 TFLOP/s, as phase 10).
+    for c in cuts:
+        x = torch.randn(*shapes[c].shape, generator=gen, device=dev)
+        qt = Q.quantize_blocks(x)
+        n, nb = x.numel(), qt.scales.numel()
+        for kr in kernels:
+            if kr["name"] == "quantize_blocks":
+                fn, plain = (lambda: Q.quantize_blocks(x),
+                             lambda: Q.quantize_reference(x))
+                ops, nbytes = 3 * n, n * 4 + nb * 8192 + nb * 4
+            elif kr["name"] == "dequantize_blocks":
+                fn, plain = (lambda: Q.dequantize_blocks(qt),
+                             lambda: Q.dequantize_reference(qt))
+                ops, nbytes = n, nb * 8192 + nb * 4 + n * 4
+            else:
+                continue
+            bms = max(ops / 67e12, nbytes / PEAK_BYTES) * 1e3
+            kr.setdefault("hop", []).append(dict(
+                shape=f"{tuple(x.shape)} f32", ms=time_ms(fn),
+                plain_ms=time_ms(plain), bound_ms=bms))
+    return rates
+
+
+def vit_remote_runs(torch, A, dev, card, procs, vprocs, srv, kernels, case):
+    """Phase 13 (c) and (d) on ``case`` = (a bf16 ViT graph, 3-stage cuts,
+    the recipe, requests, K1 launches a stage run): three worker processes,
+    codec none; then the graft faults over four workers (the three and
+    ``srv``): a SIGKILL of worker 0 at request 5, an ``MSG_KILL`` hang of
+    worker 1 at request 9."""
+    from adapt_tpu_torch.comm.remote import RemoteWorkerProxy
+    from adapt_tpu_torch.config import FaultConfig, ServeConfig
+    from adapt_tpu_torch.control.dispatcher import Dispatcher
+    from adapt_tpu_torch.control.worker import WorkerState
+    from adapt_tpu_torch.graph.partition import partition
+
+    import signal
+
+    graph, cuts, recipe, xs, k1_each = case
+    plan = partition(graph, cuts)
+    with torch.no_grad():
+        refs = [graph.apply(x) for x in xs]
+    cfg = ServeConfig(fault=remote_fault(FaultConfig))
+    host = plan.extract_variables()
+    ports = [procs.port(p) for p in vprocs]
+
+    def dispatcher(addrs):
+        disp = Dispatcher(plan, None, config=cfg)
+        proxies = [RemoteWorkerProxy(
+            f"v{i}", ("127.0.0.1", port), disp.registry, disp.result_queue,
+            model_config=recipe, fault=cfg.fault, result_device=dev)
+            for i, port in enumerate(addrs)]
+        for p in proxies:
+            disp.attach_worker(p)
+        disp.start()
+        for i, p in enumerate(proxies[:3]):
+            p.configure(i, None, host[i])
+        disp.warmup(xs[0])  # first calls in every process
+        return disp, proxies
+
+    disp, _ = dispatcher(ports)
+    try:
+        outs, wall, _, p50 = served(torch, disp, xs, "ViT over 3 processes")
+        check_equal(torch, outs, refs, "ViT over 3 processes")
+    finally:
+        disp.shutdown()
+    rate = len(xs) * 8 / wall
+    print(f"phase 13 (c) {graph.name} bf16 over 3 worker processes (K1 in "
+          f"each), "
+          f"codec none, on {card}: {rate:.1f} images/s, stage dispatch-to-"
+          f"result p50 ms {p50}, every output torch.equal to graph.apply")
+
+    # (d): stage 0 on v0 (SIGKILLed), 1 on v1 (hung), 2 on this process's
+    # server, whose K1 launches are counted here; v3 spare.
+    order = [ports[0], ports[1], srv.port, ports[2]]
+    disp, proxies = dispatcher(order)
+    try:
+        A.flash_attn_fwd.launches = 0
+        ex0 = srv.executed
+        from adapt_tpu_torch.utils.metrics import global_metrics
+
+        global_metrics().reset()
+        t0 = time.perf_counter()
+        futures, t_kill = [], None
+        for i, x in enumerate(xs):
+            futures.append(disp.submit(x))
+            if i == 5:
+                os.kill(vprocs[0].pid, signal.SIGKILL)
+                t_kill = time.monotonic()
+            elif i == 9:
+                proxies[1].kill("hang")
+        outs = [f.result(300.0) for f in futures]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        recovery_s = time.monotonic() - t_kill
+        k1, here = A.flash_attn_fwd.launches, srv.executed - ex0
+        c = global_metrics().snapshot()["counters"]
+        hung = proxies[1].state
+        builds = disp.stage_builds
+    finally:
+        disp.shutdown()
+    errs = [rel_err(y, r) for y, r in zip(outs, refs)]
+    budget = 10 * (cfg.fault.task_deadline_s + cfg.fault.lease_ttl_s)
+    failures = [
+        f"a result differs from graph.apply by {max(errs):.3e} x max|ref| "
+        "> 1e-2" if not max(errs) <= 1e-2 else None,
+        f"{c.get('dispatcher.failed', 0):.0f} requests failed"
+        if c.get("dispatcher.failed", 0) else None,
+        f"{c.get('dispatcher.completed', 0):.0f} completed < {len(xs)}"
+        if c.get("dispatcher.completed", 0) < len(xs) else None,
+        "the hung worker was marked DEAD" if hung is WorkerState.DEAD
+        else None,
+        f"the hub built {builds} stage modules" if builds else None,
+        f"recovery {recovery_s:.2f} s over the budget {budget} s"
+        if not recovery_s < budget else None,
+        f"K1 launched {k1} times here for {here} stage runs here, want "
+        f"{k1_each} each and at least one run"
+        if not (here and k1 == k1_each * here) else None,
+    ]
+    failures = [f for f in failures if f]
+    if failures:
+        raise AssertionError("phase 13 (d) graft faults across processes: "
+                             + "; ".join(failures))
+    for kr in kernels:
+        if kr["name"] == "flash_attn_fwd":
+            kr.update(remote_launches=k1, remote_path=(
+                f"phase 13 (d) {graph.name} over 4 workers: launches in the "
+                f"smoke's own stage server, {k1_each} a stage run"))
+    print(f"phase 13 (d) graft faults across processes ({graph.name}, 4 "
+          f"workers: 3 processes + this process's server; {len(xs)} requests "
+          f"of batch {xs[0].shape[0]}, "
+          f"SIGKILL of worker 0 at 5, MSG_KILL hang of worker 1 at 9) on "
+          f"{card}: recovery {recovery_s:.3f} s (budget {budget} s), "
+          f"{len(xs) * 8 / wall:.1f} images/s over the run, re-dispatches "
+          f"{c.get('dispatcher.redispatched', 0):.0f}, quarantines "
+          f"{c.get('dispatcher.quarantined', 0):.0f}, completed "
+          f"{c.get('dispatcher.completed', 0):.0f}, failed 0, the hung worker "
+          f"{hung.value}, hub stage builds 0; K1 {k1} launches in this "
+          f"process's server ({here} stage runs); largest error "
+          f"{max(errs):.3e} x max|ref|, bit-equal "
+          f"{all(e == 0 for e in errs)}")
+    return rate
+
+
+def remote_cases(torch, dev):
+    """Phase 13's models at full width and depth, random weights from seed
+    0, and the recipes the workers rebuild them from by registry name:
+    ResNet-50 f32 (``conv7``, 1000 classes, ``RESNET50_3STAGE_CUTS``), 32
+    requests of batch 8 at 224; ViT-B/16 bf16 (``vit_block_cuts(12, 3)``,
+    4 K1 launches a stage run), 16 requests of batch 8."""
+    from adapt_tpu_torch.models.resnet import RESNET50_3STAGE_CUTS, resnet50
+    from adapt_tpu_torch.models.vit import vit_b16, vit_block_cuts
+
+    gen = torch.Generator(device=dev).manual_seed(37)
+
+    def images(n):
+        return [torch.randn(8, 224, 224, 3, generator=gen, device=dev)
+                for _ in range(n)]
+
+    rcuts, vcuts = list(RESNET50_3STAGE_CUTS), vit_block_cuts(12, 3)
+    return ((resnet50(1000, torch.float32, device=dev, seed=0), rcuts,
+             {"model": "resnet50", "num_classes": 1000, "cuts": rcuts},
+             images(32)),
+            (vit_b16(1000, torch.bfloat16, device=dev, seed=0), vcuts,
+             {"model": "vit_b16", "num_classes": 1000, "cuts": vcuts,
+              "model_kwargs": {"dtype": "bfloat16"}}, images(16), 4))
+
+
+def remote_phase(torch, A, Q, dev, card, kernels, root, inproc_rate,
+                 cases):
+    """Phase 13: the paper's pipeline across processes on the card (see
+    the module docstring); ``cases``: :func:`remote_cases`.
+    ``inproc_rate``: phase 12's in-process ``ServingPipeline`` images/s,
+    printed beside the process runs."""
+    import shutil
+    import tempfile
+    import threading
+
+    from adapt_tpu_torch.comm.remote import RemoteStageServer
+
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="phase13-")
+    procs = WorkerProcs(root, tmp, "cuda:0" if dev.type == "cuda" else "cpu")
+    srv = None
+    try:
+        # The ViT workers start now: their processes reach the card while
+        # the ResNet runs go.
+        vprocs = [procs.start() for _ in range(3)]
+        srv = RemoteStageServer(0, device=dev, heartbeat_s=0.2)
+        srv.listen()
+        threading.Thread(target=srv.serve_forever, daemon=True).start()
+        rates = resnet_remote_runs(torch, Q, dev, card, procs, srv, kernels,
+                                   tmp, cases[0])
+        vit_rate = vit_remote_runs(torch, A, dev, card, procs, vprocs, srv,
+                                   kernels, cases[1])
+    except BaseException:
+        print(procs.tails(), file=sys.stderr)
+        raise
+    finally:
+        if srv is not None:
+            srv.shutdown()
+        procs.close()
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"phase 13 images/s on {card}: {cases[0][0].name} f32 hub "
+          + ", ".join(f"{k} {v:.1f}" for k, v in rates.items())
+          + f"; {cases[1][0].name} bf16 over 3 processes {vit_rate:.1f}, "
+          f"phase 12's "
+          f"in-process ServingPipeline (4 threads on the card) "
+          f"{inproc_rate:.1f}")
+    print(f"phase 13 (pipeline across processes) took "
+          f"{time.perf_counter() - t_phase:.1f} s on {card}")
 
 
 def main(argv) -> int:
@@ -3273,7 +3869,12 @@ def main(argv) -> int:
     add_device_times(kernels, decode_device_times(torch, D, P, Q, card))
 
     # -- phase 12: the paper's pipeline (LocalPipeline, ServingPipeline) ----
-    pipeline_phase(torch, A, dev, card, kernels, *pipeline_cases(torch, dev))
+    _, serve_rate = pipeline_phase(torch, A, dev, card, kernels,
+                                   *pipeline_cases(torch, dev))
+
+    # -- phase 13: the paper's pipeline across processes -----------------
+    remote_phase(torch, A, Q, dev, card, kernels, root, serve_rate,
+                 remote_cases(torch, dev))
 
     if "--profile" in argv:
         profile_train(torch, *train_case, card)
@@ -3305,6 +3906,12 @@ def main(argv) -> int:
                     f"device {kr['call_device_ms']:.4f} (plain "
                     f"{kr['call_plain_ms']:.4f}, bound "
                     f"{kr['call_bound_ms']:.4f})")
+        for h in kr.get("hop", []):
+            call += (f"; at the hop {h['shape']}: {h['ms']:.4f} ms (plain "
+                     f"{h['plain_ms']:.4f}, bound {h['bound_ms']:.4f})")
+        if "remote_launches" in kr:
+            call += (f"; {kr['remote_launches']} launches on "
+                     f"{kr['remote_path']}")
         print(f"{kr['name']} on {card}: {kr['ms']:.4f} ms{devt} (plain "
               f"{kr['plain_ms']:.4f}, library {lib}{two}, bound "
               f"{kr['bound_ms']:.4f} by {kr['bound_by']}) at {kr['shape']}"

@@ -1,5 +1,6 @@
 """The port's boundary: ``adapt_tpu_torch`` and ``chip_smoke.py`` import
-neither JAX nor the JAX package, and entry points never quietly run on
+neither JAX, its dependency ``ml_dtypes`` (absent beside the card) nor the
+JAX package, and entry points never quietly run on
 the CPU when no card is present."""
 
 import ast
@@ -9,7 +10,7 @@ import pytest
 import torch
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
-FORBIDDEN = ("jax", "jaxlib", "flax", "adapt_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "ml_dtypes", "adapt_tpu")
 
 
 def _port_files():
@@ -49,6 +50,11 @@ def test_port_files_exist():
         "adapt_tpu_torch/parallel/pipeline_spmd.py",
         "adapt_tpu_torch/parallel/train.py",
         "adapt_tpu_torch/utils/checkpoint.py",
+        "adapt_tpu_torch/comm/framing.py",
+        "adapt_tpu_torch/comm/codec.py",
+        "adapt_tpu_torch/comm/native.py",
+        "adapt_tpu_torch/comm/remote.py",
+        "adapt_tpu_torch/control/journal.py",
     ):
         assert want in names
 

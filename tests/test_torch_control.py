@@ -2,8 +2,8 @@
 (``control/registry.py``), stage workers (``control/worker.py``), the
 late-binding dispatcher with its watchdog (``control/dispatcher.py``) and
 the two pipelines (``runtime/pipeline.py``), mirroring the JAX package's
-``tests/test_control.py`` (its journal, chain and codec tests wait for the
-port's ``comm/``).
+``tests/test_control.py`` (its journal, chain and codec tests are the
+port's ``test_torch_comm.py`` and ``test_torch_remote.py``).
 
 The tests assert outcomes — every request completes exactly once with the
 right value, counters, worker states — not tight wall-clock times. Fault
@@ -272,21 +272,20 @@ def test_entry_points_need_a_card_or_the_cpu(small_model):
 
 
 def test_remote_only_parts_raise_and_name_their_step(small_model):
+    """What remote workers still lack names its step: the observability
+    exporter and the workers' telemetry reports (ROADMAP.md item 9). The
+    codecs, the gateway, the journal, chains and recovery are ported
+    (``test_torch_comm.py``, ``test_torch_remote.py``)."""
+    from adapt_tpu_torch.comm.remote import RemoteStageServer
+
     g, plan, _ = small_model
-    with pytest.raises(NotImplementedError, match="comm/"):
-        CodecConfig(name="int8dev")
-    with pytest.raises(NotImplementedError, match="comm/"):
-        ServingPipeline(plan, devices=CPU, journal_dir="/nonexistent")
-    with pytest.raises(NotImplementedError, match="comm/"):
-        ServingPipeline(plan, devices=CPU, gateway_model_config={})
-    with pytest.raises(NotImplementedError, match="comm/"):
-        Dispatcher(plan, journal=object())
-    disp = Dispatcher(plan)
-    for call in (disp.setup_chain, disp.disable_chain, Dispatcher.recover):
-        with pytest.raises(NotImplementedError, match="comm/"):
-            call()
     with pytest.raises(NotImplementedError, match="item 9"):
         ServingPipeline(plan, devices=CPU).serve_observability()
+    with pytest.raises(ValueError, match="item 9"):
+        RemoteStageServer(device="cpu", telemetry_s=2.0)
+    assert CodecConfig(name="int8dev").name == "int8dev"
+    with pytest.raises(ValueError, match="expected one of"):
+        CodecConfig(name="lz4")
 
 
 # -- the adaptive pipeline ----------------------------------------------------
