@@ -1,16 +1,15 @@
 """Typed configuration the ported serving core reads — copies of
 ``adapt_tpu/config.py``'s ``FaultConfig``, ``CodecConfig``,
 ``KernelConfig``, ``SpeculativeConfig``, ``SchedulerConfig`` (with
-``TenantQuota``, which the latter names), ``PipelineConfig``, the
-``ObservabilityConfig`` fields the dispatcher reads, and ``ServeConfig``
-over those, same field names and defaults, so one config means the same
-thing in both packages.
+``TenantQuota``, which the latter names), ``SLOSpec``, ``RuntimeConfig``,
+``PipelineConfig``, the ``ObservabilityConfig`` fields the dispatcher and
+the batcher read, and ``ServeConfig`` over those, same field names and
+defaults, so one config means the same thing in both packages.
 
 ``ServeConfig`` holds the subsystem configs the port has. The others
 (``ParallelConfig``, ``RecoveryConfig``, ``DisaggConfig``,
-``PrefillConfig``, ``RuntimeConfig``, ``CapacityConfig``,
-``RouterConfig``, ``CacheTierConfig``) come with the slices that port
-those subsystems.
+``PrefillConfig``, ``CapacityConfig``, ``RouterConfig``,
+``CacheTierConfig``) come with the slices that port those subsystems.
 
 What differs is what ``KernelConfig`` selects on this card:
 
@@ -103,25 +102,43 @@ class TenantQuota:
 
 @dataclasses.dataclass(frozen=True)
 class SchedulerConfig:
-    """Multi-tenant overload control in front of the continuous batcher.
-    The port serves the bounded FIFO (``max_queue_depth``) so far; the
-    fair-queueing, preemption and degradation fields are carried for
-    config parity and take effect when that part is ported."""
+    """Multi-tenant overload control in front of the continuous batcher
+    (``runtime/scheduler``): ``ContinuousBatcher(scheduler=...)`` queues
+    requests by priority class (``SLOSpec.priority``) and drains each
+    class's tenants by deficit round-robin, rejects synchronously at the
+    global depth bound and each tenant's ``burst`` cap, preempts a
+    lower-priority decode slot when a waiting request has burned
+    ``preempt_ttft_fraction`` of its TTFT budget, and walks the
+    degradation ladder under sustained pressure. Without a config the
+    batcher's queue is a bounded strict FIFO."""
 
     #: Global bound on queued (not yet admitted) requests.
     max_queue_depth: int = 4096
+    #: DRR credit a tenant's turn adds, times its weight; a request costs 1.
     quantum: float = 1.0
+    #: Weight of a tenant without a ``quotas`` entry.
     default_weight: float = 1.0
     quotas: dict[str, TenantQuota] = dataclasses.field(default_factory=dict)
+    #: Preempt the lowest-priority decode slot through the replay path.
     preempt: bool = True
+    #: Share of a waiting request's TTFT budget that triggers preemption.
     preempt_ttft_fraction: float = 0.5
+    #: Run the degradation ladder (``DegradationController``).
     degrade: bool = True
+    #: Queue depth / ``max_queue_depth`` at or above which the ladder
+    #: climbs (with slot occupancy at or above ``degrade_occupancy``) ...
     degrade_queue_high: float = 0.5
+    #: ... and at or below which it steps back down.
     degrade_queue_low: float = 0.05
     degrade_occupancy: float = 1.0
+    #: Windowed TTFT attainment below which a backlog counts as overload.
     degrade_attainment: float = 0.9
+    #: Least time between two ladder steps (and the attainment window).
     degrade_dwell_s: float = 0.25
+    #: Prefer, within one tenant's queue, the request whose prompt prefix
+    #: is most resident in the paged prefix cache.
     cache_aware: bool = False
+    #: How many queued requests of the tenant that scan looks at.
     cache_aware_window: int = 16
 
     def __post_init__(self):
@@ -158,6 +175,62 @@ class SchedulerConfig:
             raise ValueError(
                 "cache_aware_window must be >= 1, got "
                 f"{self.cache_aware_window}"
+            )
+
+
+@dataclasses.dataclass(frozen=True)
+class SLOSpec:
+    """Per-request latency budget and scheduling class:
+    ``ContinuousBatcher.submit(..., slo=SLOSpec(...))``. TTFT (submit to
+    first emitted token, queue wait included) is judged once at the first
+    token, ITL at every later commit. A request stays inside budget until
+    its first violation; tokens committed while inside count toward
+    ``continuous.goodput_tokens_s``, and at finish the request lands in
+    its tenant's ``slo.met_total.<tenant>`` / ``slo.missed_total.<tenant>``
+    counter. Evaluation is host arithmetic on the batcher's timeline
+    stamps (the ``obs_timeline`` gate)."""
+
+    #: Submit -> first emitted token budget (None = no TTFT budget).
+    ttft_budget_s: float | None = None
+    #: Inter-token budget between consecutive commits (None = none).
+    itl_budget_s: float | None = None
+    #: Accounting label for the per-tenant counters and DRR queues.
+    tenant: str = "default"
+    #: Scheduling class: higher admits strictly first under backlog and
+    #: may preempt a lower class's decode slot when its TTFT budget is at
+    #: risk; ``< 0`` is best-effort, which the ladder's last rung rejects.
+    #: Inert without a ``SchedulerConfig`` on the batcher.
+    priority: int = 0
+
+    def __post_init__(self):
+        for name in ("ttft_budget_s", "itl_budget_s"):
+            v = getattr(self, name)
+            if v is not None and v <= 0:
+                raise ValueError(f"{name} must be > 0, got {v}")
+        if not self.tenant:
+            raise ValueError("tenant must be a non-empty label")
+
+
+@dataclasses.dataclass(frozen=True)
+class RuntimeConfig:
+    """Tick pipelining of the continuous batcher. ``pipeline_depth=1`` is
+    the synchronous loop: each ``tick()`` dispatches the decode (or
+    speculative) pass, waits for its one fetch and commits. ``2`` keeps one
+    tick in flight: ``tick()`` dispatches tick t, then commits tick t-1
+    while t runs on the card, so the host's scheduler pass overlaps the
+    device's work; results arrive one call later (``drain()``, ``run()``,
+    ``stop()`` and ``close()`` are the boundaries). Greedy streams are the
+    same at both depths. Deeper pipelines buy nothing with one program a
+    tick and are refused."""
+
+    #: 1 = synchronous tick loop; 2 = one tick in flight.
+    pipeline_depth: int = 1
+
+    def __post_init__(self):
+        if self.pipeline_depth not in (1, 2):
+            raise ValueError(
+                "pipeline_depth must be 1 (synchronous) or 2 "
+                f"(one tick in flight), got {self.pipeline_depth}"
             )
 
 
@@ -256,20 +329,24 @@ class ObservabilityConfig:
     enable-only, and a capacity applies only when it differs from these
     defaults (a default-config dispatcher never truncates a ring another
     component sized). ``snapshot_on_recovery``: ``Dispatcher.recover``
-    writes the flight recorder beside the journal. The engine-profiling
-    fields (``obs_engine``, ``compile_warmup``, ``goodput_window_s``) come
+    writes the flight recorder beside the journal. ``goodput_window_s``
+    is the span of the batcher's ``continuous.goodput_tokens_s`` gauge.
+    The engine-profiling fields (``obs_engine``, ``compile_warmup``) come
     with ``utils/profiling.py`` (queue 1 item 9)."""
 
     trace_enabled: bool = False
     trace_capacity: int = 65536
     flight_capacity: int = 2048
     snapshot_on_recovery: bool = True
+    goodput_window_s: float = 2.0
 
     def __post_init__(self):
         if self.trace_capacity < 1:
             raise ValueError("trace_capacity must be >= 1")
         if self.flight_capacity < 1:
             raise ValueError("flight_capacity must be >= 1")
+        if self.goodput_window_s <= 0:
+            raise ValueError("goodput_window_s must be > 0")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -280,9 +357,10 @@ class ServeConfig:
     max_inflight: int = 8
     fault: FaultConfig = dataclasses.field(default_factory=FaultConfig)
     codec: CodecConfig = dataclasses.field(default_factory=CodecConfig)
-    #: ``pipeline``, ``spec``, ``kernel`` and ``scheduler`` carry the JAX
-    #: package's field names: ``Dispatcher`` and the pipelines read none of
-    #: them (the LM path takes those configs as arguments of its own).
+    #: ``pipeline``, ``spec``, ``kernel``, ``scheduler`` and ``runtime``
+    #: carry the JAX package's field names: ``Dispatcher`` and the
+    #: pipelines read none of them (the LM path takes those configs as
+    #: arguments of its own).
     pipeline: PipelineConfig = dataclasses.field(
         default_factory=PipelineConfig)
     obs: ObservabilityConfig = dataclasses.field(
@@ -292,3 +370,4 @@ class ServeConfig:
     kernel: KernelConfig = dataclasses.field(default_factory=KernelConfig)
     scheduler: SchedulerConfig = dataclasses.field(
         default_factory=SchedulerConfig)
+    runtime: RuntimeConfig = dataclasses.field(default_factory=RuntimeConfig)

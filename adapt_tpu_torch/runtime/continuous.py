@@ -70,13 +70,47 @@ packed (tokens, logprobs, accepted) tensor. ``draft_weight_dtype="int8"``
 keeps the draft's matrices blockwise int8 (K6), dequantized inside every
 draft scan and draft prefill.
 
-Tensor parallelism, recovery, the pipelined tick, traffic control (the
-degradation ladder that calls :meth:`ContinuousBatcher.set_draft_k`) and
-the host KV tier are later slices.
+Traffic control (``config.SchedulerConfig``, ``runtime/scheduler``): the
+submit queue is an :class:`~adapt_tpu_torch.runtime.scheduler.AdmissionQueue`
+— a bounded FIFO without a config; with one, priority classes drained by
+deficit round-robin over tenants, synchronous :class:`QueueFullError` at
+the depth bound and each tenant's burst cap, and a cache-aware pick over
+the pager's radix index. ``submit(slo=config.SLOSpec(...))`` attaches a
+TTFT / ITL budget, a tenant and a priority: the commit path judges the
+budgets (``slo.*`` counters and attainment gauges,
+``continuous.good_tokens_total`` and ``continuous.goodput_tokens_s``).
+When a waiting request has burned ``preempt_ttft_fraction`` of its TTFT
+budget and no slot (or, paged, no page) would free otherwise, the
+lowest-priority decode slot is PREEMPTED through the replay path: its pages
+go to the prefix LRU, the request re-queues at the front and re-admits as a
+prefix hit, and ``stream_skip`` keeps ``on_token`` exactly-once across its
+lives (a regenerated token that differs from the one delivered is counted
+in ``stats()["regen_mismatches"]``, never hidden). The
+``DegradationController`` steps once a tick: ``draft_k`` halved, the
+disaggregated busy threshold (a no-op: no ``DisaggServer`` yet), cold
+prefix pages evicted, best-effort submits rejected.
+
+The pipelined tick (``config.RuntimeConfig(pipeline_depth=2)``): ``tick()``
+is a DISPATCH half (ladder step, admission, cancels, prefill passes, the
+decode or speculative pass, and its one device->host fetch started into a
+pinned host buffer of its own with a recorded CUDA event) and a COMMIT
+half (wait for the fetch, apply per-slot commits). At depth 1 they run
+back to back; at depth 2 ``tick()`` dispatches tick t and then commits
+tick t-1 while t runs on the card. A slot whose binding changed since
+dispatch (retired, cancelled, preempted, re-admitted) has its column
+dropped at commit. Host->device staging goes through pinned buffers with
+``non_blocking`` copies, so nothing in a steady dispatch half waits for
+the card. ``drain()`` commits the tick in flight; ``run()``, ``stop()``
+and ``close()`` are the pipeline's boundaries. ``runtime.overlap_ratio``
+is 1 - (time blocked on the fetch) / (dispatch-to-commit wall).
+
+Tensor parallelism, recovery (the journal branch of the replay) and the
+host KV tier are later slices.
 """
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import threading
 import time
@@ -87,7 +121,10 @@ import torch
 
 from adapt_tpu_torch.config import (
     KernelConfig,
+    ObservabilityConfig,
+    RuntimeConfig,
     SchedulerConfig,
+    SLOSpec,
     SpeculativeConfig,
 )
 from adapt_tpu_torch.models.speculative import (
@@ -106,7 +143,13 @@ from adapt_tpu_torch.models.transformer_lm import (
 from adapt_tpu_torch.ops.paged_attention import DEFAULT_PAGE_SIZE
 from adapt_tpu_torch.ops.quantize import quantize_params
 from adapt_tpu_torch.runtime.paged import Pager, insert_prefill_pages
-from adapt_tpu_torch.runtime.scheduler import AdmissionQueue, QueueFullError
+from adapt_tpu_torch.runtime.scheduler import (
+    AdmissionQueue,
+    DegradationController,
+    QueueFullError,
+    request_priority,
+    request_tenant,
+)
 from adapt_tpu_torch.utils.logging import get_logger
 from adapt_tpu_torch.utils.metrics import global_metrics
 from adapt_tpu_torch.utils.tracing import global_flight_recorder, global_tracer
@@ -150,7 +193,25 @@ class _Request:
     seed: int
     stop: tuple[tuple[int, ...], ...] = ()
     on_token: Callable[[int, int, int], None] | None = None
+    #: Tokens already DELIVERED before a replay (preemption) re-queued the
+    #: request: the re-run regenerates indices 0..skip-1, which are not
+    #: delivered, timed or counted again.
+    stream_skip: int = 0
+    #: What the client had received when the replay re-queued it: a cancel
+    #: landing before the re-run catches up resolves result() with this.
+    delivered_tokens: np.ndarray | None = None
+    delivered_lps: np.ndarray | None = None
+    #: perf_counter of the last token the client received before the
+    #: replay: the first new token's ITL gap measures from here.
+    t_last_delivered: float = 0.0
+    #: perf_counter of the replay's re-queue (0.0 = first life): the
+    #: re-admission's queue wait and preemption headroom measure from it.
+    t_requeued: float = 0.0
     t_submit: float = 0.0
+    #: Optional latency budget, tenant and priority.
+    slo: SLOSpec | None = None
+    #: Set at the first budget violation and carried across replays.
+    slo_violated: bool = False
     #: ``submit_fanout`` group id (-1 = ordinary request), consumed at
     #: admission or queued cancel (so it is never decremented twice).
     fanout_group: int = -1
@@ -191,6 +252,71 @@ class _Slot:
     t_first: float = 0.0
     t_last: float = 0.0
     obs_count: int = 0
+    #: False from the request's first budget violation on: only tokens
+    #: committed while True count toward goodput.
+    slo_ok: bool = True
+
+
+class _AsyncFetch:
+    """One tick's device->host fetch, split into start / ``ready()`` /
+    ``commit()``. ``rows`` (same-shaped tensors) are stacked as f64 and,
+    on a CUDA card, copied with ``non_blocking=True`` into a pinned host
+    buffer that belongs to this fetch alone, behind a recorded event:
+    ``ready()`` is ``event.query()``, ``commit()`` waits on the event and
+    returns the numpy array (idempotent). ``wait_s`` is how long commit
+    blocked — the part of the device wall the host did not overlap. On the
+    CPU the fetch is a plain synchronous copy."""
+
+    __slots__ = ("_host", "_event", "_out", "wait_s")
+
+    def __init__(self, rows):
+        packed = torch.stack([r.double() for r in rows])
+        self._event = None
+        self._out = None
+        self.wait_s = 0.0
+        if packed.device.type == "cuda":
+            self._host = torch.empty(packed.shape, dtype=packed.dtype,
+                                     pin_memory=True)
+            self._host.copy_(packed, non_blocking=True)
+            self._event = torch.cuda.Event()
+            self._event.record()
+        else:
+            self._host = None
+            self._out = packed.numpy()
+
+    def ready(self) -> bool:
+        return self._out is not None or self._event.query()
+
+    def commit(self) -> np.ndarray:
+        if self._out is None:
+            t0 = time.perf_counter()
+            self._event.synchronize()
+            self.wait_s = time.perf_counter() - t0
+            self._out = self._host.numpy()
+            self._event = None
+        return self._out
+
+
+@dataclasses.dataclass
+class _InFlight:
+    """One dispatched but uncommitted decode tick. ``reqs`` / ``lives``
+    capture each slot's binding at dispatch (its request object and its
+    ``tokens`` list, the life marker: a preempted request can re-admit
+    into the same slot within the one-tick lag): commit applies a slot's
+    column only while both still hold, and drops it otherwise (a garbage
+    tail, like a mid-chunk finish's)."""
+
+    fetch: _AsyncFetch
+    reqs: list = dataclasses.field(default_factory=list)
+    lives: list = dataclasses.field(default_factory=list)
+    n_active: int = 0
+    #: Speculative round: (draft_k_eff, tree_width, active slot indices)
+    #: at dispatch — set_draft_k may change the live values mid-lag.
+    spec: tuple | None = None
+    #: Tracer span start of the decode / verify pass (0.0 = untraced).
+    t_span: float = 0.0
+    #: perf_counter at dispatch start: runtime.overlap_ratio's wall.
+    t0: float = 0.0
 
 
 class ContinuousBatcher:
@@ -199,7 +325,9 @@ class ContinuousBatcher:
     (``"paged"``, with ``page_size``, ``pool_pages`` and
     ``prefill_chunk``). ``top_k`` is the default for requests that pass
     none. ``draft_lm`` (with an optional ``speculative`` config) turns on
-    batched speculative decoding."""
+    batched speculative decoding; ``scheduler`` traffic control;
+    ``runtime`` the pipelined tick; ``observability`` the goodput
+    window."""
 
     #: Max UNCLAIMED logprob streams retained (oldest evicted past it).
     _LPS_CAP = 4096
@@ -220,6 +348,8 @@ class ContinuousBatcher:
         scheduler: SchedulerConfig | None = None,
         draft_lm: TransformerLM | None = None,
         speculative: SpeculativeConfig | None = None,
+        runtime: RuntimeConfig | None = None,
+        observability: ObservabilityConfig | None = None,
     ):
         if kv_cache_dtype not in ("native", "int8", "int4"):
             raise ValueError(
@@ -387,7 +517,7 @@ class ContinuousBatcher:
         i64 = dict(dtype=torch.int64, device=dev)
         f32 = dict(dtype=torch.float32, device=dev)
         #: Device-resident per-slot sampling state, written only by
-        #: _stage_slot / _clear_slot and the decode chunk itself.
+        #: _stage_slot / _park_slot_row and the decode chunk itself.
         self._dstate = {
             "tok": torch.zeros(slots, **i64),
             "pos": torch.full((slots,), self._idle_pos, dtype=torch.int32,
@@ -410,7 +540,27 @@ class ContinuousBatcher:
         self._fanout_groups: dict[int, _FanoutGroup] = {}
         self._fanout_next = 0
         self._fanout_release: list[int] = []
+        # -- traffic control -------------------------------------------
+        self._sched = scheduler
         self._queue = AdmissionQueue(scheduler)
+        if self._paged and scheduler is not None and scheduler.cache_aware:
+            # Cache-aware pick: the longest (then hottest) radix-resident
+            # prompt prefix first, by a read-only walk; a cold prompt
+            # scores None, so a cold window stays FIFO.
+            def _probe(r, _pager=self._pager):
+                pages, tokens, heat = _pager.radix_probe(r.prompt)
+                return (tokens, heat) if pages else None
+
+            self._queue.prefix_probe = _probe
+        self._controller = (DegradationController(scheduler)
+                            if scheduler is not None and scheduler.degrade
+                            else None)
+        self._preempted = 0
+        #: Regenerated tokens (a replay's re-run of already delivered
+        #: indices) that differ from what the client received.
+        self._regen_mismatches = 0
+        #: Tenants holding a scheduler.queue_depth.<tenant> gauge.
+        self._gauged_tenants: set[str] = set()
         self._done: dict[int, np.ndarray] = {}
         self._done_lps: dict[int, np.ndarray] = {}
         self._cancelled: set[int] = set()
@@ -428,6 +578,19 @@ class ContinuousBatcher:
         self._itl_pending: list[float] = []
         self._ttft_pending: list[float] = []
         self._tick_tokens = 0
+        #: SLO books: this tick's pending verdicts and the lifetime totals
+        #: (the ladder reads the totals' windowed deltas).
+        self._slo_pending = dict.fromkeys(
+            ("ttft_met", "ttft_missed", "itl_met", "itl_missed"), 0)
+        self._slo_totals = dict(self._slo_pending)
+        self._tick_good_tokens = 0
+        obs = observability or ObservabilityConfig()
+        self.goodput_window_s = obs.goodput_window_s
+        #: (t, good tokens) per tick over goodput_window_s.
+        self._goodput_samples: collections.deque = collections.deque()
+        # -- pipelined tick ----------------------------------------------
+        self._depth = (runtime or RuntimeConfig()).pipeline_depth
+        self._inflight: _InFlight | None = None
         self._cv = threading.Condition()
         self._server: threading.Thread | None = None
         self._stopping = False
@@ -437,16 +600,22 @@ class ContinuousBatcher:
 
     def _h2d(self, x, dtype):
         """THE host->device staging funnel: counts every transfer, so the
-        0-per-steady-tick contract is asserted, not assumed."""
+        0-per-steady-tick contract is asserted, not assumed. On a card the
+        value goes through a pinned buffer with a ``non_blocking`` copy (a
+        pageable copy would wait for the tick in flight); the caching host
+        allocator keeps that buffer until the copy has run."""
         self._h2d_count += 1
-        return torch.as_tensor(np.asarray(x), dtype=dtype).to(self.device)
+        t = torch.as_tensor(np.asarray(x), dtype=dtype)
+        if self.device.type == "cuda":
+            return t.pin_memory().to(self.device, non_blocking=True)
+        return t.to(self.device)
 
-    def _d2h(self, *rows):
+    def _fetch(self, *rows) -> _AsyncFetch:
         """THE device->host fetch funnel: ``rows`` (same-shaped tensors)
-        come back as ONE stacked f64 numpy array, and the fetch is counted,
-        so "one fetch per steady tick" is asserted, not assumed."""
+        start ONE stacked f64 fetch, counted, so "one fetch per steady
+        tick" is asserted, not assumed."""
         self._d2h_count += 1
-        return torch.stack([r.double() for r in rows]).cpu().numpy()
+        return _AsyncFetch(rows)
 
     def _stage_slot(self, ints, floats) -> None:
         """Write one admitted request's sampling row: ``ints`` (6,) =
@@ -462,9 +631,10 @@ class ContinuousBatcher:
         d["top_p"].index_copy_(0, i, floats[1:2])
         d["active"].index_fill_(0, i, True)
 
-    def _clear_slot(self, idx: int) -> None:
+    def _park_slot_row(self, idx: int) -> None:
         """Retire one slot's device row: park it at the idle position,
-        identity sampling knobs, out of the active mask."""
+        identity sampling knobs, out of the active mask. The one device
+        write that every release path (finish, replay, drop) shares."""
         d = self._dstate
         d["pos"][idx] = self._idle_pos
         for key, val in (("tok", 0), ("kbase", 0), ("seed", 0), ("temp", 0.0),
@@ -545,7 +715,7 @@ class ContinuousBatcher:
             do_sample=req.temperature > 0.0,
             truncate=req.top_k < self.lm.vocab, nucleus=req.top_p < 1.0,
         )
-        host = self._d2h(first, chosen_logprob(logits, first))
+        host = self._fetch(first, chosen_logprob(logits, first)).commit()
         return int(host[0, 0]), float(host[1, 0])
 
     def _prefill(self, slot_idx: int, req: _Request, bucket: int):
@@ -646,7 +816,7 @@ class ContinuousBatcher:
     # -- request lifecycle -------------------------------------------------
 
     def validate_request(self, prompt, steps, temperature=0.0, top_k=None,
-                         top_p=None, rng=None, stop=None):
+                         top_p=None, rng=None, stop=None, slo=None):
         """Raise exactly the errors :meth:`submit` would; returns the
         normalised prompt and effective ``top_k``."""
         prompt = np.asarray(prompt, np.int64).reshape(-1)
@@ -683,6 +853,9 @@ class ContinuousBatcher:
             raise ValueError(f"top_p must be in (0, 1], got {top_p}")
         if stop is not None and any(len(seq) == 0 for seq in stop):
             raise ValueError("stop sequences must be non-empty")
+        if slo is not None and not isinstance(slo, SLOSpec):
+            raise TypeError(
+                f"slo must be a config.SLOSpec, got {type(slo).__name__}")
         return prompt, top_k_eff
 
     def submit(self, prompt, steps: int, temperature: float = 0.0,
@@ -690,14 +863,19 @@ class ContinuousBatcher:
                eos_id: int | None = None, rng: int | None = None,
                stop: list | None = None,
                on_token: Callable[[int, int, int], None] | None = None,
+               slo: SLOSpec | None = None,
                t_submit: float | None = None, _fanout: int = -1) -> int:
         """Queue one request; returns its id. ``rng`` is the integer seed
         of a sampled request's key stream (the same as ``generate``'s for
         it alone). ``stop`` token sequences end the stream (inclusive);
         ``on_token(req_id, token, index)`` streams each commit on the
-        ticking thread. Raises :class:`QueueFullError` at the bound."""
+        ticking thread, exactly once per index. ``slo`` attaches a latency
+        budget, a tenant and a priority (``config.SLOSpec``). Raises
+        :class:`QueueFullError` synchronously when admission control
+        rejects the request (depth bound, tenant burst cap, best-effort
+        shed): no id waits on ``result()``."""
         prompt, top_k_eff = self.validate_request(
-            prompt, steps, temperature, top_k, top_p, rng, stop
+            prompt, steps, temperature, top_k, top_p, rng, stop, slo
         )
         do_sample = temperature > 0.0
         with self._cv:
@@ -718,19 +896,16 @@ class ContinuousBatcher:
             stop=tuple(tuple(int(t) for t in seq) for seq in (stop or ())),
             on_token=on_token,
             t_submit=t_submit if t_submit is not None else time.perf_counter(),
+            slo=slo,
             fanout_group=_fanout,
         )
         try:
             with self._cv:
-                self._queue.append(req)
+                self._queue.append(req)  # bounded: may raise
                 self._cv.notify_all()
         except QueueFullError as e:
-            with self._cv:
-                self._rejected += 1
-            global_metrics().inc("scheduler.rejected_total")
-            global_flight_recorder().record(
-                "request_rejected", request=req_id, reason=str(e)
-            )
+            self._record_rejection(request_tenant(req), request_priority(req),
+                                   e, request=req_id)
             raise
         global_metrics().inc("scheduler.admitted_total")
         return req_id
@@ -740,7 +915,7 @@ class ContinuousBatcher:
                       top_p: float | None = None, eos_id: int | None = None,
                       rng: int | None = None, stop: list | None = None,
                       on_token: Callable[[int, int, int], None] | None = None,
-                      ) -> list[int]:
+                      slo: SLOSpec | None = None) -> list[int]:
         """Queue ``n`` continuations of ONE prompt as a copy-on-write
         fan-out group; returns their request ids in submission order.
         Every sibling shares every common full prompt page through the
@@ -773,7 +948,7 @@ class ContinuousBatcher:
                 ids.append(self.submit(
                     prompt, steps, temperature=temperature, top_k=top_k,
                     top_p=top_p, eos_id=eos_id, rng=sib_rngs[j], stop=stop,
-                    on_token=on_token, _fanout=gid,
+                    on_token=on_token, slo=slo, _fanout=gid,
                 ))
         except Exception:
             if gid >= 0:
@@ -825,8 +1000,14 @@ class ContinuousBatcher:
             if req is not None:
                 self._cancelled.discard(req_id)
                 self._fanout_dec_locked(req)
-                self._done[req_id] = np.zeros((0,), np.int32)
-                self._done_lps[req_id] = np.zeros((0,), np.float32)
+                if req.delivered_tokens is not None:
+                    # A replayed request waiting for re-admission already
+                    # streamed its first life: result() is that stream.
+                    self._done[req_id] = req.delivered_tokens
+                    self._done_lps[req_id] = req.delivered_lps
+                else:
+                    self._done[req_id] = np.zeros((0,), np.int32)
+                    self._done_lps[req_id] = np.zeros((0,), np.float32)
                 self._cv.notify_all()
                 global_flight_recorder().record(
                     "cancel", request=req_id, state="queued"
@@ -844,13 +1025,185 @@ class ContinuousBatcher:
             )
             return True
 
+    # -- traffic control ----------------------------------------------------
+
+    def _record_rejection(self, tenant: str, prio: int, err: Exception,
+                          request: int | None = None) -> None:
+        """The one rejection-bookkeeping body (books, counter,
+        ``request_rejected`` flight event) of submit and
+        :meth:`admission_check`."""
+        with self._cv:
+            self._rejected += 1
+        global_metrics().inc("scheduler.rejected_total")
+        ev = {"tenant": tenant, "priority": prio, "reason": str(err)[:200]}
+        if request is not None:
+            ev["request"] = request
+        global_flight_recorder().record("request_rejected", **ev)
+
+    def admission_check(self, slo: SLOSpec | None = None,
+                        request: int | None = None) -> None:
+        """Raise :class:`QueueFullError` iff a :meth:`submit` carrying
+        ``slo`` would be rejected right now, recording the rejection as
+        submit does (a front end's pre-check before it spends work on the
+        request)."""
+        tenant = slo.tenant if slo is not None else "default"
+        prio = slo.priority if slo is not None else 0
+        try:
+            with self._cv:
+                self._queue.check(tenant, prio)
+        except QueueFullError as e:
+            self._record_rejection(tenant, prio, e, request=request)
+            raise
+
+    def _maybe_preempt(self) -> None:
+        """Decode-slot preemption (ticking thread, start of admission):
+        when the queue's top priority class holds a request that has
+        burned ``preempt_ttft_fraction`` of its TTFT budget waiting, and
+        neither a slot nor (paged) the pages it needs would free
+        otherwise, replay the LOWEST-priority decode slot
+        (:meth:`_replay_slot`). At most one victim a tick: admission runs
+        right after and serves the waiting request first."""
+        sched = self._sched
+        if sched is None or not sched.preempt:
+            return
+        with self._cv:
+            if len(self._queue) == 0:
+                return
+            cand = self._queue.preempt_candidate()
+        if cand is None:
+            return
+        req, prio = cand
+        if any(s.req is None for s in self.slots):
+            # A free slot serves the head unless it is PAGE-starved: paged
+            # admission is all-or-nothing, and a head whose reservation the
+            # pool cannot cover even after evicting every cold page waits
+            # at the free slot while lower classes hold the pages. The
+            # need is an upper bound (prefix sharing only shrinks it).
+            if not self._paged:
+                return
+            s0 = req.prompt.shape[0]
+            bucket = next(b for b in self.prompt_buckets if b >= s0)
+            need = -(-max(bucket, s0 + req.steps + self._spec_k
+                          + self._spec_w) // self._page)
+            if self._pager.can_alloc(need):
+                return
+        waited = time.perf_counter() - (req.t_requeued or req.t_submit)
+        if waited < sched.preempt_ttft_fraction * req.slo.ttft_budget_s:
+            return
+        with self._cv:
+            # A cancel since the snapshot may have taken it off the queue.
+            if not any(r.req_id == req.req_id for r in self._queue):
+                return
+        victims = [s for s in self.slots
+                   if s.req is not None and s.pf_done < 0
+                   and request_priority(s.req) < prio]
+        if not victims:
+            return  # never preempt an equal or higher class
+        # Lowest class first; ties to the fewest emitted tokens (the
+        # cheapest regeneration).
+        victim = min(victims, key=lambda s: (request_priority(s.req),
+                                             len(s.tokens)))
+        vid, vprio = victim.req.req_id, request_priority(victim.req)
+        delivered = len(victim.tokens)
+        self._replay_slot(victim, event="preempted",
+                          extra={"for_request": req.req_id})
+        with self._cv:
+            self._preempted += 1
+        global_metrics().inc("scheduler.preempted_total")
+        log.info("preempted request %d (priority %d, %d tokens delivered) "
+                 "for request %d (priority %d, waited %.3fs of %.3fs TTFT)",
+                 vid, vprio, delivered, req.req_id, prio, waited,
+                 req.slo.ttft_budget_s)
+
+    def _replay_slot(self, slot: _Slot, event: str = "preempted",
+                     extra: dict | None = None) -> None:
+        """Replay one slot's request: free the slot (paged: its registered
+        prompt pages drop into the prefix LRU, so the re-admission is a
+        suffix-only prefill), discard the partial stream and re-queue the
+        request at the FRONT with ``stream_skip`` set to what the client
+        already received. Greedy replays regenerate the same stream, and
+        sampled ones the same key schedule (keyed by request seed and
+        token index). This is the in-memory path; the journal-backed one
+        comes with recovery."""
+        req = slot.req
+        # Per-life stamps of the interrupted life, riding its flight edge.
+        life: dict = {}
+        if slot.t_first:
+            if req.stream_skip == 0:
+                life["ttft_s"] = round(slot.t_first - req.t_submit, 6)
+            if len(slot.tokens) > 1 and slot.t_last > slot.t_first:
+                life["life_itl_mean_s"] = round(
+                    (slot.t_last - slot.t_first) / (len(slot.tokens) - 1), 6)
+        # The client's high-water mark across lives (a life that replays
+        # a replay restarts slot.tokens at 0).
+        delivered = max(req.stream_skip, len(slot.tokens))
+        if req.delivered_tokens is None or len(slot.tokens) >= len(
+                req.delivered_tokens):
+            req.delivered_tokens = np.asarray(slot.tokens, np.int32)
+            req.delivered_lps = np.asarray(slot.lps, np.float32)
+            if len(slot.tokens) > req.stream_skip:
+                # This life delivered new tokens: the next new token's ITL
+                # measures from its last one.
+                req.t_last_delivered = slot.t_last
+        req.stream_skip = delivered
+        req.t_requeued = time.perf_counter()
+        global_flight_recorder().record(
+            event, request=req.req_id, slot=slot.idx, source="memory",
+            tokens_discarded=len(slot.tokens), **life, **(extra or {}),
+        )
+        with self._cv:
+            self._release_slot(slot)
+            self._queue.appendleft(req)
+            self._cv.notify_all()
+        self._park_slot_row(slot.idx)
+
+    def _drop_slot(self, slot: _Slot) -> None:
+        """Last resort when a slot's request cannot be replayed: it
+        finishes once, with an empty result (a ``result()`` waiter sees
+        the loss, never a timeout), and counts as missed for its tenant."""
+        req = slot.req
+        global_flight_recorder().record(
+            "request_dropped", request=req.req_id, slot=slot.idx)
+        if self.obs_timeline:
+            global_metrics().observe("continuous.request_latency_s",
+                                     time.perf_counter() - req.t_submit)
+            if req.slo is not None:
+                global_metrics().inc(f"slo.missed_total.{req.slo.tenant}")
+        global_flight_recorder().record(
+            "finish", request=req.req_id, reason="dropped", tokens=0)
+        with self._cv:
+            self._done[req.req_id] = np.zeros((0,), np.int32)
+            self._done_lps[req.req_id] = np.zeros((0,), np.float32)
+            self._cancelled.discard(req.req_id)
+            self._completed += 1
+            self._release_slot(slot)
+            self._cv.notify_all()
+        global_metrics().inc("continuous.completed")
+        self._park_slot_row(slot.idx)
+
+    def _slo_violation(self, slot: _Slot, budget: str, budget_s: float,
+                       measured_s: float) -> None:
+        """The first budget violation takes the request out of goodput and
+        records ONE ``slo_missed`` flight event."""
+        if slot.slo_ok:
+            slot.slo_ok = False
+            slot.req.slo_violated = True  # survives a replay
+            global_flight_recorder().record(
+                "slo_missed", request=slot.req.req_id,
+                tenant=slot.req.slo.tenant, budget=budget, budget_s=budget_s,
+                measured_s=round(measured_s, 6))
+
+    # -- retirement ---------------------------------------------------------
+
     def _release_slot(self, slot: _Slot) -> None:
         """Reset one slot's host-side lifecycle state and return its pages
-        to the pool (caller holds ``_cv``)."""
+        to the pool (caller holds ``_cv``): the one body that finish,
+        replay and drop share."""
         slot.req = None
         slot.tokens = []
         slot.lps = []
         slot.pf_done = -1
+        slot.slo_ok = True
         slot.t_first = 0.0
         slot.obs_count = 0
         if self._paged:
@@ -863,11 +1216,22 @@ class ContinuousBatcher:
                 "continuous.request_latency_s",
                 time.perf_counter() - req.t_submit,
             )
+            if req.slo is not None:
+                kind = "met" if slot.slo_ok else "missed"
+                global_metrics().inc(f"slo.{kind}_total.{req.slo.tenant}")
         toks = np.asarray(slot.tokens, np.int32)
         lps = np.asarray(slot.lps, np.float32)
+        if req.delivered_tokens is not None and len(toks) < len(
+                req.delivered_tokens):
+            # Cancelled mid-regeneration: result() never contradicts what
+            # the client received in the earlier life.
+            toks, lps = req.delivered_tokens, req.delivered_lps
         stamps = {}
         if slot.t_first:
-            stamps["ttft_s"] = round(slot.t_first - req.t_submit, 6)
+            if req.stream_skip == 0:
+                stamps["ttft_s"] = round(slot.t_first - req.t_submit, 6)
+        if req.t_requeued:
+            stamps["replayed_life"] = True
         global_flight_recorder().record(
             "finish", request=req.req_id, reason=reason, tokens=len(toks),
             **stamps,
@@ -881,7 +1245,7 @@ class ContinuousBatcher:
             self._completed += 1
             self._release_slot(slot)
             self._cv.notify_all()
-        self._clear_slot(slot.idx)
+        self._park_slot_row(slot.idx)
         global_metrics().inc("continuous.completed")
 
     def _commit(self, slot: _Slot, token: int, lp: float) -> None:
@@ -894,21 +1258,60 @@ class ContinuousBatcher:
         if cancelled:
             self._finish(slot, reason="cancelled")
             return
+        emitted_before = len(slot.tokens)
+        # A replay's regenerated prefix (indices < stream_skip) was
+        # delivered, stamped and counted in an earlier life: it re-runs
+        # for state only.
+        regen = emitted_before < req.stream_skip
+        if regen and token != int(req.delivered_tokens[emitted_before]):
+            # The re-run (a prefix-hit suffix pass, tie-close to the whole
+            # prompt's) picked another token than the client received.
+            self._regen_mismatches += 1
+            global_flight_recorder().record(
+                "regen_mismatch", request=req.req_id, index=emitted_before,
+                delivered=int(req.delivered_tokens[emitted_before]),
+                regenerated=int(token))
         if self.obs_timeline:
             now = time.perf_counter()
-            emitted_before = len(slot.tokens)
+            slo = req.slo
             if slot.t_first == 0.0:
                 slot.t_first = now
-                if emitted_before == 0:
-                    self._ttft_pending.append(now - req.t_submit)
-            elif slot.obs_count == emitted_before:
-                self._itl_pending.append(now - slot.t_last)
+                if emitted_before == 0 and req.stream_skip == 0:
+                    ttft = now - req.t_submit
+                    self._ttft_pending.append(ttft)
+                    if slo is not None and slo.ttft_budget_s is not None:
+                        if ttft <= slo.ttft_budget_s:
+                            self._slo_pending["ttft_met"] += 1
+                        else:
+                            self._slo_pending["ttft_missed"] += 1
+                            self._slo_violation(slot, "ttft",
+                                                slo.ttft_budget_s, ttft)
+            elif slot.obs_count == emitted_before and not regen:
+                if (emitted_before == req.stream_skip
+                        and req.t_last_delivered):
+                    # First new token after a replay: the gap the client
+                    # saw spans the preemption and the regeneration.
+                    gap = now - req.t_last_delivered
+                else:
+                    gap = now - slot.t_last
+                self._itl_pending.append(gap)
+                if slo is not None and slo.itl_budget_s is not None:
+                    if gap <= slo.itl_budget_s:
+                        self._slo_pending["itl_met"] += 1
+                    else:
+                        self._slo_pending["itl_missed"] += 1
+                        self._slo_violation(slot, "itl", slo.itl_budget_s,
+                                            gap)
             slot.t_last = now
             slot.obs_count = emitted_before + 1
-            self._tick_tokens += 1
+            if not regen:
+                self._tick_tokens += 1
+                if slot.slo_ok:
+                    self._tick_good_tokens += 1
         slot.tokens.append(token)
         slot.lps.append(lp)
-        if req.on_token is not None:
+        if req.on_token is not None and len(slot.tokens) > req.stream_skip:
+            # Exactly once per index across a replay's lives.
             req.on_token(req.req_id, token, len(slot.tokens) - 1)
         if req.eos_id is not None and token == req.eos_id:
             self._finish(slot, reason="eos")
@@ -1121,12 +1524,12 @@ class ContinuousBatcher:
         d_state["kbase"] = torch.where(active, d_state["kbase"] + ncommit, 0)
         return out_preds.transpose(0, 1), out_lps.transpose(0, 1), acc
 
-    def _spec_decode(self, active, tracer):
-        """One SPECULATIVE decode round for the whole slot batch: the
-        fixed-shape draft scan over the device-resident per-slot state,
-        then the fused verify-and-accept pass. Stages zero host arrays in
-        steady state. Returns ((rows, B) tokens, logprobs, (B,) accepted)
-        on the device."""
+    def _spec_decode(self, active, tracer) -> _InFlight:
+        """Dispatch one SPECULATIVE decode round for the whole slot batch:
+        the fixed-shape draft scan over the device-resident per-slot
+        state, then the fused verify-and-accept pass, and the round's ONE
+        fetch (tokens and logprobs with the accepted counts as a last row)
+        started. Stages zero host arrays in steady state."""
         d, w = self._spec_k_eff, self._spec_w
         vocab = self.lm.vocab
         sample = any(s.req.temperature > 0.0 for s in active)
@@ -1154,12 +1557,20 @@ class ContinuousBatcher:
         if tracer.enabled:
             tracer.add_span("decode.draft", start=t0, end=tracer.now(),
                             slots=len(active), draft_k=d)
-        return self._spec_verify(
+        t_verify = tracer.now() if tracer.enabled else 0.0
+        toks, lps, acc = self._spec_verify(
             dtoks, self._current_table() if self._paged else None, cands,
             sample=sample, truncate=truncate, nucleus=nucleus,
         )
+        fetch = self._fetch(torch.cat([toks, acc[None]]),
+                            torch.cat([lps, acc[None].to(lps.dtype)]))
+        return _InFlight(fetch=fetch, spec=(d, w, tuple(s.idx for s in active)),
+                         t_span=t_verify)
 
     def _admit(self) -> None:
+        # Traffic control: a high-priority request past its TTFT headroom
+        # may free a slot here; the loop below admits it first.
+        self._maybe_preempt()
         if self._paged:
             # Drain page claims parked by client-thread fan-out group
             # deaths: only this thread moves pager refcounts.
@@ -1253,6 +1664,9 @@ class ContinuousBatcher:
             slot.req, slot.s0 = req, s0
             slot.emitted, slot.tokens, slot.lps = 0, [], []
             slot.t_first, slot.obs_count = 0.0, 0
+            # A replayed request that already missed its budget stays
+            # missed.
+            slot.slo_ok = not req.slo_violated
             slot.pf_done = m * self._page if chunked else -1
             with self._cv:
                 self._admitting = None
@@ -1273,7 +1687,9 @@ class ContinuousBatcher:
                     if fg.remaining <= 0:
                         self._fanout_kill_locked(gid, fg, direct=True)
             global_metrics().inc("continuous.admitted")
-            queue_wait = time.perf_counter() - req.t_submit
+            # A replay's wait measures from its re-queue.
+            queue_wait = time.perf_counter() - (req.t_requeued
+                                                or req.t_submit)
             if self.obs_timeline:
                 global_metrics().observe("continuous.queue_wait_s", queue_wait)
             global_flight_recorder().record(
@@ -1315,6 +1731,10 @@ class ContinuousBatcher:
                 self._stage_decode_row(slot)
 
     def _obs_flush(self) -> None:
+        """Once a tick (idle ticks too, so goodput decays): the batched
+        TTFT / ITL samples, the SLO counters and attainment gauges, the
+        token and good-token counters and the windowed
+        ``continuous.goodput_tokens_s``."""
         reg = global_metrics()
         if self._ttft_pending:
             reg.observe_many("continuous.ttft_s", self._ttft_pending)
@@ -1322,18 +1742,71 @@ class ContinuousBatcher:
         if self._itl_pending:
             reg.observe_many("continuous.itl_s", self._itl_pending)
             self._itl_pending = []
+        pend = self._slo_pending
+        if any(pend.values()):
+            tot = self._slo_totals
+            for key, n in pend.items():
+                if n:
+                    tot[key] += n
+                    reg.inc(f"slo.{key}_total", float(n))
+                    pend[key] = 0
+            for what in ("ttft", "itl"):
+                den = tot[f"{what}_met"] + tot[f"{what}_missed"]
+                if den:
+                    reg.set_gauge(f"slo.{what}_attainment",
+                                  tot[f"{what}_met"] / den)
         if self._tick_tokens:
             reg.inc("continuous.tokens_total", float(self._tick_tokens))
-            self._tick_tokens = 0
+        if self._tick_good_tokens:
+            reg.inc("continuous.good_tokens_total",
+                    float(self._tick_good_tokens))
+        now = time.perf_counter()
+        gs = self._goodput_samples
+        gs.append((now, self._tick_good_tokens))
+        self._tick_tokens = 0
+        self._tick_good_tokens = 0
+        cutoff = now - self.goodput_window_s
+        while len(gs) > 1 and gs[0][0] < cutoff:
+            gs.popleft()
+        span = now - gs[0][0]
+        if span > 0:
+            # gs[0] anchors the window; its tokens belong to the span
+            # before it.
+            good = sum(g for _, g in list(gs)[1:])
+            reg.set_gauge("continuous.goodput_tokens_s", good / span)
 
-    @torch.no_grad()
     def tick(self) -> int:
         """Admit into free slots, run ONE prefill pass for each slot mid-
         chunked-prefill, then decode one chunk over every slot — or, in
         speculative mode, one draft-scan + fused-verify round that commits
-        1 .. draft_k + 1 (+ 1) tokens per slot — with ONE host sync.
-        Returns the number of decoding slots committed (0 = no decode
-        ran)."""
+        1 .. draft_k + 1 (+ 1) tokens per slot — with ONE fetch. At
+        ``pipeline_depth=1`` the dispatch and commit halves run back to
+        back; at 2 this call dispatches tick t and commits tick t-1 while
+        t runs on the card. Returns the number of decoding slots whose
+        tick this call committed (0 = none)."""
+        fl = self._tick_dispatch()
+        if self._depth <= 1:
+            return self._tick_commit(fl) if fl is not None else 0
+        prev, self._inflight = self._inflight, fl
+        return self._tick_commit(prev) if prev is not None else 0
+
+    def drain(self) -> int:
+        """Commit the tick in flight, if any: the pipeline boundary before
+        reading results outside :meth:`run` / :meth:`result`. Idempotent;
+        returns the committed tick's decoding slots (0 = it was empty)."""
+        fl, self._inflight = self._inflight, None
+        return self._tick_commit(fl) if fl is not None else 0
+
+    @torch.no_grad()
+    def _tick_dispatch(self) -> _InFlight | None:
+        """Host half of one tick: the ladder's step, admission, the cancel
+        sweep, chunked-prefill passes and gauges, then ONE decode (or
+        speculative) dispatch with its fetch started. None when no slot
+        decodes."""
+        t0 = time.perf_counter()
+        if self._controller is not None:
+            # Before admission: this tick's admits see the current rung.
+            self._controller.step(self)
         self._admit()
         for slot in self.slots:
             if slot.req is None:
@@ -1353,65 +1826,88 @@ class ContinuousBatcher:
         reg.set_gauge("continuous.prefilling_slots", float(sum(
             1 for s in self.slots if s.req is not None and s.pf_done >= 0)))
         reg.set_gauge("continuous.queue_depth", float(len(self._queue)))
+        if self._sched is not None:
+            # Per-tenant depth gauges; tenants the queue forgot lose theirs.
+            with self._cv:
+                depths = self._queue.depths()
+            for tenant in self._gauged_tenants - depths.keys():
+                reg.remove_gauge(f"scheduler.queue_depth.{tenant}")
+            for tenant, depth in depths.items():
+                reg.set_gauge(f"scheduler.queue_depth.{tenant}", float(depth))
+            self._gauged_tenants = set(depths)
         reg.set_gauge("continuous.h2d_transfers", float(self._h2d_count))
         if not active:
             if self.obs_timeline:
                 self._obs_flush()
-            return 0
+            return None
         vocab = self.lm.vocab
         tracer = global_tracer()
-        t_chunk = tracer.now() if tracer.enabled else 0.0
-        reqs = [s.req if s.req is not None and s.pf_done < 0 else None
-                for s in self.slots]
-        lives = [s.tokens for s in self.slots]
         if self._spec is None:
+            t_chunk = tracer.now() if tracer.enabled else 0.0
             toks, lps = self._step_chunk(
                 do_sample=any(s.req.temperature > 0.0 for s in active),
                 truncate=any(s.req.top_k < vocab for s in active),
                 nucleus=any(s.req.top_p < 1.0 for s in active),
             )
-            # The tick's one device->host fetch.
-            host = self._d2h(toks, lps)
-            limits = [self.chunk] * len(self.slots)
+            # The tick's one device->host fetch, started here.
+            fl = _InFlight(fetch=self._fetch(toks, lps), t_span=t_chunk)
         else:
-            d_eff, w = self._spec_k_eff, self._spec_w
-            toks, lps, acc = self._spec_decode(active, tracer)
-            # The round's ONE fetch covers all three arrays: the accepted
-            # counts ride as a last row.
-            packed = self._d2h(torch.cat([toks, acc[None]]),
-                               torch.cat([lps, acc[None].to(lps.dtype)]))
-            host = packed[:, :-1]
-            limits = [int(a) + 1 for a in packed[0, -1]]
+            fl = self._spec_decode(active, tracer)
         with self._cv:
             self._ticks += 1
         reg.inc("continuous.ticks")
-        if self._spec is not None:
-            # Acceptance books: drafted / accepted proposals of the rows
-            # ACTIVE at dispatch (idle rows verify garbage nobody commits);
-            # a tree round drafts d chain proposals + w leaf candidates per
-            # slot and counts a leaf hit as one more accepted.
-            acc_counts = [limits[s.idx] - 1 for s in active]
+        fl.reqs = [s.req if s.req is not None and s.pf_done < 0 else None
+                   for s in self.slots]
+        fl.lives = [s.tokens for s in self.slots]
+        fl.n_active = len(active)
+        fl.t0 = t0
+        return fl
+
+    def _tick_commit(self, fl: _InFlight) -> int:
+        """Commit half of one tick: wait for ``fl``'s fetch, apply each
+        slot's tokens (dropping the columns of slots whose binding moved
+        since dispatch), recycle window pages and flush the telemetry."""
+        host = fl.fetch.commit()
+        reg = global_metrics()
+        tracer = global_tracer()
+        if fl.spec is None:
+            limits = [self.chunk] * len(self.slots)
+            if tracer.enabled and fl.t_span:
+                tracer.add_span("batcher.decode_chunk", start=fl.t_span,
+                                end=tracer.now(), slots=fl.n_active,
+                                chunk=self.chunk)
+        else:
+            d, w, active_idx = fl.spec
+            limits = [int(a) + 1 for a in host[0, -1]]
+            host = host[:, :-1]
+            # Acceptance books of the rows ACTIVE at dispatch (idle rows
+            # verify garbage nobody commits); a tree round drafts d chain
+            # proposals + w leaf candidates per slot and counts a leaf hit
+            # as one more accepted. (d, w) are the dispatch's.
+            acc_counts = [limits[i] - 1 for i in active_idx]
             with self._cv:
-                self._spec_drafted += (d_eff + w) * len(active)
+                self._spec_drafted += (d + w) * len(active_idx)
                 self._spec_accepted += sum(acc_counts)
                 ratio = self._spec_accepted / self._spec_drafted
             reg.set_gauge("continuous.spec_acceptance", ratio)
             if self.obs_timeline:
                 reg.observe_many("continuous.spec_accepted_per_tick",
                                  [float(a) for a in acc_counts])
-        if tracer.enabled:
-            if self._spec is None:
-                tracer.add_span("batcher.decode_chunk", start=t_chunk,
-                                end=tracer.now(), slots=len(active),
-                                chunk=self.chunk)
-            else:
-                tracer.add_span("decode.verify", start=t_chunk,
-                                end=tracer.now(), slots=len(active),
-                                draft_k=d_eff)
+            if tracer.enabled and fl.t_span:
+                tracer.add_span("decode.verify", start=fl.t_span,
+                                end=tracer.now(), slots=len(active_idx),
+                                draft_k=d)
+        wall = time.perf_counter() - fl.t0
+        if wall > 0:
+            # The share of the dispatch-to-commit wall the host did NOT
+            # spend blocked on the fetch.
+            reg.set_gauge("runtime.overlap_ratio",
+                          max(0.0, 1.0 - fl.fetch.wait_s / wall))
         for i, slot in enumerate(self.slots):
-            req = reqs[i]
-            if req is None or slot.req is not req or slot.tokens is not lives[i]:
-                continue
+            req = fl.reqs[i]
+            if (req is None or slot.req is not req
+                    or slot.tokens is not fl.lives[i] or slot.pf_done >= 0):
+                continue  # not decoding at dispatch, or a dead life
             for j in range(limits[i]):
                 self._commit(slot, int(host[0, j, i]), float(host[1, j, i]))
                 if slot.req is not req:
@@ -1435,7 +1931,7 @@ class ContinuousBatcher:
             "continuous.active_slots",
             float(sum(1 for s in self.slots if s.req is not None)),
         )
-        return len(active)
+        return fl.n_active
 
     def stats(self) -> dict:
         """Slot occupancy, queue depth and this batcher's lifetime
@@ -1450,6 +1946,10 @@ class ContinuousBatcher:
                 "admitted": self._admitted,
                 "completed": self._completed,
                 "ticks": self._ticks,
+                # depth 1: synchronous; 2: one tick in flight between
+                # calls (``inflight``: one is pending right now).
+                "pipeline_depth": self._depth,
+                "inflight": self._inflight is not None,
                 "prefill_tokens": self._prefill_tokens,
                 "h2d_transfers": self._h2d_count,
                 "d2h_fetches": self._d2h_count,
@@ -1460,8 +1960,18 @@ class ContinuousBatcher:
                 "cache_bytes": self._cache_bytes(),
                 "cache_bytes_ratio": (self._cache_bytes()
                                       / float(self._native_cache_bytes)),
+                "slo_ttft_met": self._slo_totals["ttft_met"],
+                "slo_ttft_missed": self._slo_totals["ttft_missed"],
+                "slo_itl_met": self._slo_totals["itl_met"],
+                "slo_itl_missed": self._slo_totals["itl_missed"],
+                # Traffic-control books; "queued" above never exceeds the
+                # scheduler's max_queue_depth.
                 "rejected": self._rejected,
+                "preempted": self._preempted,
+                "regen_mismatches": self._regen_mismatches,
             }
+            if self._controller is not None:
+                out["degradation_level"] = self._controller.level
             if self._spec is not None:
                 out["spec_drafted"] = self._spec_drafted
                 out["spec_accepted"] = self._spec_accepted
@@ -1505,13 +2015,16 @@ class ContinuousBatcher:
 
     def run(self, max_ticks: int = 100_000) -> dict[int, np.ndarray]:
         """Tick until every submitted request completed; returns
-        {req_id: tokens} and clears the finished set."""
+        {req_id: tokens} and clears the finished set. Drains the pipeline
+        on the way out (at depth 2 what is left in flight is a garbage
+        tail: every slot has retired)."""
         ticks = 0
         while self._queue or any(s.req is not None for s in self.slots):
             self.tick()
             ticks += 1
             if ticks > max_ticks:
                 raise RuntimeError(f"run() exceeded {max_ticks} ticks")
+        self.drain()
         with self._cv:
             done, self._done = self._done, {}
         return done
@@ -1545,6 +2058,16 @@ class ContinuousBatcher:
                         return
                     with self._cv:
                         self._cv.notify_all()
+                # Stopping: the tick in flight commits on THIS thread
+                # (stop() runs on the caller's and touches no device state).
+                try:
+                    self.drain()
+                except Exception as e:  # result() waiters re-raise it
+                    with self._cv:
+                        self._server_error = e
+                    log.error("drain on stop failed: %r", e)
+                with self._cv:
+                    self._cv.notify_all()
 
             self._server = threading.Thread(
                 target=loop, name="continuous-batcher", daemon=True
@@ -1572,6 +2095,12 @@ class ContinuousBatcher:
 
     def __exit__(self, *exc) -> None:
         self.stop()
+
+    def close(self) -> None:
+        """Retire this batcher: stop its server thread and drop an
+        undrained tick's device references. Idempotent."""
+        self.stop()
+        self._inflight = None
 
     def result(self, req_id: int, timeout: float = 300.0) -> np.ndarray:
         """Block until ``req_id`` finishes (requires :meth:`start`);

@@ -1064,18 +1064,18 @@ def verify_pass_error(torch, lm, draft, prompts, layout, kv):
 
 
 def drive_batcher(torch, lm, prompts, steps, kernel, cancel_at,
-                  kv_cache_dtype="native"):
+                  kv_cache_dtype="native", runtime=None):
     """Serve ``prompts`` in two staggered waves; cancel request
-    ``cancel_at`` (if not None) once it is live. Returns (results,
-    request ids, cancelled id, wall s, committed tokens, mean TTFT s,
-    the batcher's stats)."""
+    ``cancel_at`` (if not None) once it is live. ``runtime``: the
+    batcher's ``RuntimeConfig``. Returns (results, request ids, cancelled
+    id, wall s, committed tokens, mean TTFT s, the batcher's stats)."""
     from adapt_tpu_torch.runtime.continuous import ContinuousBatcher
     from adapt_tpu_torch.utils.metrics import global_metrics
 
     reg = global_metrics()
     before = reg.snapshot(window=True)
     bat = ContinuousBatcher(lm, slots=8, chunk=8, kernel=kernel,
-                            kv_cache_dtype=kv_cache_dtype)
+                            kv_cache_dtype=kv_cache_dtype, runtime=runtime)
     half = len(prompts) // 2
     t0 = time.perf_counter()
     ids = [bat.submit(p, steps) for p in prompts[:half]]
@@ -1137,12 +1137,12 @@ def first_gap(torch, lm, prompt, got, ref):
 
 
 def drive_paged(torch, lm, kernel, waves, fan, cancel_at,
-                kv_cache_dtype="native", prefill_chunk=256):
+                kv_cache_dtype="native", prefill_chunk=256, runtime=None):
     """Serve ``waves`` (two staggered waves) and, if ``fan`` is given, a
     greedy fan-out of 4 through a paged batcher; cancel wave-1 request
-    ``cancel_at`` once live. Returns the batcher, {id: prompt}, results,
-    admit events by id, the cancelled id, fan-out ids, wall s, committed
-    tokens and mean TTFT s."""
+    ``cancel_at`` once live. ``runtime``: the batcher's ``RuntimeConfig``.
+    Returns the batcher, {id: prompt}, results, admit events by id, the
+    cancelled id, fan-out ids, wall s, committed tokens and mean TTFT s."""
     from adapt_tpu_torch.runtime.continuous import ContinuousBatcher
     from adapt_tpu_torch.utils.metrics import global_metrics
     from adapt_tpu_torch.utils.tracing import global_flight_recorder
@@ -1152,7 +1152,8 @@ def drive_paged(torch, lm, kernel, waves, fan, cancel_at,
     _, cursor = fr.events_since(1 << 62)
     bat = ContinuousBatcher(lm, slots=8, chunk=8, kv_layout="paged",
                             page_size=128, prefill_chunk=prefill_chunk,
-                            kernel=kernel, kv_cache_dtype=kv_cache_dtype)
+                            kernel=kernel, kv_cache_dtype=kv_cache_dtype,
+                            runtime=runtime)
     t0 = time.perf_counter()
     ids = [bat.submit(p, 64) for p in waves[0]]
     bat.tick()
@@ -3071,6 +3072,601 @@ def remote_phase(torch, A, Q, dev, card, kernels, root, inproc_rate,
           f"{time.perf_counter() - t_phase:.1f} s on {card}")
 
 
+# -- phase 14: traffic control and the pipelined tick ------------------------
+
+
+def need_launches(path, launches, want):
+    """Fail unless every kernel in ``want`` launched in ``path``'s run."""
+    if any(launches[k] == 0 for k in want):
+        raise AssertionError(f"phase 14 {path}: a kernel of the path did not "
+                             f"launch: {launches}")
+
+
+def counted(counters, path, want, runs, fn):
+    """Run ``fn()`` with every launch count set to 0 just before it; read
+    the counts just after into ``runs[path]`` and gate them on ``want``."""
+    for c in counters.values():
+        c.launches = 0
+    out = fn()
+    runs[path] = {k: c.launches for k, c in counters.items()}
+    need_launches(path, runs[path], want)
+    return out
+
+
+def sched_prompts(torch, vocab):
+    """Phase 14 (a)'s prompts from seed 14: 13 ``batch`` prompts of
+    256-512 tokens (the 13th is the submit the burst cap refuses) and 8
+    ``interactive`` ones of 16-128."""
+    rng = torch.Generator().manual_seed(14)
+
+    def toks(lo, hi):
+        n = int(torch.randint(lo, hi + 1, (1,), generator=rng))
+        return torch.randint(0, vocab, (n,), generator=rng).numpy()
+
+    return ([toks(256, 512) for _ in range(13)],
+            [toks(16, 128) for _ in range(8)])
+
+
+def top2_gap(torch, lm, prompt, ref, t):
+    """The top-2 logit gap of the full forward over prompt + ref[:t] at the
+    position that picks token t."""
+    from adapt_tpu_torch.models.transformer_lm import logits_full
+
+    lg = logits_full(lm, np.concatenate([prompt, ref[:t]])[None])[0, -1]
+    top2 = torch.topk(lg.float(), 2).values
+    return float(top2[0] - top2[1])
+
+
+def preempt_part(torch, lm, card, counters, runs, bar=0.1):
+    """Phase 14 (a): 12 ``batch`` requests (priority 0, 192 new tokens)
+    fill the 8 slots of a paged batcher with ``SchedulerConfig(quotas=
+    {"batch": TenantQuota(1, burst=12), "interactive": TenantQuota(2)},
+    cache_aware=True)``; a 13th batch submit must raise QueueFullError
+    synchronously; then 8 ``interactive`` requests (priority 1, 32 tokens,
+    TTFT budget 0.25 s) arrive while every slot decodes. Gates: a
+    preemption happens and each victim re-admits as a prefix hit; every
+    ``on_token`` stream holds each index once and equals ``result()`` except
+    at a counted regeneration mismatch (allowed only at a reference top-2
+    gap below ``bar``); every stream passes the tie-aware check against
+    ``generate()``; the pool drains."""
+    from adapt_tpu_torch.config import SchedulerConfig, SLOSpec, TenantQuota
+    from adapt_tpu_torch.models.transformer_lm import generate
+    from adapt_tpu_torch.runtime.continuous import ContinuousBatcher
+    from adapt_tpu_torch.runtime.scheduler import QueueFullError
+    from adapt_tpu_torch.utils.metrics import global_metrics
+    from adapt_tpu_torch.utils.tracing import global_flight_recorder
+
+    batch, inter = sched_prompts(torch, lm.vocab)
+    fr, reg = global_flight_recorder(), global_metrics()
+    delivered: dict[int, list] = {}
+
+    def on_token(rid, tok, idx):
+        delivered.setdefault(rid, []).append((idx, tok))
+
+    def serve():
+        _, cursor = fr.events_since(1 << 62)
+        before = reg.snapshot(window=True)
+        bat = ContinuousBatcher(
+            lm, slots=8, chunk=8, kv_layout="paged", page_size=128,
+            pool_pages=65, prefill_chunk=256,
+            scheduler=SchedulerConfig(
+                quotas={"batch": TenantQuota(1, burst=12),
+                        "interactive": TenantQuota(2)},
+                cache_aware=True))
+        t0 = time.perf_counter()
+        reqs = {}
+        for p in batch[:12]:
+            reqs[bat.submit(p, 192, on_token=on_token,
+                            slo=SLOSpec(tenant="batch"))] = (p, 192)
+        try:
+            bat.submit(batch[12], 192, slo=SLOSpec(tenant="batch"))
+        except QueueFullError as e:
+            refused = str(e)
+        else:
+            raise AssertionError("phase 14 (a): the 13th queued batch "
+                                 "submit was accepted")
+        while sum(1 for s in bat.slots
+                  if s.req is not None and s.pf_done < 0) < 8:
+            bat.tick()  # every slot decoding
+        for p in inter:
+            reqs[bat.submit(p, 32, on_token=on_token,
+                            slo=SLOSpec(ttft_budget_s=0.25,
+                                        tenant="interactive",
+                                        priority=1))] = (p, 32)
+        out = bat.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        events, _ = fr.events_since(cursor)
+        return (bat, reqs, out, refused, wall, events,
+                reg.snapshot(since=before))
+
+    bat, reqs, out, refused, wall, events, win = counted(
+        counters, "sched_preempt", ("flash_attn_fwd", "paged_attn",
+                                    "paged_chunk_attn"), runs, serve)
+    st = bat.stats()
+    victims = [e["data"]["request"] for e in events
+               if e["kind"] == "preempted"]
+    if not victims or st["preempted"] != len(victims):
+        raise AssertionError(f"phase 14 (a): no preemption ({st['preempted']}"
+                             f", events {victims})")
+    admits: dict[int, list] = {}
+    for e in events:
+        if e["kind"] == "admit":
+            admits.setdefault(e["data"]["request"], []).append(e["data"])
+    for v in set(victims):
+        later = admits[v][1:]
+        if not later or any(a["prefix_pages"] == 0 for a in later):
+            raise AssertionError(f"phase 14 (a): victim {v} re-admitted "
+                                 f"without a prefix hit: {admits[v]}")
+    if st["pages_in_use"] != 0 or st["pages_free"] != st["pool_pages"] - 1 \
+            or st["active"] or st["queued"]:
+        raise AssertionError(f"phase 14 (a): the pool did not drain: {st}")
+    mismatch = {}
+    for e in events:
+        if e["kind"] == "regen_mismatch":
+            mismatch.setdefault(e["data"]["request"], []).append(
+                e["data"]["index"])
+    exempt = 0
+    for rid, (p, steps) in reqs.items():
+        got = out[rid]
+        ref = generate(lm, p[None], steps)[0].cpu().numpy()  # alone
+        if len(got) != steps:
+            raise AssertionError(f"phase 14 (a): request {rid} has "
+                                 f"{len(got)} tokens")
+        idx = [i for i, _ in delivered.get(rid, [])]
+        if idx != list(range(steps)):
+            raise AssertionError(f"phase 14 (a): request {rid}'s on_token "
+                                 "indices are not 0..n-1 exactly once")
+        streamed = np.asarray([t for _, t in delivered[rid]])
+        for t in np.nonzero(streamed != got)[0]:
+            if int(t) not in mismatch.get(rid, []):
+                raise AssertionError(f"phase 14 (a): request {rid}'s stream "
+                                     f"differs from result() at {t}")
+        for t in mismatch.get(rid, []):
+            gap = top2_gap(torch, lm, p, ref, t)
+            print(f"phase 14 (a) regeneration mismatch: request {rid} index "
+                  f"{t}: delivered {streamed[t]}, regenerated {got[t]}, "
+                  f"generate() {ref[t]}, reference top-2 gap {gap:.4f}")
+            if gap >= bar:
+                raise AssertionError(f"phase 14 (a): regeneration mismatch "
+                                     f"at a gap {gap:.4f} >= {bar}")
+        tg = first_gap(torch, lm, p, got, ref)
+        if tg is not None:
+            t, gap = tg
+            print(f"tie-aware exemption: phase 14 (a) request {rid} (prompt "
+                  f"{len(p)}) first differs from generate() at token {t}, "
+                  f"top-2 gap {gap:.4f}")
+            if gap >= bar:
+                raise AssertionError(f"phase 14 (a): request {rid} differs at "
+                                     f"token {t} with top-2 gap {gap:.4f}")
+            exempt += 1
+    ntok = sum(len(v) for v in out.values())
+    h = win["histograms"].get("continuous.ttft_s", {})
+    g = reg.snapshot()["gauges"]
+    print(f"phase 14 (a) preemption on {card}: {len(reqs)} requests (13th "
+          f"batch submit refused: {refused!r}), {len(victims)} preemptions "
+          f"(victims {sorted(set(victims))}, each re-admitted as a prefix "
+          f"hit), {st['regen_mismatches']} regeneration mismatches, "
+          f"{exempt} tie exemptions, {ntok} tokens in {wall:.3f} s = "
+          f"{ntok / wall:.1f} tok/s, TTFT mean {h.get('mean', 0) * 1e3:.1f} "
+          f"ms p99 {h.get('p99', 0) * 1e3:.1f} ms, slo.ttft_attainment "
+          f"{g.get('slo.ttft_attainment', float('nan')):.3f}, prefix_hits "
+          f"{st['prefix_hits']}, launches {runs['sched_preempt']}")
+
+
+def ladder_part(torch, lm, draft2, Q, S, card, counters, runs, solo,
+                solo_gaps, prompts8, bar):
+    """Phase 14 (b): phase 10 (b)'s 2-layer int8-weight draft on an int8
+    pool (``draft_k=4``) behind ``SchedulerConfig(max_queue_depth=16,
+    degrade_dwell_s=0.05, preempt=False)``: after one warm request (cached
+    pages to evict), a burst of 32 submits (``prompts8`` four times, every
+    fourth at priority -1), one a tick, some refused. Gates: the ladder
+    climbs draft_k 4 -> 2, busy_threshold (a no-op: no disaggregated
+    server), evict_cached, reject_best_effort, at least one best-effort
+    submit is refused by the shed, and it comes back down to level 0 and
+    draft_k 4; every stream passes the speculative tie-aware check at
+    ``bar``; K6 makes one dequantize launch set per draft call."""
+    from adapt_tpu_torch.config import (SchedulerConfig, SLOSpec,
+                                        SpeculativeConfig)
+    from adapt_tpu_torch.runtime.continuous import ContinuousBatcher
+    from adapt_tpu_torch.runtime.scheduler import (DegradationController,
+                                                   QueueFullError)
+    from adapt_tpu_torch.utils.tracing import global_flight_recorder
+
+    qdraft = Q.quantize_params(draft2.state_dict())
+    Q.dequantize_blocks.launches = 0
+    Q.dequantize_params(qdraft)
+    per_call = Q.dequantize_blocks.launches
+    fr = global_flight_recorder()
+    draft_calls = [0]
+    deq = S.dequantize_params
+
+    def counting(tree):
+        draft_calls[0] += 1
+        return deq(tree)
+
+    def serve():
+        _, cursor = fr.events_since(1 << 62)
+        bat = ContinuousBatcher(
+            lm, slots=8, chunk=8, kv_layout="paged", page_size=128,
+            kv_cache_dtype="int8", draft_lm=draft2,
+            speculative=SpeculativeConfig(draft_k=4,
+                                          draft_weight_dtype="int8"),
+            scheduler=SchedulerConfig(max_queue_depth=16,
+                                      degrade_dwell_s=0.05, preempt=False))
+        t0 = time.perf_counter()
+        warm = bat.submit(prompts8[0], 64)
+        done = bat.run()
+        reqs = {warm: prompts8[0]}
+        refused = {"bound": 0, "shed": 0}
+        low_k = []
+        for j in range(32):
+            p = prompts8[j % 8]
+            try:
+                reqs[bat.submit(p, 64, slo=SLOSpec(
+                    tenant="burst", priority=-1 if j % 4 == 3 else 0))] = p
+            except QueueFullError as e:
+                refused["shed" if "best-effort" in str(e) else "bound"] += 1
+            bat.tick()
+            low_k.append(bat._spec_k_eff)
+        done.update(bat.run())
+        level, idle = bat.stats()["degradation_level"], 0
+        while level > 0 and idle < 40:  # calm ticks step it back down
+            time.sleep(0.06)
+            bat.tick()
+            level, idle = bat.stats()["degradation_level"], idle + 1
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        events, _ = fr.events_since(cursor)
+        return bat, reqs, done, refused, low_k, wall, events
+
+    S.dequantize_params = counting
+    try:
+        bat, reqs, out, refused, low_k, wall, events = counted(
+            counters, "sched_ladder",
+            ("flash_attn_fwd", "decode_attn", "paged_verify_attn",
+             "quantize_blocks", "dequantize_blocks"),
+            runs, serve)
+    finally:
+        S.dequantize_params = deq
+    launches = runs["sched_ladder"]
+    if launches["dequantize_blocks"] != draft_calls[0] * per_call:
+        raise AssertionError(f"phase 14 (b): {launches['dequantize_blocks']} "
+                             f"K6 dequantize launches for {draft_calls[0]} "
+                             f"draft calls (want {per_call} a call)")
+    steps = [(e["data"]["step"], e["data"]["direction"]) for e in events
+             if e["kind"] == "degradation_step"]
+    ladder = list(DegradationController.LADDER)
+    ups = [s for s, d in steps if d == "up"]
+    downs = [s for s, d in steps if d == "down"]
+    st = bat.stats()
+    if ups[:4] != ladder or downs[-4:] != ladder[::-1] or min(low_k) != 2 \
+            or st["degradation_level"] != 0 or bat._spec_k_eff != 4 \
+            or not refused["shed"]:
+        raise AssertionError(f"phase 14 (b): the ladder went {steps}, "
+                             f"draft_k over the burst {low_k}, refused "
+                             f"{refused}, final {st}")
+    if st["pages_in_use"] != 0 or st["active"] or st["queued"]:
+        raise AssertionError(f"phase 14 (b): the pool did not drain: {st}")
+    exempt = check_spec_streams(
+        reqs, out, None, 64, lambda p: solo(p, None, "int8"),
+        lambda p: solo_gaps(p, None, "int8"), bar)
+    ntok = sum(len(v) for v in out.values())
+    print(f"phase 14 (b) ladder under speculation on {card}: {len(reqs)} "
+          f"requests served, refused {refused} of the burst of 32, ladder "
+          f"{steps}, draft_k 2 from the burst's tick {low_k.index(2)}, "
+          f"acceptance "
+          f"{st['spec_acceptance']:.4f}, {len(exempt)} tie exemptions at bar "
+          f"{bar:.4f}, {ntok} tokens in {wall:.3f} s, {draft_calls[0]} draft "
+          f"calls, {launches['dequantize_blocks']} K6 dequantize launches, "
+          f"launches {launches}")
+
+
+def steady_sync_check(torch, lm, card, layout):
+    """Phase 14 (c): one steady depth-2 tick on ``layout`` (8 slots of
+    256-token prompts, every slot decoding, a tick in flight) makes 0
+    host->device copies and 1 fetch, and its dispatch half runs under
+    ``torch.cuda.set_sync_debug_mode("error")`` (no stream sync, no
+    blocking copy)."""
+    from adapt_tpu_torch.config import RuntimeConfig
+    from adapt_tpu_torch.runtime.continuous import ContinuousBatcher
+
+    extra = dict(kv_layout="paged", page_size=128) if layout == "paged" else {}
+    bat = ContinuousBatcher(lm, slots=8, chunk=8,
+                            runtime=RuntimeConfig(pipeline_depth=2), **extra)
+    rng = torch.Generator().manual_seed(5)
+    for _ in range(8):
+        bat.submit(torch.randint(0, lm.vocab, (256,), generator=rng).numpy(),
+                   200)
+    for _ in range(3):
+        bat.tick()
+    if not bat.stats()["inflight"]:
+        raise AssertionError("phase 14 (c): no tick in flight")
+    before = bat.stats()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        fl = bat._tick_dispatch()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    prev, bat._inflight = bat._inflight, fl
+    after = bat.stats()
+    bat._tick_commit(prev)
+    steady = (after["h2d_transfers"] - before["h2d_transfers"],
+              after["d2h_fetches"] - before["d2h_fetches"])
+    if fl is None or fl.n_active != 8 or steady != (0, 1):
+        raise AssertionError(f"phase 14 (c) {layout}: a steady depth-2 tick "
+                             f"made {steady[0]} host->device copies and "
+                             f"{steady[1]} fetches (want 0 and 1)")
+    bat.close()
+    print(f"phase 14 (c) steady depth-2 tick [{layout}] on {card}: 0 "
+          f"host->device copies, 1 fetch, dispatch half free of stream "
+          f"syncs (torch.cuda.set_sync_debug_mode('error'))")
+
+
+def depth_part(torch, lm, card, counters, runs, prompts, waves, fan):
+    """Phase 14 (c) + (d): phase 6's dense traffic and phase 7's paged
+    traffic at ``pipeline_depth`` 1 then 2. Every depth-2
+    stream equals the depth-1 run's, token for token, where the
+    request took the same admission path (a path that moved with the
+    admission timing is held by the tie-aware check, printed); the
+    cancelled request's stream is a prefix. Returns {(layout, depth):
+    [tok/s of each run]}."""
+    from adapt_tpu_torch.config import KernelConfig, RuntimeConfig
+
+    rates: dict = {}
+    for layout, want in (("dense", ("flash_attn_fwd", "decode_attn")),
+                         ("paged", ("flash_attn_fwd", "paged_attn",
+                                    "paged_chunk_attn"))):
+        first = {}
+        for turn, depth in enumerate((1, 2)):
+            rt = RuntimeConfig(pipeline_depth=depth)
+            path = f"sched_depth{depth}_{layout}_{turn}"
+            if layout == "dense":
+                out, ids, cancelled, wall, ntok, _, _ = counted(
+                    counters, path, want, runs,
+                    lambda: drive_batcher(torch, lm, prompts, 64,
+                                          KernelConfig(), 3, runtime=rt))
+                paths = {r: "whole" for r in ids}
+            else:
+                (bat, pprompts, out, admits, cancelled, _, wall, ntok,
+                 _) = counted(counters, path, want, runs,
+                              lambda: drive_paged(torch, lm, KernelConfig(),
+                                                  waves, fan, 2, runtime=rt))
+                ids = list(pprompts)
+                paths = {r: ("cow" if a["cow"] else "hit"
+                             if a["prefix_pages"] else "chunked"
+                             if a["chunked"] else "whole")
+                         for r, a in admits.items()}
+                if bat.stats()["pages_in_use"]:
+                    raise AssertionError(f"phase 14 (c) {path}: pool not "
+                                         "drained")
+            rates.setdefault((layout, depth), []).append(ntok / wall)
+            if not first:
+                first = dict(out=out, ids=ids, paths=paths,
+                             cancelled=cancelled)
+                continue
+            moved = 0
+            for a, b in zip(first["ids"], ids):
+                x, y = first["out"][a], out[b]
+                if a == first["cancelled"] or b == cancelled:
+                    n = min(len(x), len(y))
+                    same = np.array_equal(x[:n], y[:n])
+                elif first["paths"][a] == paths[b]:
+                    same = np.array_equal(x, y)
+                else:
+                    moved += 1
+                    p = prompts[ids.index(b)] if layout == "dense" \
+                        else pprompts[b]
+                    tg = first_gap(torch, lm, p, y, x)
+                    same = tg is None or tg[1] < 0.1
+                    if tg is not None:
+                        print(f"tie-aware exemption: phase 14 (c) {path} "
+                              f"request {b} ({first['paths'][a]} at depth 1, "
+                              f"{paths[b]} here) first differs at token "
+                              f"{tg[0]}, top-2 gap {tg[1]:.4f}")
+                if not same:
+                    raise AssertionError(f"phase 14 (c) {path}: request {b} "
+                                         "differs from depth 1")
+            print(f"phase 14 (c) {path} on {card}: streams equal the "
+                  f"depth-1 run's ({moved} moved admission paths), "
+                  f"{ntok / wall:.1f} tok/s, launches {runs[path]}")
+    for layout in ("dense", "paged"):
+        steady_sync_check(torch, lm, card, layout)
+    return rates
+
+
+def depth_readings(torch, lm, card):
+    """Phase 14 (d), not gated: steady decode (8 slots of 256-token
+    prompts, chunk 8) on each layout at depth 1, 2, 2, 1 in turns: 6 ticks
+    timed on the host clock (tok/s and the mean ``runtime.overlap_ratio``);
+    in the first two turns 3 more under ``torch.profiler`` (device
+    activity only: a host trace of ~16k launches takes longer to reduce
+    than to record) for the busy share, kernel time a tick over the
+    unprofiled wall a tick."""
+    from adapt_tpu_torch.config import RuntimeConfig
+    from adapt_tpu_torch.runtime.continuous import ContinuousBatcher
+    from adapt_tpu_torch.utils.metrics import global_metrics
+
+    acts = [torch.profiler.ProfilerActivity.CUDA]
+    for layout in ("slots", "paged"):
+        extra = (dict(kv_layout="paged", page_size=128)
+                 if layout == "paged" else {})
+        for turn, depth in enumerate((1, 2, 2, 1)):
+            bat = ContinuousBatcher(
+                lm, slots=8, chunk=8,
+                runtime=RuntimeConfig(pipeline_depth=depth), **extra)
+            rng = torch.Generator().manual_seed(5)
+            for _ in range(8):
+                bat.submit(torch.randint(0, lm.vocab, (256,),
+                                         generator=rng).numpy(), 400)
+            for _ in range(3):
+                bat.tick()
+            torch.cuda.synchronize()
+            ratios = []
+            t0 = time.perf_counter()
+            for _ in range(6):
+                bat.tick()
+                ratios.append(global_metrics().snapshot()["gauges"][
+                    "runtime.overlap_ratio"])
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+            busy = float("nan")
+            if turn < 2:
+                with torch.profiler.profile(activities=acts) as prof:
+                    for _ in range(3):
+                        bat.tick()
+                    torch.cuda.synchronize()
+                busy = sum(r[0] for r in kernel_rows(torch, prof, calls=3))
+            bat.close()
+            tps = 8 * 8 * 6 / wall_ms * 1e3
+            print(f"phase 14 (d) steady decode [{layout}] depth {depth} on "
+                  f"{card}: {tps:.1f} tok/s ({wall_ms / 48:.3f} ms/step), "
+                  f"busy share {busy / (wall_ms / 6):.3f}, "
+                  f"runtime.overlap_ratio {sum(ratios) / len(ratios):.3f}")
+
+
+#: Phase 14's counters by part: the kernels' rows they count into (the
+#: ladder part runs an int8 pool and K2 on the draft's bf16 strips).
+SCHED_ROWS = {
+    "native": {"flash_attn_fwd": "flash_attn_fwd",
+               "decode_attn": "decode_attn", "paged_attn": "paged_attn",
+               "paged_chunk_attn": "paged_chunk_attn"},
+    "int8": {"flash_attn_fwd": "flash_attn_fwd",
+             "decode_attn": "decode_attn", "paged_attn": "paged_attn[int8]",
+             "paged_chunk_attn": "paged_chunk_attn[int8]",
+             "paged_verify_attn": "paged_verify_attn[int8]",
+             "quantize_blocks": "quantize_blocks",
+             "dequantize_blocks": "dequantize_blocks"},
+}
+
+
+def sched_phase(torch, A, D, P, Q, lm, draft2, card, kernels, solo,
+                solo_gaps, prompts, waves, fan, spec_bar):
+    """Phase 14: traffic control and the pipelined tick on the card — (a)
+    preemption, (b) the degradation ladder under speculation, (c) depth 2
+    against depth 1 and a steady depth-2 tick, (d) readings. Adds
+    ``sched_launches`` (phase 14's launches of each kernel, its main-path
+    runs summed) to every row of ``kernels``."""
+    from adapt_tpu_torch.models import speculative as S
+
+    t_phase = time.perf_counter()
+    counters = {"flash_attn_fwd": A.flash_attn_fwd,
+                "decode_attn": D.decode_attn, "paged_attn": P.paged_attn,
+                "paged_chunk_attn": P.paged_chunk_attn,
+                "paged_verify_attn": P.paged_verify_attn,
+                "quantize_blocks": Q.quantize_blocks,
+                "dequantize_blocks": Q.dequantize_blocks}
+    runs: dict = {}
+    took = []
+    t = time.perf_counter()
+    preempt_part(torch, lm, card, counters, runs)
+    took.append(time.perf_counter() - t)
+    ladder_part(torch, lm, draft2, Q, S, card, counters, runs, solo,
+                solo_gaps, prompts[:8], spec_bar)
+    took.append(time.perf_counter() - t - sum(took))
+    rates = depth_part(torch, lm, card, counters, runs, prompts, waves, fan)
+    took.append(time.perf_counter() - t - sum(took))
+    for (layout, depth), r in sorted(rates.items()):
+        print(f"phase 14 (d) {layout} traffic at depth {depth} on {card}: "
+              f"tok/s {', '.join(f'{x:.1f}' for x in r)}")
+    depth_readings(torch, lm, card)
+    took.append(time.perf_counter() - t - sum(took))
+    totals: dict = {}
+    for path, launches in runs.items():
+        rows = SCHED_ROWS["int8" if path == "sched_ladder" else "native"]
+        for k, n in launches.items():
+            if k in rows:
+                totals[rows[k]] = totals.get(rows[k], 0) + n
+    for kr in kernels:
+        kr["sched_launches"] = totals.get(kr["name"], 0)
+    print(f"phase 14 launches by path: {json.dumps(runs)}")
+    print(f"phase 14 (traffic control, pipelined tick) took "
+          f"{time.perf_counter() - t_phase:.1f} s on {card} ((a) {took[0]:.1f}"
+          f", (b) {took[1]:.1f}, (c) {took[2]:.1f}, (d) {took[3]:.1f})")
+
+
+#: GPT-2-small widths: vocab, dim, depth, heads, MLP.
+GPT2_SMALL = (50257, 768, 12, 12, 3072)
+
+
+def gpt2_small(torch):
+    """The serving configuration: GPT-2-small widths, learned positions,
+    max_len 1024, bf16, random weights from seed 0, on the card."""
+    from adapt_tpu_torch.models.transformer_lm import transformer_lm
+
+    t0 = time.perf_counter()
+    lm = transformer_lm(*GPT2_SMALL, max_len=1024, dtype=torch.bfloat16,
+                        name="gpt2_small", seed=0)
+    print(f"GPT-2-small widths built in {time.perf_counter() - t0:.1f} s "
+          f"({sum(p.numel() for p in lm.parameters())} parameters)")
+    return lm
+
+
+def truncated_draft(torch, lm):
+    """The 2-layer draft of ``lm``'s widths: it shares the target's
+    embedding, first two blocks and head. With random weights it rarely
+    agrees with the 12-layer target: its paths show losslessness at
+    acceptance ~0."""
+    from adapt_tpu_torch.models.transformer_lm import transformer_lm
+
+    vocab, dim, _, heads, mlp = GPT2_SMALL
+    t0 = time.perf_counter()
+    draft2 = transformer_lm(vocab, dim, 2, heads, mlp, max_len=1024,
+                            dtype=torch.bfloat16, name="gpt2_small_draft",
+                            seed=1)
+    draft2.load_state_dict({k: v for k, v in lm.state_dict().items()
+                            if k in draft2.state_dict()})
+    print(f"2-layer draft of the same widths built in "
+          f"{time.perf_counter() - t0:.1f} s")
+    return draft2
+
+
+def dense_traffic(torch, vocab):
+    """Phase 6's inputs from seed 0: a (4, 100) ragged ``generate()`` batch
+    with its lengths, and the dense path's 16 prompts of 16-512 tokens."""
+    rng = torch.Generator().manual_seed(0)
+    lens = [37, 64, 100, 23]
+    ragged = torch.randint(0, vocab, (4, max(lens)), generator=rng)
+    plens = torch.randint(16, 513, (16,), generator=rng).tolist()
+    return ragged, lens, [torch.randint(0, vocab, (n,), generator=rng).numpy()
+                          for n in plens]
+
+
+def reference_streams(torch, lm):
+    """``(solo, solo_gaps)``: ``solo(p, split, kv, steps)`` is
+    ``generate()`` of one prompt alone (memoised); ``solo_gaps`` the top-2
+    logit gap at every token of it, from the same ``generate()`` call with
+    a hook on the head reading row 0 of each step's logits (memoised)."""
+    from adapt_tpu_torch.models.transformer_lm import generate
+
+    streams, gaps = {}, {}
+
+    def solo(p, split=None, kv="native", steps=64):
+        key = (p.tobytes(), split, kv, steps)
+        if key not in streams:
+            streams[key] = generate(lm, p[None], steps, decode_split=split,
+                                    kv_cache_dtype=kv)[0].cpu().numpy()
+        return streams[key]
+
+    def solo_gaps(p, split=None, kv="native", steps=64):
+        key = (p.tobytes(), split, kv, steps)
+        if key not in gaps:
+            seen = []
+            hook = lm.head.register_forward_hook(
+                lambda mod, args, o: seen.append(
+                    torch.topk(o[0, 0].float(), 2).values))
+            try:
+                generate(lm, p[None], steps, decode_split=split,
+                         kv_cache_dtype=kv)
+            finally:
+                hook.remove()
+            top2 = torch.stack(seen).cpu().numpy()
+            gaps[key] = top2[:, 0] - top2[:, 1]
+        return gaps[key]
+
+    return solo, solo_gaps
+
+
 def main(argv) -> int:
     try:
         import torch
@@ -3084,7 +3680,7 @@ def main(argv) -> int:
         return _fail("adapt_tpu_torch/ is missing beside chip_smoke.py")
     sys.path.insert(0, root)
     from adapt_tpu_torch.config import KernelConfig, SpeculativeConfig
-    from adapt_tpu_torch.models.transformer_lm import generate, transformer_lm
+    from adapt_tpu_torch.models.transformer_lm import generate
     from adapt_tpu_torch.ops import _build
     from adapt_tpu_torch.ops import attention as A
     from adapt_tpu_torch.ops import decode_attention as D
@@ -3107,54 +3703,16 @@ def main(argv) -> int:
     check_k3(torch, D, P, dev, errs)
     check_k4(torch, P, A, dev, errs)
     # -- phase 6: the full-width dense path ------------------------------
-    VOCAB, DIM, DEPTH, HEADS, MLP = 50257, 768, 12, 12, 3072
-    t0 = time.perf_counter()
-    lm = transformer_lm(VOCAB, DIM, DEPTH, HEADS, MLP, max_len=1024,
-                        dtype=torch.bfloat16, name="gpt2_small", seed=0)
-    print(f"GPT-2-small widths built in {time.perf_counter() - t0:.1f} s "
-          f"({sum(p.numel() for p in lm.parameters())} parameters)")
-    rng = torch.Generator().manual_seed(0)
-    lens = [37, 64, 100, 23]
-    prompt = torch.randint(0, VOCAB, (4, max(lens)), generator=rng)
+    VOCAB, DIM, DEPTH, HEADS, MLP = GPT2_SMALL
+    lm = gpt2_small(torch)
+    prompt, lens, prompts = dense_traffic(torch, VOCAB)
     toks = generate(lm, prompt, 32, prompt_lengths=lens)
     torch.cuda.synchronize()
     if toks.shape != (4, 32) or not bool(((toks >= 0) & (toks < VOCAB)).all()):
         return _fail(f"ragged generate gave {tuple(toks.shape)} / bad ids")
     print(f"generate: 4 ragged prompts {lens}, 32 tokens each, ids in range")
 
-    plens = torch.randint(16, 513, (16,), generator=rng).tolist()
-    prompts = [torch.randint(0, VOCAB, (n,), generator=rng).numpy()
-               for n in plens]
-    streams = {}
-
-    def solo(p, split=None, kv="native"):
-        """``generate()`` of one prompt alone, 64 tokens (memoised)."""
-        key = (p.tobytes(), split, kv)
-        if key not in streams:
-            streams[key] = generate(lm, p[None], 64, decode_split=split,
-                                    kv_cache_dtype=kv)[0].cpu().numpy()
-        return streams[key]
-
-    gaps = {}
-
-    def solo_gaps(p, split=None, kv="native"):
-        """The top-2 logit gap at every token of ``solo(p, split, kv)``:
-        the same ``generate()`` call with a hook on the head reading row 0
-        of each step's logits (memoised)."""
-        key = (p.tobytes(), split, kv)
-        if key not in gaps:
-            seen = []
-            hook = lm.head.register_forward_hook(
-                lambda mod, args, o: seen.append(
-                    torch.topk(o[0, 0].float(), 2).values))
-            try:
-                generate(lm, p[None], 64, decode_split=split,
-                         kv_cache_dtype=kv)
-            finally:
-                hook.remove()
-            top2 = torch.stack(seen).cpu().numpy()
-            gaps[key] = top2[:, 0] - top2[:, 1]
-        return gaps[key]
+    solo, solo_gaps = reference_streams(torch, lm)
 
     runs = {}
     for path, kernel, reqs, cancel_at in (
@@ -3578,17 +4136,7 @@ def main(argv) -> int:
     check_k6(torch, Q, dev, errs)
     from adapt_tpu_torch.models import speculative as S
 
-    t0 = time.perf_counter()
-    draft2 = transformer_lm(VOCAB, DIM, 2, HEADS, MLP, max_len=1024,
-                            dtype=torch.bfloat16, name="gpt2_small_draft",
-                            seed=1)
-    # The 2-layer draft shares the target's embedding, first two blocks and
-    # head (a truncated draft). With random weights it rarely agrees with
-    # the 12-layer target: that path shows losslessness at acceptance ~0.
-    draft2.load_state_dict({k: v for k, v in lm.state_dict().items()
-                            if k in draft2.state_dict()})
-    print(f"2-layer draft of the same widths built in "
-          f"{time.perf_counter() - t0:.1f} s")
+    draft2 = truncated_draft(torch, lm)
     qdraft, call_launches = check_k6_grouped(torch, Q, draft2.state_dict())
     spec_counters = {
         "flash_attn_fwd": A.flash_attn_fwd, "decode_attn": D.decode_attn,
@@ -3875,6 +4423,11 @@ def main(argv) -> int:
     # -- phase 13: the paper's pipeline across processes -----------------
     remote_phase(torch, A, Q, dev, card, kernels, root, serve_rate,
                  remote_cases(torch, dev))
+
+    # -- phase 14: traffic control and the pipelined tick ----------------
+    sched_phase(torch, A, D, P, Q, lm, draft2, card, kernels, solo,
+                solo_gaps, prompts, (wave1, wave2), fan,
+                max(0.1, 2 * verr["paged", "int8"], qbar))
 
     if "--profile" in argv:
         profile_train(torch, *train_case, card)

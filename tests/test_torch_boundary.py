@@ -1,4 +1,5 @@
-"""The port's boundary: ``adapt_tpu_torch`` and ``chip_smoke.py`` import
+"""The port's boundary: ``adapt_tpu_torch``, ``chip_smoke.py`` and
+``scripts/sched_phase.py`` import
 neither JAX, its dependency ``ml_dtypes`` (absent beside the card) nor the
 JAX package, and entry points never quietly run on
 the CPU when no card is present."""
@@ -15,7 +16,7 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "ml_dtypes", "adapt_tpu")
 
 def _port_files():
     return sorted((ROOT / "adapt_tpu_torch").rglob("*.py")) + [
-        ROOT / "chip_smoke.py"
+        ROOT / "chip_smoke.py", ROOT / "scripts" / "sched_phase.py"
     ]
 
 
@@ -55,6 +56,8 @@ def test_port_files_exist():
         "adapt_tpu_torch/comm/native.py",
         "adapt_tpu_torch/comm/remote.py",
         "adapt_tpu_torch/control/journal.py",
+        "adapt_tpu_torch/runtime/scheduler.py",
+        "scripts/sched_phase.py",
     ):
         assert want in names
 

@@ -8,6 +8,7 @@ port's ``generate()`` under the same seed; a steady tick stages nothing
 host->device."""
 
 import importlib
+import types
 
 import jax
 import jax.numpy as jnp
@@ -15,7 +16,7 @@ import numpy as np
 import pytest
 import torch
 
-from adapt_tpu_torch.config import KernelConfig, SchedulerConfig
+from adapt_tpu_torch.config import KernelConfig, SchedulerConfig, SLOSpec
 from adapt_tpu_torch.convert import from_flax
 from adapt_tpu_torch.models import transformer_lm as T
 from adapt_tpu_torch.runtime.continuous import ContinuousBatcher
@@ -224,8 +225,22 @@ def test_queue_bound_rejects_synchronously(lm_setup):
     with pytest.raises(QueueFullError):
         bat.submit(np.asarray([3]), 2)
     assert bat.stats()["rejected"] == 1
-    with pytest.raises(NotImplementedError, match="DRR"):
-        AdmissionQueue(SchedulerConfig())
+    # A configured queue is the JAX package's AdmissionQueue: the same
+    # requests (tenants, priorities, a best-effort one) pop in the same
+    # order from both.
+    JS = importlib.import_module("adapt_tpu.runtime.scheduler")
+    JCfg = importlib.import_module("adapt_tpu.config")
+    orders = []
+    for queue, spec in ((AdmissionQueue(SchedulerConfig()), SLOSpec),
+                        (JS.AdmissionQueue(JCfg.SchedulerConfig()),
+                         JCfg.SLOSpec)):
+        for i, (tenant, prio) in enumerate(
+                [("a", 0), ("b", 0), ("a", 2), ("c", -1), ("b", 2),
+                 ("a", 0), ("c", 0)]):
+            queue.append(types.SimpleNamespace(
+                req_id=i, slo=spec(tenant=tenant, priority=prio)))
+        orders.append([queue.popleft().req_id for _ in range(7)])
+    assert orders[0] == orders[1] == [2, 4, 0, 1, 6, 5, 3]
 
 
 def test_argument_errors(lm_setup):
