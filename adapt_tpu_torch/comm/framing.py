@@ -62,7 +62,7 @@ MSG_SET_ROUTE = 16
 MSG_DATA_CHAINED = 17
 #: KV-page handoff (disaggregated serving; not used by this package yet).
 MSG_KV_PAGES = 18
-#: Telemetry report (not sent by this package yet: ROADMAP.md item 9).
+#: Telemetry report (JSON, ``utils.telemetry``): worker -> dispatcher.
 MSG_TELEMETRY = 19
 
 #: header: type, stage_index (signed: probes use stage -1), request_id

@@ -29,9 +29,17 @@ hub.
 Beyond the JAX package: a worker may both listen (``--port``) and join a
 gateway (``--connect``); its HELLO then names its listen address, which
 makes the joined worker a chain member and lets a journal re-adopt it. The
-JAX gateway ignores the extra key. Telemetry reports (``MSG_TELEMETRY``)
-wait for the port's telemetry (ROADMAP.md queue 1 item 9): this server
-sends none.
+JAX gateway ignores the extra key.
+
+Telemetry: every ``telemetry_s`` the server pushes a
+``utils.telemetry.TelemetryReporter`` report (``MSG_TELEMETRY``, JSON:
+this process's windowed metric deltas, flight events, spans and a stage
+capacity book). A thread of its own builds and encodes each report; the
+dispatcher link's ping thread sends the finished ones, so a worker whose
+pings stop stops reporting, and building a report never delays a ping;
+the proxy ingests it into the process-global
+``FederatedStore`` under the lease's worker id, whose
+``fleet.report_age_s.<source>`` gauge then shows the worker's staleness.
 """
 
 from __future__ import annotations
@@ -65,6 +73,7 @@ from adapt_tpu_torch.comm.framing import (
     MSG_PROBE_ACK,
     MSG_RESULT,
     MSG_SET_ROUTE,
+    MSG_TELEMETRY,
     MSG_UNCONFIGURE,
     Message,
     payload_bytes,
@@ -81,6 +90,10 @@ from adapt_tpu_torch.control.worker import (
 from adapt_tpu_torch.graph.partition import partition, stage_weight_keys
 from adapt_tpu_torch.utils.logging import get_logger
 from adapt_tpu_torch.utils.metrics import global_metrics
+from adapt_tpu_torch.utils.telemetry import (
+    TelemetryReporter,
+    global_federated_store,
+)
 from adapt_tpu_torch.utils.tracing import (
     export_spans,
     global_flight_recorder,
@@ -92,10 +105,6 @@ log = get_logger("remote")
 #: The first word of the line a worker process prints on stdout once it
 #: listens: ``listening HOST:PORT``.
 LISTENING = "listening"
-
-TELEMETRY_STEP = ("telemetry reports (MSG_TELEMETRY) wait for the port's "
-                  "utils/telemetry.py, ROADMAP.md queue 1 item 9")
-
 
 def _close(sock: socket.socket | None) -> None:
     """Close a socket, first shutting it down: a close alone does not wake
@@ -128,13 +137,15 @@ class RemoteStageServer:
 
     def __init__(self, port: int = 0, device=None, heartbeat_s: float = 0.5,
                  host: str = "127.0.0.1", allow_registry: bool = True,
-                 telemetry_s: float = 0.0):
+                 telemetry_s: float = 2.0):
         """``device``: where stages run (None: the CUDA card).
         ``allow_registry=False`` serves only architecture-by-value
-        configures (``graph_spec``). ``telemetry_s`` must be 0: telemetry
-        reports wait for ROADMAP.md item 9."""
-        if telemetry_s:
-            raise ValueError(f"telemetry_s={telemetry_s}: {TELEMETRY_STEP}")
+        configures (``graph_spec``). ``telemetry_s``: the cadence of the
+        telemetry reports pushed on the dispatcher link (0 disables
+        them); only that link carries them (two links pushing would
+        split the deltas)."""
+        if telemetry_s < 0:
+            raise ValueError(f"telemetry_s must be >= 0, got {telemetry_s}")
         self.port = port
         self.host = host
         self.device = resolve_device(device)
@@ -162,6 +173,28 @@ class RemoteStageServer:
         self._conns_lock = threading.Lock()
         #: Stage executions served (all connections).
         self.executed = 0
+        self.telemetry_s = telemetry_s
+        #: How reports name this process (None: HOST:PORT; a gateway
+        #: joiner uses its worker id). The proxy's ingest overrides it
+        #: with the lease's worker id.
+        self.telemetry_worker: str | None = None
+        self._telemetry: TelemetryReporter | None = None
+        if telemetry_s > 0:
+            # Built here, not on a link's threads: the first report's
+            # imports must not hold up the pings that keep the lease.
+            from adapt_tpu_torch.runtime.capacity import stage_book
+
+            self._telemetry = TelemetryReporter("stage", "")
+            self._telemetry.capacity_provider = (
+                lambda: stage_book(len(self._stages)))
+        #: Encoded but undelivered reports (collect() consumes its
+        #: window, so a dropped report would lose deltas): the newest 8,
+        #: oldest sent first. The collector thread appends, the
+        #: dispatcher link's ping thread sends.
+        self._telemetry_backlog: list[tuple[int, bytes]] = []
+        self._telemetry_lock = threading.Lock()
+        self._telemetry_thread: threading.Thread | None = None
+        self._stopped = threading.Event()
 
     # -- stages ----------------------------------------------------------------
 
@@ -264,6 +297,38 @@ class RemoteStageServer:
 
     # -- serving ---------------------------------------------------------------
 
+    def _telemetry_loop(self) -> None:
+        """Every ``telemetry_s`` while a dispatcher link exists: collect
+        one report and queue it encoded, off the ping thread, so building
+        a report never delays the pings that keep the lease alive."""
+        while not self._stopped.wait(self.telemetry_s):
+            if self._crashed:
+                return
+            if self._primary_reply is None:
+                continue
+            try:
+                self._telemetry.worker = (self.telemetry_worker
+                                          or f"{self.host}:{self.port}")
+                report = self._telemetry.collect()
+                # default=str: a non-JSON value degrades to its repr
+                # instead of ending this worker's telemetry.
+                blob = json.dumps(report, default=str).encode()
+            except Exception:  # noqa: BLE001 — never end the reports
+                log.exception("telemetry collect failed")
+                continue
+            with self._telemetry_lock:
+                self._telemetry_backlog.append((int(report["seq"]), blob))
+                del self._telemetry_backlog[:-8]
+
+    def _send_telemetry(self, reply) -> None:
+        """Send every queued report, oldest first (the store detects loss
+        from sequence gaps); one that fails to send stays queued."""
+        with self._telemetry_lock:
+            while self._telemetry_backlog:
+                seq, blob = self._telemetry_backlog[0]
+                reply(Message(MSG_TELEMETRY, 0, seq, 0, blob))
+                self._telemetry_backlog.pop(0)
+
     def _handle(self, conn: socket.socket) -> int:
         """Serve one connection until it closes; returns the number of
         messages it carried (0: the peer closed first, the shape of a
@@ -279,14 +344,25 @@ class RemoteStageServer:
                 send_msg(conn, msg)
 
         def ping_loop():
+            # Queued reports ride the ping thread, so a worker whose
+            # pings stop stops reporting too.
             while not stop_ping.wait(self.heartbeat_s):
                 if self._crashed:
                     return
                 try:
                     reply(Message(MSG_PING, 0, 0, 0, b""))
+                    if (self._telemetry is not None
+                            and self._primary_reply is reply):
+                        self._send_telemetry(reply)
                 except OSError:
                     return
 
+        if self._telemetry is not None:
+            with self._telemetry_lock:
+                if self._telemetry_thread is None:
+                    self._telemetry_thread = threading.Thread(
+                        target=self._telemetry_loop, daemon=True)
+                    self._telemetry_thread.start()
         threading.Thread(target=ping_loop, daemon=True).start()
         # (stage, generation) -> a configure being assembled.
         pending: dict[tuple[int, int], dict] = {}
@@ -498,6 +574,7 @@ class RemoteStageServer:
         """Stop serving: close the listening socket and every connection
         (an in-process server's end; a process just exits)."""
         self._crashed = True
+        self._stopped.set()
         with self._conns_lock:
             conns = list(self._conns)
         for sock in [self._srv, *conns]:
@@ -512,6 +589,8 @@ class RemoteStageServer:
         connection. A rejected join shows as the gateway closing the link
         before any message; joins retry (a redial can race the gateway's
         stale proxy of the same id) and a real rejection raises."""
+        # A joiner knows its fleet identity: its reports carry it.
+        self.telemetry_worker = worker_id
         for attempt in range(join_retries):
             last: Exception | None = None
             for _ in range(retries):
@@ -866,6 +945,17 @@ class RemoteWorkerProxy:
             if kind == MSG_PING:
                 self._registry.heartbeat(self.worker_id,
                                          ttl_s=self._fault.lease_ttl_s)
+            elif kind == MSG_TELEMETRY:
+                # The worker's report, federated under this lease's worker
+                # id (the report knows only its port). A malformed report
+                # is counted and never ends the read loop.
+                try:
+                    global_federated_store().ingest(
+                        json.loads(payload_bytes(msg.payload).decode()),
+                        worker=self.worker_id)
+                    global_metrics().inc("fleet.reports_total")
+                except Exception:  # noqa: BLE001
+                    global_metrics().inc("fleet.report_rejected_total")
             elif kind == MSG_PROBE_ACK:
                 self._results.put(TaskResult(
                     request_id=msg.request_id, stage_index=msg.stage_index,
@@ -1056,8 +1146,9 @@ def main(argv=None) -> None:
                    help="cuda:N or cpu (default: the CUDA card)")
     p.add_argument("--host", default="127.0.0.1")
     p.add_argument("--heartbeat", type=float, default=0.5)
-    p.add_argument("--telemetry-s", type=float, default=0.0,
-                   help="must be 0: " + TELEMETRY_STEP)
+    p.add_argument("--telemetry-s", type=float, default=2.0,
+                   help="telemetry report cadence on the dispatcher link "
+                   "(seconds; 0 disables the reports)")
     p.add_argument("--secret",
                    default=os.environ.get("ADAPT_TPU_GATEWAY_SECRET"),
                    help="gateway join secret (or env "
@@ -1072,14 +1163,15 @@ def main(argv=None) -> None:
     args = p.parse_args(argv)
     if args.port is None and args.connect is None:
         p.error("one of --port / --connect is required")
-    if args.telemetry_s:
-        p.error(f"--telemetry-s {args.telemetry_s}: {TELEMETRY_STEP}")
+    if args.telemetry_s < 0:
+        p.error(f"--telemetry-s must be >= 0, got {args.telemetry_s}")
     if args.no_tf32:
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
     server = RemoteStageServer(args.port or 0, device=args.device,
                                heartbeat_s=args.heartbeat, host=args.host,
-                               allow_registry=not args.no_registry)
+                               allow_registry=not args.no_registry,
+                               telemetry_s=args.telemetry_s)
     serving = None
     if args.port is not None:
         server.listen()

@@ -330,14 +330,20 @@ class ObservabilityConfig:
     defaults (a default-config dispatcher never truncates a ring another
     component sized). ``snapshot_on_recovery``: ``Dispatcher.recover``
     writes the flight recorder beside the journal. ``goodput_window_s``
-    is the span of the batcher's ``continuous.goodput_tokens_s`` gauge.
-    The engine-profiling fields (``obs_engine``, ``compile_warmup``) come
-    with ``utils/profiling.py`` (queue 1 item 9)."""
+    is the span of the batcher's ``continuous.goodput_tokens_s`` gauge and
+    of the capacity plane's windows. ``obs_engine`` turns on the per-phase
+    engine timing (``utils.profiling.EngineObs``: ``engine.phase.<name>_s``
+    histograms, spans when tracing is on, and the roofline gauges' walls),
+    enable-only like ``trace_enabled``; ``compile_warmup`` is the compile
+    sentinel's warmup in active samples, applied only when it differs
+    from this default."""
 
     trace_enabled: bool = False
     trace_capacity: int = 65536
     flight_capacity: int = 2048
     snapshot_on_recovery: bool = True
+    obs_engine: bool = False
+    compile_warmup: int = 8
     goodput_window_s: float = 2.0
 
     def __post_init__(self):
@@ -345,8 +351,48 @@ class ObservabilityConfig:
             raise ValueError("trace_capacity must be >= 1")
         if self.flight_capacity < 1:
             raise ValueError("flight_capacity must be >= 1")
+        if self.compile_warmup < 0:
+            raise ValueError("compile_warmup must be >= 0")
         if self.goodput_window_s <= 0:
             raise ValueError("goodput_window_s must be > 0")
+
+
+@dataclasses.dataclass(frozen=True)
+class CapacityConfig:
+    """The replica capacity plane (``runtime/capacity.CapacityModel``):
+    every batcher keeps a capacity book — headroom (slots, pages, queue),
+    a self-calibrating TTFT forecaster, a bounded prefix-affinity sketch
+    and a hysteresis health score — refreshed off the critical path
+    through the batcher's ``_obs_flush`` seam. ``enabled=False`` attaches
+    no model: no extra work at submit, admit, commit or flush."""
+
+    enabled: bool = True
+    #: Min seconds between book rebuilds (headroom + sketch + health).
+    refresh_s: float = 0.25
+    #: At most this many radix nodes (hashed content keys) in the sketch.
+    sketch_k: int = 32
+    #: EWMA rate of the forecaster's queue-wait, prefill-wall and bias.
+    ewma_alpha: float = 0.2
+    #: (forecast, realized) TTFT pairs the calibration fraction spans.
+    calibration_window: int = 256
+    #: A health improvement must hold this long (worsening is immediate).
+    health_dwell_s: float = 1.0
+    #: Min seconds between lease-meta book refreshes.
+    lease_refresh_s: float = 1.0
+
+    def __post_init__(self):
+        if self.refresh_s < 0:
+            raise ValueError("refresh_s must be >= 0")
+        if self.sketch_k < 1:
+            raise ValueError("sketch_k must be >= 1")
+        if not 0 < self.ewma_alpha <= 1:
+            raise ValueError("ewma_alpha must be in (0, 1]")
+        if self.calibration_window < 1:
+            raise ValueError("calibration_window must be >= 1")
+        if self.health_dwell_s < 0:
+            raise ValueError("health_dwell_s must be >= 0")
+        if self.lease_refresh_s < 0:
+            raise ValueError("lease_refresh_s must be >= 0")
 
 
 @dataclasses.dataclass(frozen=True)

@@ -55,6 +55,7 @@ from adapt_tpu_torch.control.worker import (
 from adapt_tpu_torch.graph.partition import PartitionPlan, StageModule
 from adapt_tpu_torch.utils.logging import get_logger
 from adapt_tpu_torch.utils.metrics import global_metrics
+from adapt_tpu_torch.utils.profiling import apply_engine_config
 from adapt_tpu_torch.utils.tracing import global_flight_recorder, global_tracer
 
 log = get_logger("dispatcher")
@@ -140,6 +141,9 @@ class Dispatcher:
             global_tracer().set_capacity(obs.trace_capacity)
         if obs.flight_capacity != defaults.flight_capacity:
             global_flight_recorder().set_capacity(obs.flight_capacity)
+        # The engine knobs follow the same rules: obs_engine is
+        # enable-only, compile_warmup applies only when non-default.
+        apply_engine_config(obs)
         self.registry = registry or WorkerRegistry(
             default_ttl_s=self.config.fault.lease_ttl_s)
         self._stage_host_vars = plan.extract_variables(variables)

@@ -106,6 +106,15 @@ class WorkerRegistry:
                     if exp > now
                     and (role is None or self._meta[w].get("role") == role)]
 
+    def alive_meta(self) -> dict[str, dict]:
+        """Every live lease's metadata in one lock hold (``{worker_id:
+        meta copy}``): the telemetry store's scan for lease-advertised
+        pull endpoints (``meta["telemetry"]``)."""
+        now = time.monotonic()
+        with self._lock:
+            return {w: dict(self._meta[w])
+                    for w, exp in self._leases.items() if exp > now}
+
     def alive_untagged(self) -> list[str]:
         """Live leases with no role tag: the pool the pipeline dispatcher
         acquires from."""

@@ -108,12 +108,15 @@ def from_flax(variables) -> dict[str, torch.Tensor]:
     )
     for name in blocks:
         p = variables[name]["params"]
-        if "moe" in p:
-            raise NotImplementedError("MoE blocks are not ported yet")
         _norm(sd, f"{name}.ln1", p["ln1"])
         _norm(sd, f"{name}.ln2", p["ln2"])
-        _dense(sd, f"{name}.mlp_in", p["mlp_in"])
-        _dense(sd, f"{name}.mlp_out", p["mlp_out"])
+        if "moe" in p:
+            # Expert-stacked, in the JAX layout as it is.
+            for leaf in ("gate", "w1", "b1", "w2", "b2"):
+                sd[f"{name}.moe.{leaf}"] = _t(p["moe"][leaf])
+        else:
+            _dense(sd, f"{name}.mlp_in", p["mlp_in"])
+            _dense(sd, f"{name}.mlp_out", p["mlp_out"])
         attn = p["attn"]
         for proj in ("qkv", "q", "kv", "out"):
             if proj in attn:

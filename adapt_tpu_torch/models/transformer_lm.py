@@ -1,7 +1,7 @@
 """Decoder-only transformer LM with KV-cache decoding — the port of
-``adapt_tpu/models/transformer_lm.py`` (dense blocks; MHA with a fused
-``qkv`` projection, or GQA with ``q`` + ``kv``; learned or rotary
-positions; sliding window).
+``adapt_tpu/models/transformer_lm.py`` (dense or mixture-of-experts
+blocks; MHA with a fused ``qkv`` projection, or GQA with ``q`` + ``kv``;
+learned or rotary positions; sliding window).
 
 The model is an ``nn.Module`` whose submodules carry the JAX graph's node
 names (``embed``, ``decoder_block_{i}``, ``head``), so ``convert.from_flax``
@@ -59,6 +59,7 @@ from adapt_tpu_torch.ops.paged_attention import (
     paged_verify_attention,
     pool_values,
 )
+from adapt_tpu_torch.models.moe import MoEDecoderMlp
 from adapt_tpu_torch.ops.quantize import quantize_kv_vectors
 
 #: Decode row count is rounded up to a multiple of this (see module doc).
@@ -557,18 +558,15 @@ class CausalSelfAttention(nn.Module):
 
 
 class DecoderBlock(nn.Module):
-    """Pre-LN decoder block with the dense GELU MLP."""
+    """Pre-LN decoder block: the dense GELU MLP, or with ``moe_experts`` a
+    dropless per-token mixture of that many experts (``moe_top_k`` active
+    a token, ``mlp_dim`` each; ``models/moe.MoEDecoderMlp``), which every
+    schedule serves with the dense block's cache parity."""
 
     def __init__(self, dim, heads, mlp_dim, dtype=torch.float32,
                  kv_heads=None, moe_experts=None, moe_top_k=1, window=None,
                  rope=False, device=None):
         super().__init__()
-        if moe_experts is not None:
-            raise NotImplementedError(
-                "MoE decoder blocks (models/moe.py:MoEDecoderMlp) are not "
-                "ported yet"
-            )
-        del moe_top_k
         self.dim, self.heads, self.mlp_dim = dim, heads, mlp_dim
         self.kv_heads = kv_heads
         kw = dict(dtype=dtype, device=device)
@@ -577,8 +575,13 @@ class DecoderBlock(nn.Module):
             dim, heads, dtype, kv_heads, window, rope, device
         )
         self.ln2 = LayerNorm(dim, dtype, device)
-        self.mlp_in = nn.Linear(dim, mlp_dim, **kw)
-        self.mlp_out = nn.Linear(mlp_dim, dim, **kw)
+        self.moe_experts = moe_experts
+        if moe_experts is not None:
+            self.moe = MoEDecoderMlp(dim, moe_experts, mlp_dim, moe_top_k,
+                                     dtype, device)
+        else:
+            self.mlp_in = nn.Linear(dim, mlp_dim, **kw)
+            self.mlp_out = nn.Linear(mlp_dim, dim, **kw)
 
     @property
     def cache_heads(self) -> int:
@@ -589,6 +592,8 @@ class DecoderBlock(nn.Module):
         return self.dim // self.heads
 
     def _mlp(self, x):
+        if self.moe_experts is not None:
+            return self.moe(x)
         return self.mlp_out(F.gelu(self.mlp_in(x), approximate="tanh"))
 
     def forward(self, x):
@@ -745,18 +750,25 @@ class TransformerLM(nn.Module):
     def init_weights(self, seed: int = 0) -> "TransformerLM":
         """Random weights from ``seed``, drawn on the CPU (the same numbers
         on any device): matrices N(0, 1/fan_in), embeddings N(0, 1/dim),
-        learned positions N(0, 0.02^2), zero biases, unit LN scales."""
+        learned positions N(0, 0.02^2), zero biases, unit LN scales. MoE
+        blocks keep the JAX layout (``gate`` (d, E), ``w1`` (E, d, h),
+        ``w2`` (E, h, d)): their fan-in is the second-to-last axis."""
         gen = torch.Generator().manual_seed(seed)
         for name, p in self.named_parameters():
             leaf = name.rsplit(".", 1)[-1]
-            if leaf == "bias":
+            if leaf in ("bias", "b1", "b2"):
                 p.zero_()
                 continue
             if leaf == "scale":
                 p.fill_(1.0)
                 continue
             # nn.Linear weights are (out, in); embeddings (vocab, dim).
-            std = 0.02 if leaf == "pos_embed" else 1 / math.sqrt(p.shape[1])
+            if leaf == "pos_embed":
+                std = 0.02
+            elif leaf in ("gate", "w1", "w2"):
+                std = 1 / math.sqrt(p.shape[-2])
+            else:
+                std = 1 / math.sqrt(p.shape[1])
             p.copy_(torch.randn(p.shape, generator=gen) * std)
         return self
 

@@ -52,6 +52,43 @@ _libs: dict[str, ctypes.CDLL] = {}
 LOGS: dict[str, str] = {}
 
 
+#: Route books per op with a kernel / plain route (``decode``,
+#: ``paged_decode``, ``paged_chunk``, ``paged_verify``, ``prefill``,
+#: ``flash_bwd``, ``quantize``, ``dequantize``): ``"pallas"`` counts the
+#: hand-written kernel's launches, booked by each launch wrapper beside its
+#: ``launches`` counter once the launch returned no error, and ``"xla"``
+#: calls that ran the plain version (the JAX package's catalog names);
+#: ``"last"`` is 1.0 when the latest call took the kernel. ``utils.profiling``'s engine collector
+#: exports them as ``engine.kernel_dispatch.<op>`` gauges.
+_KERNEL_DISPATCHES: dict[str, dict[str, float]] = {}
+
+
+def record_kernel_dispatch(op: str, path: str) -> None:
+    """Record one call of ``op`` on ``path`` (``"pallas"``: the kernel,
+    ``"xla"``: the plain version)."""
+    d = _KERNEL_DISPATCHES.get(op)
+    if d is None:
+        d = _KERNEL_DISPATCHES.setdefault(
+            op, {"pallas": 0.0, "xla": 0.0, "last": 0.0})
+    d[path] += 1.0
+    d["last"] = 1.0 if path == "pallas" else 0.0
+
+
+def kernel_dispatch_stats() -> dict[str, dict[str, float]]:
+    """Copies of the per-op route books."""
+    return {op: dict(d) for op, d in list(_KERNEL_DISPATCHES.items())}
+
+
+def reset_kernel_dispatch() -> None:
+    _KERNEL_DISPATCHES.clear()
+
+
+def libraries_loaded() -> int:
+    """Kernel libraries built or loaded in this process: the compile
+    sentinel's watch on the port's one compile-time stall."""
+    return len(_libs)
+
+
 def nvcc() -> str:
     path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
     if not os.path.exists(path):

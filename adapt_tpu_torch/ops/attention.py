@@ -165,6 +165,7 @@ def flash_attn_fwd(
     )
     _build.check(err, "flash_attn_fwd")
     flash_attn_fwd.launches += 1
+    _build.record_kernel_dispatch("prefill", "pallas")
     return out, lse
 
 
@@ -251,6 +252,7 @@ def flash_attn_bwd(q, k, v, out, lse, do, causal=False, valid_from=None,
     )
     _build.check(err, "flash_attn_bwd")
     flash_attn_bwd.launches += 1
+    _build.record_kernel_dispatch("flash_bwd", "pallas")
     return dq, dk, dv
 
 
@@ -289,6 +291,7 @@ class _FlashAttention(torch.autograd.Function):
             out, lse = flash_attn_fwd(q, k, v, causal, valid_from, None,
                                       window)
         else:
+            _build.record_kernel_dispatch("prefill", "xla")
             out, lse = _reference_with_lse(q, k, v, causal, valid_from, None,
                                            window)
         ctx.save_for_backward(q, k, v, out, lse)
@@ -298,6 +301,8 @@ class _FlashAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, do):
         q, k, v, out, lse = ctx.saved_tensors
+        if not q.is_cuda:
+            _build.record_kernel_dispatch("flash_bwd", "xla")
         bwd = flash_attn_bwd if q.is_cuda else flash_attention_bwd_plain
         dq, dk, dv = bwd(q, k, v, out, lse, do.to(q.dtype), ctx.causal,
                          ctx.valid_from, ctx.window)
@@ -318,6 +323,7 @@ def flash_attention(
     if _wants_grad(q, k, v):
         return _FlashAttention.apply(q, k, v, valid_from, causal, window)
     if not q.is_cuda:
+        _build.record_kernel_dispatch("prefill", "xla")
         return attention_reference(
             q, k, v, causal=causal, valid_from=valid_from, window=window
         )
@@ -340,5 +346,6 @@ def flash_attention_with_lse(
             "output or causal_shift): use flash_attention for gradients"
         )
     if not q.is_cuda:
+        _build.record_kernel_dispatch("prefill", "xla")
         return _reference_with_lse(q, k, v, causal, None, causal_shift)
     return flash_attn_fwd(q, k, v, causal, None, causal_shift, None)

@@ -371,6 +371,7 @@ def decode_attn(q, cache_k, cache_v, index, valid_from=None):
     out = torch.empty_like(q)
     _launch(q, kv, index, valid_from, 1, out, None)
     decode_attn.launches += 1
+    _build.record_kernel_dispatch("decode", "pallas")
     return out
 
 
@@ -384,6 +385,7 @@ def decode_attn_split(q, cache_k, cache_v, index, valid_from=None, split=2):
     out = torch.empty_like(q)
     _launch(q, kv, index, valid_from, split, out, split_workspace(q, split))
     decode_attn_split.launches += 1
+    _build.record_kernel_dispatch("decode", "pallas")
     return out
 
 
@@ -410,6 +412,7 @@ def decode_attention(q, cache_k, cache_v, index, valid_from=None,
     if split < 1:
         raise ValueError(f"split must be >= 1, got {split}")
     if not q.is_cuda:
+        _build.record_kernel_dispatch("decode", "xla")
         return decode_attention_plain(
             q, cache_k, cache_v, index, valid_from, split
         )

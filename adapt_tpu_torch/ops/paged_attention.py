@@ -260,6 +260,7 @@ def paged_attn(q, k_pool, v_pool, page_table, index, valid_from=None):
     _launch_paged(q, k_pool, v_pool, page_table, index, valid_from, 1, out,
                   False)
     paged_attn.launches += 1
+    _build.record_kernel_dispatch("paged_decode", "pallas")
     return out
 
 
@@ -274,6 +275,7 @@ def paged_attn_split(q, k_pool, v_pool, page_table, index, valid_from=None,
     _launch_paged(q, k_pool, v_pool, page_table, index, valid_from, split,
                   out, True)
     paged_attn_split.launches += 1
+    _build.record_kernel_dispatch("paged_decode", "pallas")
     return out
 
 
@@ -304,6 +306,7 @@ def paged_chunk_attn(q, k_pool, v_pool, pages, pos0: int, chunk: int,
     )
     _build.check(err, "paged_chunk_attn")
     paged_chunk_attn.launches += 1
+    _build.record_kernel_dispatch("paged_chunk", "pallas")
     return out
 
 
@@ -347,6 +350,7 @@ def paged_verify_attn(q, k_pool, v_pool, page_table, index, chunk: int,
     _launch_verify(q, k_pool, v_pool, page_table, index, chunk, window,
                    tree_tail, 1, out, None)
     paged_verify_attn.launches += 1
+    _build.record_kernel_dispatch("paged_verify", "pallas")
     return out
 
 
@@ -369,6 +373,7 @@ def paged_verify_attn_split(q, k_pool, v_pool, page_table, index, chunk: int,
     _launch_verify(q, k_pool, v_pool, page_table, index, chunk, window,
                    tree_tail, split, None, parts)
     paged_verify_attn_split.launches += 1
+    _build.record_kernel_dispatch("paged_verify", "pallas")
     return _combine_splits(*parts, q.dtype).reshape(b, kvh, gc, hd)
 
 
@@ -402,6 +407,7 @@ def paged_chunk_attention(q, k_pool, v_pool, pages, pos0, chunk: int,
     check_head_parity(q.shape[1], pool_values(k_pool).shape[1])
     _check_prefer(prefer, q)
     if not q.is_cuda:
+        _build.record_kernel_dispatch("paged_chunk", "xla")
         return paged_chunk_attention_reference(
             q, k_pool, v_pool, pages, pos0, chunk, window
         )
@@ -420,6 +426,7 @@ def paged_attention(q, k_pool, v_pool, page_table, index, valid_from=None,
     if split < 1:
         raise ValueError(f"split must be >= 1, got {split}")
     if not q.is_cuda:
+        _build.record_kernel_dispatch("paged_decode", "xla")
         return paged_attention_plain(
             q, k_pool, v_pool, page_table, index, valid_from, split
         )
@@ -446,6 +453,7 @@ def paged_verify_attention(q, k_pool, v_pool, page_table, index, chunk: int,
     if split < 1:
         raise ValueError(f"split must be >= 1, got {split}")
     if not q.is_cuda:
+        _build.record_kernel_dispatch("paged_verify", "xla")
         return paged_verify_attention_plain(
             q, k_pool, v_pool, page_table, index, chunk, window, tree_tail,
             split,

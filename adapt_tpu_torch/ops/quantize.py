@@ -219,6 +219,7 @@ def quantize_blocks(x) -> QuantizedTensor:
         )
         _build.check(err, "quantize_blocks")
         quantize_blocks.launches += 1
+        _build.record_kernel_dispatch("quantize", "pallas")
     return QuantizedTensor(vals, scales, tuple(x.shape), x.dtype)
 
 
@@ -250,6 +251,7 @@ def _dequantize_launch(qts, outs, first):
     )
     _build.check(err, "dequantize_blocks")
     dequantize_blocks.launches += 1
+    _build.record_kernel_dispatch("dequantize", "pallas")
 
 
 def _dequantize_grouped(qts):
@@ -289,6 +291,7 @@ def quantize(x) -> QuantizedTensor:
     one that is first), the plain version on CPU."""
     if x.is_cuda:
         return quantize_blocks(aligned16(x.contiguous()))
+    _build.record_kernel_dispatch("quantize", "xla")
     return quantize_reference(x)
 
 
@@ -298,6 +301,7 @@ def dequantize(qt: QuantizedTensor):
     version on CPU."""
     if qt.values.is_cuda:
         return dequantize_blocks(_aligned_payload(qt))
+    _build.record_kernel_dispatch("dequantize", "xla")
     return dequantize_reference(qt)
 
 
@@ -343,6 +347,7 @@ def dequantize_params(tree):
         if qt.values.is_cuda:
             by_dev.setdefault(qt.values.device, []).append(i)
         else:
+            _build.record_kernel_dispatch("dequantize", "xla")
             outs[i] = dequantize_reference(qt)
     for idx in by_dev.values():
         for i, out in zip(idx, _dequantize_grouped(

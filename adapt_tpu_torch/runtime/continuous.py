@@ -120,6 +120,7 @@ import numpy as np
 import torch
 
 from adapt_tpu_torch.config import (
+    CapacityConfig,
     KernelConfig,
     ObservabilityConfig,
     RuntimeConfig,
@@ -142,6 +143,7 @@ from adapt_tpu_torch.models.transformer_lm import (
 )
 from adapt_tpu_torch.ops.paged_attention import DEFAULT_PAGE_SIZE
 from adapt_tpu_torch.ops.quantize import quantize_params
+from adapt_tpu_torch.runtime.capacity import CapacityModel
 from adapt_tpu_torch.runtime.paged import Pager, insert_prefill_pages
 from adapt_tpu_torch.runtime.scheduler import (
     AdmissionQueue,
@@ -152,6 +154,17 @@ from adapt_tpu_torch.runtime.scheduler import (
 )
 from adapt_tpu_torch.utils.logging import get_logger
 from adapt_tpu_torch.utils.metrics import global_metrics
+from adapt_tpu_torch.utils.profiling import (
+    apply_engine_config,
+    global_compile_sentinel,
+    global_engine_obs,
+    program_work,
+    register_memory_source,
+    register_roofline_source,
+    unregister_memory_source,
+    unregister_roofline_source,
+    watch_kernel_libraries,
+)
 from adapt_tpu_torch.utils.tracing import global_flight_recorder, global_tracer
 
 log = get_logger("continuous")
@@ -159,7 +172,6 @@ log = get_logger("continuous")
 __all__ = ["ContinuousBatcher", "QueueFullError", "fanout_seeds"]
 
 _M64 = (1 << 64) - 1
-
 
 def fanout_seeds(seed: int, n: int) -> list[int]:
     """The per-sibling seeds of a sampled :meth:`ContinuousBatcher.
@@ -215,6 +227,9 @@ class _Request:
     #: ``submit_fanout`` group id (-1 = ordinary request), consumed at
     #: admission or queued cancel (so it is never decremented twice).
     fanout_group: int = -1
+    #: The capacity plane's submit-time TTFT forecast (0.0 = none); its
+    #: realized TTFT closes the calibration loop at the first commit.
+    ttft_forecast_s: float = 0.0
 
 
 @dataclasses.dataclass
@@ -317,6 +332,15 @@ class _InFlight:
     t_span: float = 0.0
     #: perf_counter at dispatch start: runtime.overlap_ratio's wall.
     t0: float = 0.0
+    #: Engine-phase open of the decode / verify pass (0.0 = obs off) and
+    #: the end of the dispatch half (the commit_lag phase's open).
+    t_eo: float = 0.0
+    t_dispatched: float = 0.0
+    #: The roofline program this tick ran and its passes
+    #: (``utils.profiling.program_work``'s input), counted at scrape time
+    #: from the active positions at dispatch.
+    program: str = ""
+    passes: Callable[[], tuple] | None = None
 
 
 class ContinuousBatcher:
@@ -327,7 +351,13 @@ class ContinuousBatcher:
     none. ``draft_lm`` (with an optional ``speculative`` config) turns on
     batched speculative decoding; ``scheduler`` traffic control;
     ``runtime`` the pipelined tick; ``observability`` the goodput
-    window."""
+    window and the engine knobs (``obs_engine``, ``trace_enabled`` and
+    ``compile_warmup``, applied as the ``Dispatcher`` applies them);
+    ``capacity`` the capacity plane (``runtime/capacity``, on by default).
+    Engine telemetry (``utils/profiling``): the batcher is a memory and a
+    roofline source, (re-)registers the compile sentinel's kernel-library
+    watch, and times its tick phases when ``global_engine_obs()`` is
+    enabled."""
 
     #: Max UNCLAIMED logprob streams retained (oldest evicted past it).
     _LPS_CAP = 4096
@@ -350,6 +380,7 @@ class ContinuousBatcher:
         speculative: SpeculativeConfig | None = None,
         runtime: RuntimeConfig | None = None,
         observability: ObservabilityConfig | None = None,
+        capacity: CapacityConfig | None = None,
     ):
         if kv_cache_dtype not in ("native", "int8", "int4"):
             raise ValueError(
@@ -595,6 +626,37 @@ class ContinuousBatcher:
         self._server: threading.Thread | None = None
         self._stopping = False
         self._server_error: BaseException | None = None
+        # -- capacity plane ----------------------------------------------
+        cap_cfg = capacity or CapacityConfig()
+        self._capacity: CapacityModel | None = (
+            CapacityModel(cap_cfg, kind="decode",
+                          window_s=self.goodput_window_s)
+            if cap_cfg.enabled else None)
+        #: Previous _obs_flush stamp: the forecaster's tick-gap feed.
+        self._cap_last_flush = 0.0
+        # -- engine telemetry ----------------------------------------------
+        # The config's engine knobs apply here as in the Dispatcher
+        # (enable-only), so a batcher served alone can turn them on.
+        apply_engine_config(obs)
+        if obs.trace_enabled:
+            global_tracer().enabled = True
+        self._eobs = global_engine_obs()
+        self._sentinel = global_compile_sentinel()
+        # Registering re-arms the warmup: a fresh batcher may load its own
+        # first kernel libraries (an int8 pool's, a draft's).
+        watch_kernel_libraries(self._sentinel)
+        #: The latest execution of each roofline program: (passes, or a
+        #: zero-arg callable counting them, and the wall in seconds or
+        #: None). Decode / verify walls are the engine phases';
+        #: a prefill's is its own pass, ended by the first-token fetch.
+        self._roofline: dict[str, tuple] = {}
+        #: The pager's books as of the end of the latest tick half: only
+        #: the ticking thread moves pages, so a scrape thread reading this
+        #: sees a partition that adds up (a live read could fall between
+        #: a page leaving the free list and its refcount being set).
+        self._pager_books = self._pager.stats() if self._paged else None
+        register_memory_source("continuous", self)
+        register_roofline_source("continuous", self)
 
     # -- device-side pieces ------------------------------------------------
 
@@ -723,6 +785,7 @@ class ContinuousBatcher:
         K/V into slot ``slot_idx``'s strips — or its owned pages — and
         pick the first token. Returns (token, logprob)."""
         lm = self.lm
+        t0 = time.perf_counter() if self._eobs.enabled else 0.0
         s0 = req.prompt.shape[0]
         ids = np.zeros((1, bucket), np.int64)
         ids[0, :s0] = req.prompt
@@ -738,7 +801,9 @@ class ContinuousBatcher:
                     for c, n in zip(_members(cache), _members(new)):
                         c[slot_idx, :, :bucket] = n[0]
         self._count_prefill(s0)
-        return self._first_pick(h[:, s0 - 1:s0], req)
+        first = self._first_pick(h[:, s0 - 1:s0], req)
+        self._note_prefill((bucket, self._attended(0, s0), s0, bucket, 1), t0)
+        return first
 
     def _prefill_pass(self, req: _Request, pages, pos0: int, length: int,
                       sample: bool):
@@ -751,6 +816,7 @@ class ContinuousBatcher:
         pass and every chunked-prefill pass share this body; only a pass
         that ``sample``s returns (token, logprob)."""
         P = self._page
+        t0 = time.perf_counter() if sample and self._eobs.enabled else 0.0
         cbucket = -(-length // P) * P
         ids = np.zeros((1, cbucket), np.int64)
         ids[0, :length] = req.prompt[pos0:pos0 + length]
@@ -765,7 +831,52 @@ class ContinuousBatcher:
         self._count_prefill(length)
         if not sample:
             return None
-        return self._first_pick(h[:, length - 1:length], req)
+        first = self._first_pick(h[:, length - 1:length], req)
+        self._note_prefill((cbucket, self._attended(pos0, length),
+                            pos0 + length, cbucket, 1), t0)
+        return first
+
+    def _live_keys(self, pos):
+        """Live keys of query rows at positions ``pos`` (an int array):
+        each attends through its own position, inside a sliding window."""
+        keys = np.asarray(pos, np.int64) + 1
+        if self._window is not None:
+            keys = np.minimum(keys, self._window)
+        return keys
+
+    def _attended(self, pos0: int, n: int) -> int:
+        """(query, live key) pairs of ``n`` rows at positions pos0 ..
+        pos0 + n - 1."""
+        return int(self._live_keys(np.arange(pos0, pos0 + n)).sum())
+
+    def _decode_passes(self, active, rows_per_slot: int, steps: int):
+        """A zero-arg callable counting the ``program_work`` passes of a
+        decode chunk (``steps`` passes of one row a slot) or of a verify
+        pass (one pass of ``rows_per_slot`` rows a slot) over the slot
+        batch. Only the active slots' next positions are taken now; the
+        count runs when a scrape reads the roofline."""
+        pos = [s.s0 + s.emitted - 1 for s in active]
+        return lambda: self._count_passes(pos, rows_per_slot, steps)
+
+    def _count_passes(self, pos, rows_per_slot: int, steps: int) -> tuple:
+        B = len(self.slots)
+        pos = np.asarray(pos, np.int64)
+        n = rows_per_slot * B
+        if steps > 1:
+            return tuple(
+                (n, int(k.sum()), int(k.sum()), n, n)
+                for k in (self._live_keys(pos + j) for j in range(steps)))
+        offs = np.arange(rows_per_slot)
+        att = int(self._live_keys(pos[:, None] + offs[None, :]).sum())
+        read = int(self._live_keys(pos + rows_per_slot - 1).sum())
+        return ((n, att, read, n, n),)
+
+    def _note_prefill(self, one_pass: tuple, t0: float) -> None:
+        """Record the latest prefill pass that ended in the first-token
+        fetch as the ``prefill`` roofline program (its wall measured only
+        with engine timing on)."""
+        self._roofline["prefill"] = (
+            (one_pass,), time.perf_counter() - t0 if t0 else None)
 
     def _window_pages(self, slot_idx: int, n_strip: int) -> list[int]:
         """The slot's first ``n_strip`` owned pages padded to a power of
@@ -899,6 +1010,12 @@ class ContinuousBatcher:
             slo=slo,
             fanout_group=_fanout,
         )
+        if self._capacity is not None:
+            # Submit-time TTFT forecast: a read-only radix walk and scalar
+            # reads, safe on a client thread.
+            hit = self._pager.radix_probe(prompt)[1] if self._paged else 0
+            req.ttft_forecast_s = self._capacity.forecast_ttft(
+                prompt.shape[0], hit)
         try:
             with self._cv:
                 self._queue.append(req)  # bounded: may raise
@@ -1279,6 +1396,9 @@ class ContinuousBatcher:
                 if emitted_before == 0 and req.stream_skip == 0:
                     ttft = now - req.t_submit
                     self._ttft_pending.append(ttft)
+                    if (self._capacity is not None
+                            and req.ttft_forecast_s > 0.0):
+                        self._capacity.on_ttft(req.ttft_forecast_s, ttft)
                     if slo is not None and slo.ttft_budget_s is not None:
                         if ttft <= slo.ttft_budget_s:
                             self._slo_pending["ttft_met"] += 1
@@ -1535,6 +1655,10 @@ class ContinuousBatcher:
         sample = any(s.req.temperature > 0.0 for s in active)
         truncate = sample and any(s.req.top_k < vocab for s in active)
         nucleus = sample and any(s.req.top_p < 1.0 for s in active)
+        passes = self._decode_passes(active, d + 1 + w, 1)
+        eo = self._eobs
+        eo_on = eo.enabled
+        t_ph = eo.now() if eo_on else 0.0
         t0 = tracer.now() if tracer.enabled else 0.0
         kw = dict(weights=self._draft_weights,
                   attn_impl=self._kernel.attn_impl,
@@ -1557,6 +1681,9 @@ class ContinuousBatcher:
         if tracer.enabled:
             tracer.add_span("decode.draft", start=t0, end=tracer.now(),
                             slots=len(active), draft_k=d)
+        if eo_on:
+            # span=False: decode.draft is the tracer's row.
+            t_ph = eo.phase("draft", t_ph, span=False)
         t_verify = tracer.now() if tracer.enabled else 0.0
         toks, lps, acc = self._spec_verify(
             dtoks, self._current_table() if self._paged else None, cands,
@@ -1565,7 +1692,8 @@ class ContinuousBatcher:
         fetch = self._fetch(torch.cat([toks, acc[None]]),
                             torch.cat([lps, acc[None].to(lps.dtype)]))
         return _InFlight(fetch=fetch, spec=(d, w, tuple(s.idx for s in active)),
-                         t_span=t_verify)
+                         t_span=t_verify, t_eo=t_ph, program="verify",
+                         passes=passes)
 
     def _admit(self) -> None:
         # Traffic control: a high-priority request past its TTFT headroom
@@ -1629,6 +1757,10 @@ class ContinuousBatcher:
             )
             tracer = global_tracer()
             t0 = tracer.now() if tracer.enabled else 0.0
+            # The capacity forecaster's prefill-wall feed: through the
+            # first-token fetch, so it covers the device's work too.
+            cap_t0 = time.perf_counter() if self._capacity is not None else 0.0
+            cap_tokens = 0
             tok0 = lp0 = None
             if chunked:
                 pass  # one K4 pass per tick from here (_prefill_step)
@@ -1652,8 +1784,13 @@ class ContinuousBatcher:
                     req, self._window_pages(i, n_strip), m * self._page,
                     slen, sample=True,
                 )
+                cap_tokens = slen
             else:
                 tok0, lp0 = self._prefill(i, req, bucket)
+                cap_tokens = s0
+            if self._capacity is not None and cap_tokens:
+                self._capacity.on_prefill(cap_tokens,
+                                          time.perf_counter() - cap_t0)
             if self._paged and not chunked:
                 # Chunked admissions register on their final pass.
                 self._register_prompt_pages(i, req, m)
@@ -1690,6 +1827,8 @@ class ContinuousBatcher:
             # A replay's wait measures from its re-queue.
             queue_wait = time.perf_counter() - (req.t_requeued
                                                 or req.t_submit)
+            if self._capacity is not None:
+                self._capacity.on_queue_wait(queue_wait)
             if self.obs_timeline:
                 global_metrics().observe("continuous.queue_wait_s", queue_wait)
             global_flight_recorder().record(
@@ -1774,6 +1913,13 @@ class ContinuousBatcher:
             # before it.
             good = sum(g for _, g in list(gs)[1:])
             reg.set_gauge("continuous.goodput_tokens_s", good / span)
+        if self._capacity is not None:
+            # Capacity plane: the tick-gap feed, then the (rate-limited)
+            # book rebuild, health score and capacity.* gauges.
+            if self._cap_last_flush:
+                self._capacity.on_tick_gap(now - self._cap_last_flush)
+            self._cap_last_flush = now
+            self._capacity.update(self, now)
 
     def tick(self) -> int:
         """Admit into free slots, run ONE prefill pass for each slot mid-
@@ -1807,7 +1953,14 @@ class ContinuousBatcher:
         if self._controller is not None:
             # Before admission: this tick's admits see the current rung.
             self._controller.step(self)
+        eo = self._eobs
+        # The gate is read once a tick: flipping it mid-tick must never
+        # pair a 0.0 open with an enabled close.
+        eo_on = eo.enabled
+        t_ph = eo.now() if eo_on else 0.0
         self._admit()
+        if eo_on:
+            t_ph = eo.phase("admit", t_ph)
         for slot in self.slots:
             if slot.req is None:
                 continue
@@ -1819,6 +1972,8 @@ class ContinuousBatcher:
         for slot in self.slots:
             if slot.req is not None and slot.pf_done >= 0:
                 self._prefill_step(slot)  # interleaves with the decode below
+        if eo_on:
+            eo.phase("prefill", t_ph)
         active = [s for s in self.slots if s.req is not None and s.pf_done < 0]
         reg = global_metrics()
         reg.set_gauge("continuous.active_slots",
@@ -1836,21 +1991,27 @@ class ContinuousBatcher:
                 reg.set_gauge(f"scheduler.queue_depth.{tenant}", float(depth))
             self._gauged_tenants = set(depths)
         reg.set_gauge("continuous.h2d_transfers", float(self._h2d_count))
+        if self._paged:
+            self._pager_books = self._pager.stats()
         if not active:
             if self.obs_timeline:
                 self._obs_flush()
+            self._sentinel.sample(write_gauges=False)
             return None
         vocab = self.lm.vocab
         tracer = global_tracer()
         if self._spec is None:
+            t_ph = eo.now() if eo_on else 0.0
+            flags = (any(s.req.temperature > 0.0 for s in active),
+                     any(s.req.top_k < vocab for s in active),
+                     any(s.req.top_p < 1.0 for s in active))
+            passes = self._decode_passes(active, 1, self.chunk)
             t_chunk = tracer.now() if tracer.enabled else 0.0
-            toks, lps = self._step_chunk(
-                do_sample=any(s.req.temperature > 0.0 for s in active),
-                truncate=any(s.req.top_k < vocab for s in active),
-                nucleus=any(s.req.top_p < 1.0 for s in active),
-            )
+            toks, lps = self._step_chunk(do_sample=flags[0],
+                                         truncate=flags[1], nucleus=flags[2])
             # The tick's one device->host fetch, started here.
-            fl = _InFlight(fetch=self._fetch(toks, lps), t_span=t_chunk)
+            fl = _InFlight(fetch=self._fetch(toks, lps), t_span=t_chunk,
+                           t_eo=t_ph, program="decode", passes=passes)
         else:
             fl = self._spec_decode(active, tracer)
         with self._cv:
@@ -1861,12 +2022,22 @@ class ContinuousBatcher:
         fl.lives = [s.tokens for s in self.slots]
         fl.n_active = len(active)
         fl.t0 = t0
+        if eo_on:
+            # The host cost of the whole dispatch half.
+            eo.phase("dispatch", t0, span=False)
+        fl.t_dispatched = time.perf_counter()
         return fl
 
     def _tick_commit(self, fl: _InFlight) -> int:
         """Commit half of one tick: wait for ``fl``'s fetch, apply each
         slot's tokens (dropping the columns of slots whose binding moved
         since dispatch), recycle window pages and flush the telemetry."""
+        eo = self._eobs
+        eo_on = eo.enabled
+        if eo_on and fl.t_dispatched:
+            # Dispatch end -> commit start: ~0 at depth 1, the next tick's
+            # dispatch half at depth 2.
+            eo.phase("commit_lag", fl.t_dispatched, span=False)
         host = fl.fetch.commit()
         reg = global_metrics()
         tracer = global_tracer()
@@ -1876,6 +2047,10 @@ class ContinuousBatcher:
                 tracer.add_span("batcher.decode_chunk", start=fl.t_span,
                                 end=tracer.now(), slots=fl.n_active,
                                 chunk=self.chunk)
+            if eo_on and fl.t_eo:
+                # Dispatch -> fetch landed (batcher.decode_chunk is the
+                # tracer's row).
+                eo.phase("decode", fl.t_eo, span=False)
         else:
             d, w, active_idx = fl.spec
             limits = [int(a) + 1 for a in host[0, -1]]
@@ -1897,12 +2072,18 @@ class ContinuousBatcher:
                 tracer.add_span("decode.verify", start=fl.t_span,
                                 end=tracer.now(), slots=len(active_idx),
                                 draft_k=d)
+            if eo_on and fl.t_eo:
+                eo.phase("verify", fl.t_eo, span=False)
+        self._roofline[fl.program] = (
+            fl.passes, eo.last_s.get(fl.program) if eo_on and fl.t_eo
+            else None)
         wall = time.perf_counter() - fl.t0
         if wall > 0:
             # The share of the dispatch-to-commit wall the host did NOT
             # spend blocked on the fetch.
             reg.set_gauge("runtime.overlap_ratio",
                           max(0.0, 1.0 - fl.fetch.wait_s / wall))
+        t_ph = eo.now() if eo_on else 0.0
         for i, slot in enumerate(self.slots):
             req = fl.reqs[i]
             if (req is None or slot.req is not req
@@ -1912,6 +2093,8 @@ class ContinuousBatcher:
                 self._commit(slot, int(host[0, j, i]), float(host[1, j, i]))
                 if slot.req is not req:
                     break
+        if eo_on:
+            t_ph = eo.phase("commit", t_ph)
         if self._paged and self._window is not None:
             # Rolling-window recycling: pages wholly behind every future
             # read ((o + 1) * P <= pos - window + 1, with pos = s0 +
@@ -1925,13 +2108,83 @@ class ContinuousBatcher:
                     - self._pager.base(slot.idx)
                 if dead > 0:
                     self._pager.release_prefix(slot.idx, dead)
+        if self._paged:
+            self._pager_books = self._pager.stats()
         if self.obs_timeline:
             self._obs_flush()
         reg.set_gauge(
             "continuous.active_slots",
             float(sum(1 for s in self.slots if s.req is not None)),
         )
+        if eo_on:
+            # Post-commit bookkeeping: window recycling, the flush, gauges.
+            eo.phase("update", t_ph)
+        self._sentinel.sample(write_gauges=False)
         return fl.n_active
+
+    def capacity_book(self) -> dict | None:
+        """The capacity plane's last rebuilt book (JSON-safe; its
+        ``wall`` stamp lets a consumer age it), or None when the plane is
+        off."""
+        if self._capacity is None:
+            return None
+        return self._capacity.book()
+
+    def _memory_stats(self) -> dict[str, float]:
+        """Pull-style memory source for ``utils.profiling``'s collector
+        (scrape threads: reads only; the pager's books as of the latest
+        tick half, see ``_pager_books``). Dense strips: ``memory.kv_bytes``
+        (scale planes included) and ``memory.kv_bytes_per_device`` (equal
+        on one card); pools: ``memory.pool_bytes`` (``_per_device``), the
+        page partition ``memory.pages_used + pages_free + pages_cached ==
+        memory.pool_pages`` (the allocatable pool, trash page excluded) and
+        the pager's prefix and radix books; speculative mode:
+        ``memory.draft_cache_bytes``; both layouts: ``memory.kv_bytes_ratio``
+        (cache bytes over the model dtype's)."""
+        cache_bytes = float(self._cache_bytes())
+        out: dict[str, float] = {}
+        if self._paged:
+            ps = self._pager_books
+            out["memory.pool_bytes"] = cache_bytes
+            out["memory.pool_bytes_per_device"] = cache_bytes
+            out["memory.pool_pages"] = float(self._pager.num_allocatable)
+            out["memory.pages_used"] = float(ps.in_use)
+            out["memory.pages_cached"] = float(ps.cached)
+            # PagerStats.free counts evictable cached pages as free (the
+            # allocator's view); the gauges partition instead.
+            out["memory.pages_free"] = float(ps.free - ps.cached)
+            out["paged.prefix_hits"] = float(ps.prefix_hits)
+            out["paged.prefix_misses"] = float(ps.prefix_misses)
+            out["paged.prefix_capacity_skips"] = float(
+                ps.prefix_capacity_skips)
+            out["paged.radix_nodes"] = float(ps.radix_nodes)
+            out["paged.radix_partial_hits"] = float(ps.radix_partial_hits)
+            out["paged.radix_hit_tokens"] = float(ps.radix_hit_tokens)
+            out["paged.cow_forks_total"] = float(ps.cow_forks)
+        else:
+            out["memory.kv_bytes"] = cache_bytes
+            out["memory.kv_bytes_per_device"] = cache_bytes
+        out["memory.kv_bytes_ratio"] = cache_bytes / float(
+            self._native_cache_bytes)
+        if self._draft_caches is not None:
+            out["memory.draft_cache_bytes"] = float(sum(
+                c.numel() * c.element_size()
+                for pair in self._draft_caches for c in pair))
+        return out
+
+    def _roofline_stats(self) -> dict[str, dict[str, float]]:
+        """Pull-style roofline source: each program's latest execution
+        (``decode`` chunk or ``verify`` pass, and ``prefill``) counted by
+        ``utils.profiling.program_work``, with its wall (None unless
+        engine timing is on)."""
+        kv = self._kv_quant or "native"
+        out = {}
+        for prog, (passes, wall) in list(self._roofline.items()):
+            st = program_work(self.lm,
+                              passes() if callable(passes) else passes, kv)
+            st["wall_s"] = wall
+            out[prog] = st
+        return out
 
     def stats(self) -> dict:
         """Slot occupancy, queue depth and this batcher's lifetime
@@ -2097,10 +2350,13 @@ class ContinuousBatcher:
         self.stop()
 
     def close(self) -> None:
-        """Retire this batcher: stop its server thread and drop an
-        undrained tick's device references. Idempotent."""
+        """Retire this batcher: stop its server thread, drop an undrained
+        tick's device references and leave the memory and roofline
+        gauges. Idempotent."""
         self.stop()
         self._inflight = None
+        unregister_memory_source("continuous", self)
+        unregister_roofline_source("continuous", self)
 
     def result(self, req_id: int, timeout: float = 300.0) -> np.ndarray:
         """Block until ``req_id`` finishes (requires :meth:`start`);

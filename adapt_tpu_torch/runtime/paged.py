@@ -426,15 +426,13 @@ class Pager:
         self._radix_add(key)
 
     def stats(self) -> PagerStats:
-        # list(...) snapshots the dict at C speed: stats() is now also
-        # read from exporter scrape threads (the memory collector in
-        # utils.profiling) while the ticking thread mutates _rc, and a
-        # generator over live .values() could raise "dict changed size
-        # during iteration" mid-scrape.
+        # O(1): the batcher takes these books at the end of every tick
+        # half. _rc holds only referenced pages (an entry goes when its
+        # count reaches 0), so its size is the in-use count.
         return PagerStats(
             num_pages=self.num_pages,
             free=len(self._free) + len(self._lru),
-            in_use=sum(1 for r in list(self._rc.values()) if r > 0),
+            in_use=len(self._rc),
             cached=len(self._lru),
             prefix_hits=self.prefix_hits,
             prefix_misses=self.prefix_misses,

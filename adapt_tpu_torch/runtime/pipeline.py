@@ -18,9 +18,12 @@ of the serving process (``control.journal``, ``Dispatcher.recover``).
 
 Both run on the CUDA card unless given CPU devices (``devices="cpu"`` or a
 list of CPU devices), and raise without a card otherwise; they never fall
-back to the CPU. Calls run without autograd (serving is inference). The
-observability exporter (``serve_observability``) waits for queue 1 item 9
-of ROADMAP.md.
+back to the CPU. Calls run without autograd (serving is inference).
+``ServingPipeline.serve_observability`` starts the process's HTTP exporter
+(``utils.exporter``), which also serves the remote workers' telemetry.
+With engine timing on (``ObservabilityConfig(obs_engine=True)``),
+``LocalPipeline.stream`` records ``engine.phase.stage_s`` per stage call
+and ``engine.phase.hop_s`` per hop.
 """
 
 from __future__ import annotations
@@ -41,6 +44,7 @@ from adapt_tpu_torch.core.stage import CompiledStage, compile_stages
 from adapt_tpu_torch.graph.partition import PartitionPlan
 from adapt_tpu_torch.utils.logging import get_logger
 from adapt_tpu_torch.utils.metrics import global_metrics
+from adapt_tpu_torch.utils.profiling import global_engine_obs
 from adapt_tpu_torch.utils.tracing import global_tracer
 
 log = get_logger("pipeline")
@@ -129,14 +133,19 @@ class LocalPipeline:
         i+1, or stage i's hop, handles r."""
         if (self.hop_transform is None
                 and len({s.device for s in self.stages}) == 1):
+            eobs = global_engine_obs()
             outputs = []
             for x in inputs:
                 for stage in self.stages:
+                    eo_on = eobs.enabled
+                    t_ph = eobs.now() if eo_on else 0.0
                     try:
                         x = stage(x)
                     except Exception as e:  # noqa: BLE001 — name the stage
                         raise RuntimeError(f"stage {stage.spec.index} "
                                            "failed during stream") from e
+                    if eo_on:
+                        eobs.phase("stage", t_ph, stage=stage.spec.index)
                 outputs.append(x)
             return outputs
         return self._threaded_stream(inputs)
@@ -171,6 +180,9 @@ class LocalPipeline:
             for _ in range(n_stages)
         ]
         tracer = global_tracer()
+        # Engine phases: span=False, the pipeline.stage / pipeline.hop
+        # spans already cover the same windows.
+        eobs = global_engine_obs()
 
         def stage_loop(i: int):
             stage = self.stages[i]
@@ -182,8 +194,12 @@ class LocalPipeline:
                     put_or_abort(out_q, item)
                     break
                 try:
+                    eo_on = eobs.enabled
+                    t_ph = eobs.now() if eo_on else 0.0
                     with tracer.span("pipeline.stage", stage=i, seq=seq):
                         y = stage(item)
+                    if eo_on:
+                        eobs.phase("stage", t_ph, span=False)
                 except Exception as e:  # noqa: BLE001 — surface to caller
                     put_or_abort(out_q, _StageError(stage.spec.index, e))
                     break
@@ -200,8 +216,12 @@ class LocalPipeline:
                     put_or_abort(qs[i + 1], y)
                     break
                 try:
+                    eo_on = eobs.enabled
+                    t_ph = eobs.now() if eo_on else 0.0
                     with tracer.span("pipeline.hop", stage=i, seq=seq):
                         y = self.hop_transform(y, stage.spec.index)
+                    if eo_on:
+                        eobs.phase("hop", t_ph, span=False)
                 except Exception as e:  # noqa: BLE001 — surface to caller
                     put_or_abort(qs[i + 1], _StageError(stage.spec.index, e))
                     break
@@ -373,8 +393,20 @@ class ServingPipeline:
         return global_metrics().snapshot()
 
     def serve_observability(self, port: int = 0, host: str = "127.0.0.1"):
-        """The process observability exporter waits for
-        ``utils/exporter.py`` (ROADMAP.md queue 1 item 9)."""
-        raise NotImplementedError(
-            "serve_observability waits for the exporter (utils/exporter.py, "
-            "ROADMAP.md queue 1 item 9)")
+        """Start the process observability exporter (``/metrics``,
+        ``/trace.json``, ``/debug/events``, the ``/fleet/*`` federation
+        views and ``/debug/request/<id>``, ``utils.exporter``) on a daemon
+        thread; returns the HTTP server (``.server_address[1]`` is the
+        bound port; ``port=0`` picks a free one). It covers this process —
+        the dispatcher, its workers, any batcher, the tracer and the
+        flight recorder — and every remote worker pushing telemetry to
+        this process's proxies. The dispatcher's journal feeds the
+        forensics bundle's submit section, and the worker registry's
+        leases are scanned for HTTP-pull telemetry endpoints."""
+        from adapt_tpu_torch.utils.exporter import serve_metrics
+        from adapt_tpu_torch.utils.telemetry import global_federated_store
+
+        global_federated_store().attach_registry(self.dispatcher.registry)
+        return serve_metrics(port=port, host=host,
+                             journal=getattr(self.dispatcher, "_journal",
+                                             None))

@@ -1137,10 +1137,13 @@ def first_gap(torch, lm, prompt, got, ref):
 
 
 def drive_paged(torch, lm, kernel, waves, fan, cancel_at,
-                kv_cache_dtype="native", prefill_chunk=256, runtime=None):
+                kv_cache_dtype="native", prefill_chunk=256, runtime=None,
+                **batcher_kw):
     """Serve ``waves`` (two staggered waves) and, if ``fan`` is given, a
     greedy fan-out of 4 through a paged batcher; cancel wave-1 request
-    ``cancel_at`` once live. ``runtime``: the batcher's ``RuntimeConfig``.
+    ``cancel_at`` once live. ``runtime``: the batcher's ``RuntimeConfig``;
+    ``batcher_kw``: more batcher arguments (``capacity``,
+    ``observability``).
     Returns the batcher, {id: prompt}, results, admit events by id, the
     cancelled id, fan-out ids, wall s, committed tokens and mean TTFT s."""
     from adapt_tpu_torch.runtime.continuous import ContinuousBatcher
@@ -1153,7 +1156,7 @@ def drive_paged(torch, lm, kernel, waves, fan, cancel_at,
     bat = ContinuousBatcher(lm, slots=8, chunk=8, kv_layout="paged",
                             page_size=128, prefill_chunk=prefill_chunk,
                             kernel=kernel, kv_cache_dtype=kv_cache_dtype,
-                            runtime=runtime)
+                            runtime=runtime, **batcher_kw)
     t0 = time.perf_counter()
     ids = [bat.submit(p, 64) for p in waves[0]]
     bat.tick()
@@ -3078,7 +3081,7 @@ def remote_phase(torch, A, Q, dev, card, kernels, root, inproc_rate,
 def need_launches(path, launches, want):
     """Fail unless every kernel in ``want`` launched in ``path``'s run."""
     if any(launches[k] == 0 for k in want):
-        raise AssertionError(f"phase 14 {path}: a kernel of the path did not "
+        raise AssertionError(f"{path}: a kernel of the path did not "
                              f"launch: {launches}")
 
 
@@ -3583,6 +3586,560 @@ def sched_phase(torch, A, D, P, Q, lm, draft2, card, kernels, solo,
     print(f"phase 14 (traffic control, pipelined tick) took "
           f"{time.perf_counter() - t_phase:.1f} s on {card} ((a) {took[0]:.1f}"
           f", (b) {took[1]:.1f}, (c) {took[2]:.1f}, (d) {took[3]:.1f})")
+
+
+# -- phase 15: MoE blocks, engine observability, worker telemetry ----------
+
+#: Phase 15's MoE decoder: GPT-2-small widths with every block's MLP a
+#: dropless mixture of 8 experts, 2 active a token (``benchmarks/
+#: lm_decode.py --moe 8``).
+MOE_EXPERTS, MOE_TOP_K = 8, 2
+#: Phase 15's counters, by the kernels' rows they count into.
+OBS_ROWS = {"native": {"flash_attn_fwd": "flash_attn_fwd",
+                       "decode_attn": "decode_attn",
+                       "paged_attn": "paged_attn",
+                       "paged_chunk_attn": "paged_chunk_attn"},
+            "int8": {"flash_attn_fwd": "flash_attn_fwd",
+                     "paged_attn": "paged_attn[int8]",
+                     "paged_chunk_attn": "paged_chunk_attn[int8]"}}
+
+
+def gpt2_small_moe(torch):
+    """GPT-2-small widths (learned positions, max_len 1024, bf16, random
+    weights from seed 0) with ``moe_experts=8, moe_top_k=2``, on the card."""
+    from adapt_tpu_torch.models.transformer_lm import transformer_lm
+
+    t0 = time.perf_counter()
+    moe = transformer_lm(*GPT2_SMALL, max_len=1024, dtype=torch.bfloat16,
+                         name="gpt2_small_moe", moe_experts=MOE_EXPERTS,
+                         moe_top_k=MOE_TOP_K, seed=0)
+    n = sum(p.numel() for p in moe.parameters())
+    nbytes = sum(p.numel() * p.element_size() for p in moe.parameters())
+    print(f"phase 15 (a) MoE model ({MOE_EXPERTS} experts, top-{MOE_TOP_K})"
+          f" built in {time.perf_counter() - t0:.1f} s: {n} parameters, "
+          f"{nbytes} bytes")
+    return moe
+
+
+def moe_row_check(torch, moe, vocab, card):
+    """One decode step of row 0 three ways: in a batch of 8 live rows,
+    with its companions' rows zero (as ``generate()`` pads), and as a
+    batch of 1. The zeroed batch must be ``torch.equal`` to the live one
+    (a mixture-of-experts row depends on no other row's values). The
+    batch of 1 may run other cuBLAS algorithms; it is held to the live
+    row within bf16's 1e-2 x max|row| and its bit-equality is printed."""
+    dev = moe.device
+    g = torch.Generator().manual_seed(15)
+    ids = torch.randint(0, vocab, (8, 64), generator=g).to(dev)
+    nxt = torch.randint(0, vocab, (8, 1), generator=g).to(dev)
+    with torch.no_grad():
+        h = moe.embed(ids)
+        caches = []
+        for blk in moe.blocks:
+            h, ck, cv = blk.prefill(h, 1025)
+            caches.append((ck, cv))
+        idx = torch.full((8,), 64, dtype=torch.int32, device=dev)
+
+        def step(x, zero_others=False):
+            rows = x.shape[0]
+            for blk, (ck, cv) in zip(moe.blocks, caches):
+                ck, cv = ck[:rows].clone(), cv[:rows].clone()
+                if zero_others:
+                    ck[1:], cv[1:] = 0, 0
+                x, _, _ = blk.decode_step(x, ck, cv, idx[:rows])
+            return moe.head(x)[:, 0]
+
+        x = moe.embed.embed_positions(nxt, idx[:, None])
+        batch = step(x)
+        lone = x.clone()
+        lone[1:] = 0
+        alone = step(lone, zero_others=True)
+        single = step(x[:1].clone())
+    if not torch.equal(batch[0], alone[0]):
+        raise AssertionError("phase 15 (a): a MoE decode row with its "
+                             "companions zeroed differs from the same row in "
+                             "a batch of 8 (largest "
+                             f"{float((batch[0] - alone[0]).abs().max()):.3e})")
+    err = float((batch[0] - single[0]).float().abs().max())
+    tol = 1e-2 * float(batch[0].float().abs().max())
+    print(f"phase 15 (a) on {card}: a MoE decode row as a batch of 1 vs its "
+          f"row in a batch of 8: torch.equal "
+          f"{torch.equal(batch[0], single[0])}, max|diff| {err!r} "
+          f"(tolerance 1e-2 x max|row| = {tol!r})")
+    if not err <= tol:
+        raise AssertionError(f"phase 15 (a): a MoE decode row as a batch of "
+                             f"1 differs from its batch-8 row by {err:.3e} "
+                             f"> {tol:.3e}")
+
+
+def moe_part(torch, card, counters, runs, ragged, lens, prompts, waves, fan):
+    """Phase 15 (a): the MoE LM at full width through ``generate()`` (4
+    ragged prompts), one decode step's batch invariance, the dense batcher
+    on phase 6's first 8 requests, the paged batcher on phase 7's traffic
+    and the paged traffic's 8 unique prompts on an int8 pool."""
+    from adapt_tpu_torch.config import KernelConfig
+    from adapt_tpu_torch.models.transformer_lm import generate
+
+    moe = gpt2_small_moe(torch)
+    vocab = moe.vocab
+    toks = generate(moe, ragged, 32, prompt_lengths=lens)
+    torch.cuda.synchronize()
+    if toks.shape != (4, 32) or not bool(((toks >= 0)
+                                          & (toks < vocab)).all()):
+        raise AssertionError(f"phase 15 (a): MoE ragged generate gave "
+                             f"{tuple(toks.shape)} / bad ids")
+    moe_row_check(torch, moe, vocab, card)
+    solo, _ = reference_streams(torch, moe)
+    dense = prompts[:8]
+    out, ids, _, wall, ntok, ttft, _ = counted(
+        counters, "phase 15 moe_dense", ("flash_attn_fwd", "decode_attn"),
+        runs, lambda: drive_batcher(torch, moe, dense, 64, KernelConfig(),
+                                    None))
+    for rid, p in zip(ids, dense):
+        if not np.array_equal(out[rid], solo(p)):
+            bad = int((out[rid] != solo(p)).argmax())
+            raise AssertionError(f"phase 15 (a) MoE dense: request {rid} "
+                                 f"differs from generate() at token {bad}")
+    print(f"phase 15 (a) MoE batcher[dense] on {card}: 8 requests, streams "
+          f"equal generate(), {ntok} tokens in {wall:.3f} s = "
+          f"{ntok / wall:.1f} tok/s, mean TTFT {ttft * 1e3:.1f} ms, "
+          f"launches {runs['phase 15 moe_dense']}")
+    (bat, pprompts, out, admits, cancelled, fan_ids, wall, ntok,
+     ttft) = counted(counters, "phase 15 moe_paged",
+                     ("flash_attn_fwd", "paged_attn", "paged_chunk_attn"),
+                     runs, lambda: drive_paged(torch, moe, KernelConfig(),
+                                               waves, fan, 2))
+    st = bat.stats()
+    bat.close()
+    if st["pages_in_use"] != 0 or st["pages_free"] != st["pool_pages"] - 1:
+        raise AssertionError(f"phase 15 (a) MoE paged: the pool did not "
+                             f"drain: {st}")
+    exempt, paths = check_paged_streams(torch, moe, pprompts, out, admits,
+                                        cancelled, fan_ids, None, solo)
+    print(f"phase 15 (a) MoE batcher[paged] on {card}: {len(pprompts)} "
+          f"requests (paths {paths}, {len(exempt)} tie exemptions, 1 "
+          f"cancelled), {ntok} tokens in {wall:.3f} s = {ntok / wall:.1f} "
+          f"tok/s, mean TTFT {ttft * 1e3:.1f} ms, prefix_hits "
+          f"{st['prefix_hits']}, cow_forks {st['cow_forks']}, launches "
+          f"{runs['phase 15 moe_paged']}")
+    # The int8 pool: whole-prompt admissions equal generate(kv_cache_dtype=
+    # "int8"); a chunked admission attends the quantized window of its
+    # earlier chunks (no generate() twin), so it must equal the same
+    # request served alone by a batcher of the same configuration (the
+    # batch-invariance contract: every row's bits are its own).
+    unique = list(waves[0][1:]) + list(waves[1][-1:])
+    (bat, pprompts, out, admits, _, _, wall, ntok, ttft) = counted(
+        counters, "phase 15 moe_paged_int8",
+        ("flash_attn_fwd", "paged_attn", "paged_chunk_attn"), runs,
+        lambda: drive_paged(torch, moe, KernelConfig(), (unique[:4],
+                                                         unique[4:]),
+                            None, None, kv_cache_dtype="int8"))
+    st = bat.stats()
+    bat.close()
+    if st["pages_in_use"] != 0:
+        raise AssertionError(f"phase 15 (a) MoE int8: pool not drained {st}")
+    paths = {}
+    for rid, p in pprompts.items():
+        chunked = admits[rid]["chunked"]
+        paths[chunked] = paths.get(chunked, 0) + 1
+        if chunked:
+            alone = drive_paged(torch, moe, KernelConfig(), ([p], []), None,
+                                None, kv_cache_dtype="int8")
+            alone[0].close()
+            want = next(iter(alone[2].values()))
+        else:
+            want = solo(p, kv="int8")
+        if not np.array_equal(out[rid], want):
+            bad = int((out[rid] != want).argmax())
+            raise AssertionError(
+                f"phase 15 (a) MoE int8: request {rid} ("
+                f"{'chunked' if chunked else 'whole'}, prompt {len(p)}) "
+                f"differs at token {bad} from "
+                f"{'itself served alone' if chunked else 'generate()'}")
+    print(f"phase 15 (a) MoE batcher[paged int8] on {card}: {len(pprompts)} "
+          f"requests ({paths.get(False, 0)} whole-prompt equal generate("
+          f"kv_cache_dtype='int8'), {paths.get(True, 0)} chunked equal "
+          f"themselves served alone), {ntok} tokens in {wall:.3f} s = "
+          f"{ntok / wall:.1f} tok/s, mean TTFT {ttft * 1e3:.1f} ms, "
+          f"cache_bytes_ratio {st['cache_bytes_ratio']}, launches "
+          f"{runs['phase 15 moe_paged_int8']}")
+    del moe, bat
+
+
+class Scraper:
+    """A thread scraping ``/metrics`` and ``/metrics.json`` every ~50 ms:
+    counts scrapes and errors, and checks the page partition (used + free
+    + cached == pool pages) in every JSON scrape that carries it."""
+
+    def __init__(self, port):
+        import threading
+
+        self.port, self.errors, self.scrapes = port, [], 0
+        self.partition_ok, self.partition_bad = 0, []
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+        self._thread.start()
+
+    def _get(self, path):
+        import urllib.request
+
+        with urllib.request.urlopen(f"http://127.0.0.1:{self.port}{path}",
+                                    timeout=10) as r:
+            return r.read().decode()
+
+    def _run(self):
+        while not self._stop.is_set():
+            try:
+                if "adapt_" not in self._get("/metrics"):
+                    raise AssertionError("a /metrics scrape without metrics")
+                g = json.loads(self._get("/metrics.json"))["gauges"]
+                self.scrapes += 1
+                if "memory.pool_pages" in g:
+                    parts = (g["memory.pages_used"] + g["memory.pages_free"]
+                             + g["memory.pages_cached"])
+                    if parts == g["memory.pool_pages"]:
+                        self.partition_ok += 1
+                    else:
+                        self.partition_bad.append(
+                            (parts, g["memory.pool_pages"]))
+            except Exception as e:  # noqa: BLE001 — counted, then gated
+                self.errors.append(repr(e))
+            self._stop.wait(0.05)
+
+    def stop(self):
+        self._stop.set()
+        self._thread.join(timeout=30)
+
+
+#: The phases a paged, non-speculative tick records.
+TICK_PHASES = ("admit", "prefill", "dispatch", "commit_lag", "decode",
+               "commit", "update")
+
+
+def observed_part(torch, lm, card, counters, runs, waves, fan):
+    """Phase 15 (b): phase 7's paged traffic with every observability
+    surface off, then on but unscraped, then on (``ObservabilityConfig(
+    obs_engine=True, trace_enabled=True)``, a ``CapacityConfig``,
+    ``serve_metrics`` on an ephemeral port scraped every ~50 ms by a
+    second thread while the batcher ticks). Gates on the last run: streams equal; no scrape error; every tick
+    phase recorded; the page partition adds up at every scrape; the
+    allocator gauge equals ``torch.cuda.memory_allocated()`` after the
+    drain; every launched op's dispatch gauge on the kernel (plain count
+    0), its kernel count equal to its wrapper's launches in the run (the
+    books are kept in the launch wrappers); no compile event after warmup; ``engine.mfu`` / ``engine.mbu`` in
+    (0, 1]; the capacity book healthy, calibrated and scoring the shared
+    prefix above 0 and a fresh prompt at 0. Returns (on / off tok/s,
+    the headline mfu, mbu)."""
+    from adapt_tpu_torch.config import (
+        CapacityConfig,
+        KernelConfig,
+        ObservabilityConfig,
+    )
+    from adapt_tpu_torch.ops import _build
+    from adapt_tpu_torch.runtime.capacity import affinity_score
+    from adapt_tpu_torch.utils.exporter import serve_metrics
+    from adapt_tpu_torch.utils.metrics import global_metrics
+    from adapt_tpu_torch.utils.profiling import global_engine_obs
+    from adapt_tpu_torch.utils.tracing import global_tracer
+
+    reg = global_metrics()
+    eo, tracer = global_engine_obs(), global_tracer()
+    eo.enabled = tracer.enabled = False
+    results = {}
+    # "quiet": every surface on but nothing scraping, which splits the
+    # scraper's cost from the instrumentation's.
+    for mode in ("off", "quiet", "on"):
+        extra = dict(capacity=CapacityConfig(enabled=False))
+        server = scraper = None
+        if mode != "off":
+            extra = dict(capacity=CapacityConfig(refresh_s=0.05),
+                         observability=ObservabilityConfig(
+                             obs_engine=True, trace_enabled=True))
+        if mode == "on":
+            server = serve_metrics(port=0)
+            scraper = Scraper(server.server_address[1])
+            _build.reset_kernel_dispatch()
+        before = reg.snapshot(window=True)
+        events0 = reg.counter("engine.compile_events")
+        try:
+            got = counted(
+                counters, f"phase 15 obs_{mode}",
+                ("flash_attn_fwd", "paged_attn", "paged_chunk_attn"), runs,
+                lambda: drive_paged(torch, lm, KernelConfig(), waves, fan, 2,
+                                    **extra))
+            bat = got[0]
+            if mode == "on":
+                bat.tick()  # an idle tick: the flush rebuilds the book
+                torch.cuda.synchronize()
+        finally:
+            if scraper is not None:
+                scraper.stop()
+            eo.enabled = tracer.enabled = False
+        results[mode] = got
+        if mode != "on":
+            bat.close()
+            continue
+        win = reg.snapshot(since=before)
+        snap = reg.snapshot()
+        g = snap["gauges"]
+        in_use = torch.cuda.memory_allocated()
+        missing = [n for n in TICK_PHASES
+                   if not win["histograms"].get(f"engine.phase.{n}_s",
+                                                {}).get("count")]
+        book = bat.capacity_book()
+        shared = np.concatenate([waves[1][0][:384], [1, 2, 3]])
+        fresh = torch.randint(0, lm.vocab, (400,),
+                              generator=torch.Generator().manual_seed(
+                                  151)).numpy()
+        aff_shared = affinity_score(book["sketch"], shared)
+        aff_fresh = affinity_score(book["sketch"], fresh)
+        server.shutdown()
+        server.server_close()
+        bat.close()
+        launched = runs["phase 15 obs_on"]
+        ops = {"prefill": "flash_attn_fwd", "paged_decode": "paged_attn",
+               "paged_chunk": "paged_chunk_attn"}
+        bad_ops = {op: (g.get(f"engine.kernel_dispatch.{op}"),
+                        g.get(f"engine.kernel_dispatch.{op}.xla_total"),
+                        g.get(f"engine.kernel_dispatch.{op}.pallas_total"),
+                        launched[fn])
+                   for op, fn in ops.items()
+                   if g.get(f"engine.kernel_dispatch.{op}") != 1.0
+                   or g.get(f"engine.kernel_dispatch.{op}.xla_total") != 0.0
+                   or g.get(f"engine.kernel_dispatch.{op}.pallas_total")
+                   != float(launched[fn]) or not launched[fn]}
+        mfu, mbu = g.get("engine.mfu"), g.get("engine.mbu")
+        checks = [
+            (scraper.errors, f"scrape errors: {scraper.errors[:3]}"),
+            (not scraper.scrapes or scraper.partition_bad
+             or not scraper.partition_ok,
+             f"{scraper.scrapes} scrapes, partition bad at "
+             f"{scraper.partition_bad[:3]}"),
+            (missing, f"tick phases not recorded: {missing}"),
+            (g.get("memory.hbm_bytes_in_use") != in_use,
+             f"memory.hbm_bytes_in_use {g.get('memory.hbm_bytes_in_use')} "
+             f"!= torch.cuda.memory_allocated() {in_use}"),
+            (bad_ops, f"kernel dispatch books {bad_ops}"),
+            (reg.counter("engine.compile_events") != events0,
+             f"{reg.counter('engine.compile_events') - events0} compile "
+             "events during the run"),
+            (not (mfu and mbu and 0 < mfu <= 1 and 0 < mbu <= 1),
+             f"engine.mfu {mfu}, engine.mbu {mbu}"),
+            (book["health"] != "ok"
+             or "capacity.forecast_calibration" not in g,
+             f"capacity health {book['health']}, calibration "
+             f"{g.get('capacity.forecast_calibration')}"),
+            (not (aff_shared > 0 and aff_fresh == 0),
+             f"affinity shared {aff_shared}, fresh {aff_fresh}"),
+        ]
+        for bad, what in checks:
+            if bad:
+                raise AssertionError(f"phase 15 (b): {what}")
+        phases = {n: win["histograms"][f"engine.phase.{n}_s"]["count"]
+                  for n in TICK_PHASES}
+        print(f"phase 15 (b) observed paged run on {card}: {scraper.scrapes} "
+              f"scrapes (0 errors, the page partition exact in "
+              f"{scraper.partition_ok}), phase samples {phases}, "
+              f"engine.mfu {mfu:.6f}, engine.mbu {mbu:.6f} (decode chunk "
+              f"{g['engine.flops.decode']:.4e} FLOP, "
+              f"{g['engine.bytes_accessed.decode']:.4e} B), "
+              f"memory.hbm_bytes_in_use {in_use}, capacity health "
+              f"{book['health']}, calibration "
+              f"{g['capacity.forecast_calibration']:.3f}, affinity shared "
+              f"prefix {aff_shared:.3f} / fresh {aff_fresh:.3f}, 0 compile "
+              f"events, kernel dispatch {ops} on the kernel")
+    rate = {m: r[7] / r[6] for m, r in results.items()}
+    off = results["off"][2]
+    for mode in ("quiet", "on"):
+        got = results[mode][2]
+        if set(off) != set(got) or any(not np.array_equal(off[r], got[r])
+                                       for r in off):
+            raise AssertionError(f"phase 15 (b): a stream of the {mode} run "
+                                 "differs from the run without observability")
+    ratio = rate["on"] / rate["off"]
+    print(f"phase 15 (b) on {card}: every stream equal with and without "
+          f"observability; tok/s on and scraped {rate['on']:.1f}, on and "
+          f"unscraped {rate['quiet']:.1f}, off {rate['off']:.1f}: on / off "
+          f"{ratio:.3f}, unscraped / off {rate['quiet'] / rate['off']:.3f} "
+          f"(not gated; budget 5%)")
+    return ratio, mfu, mbu
+
+
+def telemetry_case(torch, dev):
+    """Phase 15 (c)'s model and traffic: phase 13's ResNet-50 f32 (1000
+    classes, ``RESNET50_3STAGE_CUTS``, random weights from seed 0), 8
+    requests of batch 8 at 224, and the recipe the workers rebuild it
+    from."""
+    from adapt_tpu_torch.models.resnet import RESNET50_3STAGE_CUTS, resnet50
+
+    cuts = list(RESNET50_3STAGE_CUTS)
+    gen = torch.Generator(device=dev).manual_seed(37)
+    return (resnet50(1000, torch.float32, device=dev, seed=0), cuts,
+            {"model": "resnet50", "num_classes": 1000, "cuts": cuts},
+            [torch.randn(8, 224, 224, 3, generator=gen, device=dev)
+             for _ in range(8)])
+
+
+def telemetry_part(torch, dev, card, root, case):
+    """Phase 15 (c) on ``case`` (:func:`telemetry_case`): phase 13's
+    ResNet-50 f32 hub (codec ``none``, 8
+    requests of batch 8) over three worker processes started with
+    ``--telemetry-s 0.5`` and joining a ``ServingPipeline``'s gateway.
+    Gates: the process-global store holds one source per worker process;
+    each source's ``remote.stage_exec_s`` count equals the stages its
+    proxy received; ``serve_observability()`` serves ``/fleet/metrics``
+    and ``/fleet/capacity``; after a SIGKILL of one worker its
+    ``fleet.report_age_s.<source>`` passes four report intervals while the
+    live workers' stay under that."""
+    import signal
+    import tempfile
+    import shutil
+    import urllib.request
+
+    from adapt_tpu_torch.config import FaultConfig, ServeConfig
+    from adapt_tpu_torch.graph.partition import partition
+    from adapt_tpu_torch.runtime.pipeline import ServingPipeline
+    from adapt_tpu_torch.utils.metrics import global_metrics
+    from adapt_tpu_torch.utils.telemetry import global_federated_store
+
+    every = 0.5
+    tmp = tempfile.mkdtemp(prefix="phase15-")
+    procs = WorkerProcs(root, tmp, "cuda:0" if dev.type == "cuda" else "cpu")
+    pipe = server = None
+    graph, cuts, recipe, xs = case
+    try:
+        plan = partition(graph, cuts)
+        gw = free_port()
+        pipe = ServingPipeline(
+            plan, None, devices=[],
+            config=ServeConfig(fault=remote_fault(FaultConfig)),
+            gateway_model_config=recipe, gateway_port=gw,
+            gateway_device=dev)
+        workers = [procs.start("--telemetry-s", str(every), "--connect",
+                               f"127.0.0.1:{gw}", "--worker-id", f"t{i}")
+                   for i in range(3)]
+        pipe.start()
+        for p in workers:
+            procs.port(p)
+        wait_for(lambda: {"t0", "t1", "t2"} <= set(pipe.registry.alive()),
+                 "three telemetry workers joining the gateway")
+        by_id = {p.worker_id: p for p in pipe.gateway.proxies}
+        host = plan.extract_variables()
+        for i in range(3):
+            by_id[f"t{i}"].configure(i, None, host[i])
+        pipe.dispatcher.warmup(xs[0])
+        outs, wall, _, _ = served(torch, pipe.dispatcher, xs, "phase 15 (c)")
+        store = global_federated_store()
+        pids = {p.pid: f"t{i}" for i, p in enumerate(workers)}
+
+        def sources():
+            return {s["worker"]: k for k, s in store.sources().items()
+                    if s["role"] == "stage" and s["pid"] in pids
+                    and s["worker"] == pids[s["pid"]]}
+
+        def counts():
+            src = store.fleet_snapshot()["sources"]
+            return {w: src[k]["histograms"].get("remote.stage_exec_s",
+                                                {}).get("count", 0)
+                    for w, k in sources().items()}
+
+        def received():
+            return {w: by_id[w].results_received for w in ("t0", "t1", "t2")}
+
+        wait_for(lambda: counts() == received(),
+                 "the workers' reports counting the stage runs received",
+                 timeout=30.0)
+        want = received()
+        server = pipe.serve_observability()
+        port = server.server_address[1]
+
+        def get(path):
+            with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}",
+                                        timeout=10) as r:
+                return r.read().decode()
+
+        fleet = get("/fleet/metrics")
+        caps = json.loads(get("/fleet/capacity"))["replicas"]
+        keys = sources()
+        if not all(f'worker="{w}"' in fleet for w in keys) or any(
+                caps.get(k, {}).get("book", {}).get("kind") != "stage"
+                for k in keys.values()):
+            raise AssertionError("phase 15 (c): /fleet/metrics or "
+                                 "/fleet/capacity lacks a worker")
+        os.kill(workers[0].pid, signal.SIGKILL)
+        workers[0].wait(timeout=30)
+        reg = global_metrics()
+
+        def ages():
+            g = reg.snapshot()["gauges"]
+            return {w: g.get(f"fleet.report_age_s.{k}", 0.0)
+                    for w, k in keys.items()}
+
+        t_kill = time.perf_counter()
+        wait_for(lambda: ages()["t0"] > 4 * every,
+                 "the killed worker's report age to grow", timeout=30.0)
+        seen = ages()
+        if not all(seen[w] < 4 * every for w in ("t1", "t2")):
+            raise AssertionError(f"phase 15 (c): live workers' report ages "
+                                 f"{seen}")
+        print(f"phase 15 (c) worker telemetry on {card}: 3 worker processes "
+              f"(--telemetry-s {every}) served {len(xs)} requests of batch "
+              f"{xs[0].shape[0]} "
+              f"({len(xs) * xs[0].shape[0] / wall:.1f} images/s), one store "
+              f"source each, "
+              f"remote.stage_exec_s counts {counts()} = stages received "
+              f"{want}; /fleet/metrics and /fleet/capacity list all three; "
+              f"{time.perf_counter() - t_kill:.2f} s after a SIGKILL of t0 "
+              f"its report age {seen['t0']:.3f} s, live t1 / t2 "
+              f"{seen['t1']:.3f} / {seen['t2']:.3f} s")
+    except BaseException:
+        print(procs.tails(), file=sys.stderr)
+        raise
+    finally:
+        if server is not None:
+            server.shutdown()
+            server.server_close()
+        if pipe is not None:
+            pipe.shutdown()
+        procs.close()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def obs_phase(torch, A, D, P, lm, card, kernels, root, ragged, lens, prompts,
+              waves, fan, tcase=None):
+    """Phase 15: (a) the MoE LM, (b) observability on the paged path, (c)
+    worker telemetry (on ``tcase``, :func:`telemetry_case` by default).
+    Adds ``obs_launches`` (phase 15's launches of each kernel, its runs
+    summed) to every row of ``kernels``."""
+    t_phase = time.perf_counter()
+    counters = {"flash_attn_fwd": A.flash_attn_fwd,
+                "decode_attn": D.decode_attn, "paged_attn": P.paged_attn,
+                "paged_chunk_attn": P.paged_chunk_attn}
+    runs: dict = {}
+    took = []
+    t = time.perf_counter()
+    moe_part(torch, card, counters, runs, ragged, lens, prompts, waves, fan)
+    took.append(time.perf_counter() - t)
+    ratio, mfu, mbu = observed_part(torch, lm, card, counters, runs, waves,
+                                    fan)
+    took.append(time.perf_counter() - t - sum(took))
+    telemetry_part(torch, lm.device, card, root,
+                   tcase or telemetry_case(torch, lm.device))
+    took.append(time.perf_counter() - t - sum(took))
+    totals: dict = {}
+    for path, launches in runs.items():
+        rows = OBS_ROWS["int8" if path.endswith("int8") else "native"]
+        for k, n in launches.items():
+            if k in rows:
+                totals[rows[k]] = totals.get(rows[k], 0) + n
+    for kr in kernels:
+        kr["obs_launches"] = totals.get(kr["name"], 0)
+    print(f"phase 15 launches by path: {json.dumps(runs)}")
+    print(f"phase 15 (MoE, observability, worker telemetry) took "
+          f"{time.perf_counter() - t_phase:.1f} s on {card} ((a) "
+          f"{took[0]:.1f}, (b) {took[1]:.1f}, (c) {took[2]:.1f}); "
+          f"observability on / off tok/s {ratio:.3f}, engine.mfu "
+          f"{mfu:.6f}, engine.mbu {mbu:.6f}")
 
 
 #: GPT-2-small widths: vocab, dim, depth, heads, MLP.
@@ -4428,6 +4985,10 @@ def main(argv) -> int:
     sched_phase(torch, A, D, P, Q, lm, draft2, card, kernels, solo,
                 solo_gaps, prompts, (wave1, wave2), fan,
                 max(0.1, 2 * verr["paged", "int8"], qbar))
+
+    # -- phase 15: MoE blocks, engine observability, worker telemetry -----
+    obs_phase(torch, A, D, P, lm, card, kernels, root, prompt, lens, prompts,
+              (wave1, wave2), fan)
 
     if "--profile" in argv:
         profile_train(torch, *train_case, card)

@@ -1,5 +1,6 @@
-"""The port's boundary: ``adapt_tpu_torch``, ``chip_smoke.py`` and
-``scripts/sched_phase.py`` import
+"""The port's boundary: ``adapt_tpu_torch``, ``chip_smoke.py``,
+``scripts/sched_phase.py``, ``scripts/obs_phase.py``,
+``scripts/obs_overhead.py`` and ``scripts/obs_ab.py`` import
 neither JAX, its dependency ``ml_dtypes`` (absent beside the card) nor the
 JAX package, and entry points never quietly run on
 the CPU when no card is present."""
@@ -16,7 +17,9 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "ml_dtypes", "adapt_tpu")
 
 def _port_files():
     return sorted((ROOT / "adapt_tpu_torch").rglob("*.py")) + [
-        ROOT / "chip_smoke.py", ROOT / "scripts" / "sched_phase.py"
+        ROOT / "chip_smoke.py", ROOT / "scripts" / "sched_phase.py",
+        ROOT / "scripts" / "obs_phase.py", ROOT / "scripts" / "obs_overhead.py",
+        ROOT / "scripts" / "obs_ab.py",
     ]
 
 
@@ -57,7 +60,14 @@ def test_port_files_exist():
         "adapt_tpu_torch/comm/remote.py",
         "adapt_tpu_torch/control/journal.py",
         "adapt_tpu_torch/runtime/scheduler.py",
+        "adapt_tpu_torch/runtime/capacity.py",
+        "adapt_tpu_torch/utils/profiling.py",
+        "adapt_tpu_torch/utils/telemetry.py",
+        "adapt_tpu_torch/utils/exporter.py",
+        "adapt_tpu_torch/models/moe.py",
         "scripts/sched_phase.py",
+        "scripts/obs_phase.py",
+        "scripts/obs_ab.py",
     ):
         assert want in names
 
@@ -100,6 +110,12 @@ def test_kernel_wrappers_refuse_cpu_tensors():
         paged_chunk_attn,
     )
 
+    from adapt_tpu_torch.ops._build import kernel_dispatch_stats
+
+    def kernel_books():
+        return {op: d["pallas"] for op, d in kernel_dispatch_stats().items()}
+
+    books = kernel_books()
     q = torch.zeros(1, 1, 8, 64)
     table = torch.zeros(1, 1, dtype=torch.int32)
     with pytest.raises(ValueError, match="CUDA"):
@@ -118,3 +134,4 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     assert flash_attn_bwd.launches == 0
     assert paged_attn.launches == paged_attn_split.launches == 0
     assert paged_chunk_attn.launches == 0
+    assert kernel_books() == books  # booked only by a launch

@@ -272,17 +272,35 @@ def test_entry_points_need_a_card_or_the_cpu(small_model):
 
 
 def test_remote_only_parts_raise_and_name_their_step(small_model):
-    """What remote workers still lack names its step: the observability
-    exporter and the workers' telemetry reports (ROADMAP.md item 9). The
-    codecs, the gateway, the journal, chains and recovery are ported
-    (``test_torch_comm.py``, ``test_torch_remote.py``)."""
+    """The parts that once refused now serve: ``serve_observability``
+    starts the process exporter (its fleet views included), and a stage
+    server takes a telemetry cadence (a negative one raises). The worker
+    processes' reports are held to the JAX package's in
+    ``test_torch_telemetry.py``; the codecs are named and checked."""
+    import json
+    import urllib.request
+
     from adapt_tpu_torch.comm.remote import RemoteStageServer
 
-    g, plan, _ = small_model
-    with pytest.raises(NotImplementedError, match="item 9"):
-        ServingPipeline(plan, devices=CPU).serve_observability()
-    with pytest.raises(ValueError, match="item 9"):
-        RemoteStageServer(device="cpu", telemetry_s=2.0)
+    g, plan, x = small_model
+    with ServingPipeline(plan, None, CPU, ServeConfig(fault=FAST_FAULT)) as p:
+        assert torch.equal(p.infer(x), oracle(g, x))
+        server = p.serve_observability()
+        try:
+            port = server.server_address[1]
+            with urllib.request.urlopen(
+                    f"http://127.0.0.1:{port}/metrics", timeout=10) as r:
+                assert "adapt_dispatcher_completed_total" in r.read().decode()
+            with urllib.request.urlopen(
+                    f"http://127.0.0.1:{port}/fleet/metrics.json",
+                    timeout=10) as r:
+                assert "merged" in json.loads(r.read().decode())
+        finally:
+            server.shutdown()
+            server.server_close()
+    assert RemoteStageServer(device="cpu", telemetry_s=2.0).telemetry_s == 2.0
+    with pytest.raises(ValueError, match="telemetry_s"):
+        RemoteStageServer(device="cpu", telemetry_s=-1.0)
     assert CodecConfig(name="int8dev").name == "int8dev"
     with pytest.raises(ValueError, match="expected one of"):
         CodecConfig(name="lz4")

@@ -260,5 +260,9 @@ def test_validation_errors():
         assert T.generate(tlm, p, 3, kv_cache_dtype=kv).shape == (1, 3)
     with pytest.raises(ValueError, match="kv_cache_dtype"):
         T.generate(tlm, p, 3, kv_cache_dtype="fp8")
-    with pytest.raises(NotImplementedError, match="MoE"):
-        T.transformer_lm(61, 64, 2, 8, 128, moe_experts=4, device="cpu")
+    # MoE blocks are served (tests/test_torch_moe.py holds them to JAX).
+    moe = T.transformer_lm(61, 64, 2, 8, 128, moe_experts=4, device="cpu")
+    assert T.generate(moe, p, 3).shape == (1, 3)
+    with pytest.raises(ValueError, match="top_k"):
+        T.transformer_lm(61, 64, 2, 8, 128, moe_experts=4, moe_top_k=3,
+                         device="cpu")

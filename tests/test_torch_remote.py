@@ -623,10 +623,91 @@ def test_a_worker_process_imports_no_jax(spawn):
     assert proc.returncode == 0 and out.strip() == "[]"
 
 
-def test_nonzero_telemetry_names_item_9(capsys):
-    with pytest.raises(ValueError, match="item 9"):
-        RemoteStageServer(device="cpu", telemetry_s=2.0)
+def test_building_a_report_never_delays_a_ping(monkeypatch):
+    """A report held mid-collect does not hold up the pings that keep the
+    worker's lease: pings keep arriving on the dispatcher link while it is
+    held, and the report follows once it is done."""
+    from adapt_tpu_torch.comm.framing import (
+        MSG_CONFIG,
+        MSG_PING,
+        MSG_TELEMETRY,
+    )
+    from adapt_tpu_torch.utils.telemetry import TelemetryReporter
+
+    entered, release = threading.Event(), threading.Event()
+    collect = TelemetryReporter.collect
+
+    def held(self):
+        entered.set()
+        release.wait(WAIT_S)
+        return collect(self)
+
+    monkeypatch.setattr(TelemetryReporter, "collect", held)
+    server = RemoteStageServer(device="cpu", heartbeat_s=0.02,
+                               telemetry_s=0.02)
+    port = server.listen()
+    threading.Thread(target=server.serve_forever, daemon=True).start()
+    conn = socket.create_connection(("127.0.0.1", port), timeout=5.0)
+    conn.settimeout(None)
+    frames: queue.Queue = queue.Queue()
+
+    def read():
+        try:
+            while True:
+                frames.put(recv_msg(conn).msg_type)
+        except (ConnectionError, OSError):
+            pass
+
+    threading.Thread(target=read, daemon=True).start()
+    seen: list = []
+
+    def drained(kind, n):
+        while not frames.empty():
+            seen.append(frames.get())
+        return seen.count(kind) >= n
+
+    try:
+        # A configure header makes this link the dispatcher link.
+        send_msg(conn, Message(MSG_CONFIG, 0, 1, 0, b"{}"))
+        _poll(entered.is_set, "a report being built")
+        drained(MSG_PING, 0)
+        seen.clear()
+        _poll(lambda: drained(MSG_PING, 3), "pings while a report is held")
+        assert MSG_TELEMETRY not in seen
+        release.set()
+        _poll(lambda: drained(MSG_TELEMETRY, 1), "the held report")
+    finally:
+        release.set()
+        conn.close()
+        server.shutdown()
+
+
+def test_nonzero_telemetry_names_item_9(capsys, shared):
+    """Telemetry reports are served: a server takes a non-zero cadence
+    (the JAX package's default, 2 s), a negative one is refused, and a
+    pool worker (started at that default) pushes reports that the proxy
+    folds into the process-global store under the lease's worker id."""
+    from adapt_tpu_torch.utils.telemetry import global_federated_store
+
+    assert RemoteStageServer(device="cpu").telemetry_s == 2.0
     with pytest.raises(SystemExit) as exit_info:
-        remote_main(["--port", "0", "--device", "cpu", "--telemetry-s", "2"])
+        remote_main(["--port", "0", "--device", "cpu", "--telemetry-s",
+                     "-1"])
     assert exit_info.value.code != 0
-    assert "item 9" in capsys.readouterr().err
+    assert "--telemetry-s" in capsys.readouterr().err
+    plan = partition(vit_tiny(device="cpu"), TWO_CUTS)
+    disp = Dispatcher(plan, None, config=CFG)
+    proxy = _proxy(disp, "remote-telemetry", shared)
+    disp.attach_worker(proxy)
+    store = global_federated_store()
+
+    def reported():
+        return any(s["role"] == "stage" and s["worker"] == "remote-telemetry"
+                   for s in store.sources().values())
+
+    try:
+        disp.start()
+        proxy.configure(1, None, plan.extract_variables()[1])
+        _poll(reported, "a telemetry report from the pool worker")
+    finally:
+        disp.shutdown()
