@@ -3,13 +3,14 @@
 ``KernelConfig``, ``SpeculativeConfig``, ``SchedulerConfig`` (with
 ``TenantQuota``, which the latter names), ``SLOSpec``, ``RuntimeConfig``,
 ``PipelineConfig``, the ``ObservabilityConfig`` fields the dispatcher and
-the batcher read, and ``ServeConfig`` over those, same field names and
-defaults, so one config means the same thing in both packages.
+the batcher read, ``CapacityConfig``, ``DisaggConfig``, ``PrefillConfig``,
+``CacheTierConfig`` and ``ServeConfig``, same field names and defaults, so
+one config means the same thing in both packages.
 
 ``ServeConfig`` holds the subsystem configs the port has. The others
-(``ParallelConfig``, ``RecoveryConfig``, ``DisaggConfig``,
-``PrefillConfig``, ``CapacityConfig``, ``RouterConfig``,
-``CacheTierConfig``) come with the slices that port those subsystems.
+(``ParallelConfig``, ``RecoveryConfig``, ``RouterConfig``) come with the
+slices that port those subsystems; ``PrefillConfig``'s sequence-parallel
+path (``sp_width`` above 1) is refused until the multi-GPU slice.
 
 What differs is what ``KernelConfig`` selects on this card:
 
@@ -396,6 +397,156 @@ class CapacityConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class DisaggConfig:
+    """Disaggregated prefill / decode placement (``runtime/disagg``): the
+    ``DisaggServer`` policy decides PER REQUEST between the collocated path
+    (the decode batcher prefills inside its tick) and the disaggregated one
+    (a ``PrefillWorker`` prefills the prompt's full pages against its own
+    pool and streams them to the decode batcher, where they land through
+    the paged prefix cache).
+
+    - prompts of at least ``prompt_threshold`` tokens disaggregate;
+    - when the decode tier is busy (occupied slots / slots >=
+      ``busy_occupancy``, or a request of priority > 0), the threshold
+      drops to ``busy_prompt_threshold``;
+    - everything shorter collocates, and so does any request the prefill
+      tier cannot take (pool pressure, a dead role-tagged lease, no full
+      page): placement is an optimization, never a correctness gate."""
+
+    #: Prompts with at least this many tokens take the disaggregated path.
+    prompt_threshold: int = 256
+    #: The threshold applied instead when the decode tier is busy.
+    busy_prompt_threshold: int = 64
+    #: Decode-slot occupancy fraction at / above which the tier is busy.
+    busy_occupancy: float = 0.75
+
+    def __post_init__(self):
+        if self.prompt_threshold < 1:
+            raise ValueError(
+                f"prompt_threshold must be >= 1, got {self.prompt_threshold}")
+        if self.busy_prompt_threshold < 1:
+            raise ValueError(
+                f"busy_prompt_threshold must be >= 1, got "
+                f"{self.busy_prompt_threshold}")
+        if self.busy_prompt_threshold > self.prompt_threshold:
+            raise ValueError(
+                "busy_prompt_threshold must not exceed prompt_threshold "
+                f"({self.busy_prompt_threshold} > {self.prompt_threshold})")
+        if not 0.0 <= self.busy_occupancy <= 1.0:
+            raise ValueError(
+                f"busy_occupancy must be in [0, 1], got {self.busy_occupancy}")
+
+
+@dataclasses.dataclass(frozen=True)
+class PrefillConfig:
+    """Sequence-parallel long-context prefill: prompts of at least
+    ``sp_threshold`` tokens split their token axis over ``sp_width``
+    ranks. The port runs one rank until ``torch.distributed`` serving is
+    ported (ROADMAP.md item 11): a ``PrefillWorker`` given an enabled
+    config (``sp_width`` above 1 and a threshold) raises
+    ``NotImplementedError``."""
+
+    #: Prompts with at least this many tokens prefill sp-sharded (None:
+    #: the sp path is off).
+    sp_threshold: int | None = None
+    #: Ranks along ``sp_axis`` (a power of two; 1 turns the sp path off).
+    sp_width: int = 1
+    #: Mesh axis name of the token-axis split.
+    sp_axis: str = "sp"
+
+    def __post_init__(self):
+        if self.sp_width < 1 or (self.sp_width & (self.sp_width - 1)):
+            raise ValueError(
+                f"sp_width must be a power of two >= 1, got {self.sp_width}")
+        if self.sp_threshold is not None and self.sp_threshold < 1:
+            raise ValueError(
+                f"sp_threshold must be >= 1, got {self.sp_threshold}")
+        if not self.sp_axis:
+            raise ValueError("sp_axis must be a non-empty mesh axis name")
+
+    @property
+    def enabled(self) -> bool:
+        """A threshold is set and there is more than one rank to split
+        over."""
+        return self.sp_threshold is not None and self.sp_width > 1
+
+
+@dataclasses.dataclass(frozen=True)
+class CacheTierConfig:
+    """The host KV tier under the paged prefix cache
+    (``runtime/paged.HostKVTier`` + the batcher's ``cache_tier=``): rc=0
+    prefix pages the pool evicts SPILL to host memory under their content
+    keys instead of dying, and admission readmits host-resident prefix
+    pages through the prefix-cache landing path before it declares a miss.
+
+    WARM pages keep a lossless codec (bit-exact readmits); pages demoted
+    past ``warm_capacity_pages`` re-encode with the COLD codec, which may
+    be lossy (``ops/quantize.encode_page``: int8 / int4 per-vector absmax
+    or zfp-style mantissa truncation, on float planes only). Spilled pages
+    are rc=0 by construction, so a lossy codec never touches a live slot's
+    state. Spill and readmit work are budgeted per tick."""
+
+    #: Host capacity in pages (warm + cold, in memory).
+    host_capacity_pages: int = 1024
+    #: Pages kept in the WARM sub-tier before demotion to COLD.
+    warm_capacity_pages: int = 256
+    #: WARM codec, lossless: "raw" | "lz".
+    warm_codec: str = "lz"
+    #: COLD codec: "raw" | "lz" or lossy "int8" | "int4" | "zfp".
+    cold_codec: str = "lz"
+    #: Max pages spilled (device->host fetch + encode) per tick; evictions
+    #: past it drop their content (``cache_tier.dropped_total``).
+    spill_pages_per_tick: int = 8
+    #: Max pages readmitted (decode + host->device landing) per tick.
+    readmit_pages_per_tick: int = 8
+    #: Proactive spill watermarks, fractions of the allocatable pool: when
+    #: the prefix LRU holds >= ``spill_watermark`` of it, the coldest
+    #: un-backed LRU pages are pre-spilled down to ``spill_low_watermark``.
+    spill_watermark: float = 0.5
+    spill_low_watermark: float = 0.25
+    #: Optional directory: COLD pages demoted past the host capacity are
+    #: written there instead of dropped.
+    disk_dir: str | None = None
+    #: Codec of the disaggregated ``MSG_KV_PAGES`` wire
+    #: (``runtime/disagg.pack_handoff``): "raw" or any page codec.
+    #: ``DisaggServer`` reads it off the decode batcher's tier config
+    #: unless given one.
+    wire_codec: str = "raw"
+
+    def __post_init__(self):
+        from adapt_tpu_torch.ops.quantize import (
+            LOSSLESS_PAGE_CODECS,
+            PAGE_CODECS,
+        )
+
+        if self.host_capacity_pages < 1:
+            raise ValueError(
+                f"host_capacity_pages must be >= 1, got "
+                f"{self.host_capacity_pages}")
+        if not 0 <= self.warm_capacity_pages <= self.host_capacity_pages:
+            raise ValueError(
+                f"warm_capacity_pages must be in [0, host_capacity_pages], "
+                f"got {self.warm_capacity_pages}")
+        if self.warm_codec not in LOSSLESS_PAGE_CODECS:
+            raise ValueError(
+                f"warm_codec={self.warm_codec!r}: the warm tier must be "
+                f"lossless ({LOSSLESS_PAGE_CODECS})")
+        for name in ("cold_codec", "wire_codec"):
+            v = getattr(self, name)
+            if v not in PAGE_CODECS:
+                raise ValueError(
+                    f"{name}={v!r}: expected one of {PAGE_CODECS}")
+        for name in ("spill_pages_per_tick", "readmit_pages_per_tick"):
+            if getattr(self, name) < 0:
+                raise ValueError(f"{name} must be >= 0")
+        if not (0.0 <= self.spill_low_watermark <= self.spill_watermark
+                <= 1.0):
+            raise ValueError(
+                "need 0 <= spill_low_watermark <= spill_watermark <= 1, got "
+                f"{self.spill_low_watermark} / {self.spill_watermark}")
+
+
+@dataclasses.dataclass(frozen=True)
 class ServeConfig:
     """Top-level serving configuration."""
 
@@ -417,3 +568,8 @@ class ServeConfig:
     scheduler: SchedulerConfig = dataclasses.field(
         default_factory=SchedulerConfig)
     runtime: RuntimeConfig = dataclasses.field(default_factory=RuntimeConfig)
+    disagg: DisaggConfig = dataclasses.field(default_factory=DisaggConfig)
+    prefill: PrefillConfig = dataclasses.field(default_factory=PrefillConfig)
+    #: The host KV tier (None = off: evicted prefix pages die). Opt-in, as
+    #: in the JAX package.
+    cache_tier: CacheTierConfig | None = None

@@ -123,6 +123,12 @@ class WorkerRegistry:
             return [w for w, exp in self._leases.items()
                     if exp > now and self._meta[w].get("role") is None]
 
+    def role(self, worker_id: str) -> str | None:
+        """The lease's ``meta["role"]`` tag (None = untagged), e.g. a
+        disaggregated prefill tier's ``"prefill"``."""
+        with self._lock:
+            return self._meta.get(worker_id, {}).get("role")
+
     def watch(self, callback: Callable[[str, str], None]) -> None:
         """callback(event, worker_id) with event in {'join', 'leave'}."""
         with self._lock:

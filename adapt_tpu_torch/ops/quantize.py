@@ -31,6 +31,14 @@ launch per 32 leaves (:func:`dequantize_plan`). The kernels read and write
 ``dequantize_blocks``) refuse a base that is not 16-byte aligned; the
 public ``quantize`` / ``dequantize`` / ``dequantize_params`` take any view,
 copying such an operand to an aligned buffer first (:func:`aligned16`).
+
+Host page codecs (:func:`encode_page` / :func:`decode_page`, the host KV
+tier's and the disaggregated wire's): numpy + zlib host code, no kernel,
+whose payloads and meta are byte-equal to the JAX package's for every codec
+and dtype. A bfloat16 page rides as its 16-bit patterns under the dtype
+name ``"bfloat16"``; like ``ml_dtypes.bfloat16`` for numpy it is not a
+floating dtype to the lossy codecs, which degrade to ``"lz"`` on it as on
+integer arrays.
 """
 
 from __future__ import annotations
@@ -38,7 +46,9 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import math
+import zlib
 
+import numpy as np
 import torch
 
 from adapt_tpu_torch.ops import _build
@@ -354,3 +364,140 @@ def dequantize_params(tree):
                 [_aligned_payload(qts[i]) for i in idx])):
             outs[i] = out
     return _replace_leaves(tree, iter(outs))
+
+
+# -- host page codecs (the host KV tier and the disaggregated wire) ---------
+#
+# Codec contract: ``decode_page(encode_page(x, c))`` has x's shape and
+# dtype; "raw" / "lz" are bit-exact (the warm tier's and the lossless
+# wire's setting), "int8" / "int4" the per-vector absmax lattices of the
+# quantized pools (one f32 scale per trailing-axis vector), "zfp" a
+# zfp-style mantissa truncation (sign, exponent and the top mantissa bits
+# kept, then lz over the zero-heavy tail). Lossy codecs apply to floating
+# arrays only; on integer arrays (int8 value planes, prompt ids) and
+# bfloat16 ones they degrade to "lz", as the JAX package's do.
+
+PAGE_CODECS = ("raw", "lz", "int8", "int4", "zfp")
+LOSSLESS_PAGE_CODECS = ("raw", "lz")
+#: zfp-style truncation: f32 mantissa bits KEPT (of 23).
+ZFP_KEEP_BITS = 10
+
+#: The meta dtype name of a bfloat16 page (numpy's name for
+#: ``ml_dtypes.bfloat16``); its bits ride as int16.
+_BF16 = "bfloat16"
+
+
+def _host_page(arr) -> tuple[np.ndarray, str]:
+    """``arr`` (a numpy array or a tensor on any device) as a C-contiguous
+    host numpy array and its dtype name."""
+    if isinstance(arr, torch.Tensor):
+        t = arr.detach().cpu()
+        if t.dtype == torch.bfloat16:
+            return np.ascontiguousarray(t.view(torch.int16).numpy()), _BF16
+        arr = t.numpy()
+    a = np.ascontiguousarray(arr)
+    return a, str(a.dtype)
+
+
+def _page_tensor(a: np.ndarray, name: str) -> torch.Tensor:
+    a = np.ascontiguousarray(a)
+    if not a.flags.writeable:  # a view of the payload: own the bytes
+        a = a.copy()
+    t = torch.from_numpy(a)
+    return t.view(torch.bfloat16) if name == _BF16 else t
+
+
+def _np_pack_int4(q):
+    """numpy twin of :func:`pack_int4` (same nibble layout)."""
+    q = q.astype(np.int32)
+    lo, hi = q[..., 0::2] & 15, q[..., 1::2] & 15
+    p = lo | (hi << 4)
+    return np.where(p >= 128, p - 256, p).astype(np.int8)
+
+
+def _np_unpack_int4(packed):
+    """numpy twin of :func:`unpack_int4`."""
+    p = packed.astype(np.int32)
+    lo = ((p & 15) ^ 8) - 8
+    hi = p >> 4
+    return np.stack([lo, hi], axis=-1).reshape(
+        p.shape[:-1] + (p.shape[-1] * 2,))
+
+
+def encode_page(arr, codec: str) -> tuple[bytes, dict]:
+    """Encode one host page (a numpy array or a tensor) for a tier
+    boundary. Returns ``(payload, meta)``; ``meta`` holds the shape, the
+    dtype name, the codec actually applied (a lossy request on a
+    non-floating array records the "lz" it degraded to) and
+    ``raw_nbytes``."""
+    if codec not in PAGE_CODECS:
+        raise ValueError(f"codec={codec!r}: expected one of {PAGE_CODECS}")
+    arr, name = _host_page(arr)
+    meta = {
+        "shape": tuple(int(s) for s in arr.shape),
+        "dtype": name,
+        "codec": codec,
+        "raw_nbytes": int(arr.nbytes),
+    }
+    if codec in ("int8", "int4", "zfp") and (
+        name == _BF16 or not np.issubdtype(arr.dtype, np.floating)
+        or (codec in ("int8", "int4") and arr.shape[-1] < 2)
+    ):
+        # Never perturb already-quantized or integer payloads; a (..., 1)
+        # scale plane gains nothing from one more scale per element.
+        codec = meta["codec"] = "lz"
+    if codec == "raw":
+        return arr.tobytes(), meta
+    if codec == "lz":
+        return zlib.compress(arr.tobytes(), 1), meta
+    if codec == "zfp":
+        u = arr.astype(np.float32).view(np.uint32)
+        mask = np.uint32((0xFFFFFFFF << (23 - ZFP_KEEP_BITS)) & 0xFFFFFFFF)
+        return zlib.compress((u & mask).tobytes(), 1), meta
+    qmax = 127.0 if codec == "int8" else 7.0
+    f = arr.astype(np.float32)
+    scale = np.maximum(np.abs(f).max(axis=-1, keepdims=True) / qmax,
+                       1e-8).astype(np.float32)
+    q = np.clip(np.round(f / scale), -qmax, qmax)
+    if codec == "int4":
+        if arr.shape[-1] % 2:
+            raise ValueError(
+                f"int4 page codec needs an even trailing axis, got "
+                f"{arr.shape[-1]}")
+        vals = _np_pack_int4(q)
+    else:
+        vals = q.astype(np.int8)
+    return scale.tobytes() + vals.tobytes(), meta
+
+
+def decode_page(payload, meta: dict) -> torch.Tensor:
+    """Inverse of :func:`encode_page`: a CPU tensor of the original shape
+    and dtype. Bit-exact for raw / lz; the lossy codecs return the
+    dequantized or truncated values cast back."""
+    shape = tuple(meta["shape"])
+    name = meta["dtype"]
+    codec = meta["codec"]
+    buf = bytes(payload)
+    dtype = np.int16 if name == _BF16 else np.dtype(name)
+    if codec == "raw":
+        return _page_tensor(np.frombuffer(buf, dtype).reshape(shape), name)
+    if codec == "lz":
+        return _page_tensor(
+            np.frombuffer(zlib.decompress(buf), dtype).reshape(shape), name)
+    if codec == "zfp":
+        u = np.frombuffer(zlib.decompress(buf), np.uint32).reshape(shape)
+        return _page_tensor(u.view(np.float32).astype(dtype), name)
+    n_vec = math.prod(shape[:-1])
+    scale = np.frombuffer(buf[: n_vec * 4], np.float32).reshape(
+        shape[:-1] + (1,))
+    if codec == "int4":
+        q = _np_unpack_int4(np.frombuffer(buf[n_vec * 4:], np.int8).reshape(
+            shape[:-1] + (shape[-1] // 2,)))
+    else:
+        q = np.frombuffer(buf[n_vec * 4:], np.int8).reshape(shape)
+    return _page_tensor((q.astype(np.float32) * scale).astype(dtype), name)
+
+
+def page_codec_roundtrip(arr, codec: str) -> torch.Tensor:
+    """``decode_page(encode_page(arr, codec))``."""
+    return decode_page(*encode_page(arr, codec))

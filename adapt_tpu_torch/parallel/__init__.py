@@ -1,2 +1,3 @@
-"""Pipeline schedule (``pipeline_spmd``) and training step (``train``) of the
-port, on one rank."""
+"""Pipeline schedule (``pipeline_spmd``), training step (``train``) and the
+head-axis tiling of KV tensors (``sharding.head_tiles``) of the port, on
+one rank."""

@@ -104,8 +104,20 @@ the card. ``drain()`` commits the tick in flight; ``run()``, ``stop()``
 and ``close()`` are the pipeline's boundaries. ``runtime.overlap_ratio``
 is 1 - (time blocked on the fetch) / (dispatch-to-commit wall).
 
-Tensor parallelism, recovery (the journal branch of the replay) and the
-host KV tier are later slices.
+The host KV tier (``cache_tier=config.CacheTierConfig(...)``, paged
+pools): an rc=0 prefix page the pool evicts SPILLS to a
+``runtime/paged.HostKVTier`` (per-tick budget, watermark pre-spill before
+admission) under its content key, and admission READMITS the request's
+longest run of host-resident prefix pages through ``Pager.adopt_cached``
+before its prefix probe, so they share as ordinary prefix hits. The
+disaggregated handoff (``runtime/disagg``) lands through the same path:
+:meth:`ContinuousBatcher.adopt_prefill_pages`. ``cache_tier.*`` counters,
+the ``memory.host_bytes`` / ``memory.pages_spilled`` gauges and
+``continuous.prefill_stall_s`` (decode delay spent on in-tick prefill
+while requests were decoding) are the books.
+
+Tensor parallelism and recovery (the journal branch of the replay, the
+batcher's ``journal=``) are later slices.
 """
 
 from __future__ import annotations
@@ -120,6 +132,7 @@ import numpy as np
 import torch
 
 from adapt_tpu_torch.config import (
+    CacheTierConfig,
     CapacityConfig,
     KernelConfig,
     ObservabilityConfig,
@@ -144,7 +157,11 @@ from adapt_tpu_torch.models.transformer_lm import (
 from adapt_tpu_torch.ops.paged_attention import DEFAULT_PAGE_SIZE
 from adapt_tpu_torch.ops.quantize import quantize_params
 from adapt_tpu_torch.runtime.capacity import CapacityModel
-from adapt_tpu_torch.runtime.paged import Pager, insert_prefill_pages
+from adapt_tpu_torch.runtime.paged import (
+    HostKVTier,
+    Pager,
+    insert_prefill_pages,
+)
 from adapt_tpu_torch.runtime.scheduler import (
     AdmissionQueue,
     DegradationController,
@@ -191,6 +208,27 @@ def fanout_seeds(seed: int, n: int) -> list[int]:
 def _members(cache):
     """The tensors of a cache: both planes of a quantized pair."""
     return cache if isinstance(cache, tuple) else (cache,)
+
+
+def host_copy(tensors: list) -> list:
+    """Host copies of ``tensors`` (any dtypes and shapes, on one device).
+    From a card: their bytes packed into one buffer on the device and
+    fetched with ONE device->host copy, then cut and viewed back; on the
+    CPU, clones."""
+    if not tensors or tensors[0].device.type != "cuda":
+        return [t.clone() for t in tensors]
+    parts, offs, off = [], [], 0
+    for t in tensors:
+        f = t.contiguous().view(-1).view(torch.uint8)
+        pad = -f.numel() % 16  # keeps every view's offset aligned
+        parts.append(f)
+        if pad:
+            parts.append(f.new_zeros(pad))
+        offs.append(off)
+        off += f.numel() + pad
+    host = torch.cat(parts).cpu()
+    return [host[o:o + t.numel() * t.element_size()].view(t.dtype).view(
+        t.shape) for t, o in zip(tensors, offs)]
 
 
 @dataclasses.dataclass
@@ -353,7 +391,8 @@ class ContinuousBatcher:
     ``runtime`` the pipelined tick; ``observability`` the goodput
     window and the engine knobs (``obs_engine``, ``trace_enabled`` and
     ``compile_warmup``, applied as the ``Dispatcher`` applies them);
-    ``capacity`` the capacity plane (``runtime/capacity``, on by default).
+    ``capacity`` the capacity plane (``runtime/capacity``, on by default);
+    ``cache_tier`` the host KV tier under a paged pool (off by default).
     Engine telemetry (``utils/profiling``): the batcher is a memory and a
     roofline source, (re-)registers the compile sentinel's kernel-library
     watch, and times its tick phases when ``global_engine_obs()`` is
@@ -381,6 +420,7 @@ class ContinuousBatcher:
         runtime: RuntimeConfig | None = None,
         observability: ObservabilityConfig | None = None,
         capacity: CapacityConfig | None = None,
+        cache_tier: CacheTierConfig | None = None,
     ):
         if kv_cache_dtype not in ("native", "int8", "int4"):
             raise ValueError(
@@ -515,6 +555,30 @@ class ContinuousBatcher:
                                 device=dev))
 
         self._caches = [(one_cache(), one_cache()) for _ in lm.block_names]
+        # -- host KV tier ----------------------------------------------
+        if cache_tier is not None and not self._paged:
+            raise ValueError(
+                "cache_tier requires kv_layout='paged' (the spill tier "
+                "lives under the paged prefix cache; dense strips have no "
+                "page to spill)")
+        self._tier_cfg = cache_tier
+        self._tier = HostKVTier(cache_tier) if cache_tier else None
+        #: Per-tick tier budgets, reset at tick entry (seeded here so that
+        #: evictions before the first tick can spill too).
+        self._spill_budget = (cache_tier.spill_pages_per_tick
+                              if cache_tier else 0)
+        self._readmit_budget = (cache_tier.readmit_pages_per_tick
+                                if cache_tier else 0)
+        if self._paged:
+            # Installed with or without a tier: every cached-prefix death
+            # records its radix_evict flight event.
+            self._pager.evict_hook = self._on_page_evict
+        #: Lifetime tier books (stats() mirrors of cache_tier.* counters).
+        self._tier_spilled = 0
+        self._tier_readmitted = 0
+        self._tier_dropped = 0
+        #: The tier's own overflow drops already bridged to the counter.
+        self._tier_drop_seen = 0
         #: What the same cache geometry costs in the model's dtype: the
         #: denominator of stats()["cache_bytes_ratio"].
         self._native_cache_bytes = (
@@ -909,20 +973,270 @@ class ContinuousBatcher:
             )
 
     def prefix_cached(self, prompt) -> int:
-        """Leading FULL pages of ``prompt`` servable from the prefix cache
-        without recompute (resident content keys, longest run). Read-only:
-        no shares taken, no probe accounting moved. 0 on dense strips."""
+        """Leading FULL pages of ``prompt`` servable from the cache
+        hierarchy without recompute: the longest run of content keys
+        resident in the pool or, with a host tier, spilled to it.
+        Read-only: no shares taken, no readmits, no probe accounting
+        moved. 0 on dense strips."""
         if not self._paged:
             return 0
         prompt = np.asarray(prompt, np.int32).reshape(-1)
         n = 0
         for j in range((prompt.shape[0] - 1) // self._page):
-            if not self._pager.resident(
-                Pager.prefix_key(prompt, (j + 1) * self._page)
-            ):
+            key = Pager.prefix_key(prompt, (j + 1) * self._page)
+            if not (self._pager.resident(key) or (
+                    self._tier is not None and self._tier.contains(key))):
                 break
             n += 1
         return n
+
+    # -- landing external pages (disaggregated handoff, host readmit) -----
+
+    def _stage_leaves(self, leaves: list) -> list:
+        """Host tensors -> the batcher's device: each group of same
+        (dtype, shape) leaves is stacked into one pinned buffer and staged
+        with ONE counted non-blocking copy (the disaggregated landing and
+        the host-tier readmit go through here, never a steady tick)."""
+        if self.device.type != "cuda":
+            self._h2d_count += 1
+            return [t.to(self.device) for t in leaves]
+        groups: dict[tuple, list[int]] = {}
+        for i, t in enumerate(leaves):
+            groups.setdefault((t.dtype, tuple(t.shape)), []).append(i)
+        out: list = [None] * len(leaves)
+        for (dt, shape), idx in groups.items():
+            buf = torch.empty((len(idx),) + shape, dtype=dt, pin_memory=True)
+            for j, i in enumerate(idx):
+                buf[j].copy_(leaves[i])
+            self._h2d_count += 1
+            dev = buf.to(self.device, non_blocking=True)
+            for j, i in enumerate(idx):
+                out[i] = dev[j]
+        return out
+
+    def _adopt_pages(self, pages: list[int], kvs: list) -> None:
+        """Scatter page-major K/V into pool ``pages`` in place: ``kvs``
+        mirrors ``self._caches``' per-block (K, V) structure with host
+        leaves ``(len(pages), kvh, page, w)`` (a quantized pool's values
+        and scales move together). One index_copy_ per pool member."""
+        pools = [m for pair in self._caches for c in pair for m in _members(c)]
+        leaves = [m for pair in kvs for c in pair for m in _members(c)]
+        staged = self._stage_leaves(leaves)
+        pages_t = self._h2d(np.asarray(pages, np.int64), torch.int64)
+        for pool, kv in zip(pools, staged):
+            pool.index_copy_(0, pages_t, kv.to(pool.dtype))
+
+    def adopt_prefill_pages(self, prompt, blocks, page_size: int,
+                            quantized) -> int:
+        """Land a disaggregated prefill's KV pages THROUGH THE PREFIX
+        CACHE: the decode-side half of the ``runtime/disagg`` handoff.
+        ``blocks`` holds one ``(K, V)`` pair per decoder block, each member
+        a page-major ``(n, kvh, page, hd)`` host tensor (a ``(values,
+        scales)`` tuple of them on a quantized pool) with the K/V of
+        ``prompt``'s first ``n`` FULL pages as this batcher's own chunked
+        prefill would write them.
+
+        The pages register under the content keys the admission probe
+        computes, park rc=0 in the prefix LRU and take their bytes through
+        :meth:`_adopt_pages`, so a later :meth:`submit` of the prompt
+        admits as a prefix hit and prefills only the suffix: int8 pools
+        and speculative mode compose as in the collocated path. Returns
+        the pages adopted (resident keys dedupe; pool pressure adopts
+        nothing, all-or-nothing, and the request prefills itself). Raises
+        ``ValueError`` on a geometry mismatch, before any pager
+        mutation."""
+        if not self._paged:
+            raise ValueError(
+                "adopt_prefill_pages requires kv_layout='paged' (the handoff "
+                "lands through the paged prefix cache)")
+        if page_size != self._page:
+            raise ValueError(
+                f"handoff page size {page_size} != pool page size "
+                f"{self._page}")
+        sender_dt = (quantized if isinstance(quantized, str)
+                     else ("int8" if quantized else "native"))
+        if sender_dt != (self._kv_quant or "native"):
+            raise ValueError(
+                f"handoff kv dtype {sender_dt!r} but pool kv_cache_dtype is "
+                f"{self._kv_quant or 'native'!r}")
+        blocks_m = self.lm.blocks
+        if len(blocks) != len(blocks_m):
+            raise ValueError(f"handoff has {len(blocks)} blocks, model has "
+                             f"{len(blocks_m)}")
+        prompt = np.asarray(prompt, np.int32).reshape(-1)
+        k0 = blocks[0][0]
+        n = int((k0[0] if isinstance(k0, tuple) else k0).shape[0])
+        if n < 1 or n > (prompt.shape[0] - 1) // self._page:
+            raise ValueError(
+                f"handoff covers {n} pages; prompt of {prompt.shape[0]} "
+                f"tokens shares at most {(prompt.shape[0] - 1) // self._page}"
+                " full pages")
+        quant = bool(self._kv_quant)
+        for b, (block, pair) in enumerate(zip(blocks_m, blocks)):
+            for mname, member in zip(("K", "V"), pair):
+                if isinstance(member, tuple) != quant:
+                    raise ValueError(
+                        f"handoff block {b} {mname}: "
+                        f"{'tuple' if isinstance(member, tuple) else 'array'}"
+                        f" member in a {'quantized' if quant else 'native'} "
+                        "pool")
+                for li, leaf in enumerate(_members(member)):
+                    width = (1 if li else block.head_dim
+                             // (2 if self._kv_quant == "int4" else 1))
+                    want = (n, block.cache_heads, self._page, width)
+                    if tuple(leaf.shape) != want:
+                        raise ValueError(
+                            f"handoff block {b} {mname}[{li}] shape "
+                            f"{tuple(leaf.shape)} != expected {want}")
+        keys = [Pager.prefix_key(prompt, (j + 1) * self._page)
+                for j in range(n)]
+        adopted = self._pager.adopt_cached(keys)
+        if not adopted:
+            return 0
+        ords = [i for i, _ in adopted]
+        sel = (slice(None) if len(ords) == n
+               else torch.as_tensor(ords, dtype=torch.int64))
+
+        def pick(member):
+            if isinstance(member, tuple):
+                return tuple(torch.as_tensor(m)[sel] for m in member)
+            return torch.as_tensor(member)[sel]
+
+        self._adopt_pages([p for _, p in adopted],
+                          [(pick(k), pick(v)) for k, v in blocks])
+        return len(adopted)
+
+    # -- the host KV tier --------------------------------------------------
+
+    def _fetch_page_host(self, page: int) -> list:
+        """Host copy of one pool page's K/V across every block (the spill
+        side's ONE device->host copy, :func:`host_copy`), as per-block
+        ``(K, V)`` leaves of shape ``(kvh, page, w)``."""
+        it = iter(host_copy([m[page] for pair in self._caches for c in pair
+                             for m in _members(c)]))
+        out = []
+        for pair in self._caches:
+            out.append(tuple(
+                tuple(next(it) for _ in c) if isinstance(c, tuple)
+                else next(it) for c in pair))
+        return out
+
+    def _spill_page(self, page: int, key: bytes) -> bool:
+        """Capture one rc=0 page into the host tier (the caller checked
+        the budget). Idempotent for keys the tier holds."""
+        raw, enc = self._tier.put(key, self._fetch_page_host(page))
+        if raw == 0 and enc == 0:
+            return False  # already host-resident: no new books
+        self._tier_spilled += 1
+        reg = global_metrics()
+        reg.inc("cache_tier.spilled_total")
+        reg.inc("cache_tier.codec_bytes_saved_total", float(raw - enc))
+        global_flight_recorder().record(
+            "kv_spill", page=int(page), bytes=int(enc), raw_bytes=int(raw))
+        return True
+
+    def _on_page_evict(self, page: int, key: bytes) -> None:
+        """``Pager.evict_hook``: a registered rc=0 page is leaving the pool
+        (the pager already dropped its key). Records ``radix_evict``; with
+        a host tier, host-backed keys evict for free, un-backed ones spill
+        inside the tick's budget or count as dropped."""
+        global_flight_recorder().record(
+            "radix_evict", page=int(page), prefix_tokens=len(key) // 4)
+        tier = self._tier
+        if tier is None or tier.contains(key):
+            return
+        if self._spill_budget <= 0:
+            self._tier_dropped += 1
+            global_metrics().inc("cache_tier.dropped_total")
+            return
+        self._spill_budget -= 1
+        self._spill_page(page, key)
+
+    def _tier_step(self) -> None:
+        """Once a tick, before admission: reset the spill / readmit
+        budgets, bridge the tier's own overflow drops to the counter, and
+        when the prefix LRU holds at least ``spill_watermark`` of the
+        allocatable pool, back its coldest un-backed pages down to the low
+        watermark (budgeted). Only rc=0 LRU pages are scanned: a live
+        slot's page never spills."""
+        cfg = self._tier_cfg
+        self._spill_budget = cfg.spill_pages_per_tick
+        self._readmit_budget = cfg.readmit_pages_per_tick
+        over = self._tier.dropped - self._tier_drop_seen
+        if over:
+            global_metrics().inc("cache_tier.dropped_total", float(over))
+            self._tier_drop_seen = self._tier.dropped
+        alloc = self._pager.num_allocatable
+        cached = self._pager.cached_pages()
+        if len(cached) < cfg.spill_watermark * alloc:
+            return
+        need = len(cached) - int(cfg.spill_low_watermark * alloc)
+        if need <= 0:
+            return
+        for page, key in cached[:need]:
+            if self._spill_budget <= 0:
+                break
+            if self._tier.contains(key):
+                continue
+            self._spill_budget -= 1
+            self._spill_page(page, key)
+
+    def _maybe_readmit(self, req: _Request) -> int:
+        """Admission's host-tier consult: before the prefix probe declares
+        a miss, readmit the request's longest run of host-resident prefix
+        pages into the pool (decoded from the tier, landed through
+        ``Pager.adopt_cached`` + :meth:`_adopt_pages`, as a handoff
+        lands), so the probe then shares them as prefix hits. Budgeted per
+        tick; pool pressure readmits nothing. Returns the pages
+        readmitted."""
+        tier = self._tier
+        if tier is None or self._readmit_budget <= 0:
+            return 0
+        P = self._page
+        keys: list[bytes] = []
+        found: list[list] = []
+        for j in range((req.prompt.shape[0] - 1) // P):
+            key = Pager.prefix_key(req.prompt, (j + 1) * P)
+            if self._pager.resident(key):
+                continue  # the probe shares it without help
+            if len(keys) >= self._readmit_budget:
+                break
+            blocks = tier.get(key)
+            if blocks is None:
+                break  # a true miss ends the run
+            keys.append(key)
+            found.append(blocks)
+        if not keys:
+            return 0
+        adopted = self._pager.adopt_cached(keys)
+        if not adopted:
+            return 0  # pool pressure: admission recomputes
+        ords = [i for i, _ in adopted]
+
+        def stack(*leaves):
+            return torch.stack([leaves[j] for j in ords])
+
+        kvs = []
+        for b in range(len(self._caches)):
+            pair = []
+            for m in range(2):
+                per_page = [bl[b][m] for bl in found]
+                if isinstance(per_page[0], tuple):
+                    pair.append(tuple(stack(*z) for z in zip(*per_page)))
+                else:
+                    pair.append(stack(*per_page))
+            kvs.append(tuple(pair))
+        self._adopt_pages([p for _, p in adopted], kvs)
+        na = len(adopted)
+        self._readmit_budget -= na
+        self._tier_readmitted += na
+        global_metrics().inc("cache_tier.readmitted_total", float(na))
+        global_flight_recorder().record(
+            "kv_readmit", request=req.req_id, pages=na,
+            staged_bytes=int(sum(m.numel() * m.element_size()
+                                 for pair in kvs for c in pair
+                                 for m in _members(c))))
+        return na
 
     # -- request lifecycle -------------------------------------------------
 
@@ -1721,6 +2035,10 @@ class ContinuousBatcher:
             m = 0
             if self._paged:
                 P = self._page
+                if self._tier is not None:
+                    # Host-resident prefix pages readmit (budgeted) before
+                    # the probe declares any miss, then share below.
+                    self._maybe_readmit(req)
                 # Prefix probe: acquire (rc+1) every cached FULL prompt
                 # page, first miss stops; capped before the page of the
                 # last prompt token, so the suffix pass is never empty.
@@ -1953,11 +2271,23 @@ class ContinuousBatcher:
         if self._controller is not None:
             # Before admission: this tick's admits see the current rung.
             self._controller.step(self)
+        if self._tier is not None:
+            # Before admission too: fresh budgets, and the coldest LRU
+            # pages pre-spilled so this tick's evictions find them backed.
+            self._tier_step()
         eo = self._eobs
         # The gate is read once a tick: flipping it mid-tick must never
         # pair a 0.0 open with an enabled close.
         eo_on = eo.enabled
         t_ph = eo.now() if eo_on else 0.0
+        # continuous.prefill_stall_s: with requests already decoding at
+        # tick entry, the wall this tick spends on in-tick prefill work is
+        # decode delay they eat (what runtime/disagg takes out of the
+        # tick). Observed only when prefill actually ran.
+        decode_waiting = self.obs_timeline and any(
+            s.req is not None and s.pf_done < 0 for s in self.slots)
+        t_stall0 = time.perf_counter() if decode_waiting else 0.0
+        pf_tokens0 = self._prefill_tokens
         self._admit()
         if eo_on:
             t_ph = eo.phase("admit", t_ph)
@@ -1972,6 +2302,9 @@ class ContinuousBatcher:
         for slot in self.slots:
             if slot.req is not None and slot.pf_done >= 0:
                 self._prefill_step(slot)  # interleaves with the decode below
+        if decode_waiting and self._prefill_tokens > pf_tokens0:
+            global_metrics().observe("continuous.prefill_stall_s",
+                                     time.perf_counter() - t_stall0)
         if eo_on:
             eo.phase("prefill", t_ph)
         active = [s for s in self.slots if s.req is not None and s.pf_done < 0]
@@ -2161,6 +2494,13 @@ class ContinuousBatcher:
             out["paged.radix_partial_hits"] = float(ps.radix_partial_hits)
             out["paged.radix_hit_tokens"] = float(ps.radix_hit_tokens)
             out["paged.cow_forks_total"] = float(ps.cow_forks)
+            if self._tier is not None:
+                # Pages resident in host memory (warm + cold) and their
+                # encoded bytes: a copy below the pool partition above,
+                # never counted in it.
+                ts = self._tier.stats()
+                out["memory.host_bytes"] = float(ts.host_bytes)
+                out["memory.pages_spilled"] = float(ts.pages)
         else:
             out["memory.kv_bytes"] = cache_bytes
             out["memory.kv_bytes_per_device"] = cache_bytes
@@ -2250,6 +2590,14 @@ class ContinuousBatcher:
                 out["radix_evictions"] = self._pager.radix_evictions
                 out["cow_forks"] = ps.cow_forks
                 out["fanout_groups"] = len(self._fanout_groups)
+            if self._tier is not None:
+                ts = self._tier.stats()
+                out["host_pages"] = ts.pages
+                out["host_bytes"] = ts.host_bytes
+                out["tier_spilled"] = self._tier_spilled
+                out["tier_readmitted"] = self._tier_readmitted
+                out["tier_dropped"] = self._tier_dropped + ts.dropped
+                out["tier_codec_bytes_saved"] = ts.codec_bytes_saved
             return out
 
     def _cache_bytes(self) -> int:

@@ -20,17 +20,25 @@ Conventions (shared with ``ops/paged_attention``):
   allocation point at the trash page.
 - low page ids hand out first.
 
-The host KV tier (``HostKVTier``) waits for the fleet slice; the
-``evict_hook`` seam stays, unused by the batcher.
+Below the pool, :class:`HostKVTier` (the port of the JAX package's
+``HostKVTier`` with ``HostTierStats``) keeps evicted prefix pages in host
+memory, encoded by the ``ops/quantize`` page codecs, under the same content
+keys; the batcher spills into it through :attr:`Pager.evict_hook` and
+readmits through :meth:`Pager.adopt_cached`.
 """
 
 from __future__ import annotations
 
 import collections
 import dataclasses
+import hashlib
+import os
+import pickle
 
 import numpy as np
 import torch
+
+from adapt_tpu_torch.ops.quantize import decode_page, encode_page
 
 
 @dataclasses.dataclass
@@ -441,6 +449,186 @@ class Pager:
             radix_partial_hits=self.radix_partial_hits,
             radix_hit_tokens=self.radix_hit_tokens,
             cow_forks=self.cow_forks,
+        )
+
+
+@dataclasses.dataclass
+class HostTierStats:
+    pages: int  # host-resident pages (warm + cold; disk excluded)
+    warm: int
+    cold: int
+    disk: int  # pages written to the optional disk directory
+    host_bytes: int  # encoded bytes resident in host memory
+    spilled: int  # lifetime pages accepted by put()
+    dropped: int  # lifetime pages that fell off the cold end
+    codec_bytes_saved: int  # lifetime raw - encoded bytes
+
+
+@dataclasses.dataclass
+class _HostPage:
+    """One spilled page: per-block (K, V) members, each a tuple of
+    ``(payload, meta)`` encoded leaves (one leaf for a native pool,
+    ``(values, scales)`` for a quantized one)."""
+
+    blocks: list
+    nbytes: int  # encoded bytes (payload sum)
+    raw_nbytes: int
+
+
+class HostKVTier:
+    """The host-memory (optionally disk-backed) spill tier under the
+    :class:`Pager`.
+
+    Pages evicted from the pool's prefix LRU land here under the SAME
+    content keys the admission probe computes, encoded by the
+    ``ops/quantize`` page codecs: the WARM sub-tier keeps a lossless codec
+    (bit-exact readmits), pages demoted past the warm capacity re-encode
+    with the COLD codec (lossy allowed: every page here is rc=0 by
+    construction, never read by a live slot), and pages past the host
+    capacity are written to ``disk_dir`` or dropped (counted). :meth:`get`
+    decodes a page back to pool-shaped CPU tensors for the readmit landing
+    path (``ContinuousBatcher._maybe_readmit`` -> ``Pager.adopt_cached``
+    -> ``_adopt_pages``).
+
+    Plain bookkeeping like the Pager: mutations on the ticking thread,
+    ``stats()`` tolerant of racing reads. The batcher bridges the books to
+    the ``cache_tier.*`` counters and the ``memory.host_bytes`` /
+    ``memory.pages_spilled`` gauges."""
+
+    def __init__(self, cfg):
+        self.cfg = cfg
+        self._warm: collections.OrderedDict[bytes, _HostPage] = (
+            collections.OrderedDict())
+        self._cold: collections.OrderedDict[bytes, _HostPage] = (
+            collections.OrderedDict())
+        #: key -> (path, None) for pages written to disk.
+        self._disk: dict[bytes, tuple[str, list | None]] = {}
+        self._bytes = 0
+        self.spilled = 0
+        self.dropped = 0
+        self.codec_bytes_saved = 0
+        if cfg.disk_dir:
+            os.makedirs(cfg.disk_dir, exist_ok=True)
+
+    # -- encoding ----------------------------------------------------------
+
+    @staticmethod
+    def _encode(blocks, codec: str) -> _HostPage:
+        enc, nbytes, raw = [], 0, 0
+        for k, v in blocks:
+            pair = []
+            for member in (k, v):
+                leaves = member if isinstance(member, tuple) else (member,)
+                out = []
+                for leaf in leaves:
+                    payload, meta = encode_page(leaf, codec)
+                    nbytes += len(payload)
+                    raw += meta["raw_nbytes"]
+                    out.append((payload, meta))
+                pair.append(tuple(out))
+            enc.append(tuple(pair))
+        return _HostPage(blocks=enc, nbytes=nbytes, raw_nbytes=raw)
+
+    @staticmethod
+    def _decode(entry: _HostPage) -> list:
+        blocks = []
+        for km, vm in entry.blocks:
+            pair = []
+            for member in (km, vm):
+                leaves = [decode_page(p, m) for p, m in member]
+                pair.append(leaves[0] if len(leaves) == 1 else tuple(leaves))
+            blocks.append(tuple(pair))
+        return blocks
+
+    # -- the tier API ------------------------------------------------------
+
+    def contains(self, key: bytes) -> bool:
+        return key in self._warm or key in self._cold or key in self._disk
+
+    def put(self, key: bytes, blocks) -> tuple[int, int]:
+        """Spill one page (per-block ``(K, V)`` leaves of pool shape
+        ``(kvh, page, w)``) into the WARM sub-tier under its content key.
+        Idempotent for resident keys (an MRU touch only). Returns
+        ``(raw_bytes, encoded_bytes)``."""
+        if self.contains(key):
+            if key in self._warm:
+                self._warm.move_to_end(key)
+            return (0, 0)
+        entry = self._encode(blocks, self.cfg.warm_codec)
+        self._warm[key] = entry
+        self._bytes += entry.nbytes
+        self.spilled += 1
+        self.codec_bytes_saved += entry.raw_nbytes - entry.nbytes
+        self._demote()
+        return (entry.raw_nbytes, entry.nbytes)
+
+    def _demote(self) -> None:
+        """Warm overflow -> COLD (re-encoded through the cold codec; warm
+        is lossless, so the cold payload is what a direct cold encode of
+        the original would hold); cold overflow -> disk or dropped."""
+        cold_cap = self.cfg.host_capacity_pages - self.cfg.warm_capacity_pages
+        while len(self._warm) > self.cfg.warm_capacity_pages:
+            key, entry = self._warm.popitem(last=False)
+            self._bytes -= entry.nbytes
+            if cold_cap <= 0:
+                self._overflow(key, entry)
+                continue
+            cold = (entry if self.cfg.cold_codec == self.cfg.warm_codec
+                    else self._encode(self._decode(entry),
+                                      self.cfg.cold_codec))
+            if cold is not entry:
+                self.codec_bytes_saved += entry.nbytes - cold.nbytes
+            self._cold[key] = cold
+            self._bytes += cold.nbytes
+        while len(self._cold) > max(cold_cap, 0) and self._cold:
+            key, entry = self._cold.popitem(last=False)
+            self._bytes -= entry.nbytes
+            self._overflow(key, entry)
+
+    def _overflow(self, key: bytes, entry: _HostPage) -> None:
+        if not self.cfg.disk_dir:
+            self.dropped += 1
+            return
+        path = os.path.join(self.cfg.disk_dir,
+                            hashlib.sha256(key).hexdigest()[:32] + ".kvpage")
+        with open(path, "wb") as f:
+            pickle.dump(entry, f)
+        self._disk[key] = (path, None)
+
+    def get(self, key: bytes):
+        """Decoded per-block ``(K, V)`` CPU tensors for ``key``, or None.
+        MRU-touches the entry (it stays host-resident after a readmit: the
+        pool's copy is rc=0 evictable and may bounce right back)."""
+        for sub in (self._warm, self._cold):
+            entry = sub.get(key)
+            if entry is not None:
+                sub.move_to_end(key)
+                return self._decode(entry)
+        disk = self._disk.get(key)
+        if disk is not None:
+            try:
+                with open(disk[0], "rb") as f:
+                    entry = pickle.load(f)
+            except OSError:
+                del self._disk[key]
+                return None
+            return self._decode(entry)
+        return None
+
+    @property
+    def pages(self) -> int:
+        return len(self._warm) + len(self._cold)
+
+    @property
+    def host_bytes(self) -> int:
+        return self._bytes
+
+    def stats(self) -> HostTierStats:
+        return HostTierStats(
+            pages=self.pages, warm=len(self._warm), cold=len(self._cold),
+            disk=len(self._disk), host_bytes=self._bytes,
+            spilled=self.spilled, dropped=self.dropped,
+            codec_bytes_saved=self.codec_bytes_saved,
         )
 
 

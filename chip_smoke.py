@@ -196,7 +196,29 @@ Phases (no phase failure is caught; any mismatch exits non-zero):
    Printed: images/s of every run beside phase 12's in-process
    ``ServingPipeline``, wire over raw bytes and stage dispatch-to-result
    p50 ms per codec, recovery seconds, K6 at the hop shapes beside its
-   plain version and bound, and the phase's seconds.
+   plain version and bound, and the phase's seconds;
+14. traffic control and the pipelined tick (``sched_phase``);
+15. MoE decoder blocks, engine observability and worker telemetry
+   (``obs_phase``);
+16. the fleet tier (``fleet_phase``, on the 12-layer model): (a)
+   ``PipelinedDecoder`` cut at blocks [4, 8] on three ``StageWorker`` s of
+   the card and a spare, 8 ragged prompts of 16-256 tokens, 32 new
+   tokens, 2 microbatches, native then int8 stage caches, without faults
+   and with a crash of stage 1 and a hang of stage 2 mid-decode: streams
+   equal ``generate()`` on each microbatch's rows, K1 and K2 (K2q)
+   launched, each recovery within 10 x (deadline + lease TTL) of its
+   kill; (b) ``DisaggServer`` over phase 7's paged batcher and a
+   ``PrefillWorker`` with its own pool on phase 7's traffic (prompts of
+   600+ tokens disaggregated), native, int8 and self-draft speculative:
+   streams equal the same batcher served collocated, K4 (K4q) launched in
+   the prefill tier and K3 (K3q, K5) in decode, ``disagg.pages_streamed``
+   above 0, a 769-token prompt's handed-off pages ``torch.equal`` to an
+   in-place chunked prefill's, a corrupted frame failing only its request;
+   (c) the host KV tier (``CacheTierConfig(warm_codec="lz")``) on phase
+   7's traffic served twice by a 38-page paged batcher: spills and
+   readmits above 0, streams equal an untiered 200-page run's; then a cold
+   int8 codec held by the tie-aware check. Launches of each kernel are
+   added to its row as ``fleet_launches``.
 
 The line before the last is the kernels' JSON; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -3592,8 +3614,9 @@ def sched_phase(torch, A, D, P, Q, lm, draft2, card, kernels, solo,
 
 #: Phase 15's MoE decoder: GPT-2-small widths with every block's MLP a
 #: dropless mixture of 8 experts, 2 active a token (``benchmarks/
-#: lm_decode.py --moe 8``).
-MOE_EXPERTS, MOE_TOP_K = 8, 2
+#: lm_decode.py --moe 8``), cut to 6 of the 12 blocks so that the whole
+#: script, phase 16 included, stays near 700 s on the card.
+MOE_EXPERTS, MOE_TOP_K, MOE_DEPTH = 8, 2, 6
 #: Phase 15's counters, by the kernels' rows they count into.
 OBS_ROWS = {"native": {"flash_attn_fwd": "flash_attn_fwd",
                        "decode_attn": "decode_attn",
@@ -3606,17 +3629,20 @@ OBS_ROWS = {"native": {"flash_attn_fwd": "flash_attn_fwd",
 
 def gpt2_small_moe(torch):
     """GPT-2-small widths (learned positions, max_len 1024, bf16, random
-    weights from seed 0) with ``moe_experts=8, moe_top_k=2``, on the card."""
+    weights from seed 0) at ``MOE_DEPTH`` blocks with ``moe_experts=8,
+    moe_top_k=2``, on the card."""
     from adapt_tpu_torch.models.transformer_lm import transformer_lm
 
+    vocab, dim, _, heads, mlp = GPT2_SMALL
     t0 = time.perf_counter()
-    moe = transformer_lm(*GPT2_SMALL, max_len=1024, dtype=torch.bfloat16,
-                         name="gpt2_small_moe", moe_experts=MOE_EXPERTS,
-                         moe_top_k=MOE_TOP_K, seed=0)
+    moe = transformer_lm(vocab, dim, MOE_DEPTH, heads, mlp, max_len=1024,
+                         dtype=torch.bfloat16, name="gpt2_small_moe",
+                         moe_experts=MOE_EXPERTS, moe_top_k=MOE_TOP_K,
+                         seed=0)
     n = sum(p.numel() for p in moe.parameters())
     nbytes = sum(p.numel() * p.element_size() for p in moe.parameters())
-    print(f"phase 15 (a) MoE model ({MOE_EXPERTS} experts, top-{MOE_TOP_K})"
-          f" built in {time.perf_counter() - t0:.1f} s: {n} parameters, "
+    print(f"phase 15 (a) MoE model ({MOE_DEPTH} blocks, {MOE_EXPERTS} "
+          f"experts, top-{MOE_TOP_K}) built in {time.perf_counter() - t0:.1f} s: {n} parameters, "
           f"{nbytes} bytes")
     return moe
 
@@ -3673,10 +3699,11 @@ def moe_row_check(torch, moe, vocab, card):
 
 
 def moe_part(torch, card, counters, runs, ragged, lens, prompts, waves, fan):
-    """Phase 15 (a): the MoE LM at full width through ``generate()`` (4
-    ragged prompts), one decode step's batch invariance, the dense batcher
-    on phase 6's first 8 requests, the paged batcher on phase 7's traffic
-    and the paged traffic's 8 unique prompts on an int8 pool."""
+    """Phase 15 (a): the MoE LM at full width (``MOE_DEPTH`` blocks)
+    through ``generate()`` (4 ragged prompts), one decode step's batch
+    invariance, the dense batcher on phase 6's first 8 requests, the paged
+    batcher on phase 7's traffic and the paged traffic's 8 unique prompts
+    on an int8 pool."""
     from adapt_tpu_torch.config import KernelConfig
     from adapt_tpu_torch.models.transformer_lm import generate
 
@@ -4140,6 +4167,505 @@ def obs_phase(torch, A, D, P, lm, card, kernels, root, ragged, lens, prompts,
           f"{took[0]:.1f}, (b) {took[1]:.1f}, (c) {took[2]:.1f}); "
           f"observability on / off tok/s {ratio:.3f}, engine.mfu "
           f"{mfu:.6f}, engine.mbu {mbu:.6f}")
+
+
+# -- phase 16: pipelined decode, disaggregated prefill, the host KV tier ------
+
+#: Phase 16 (a)'s fault settings: phase 12's deadline, a short lease; the
+#: recovery budget is 10 x (deadline + lease TTL), phase 12's.
+FLEET_FAULT = dict(lease_ttl_s=0.5, heartbeat_s=0.1, task_deadline_s=2.0,
+                   watchdog_period_s=0.05, max_retries=4)
+
+#: Phase 16's kernel rows by path kind (int8 paths count into the int8
+#: rows, as phase 15's do).
+FLEET_ROWS = {
+    "native": {"flash_attn_fwd": "flash_attn_fwd",
+               "decode_attn": "decode_attn", "paged_attn": "paged_attn",
+               "paged_chunk_attn": "paged_chunk_attn",
+               "paged_verify_attn": "paged_verify_attn"},
+    "int8": {"flash_attn_fwd": "flash_attn_fwd",
+             "decode_attn": "decode_attn[int8]",
+             "paged_attn": "paged_attn[int8]",
+             "paged_chunk_attn": "paged_chunk_attn[int8]"},
+}
+
+
+def fleet_ragged(torch, vocab):
+    """Phase 16 (a)'s prompts from seed 16: 8 ragged prompts of 16-256
+    tokens, right-padded into one (8, longest) batch, and their lengths."""
+    rng = torch.Generator().manual_seed(16)
+    lens = torch.randint(16, 257, (8,), generator=rng).tolist()
+    batch = torch.randint(0, vocab, (8, max(lens)), generator=rng)
+    for i, n in enumerate(lens):
+        batch[i, n:] = 0
+    return batch.numpy(), lens
+
+
+def pipelined_part(torch, lm, card, counters, runs):
+    """Phase 16 (a): ``PipelinedDecoder`` over the 12 blocks cut at [4, 8],
+    three stages on three ``StageWorker`` s of the card and one spare: 8
+    ragged prompts, 32 new tokens, 2 microbatches, native then int8 stage
+    caches, each without faults and then with a ``crash`` of stage 1 and a
+    ``hang`` of stage 2 mid-decode. Greedy streams must equal
+    ``generate()`` with the same ``kv_cache_dtype`` on each microbatch's
+    rows (the shapes the stages run; equality with one 8-row
+    ``generate()`` is printed); K1 and K2 (K2q) launch in every run; each
+    recovery ends within 10 x (deadline + lease TTL) of its kill."""
+    from adapt_tpu_torch.config import FaultConfig
+    from adapt_tpu_torch.models.transformer_lm import generate
+    from adapt_tpu_torch.runtime.decode_pipeline import PipelinedDecoder
+
+    fault = FaultConfig(**FLEET_FAULT)
+    budget = 10 * (fault.task_deadline_s + fault.lease_ttl_s)
+    prompt, lens = fleet_ragged(torch, lm.vocab)
+    steps, M = 32, 2
+    mb = len(lens) // M
+    for kv in ("native", "int8"):
+        want = np.concatenate([generate(
+            lm, prompt[m * mb:(m + 1) * mb], steps,
+            prompt_lengths=lens[m * mb:(m + 1) * mb],
+            kv_cache_dtype=kv).cpu().numpy() for m in range(M)])
+        whole = generate(lm, prompt, steps, prompt_lengths=lens,
+                         kv_cache_dtype=kv).cpu().numpy()
+        for faults in (False, True):
+            path = f"pipelined_{'faults_' if faults else ''}{kv}"
+            kills: list = []
+
+            def run():
+                with PipelinedDecoder(lm, [4, 8], fault=fault,
+                                      kv_cache_dtype=kv) as dec:
+                    def on_token(m, s):
+                        # Stage 1 crashes once microbatch 0 has 8 tokens,
+                        # stage 2 hangs once microbatch 1 has 20.
+                        for stage, mode, mm, ss in ((1, "crash", 0, 7),
+                                                    (2, "hang", 1, 19)):
+                            if (faults and (m, s) == (mm, ss)
+                                    and stage not in [k[0] for k in kills]):
+                                kills.append((stage, mode, time.monotonic()))
+                                dec.kill_worker(stage, mode)
+
+                    t0 = time.perf_counter()
+                    got = dec.generate(prompt, steps, prompt_lengths=lens,
+                                       num_microbatches=M,
+                                       on_token=on_token if faults else None)
+                    torch.cuda.synchronize()
+                    return got, time.perf_counter() - t0, dec.recovery_log
+
+            got, wall, log = counted(counters, path,
+                                     ("flash_attn_fwd", "decode_attn"), runs,
+                                     run)
+            if got.shape != want.shape or not np.array_equal(got, want):
+                bad = np.argwhere(got != want)[:3].tolist()
+                raise AssertionError(f"phase 16 (a) {path}: streams differ "
+                                     f"from generate() at {bad}")
+            rec = []
+            if faults:
+                if len(kills) != 2 or len(log) < 2:
+                    raise AssertionError(f"phase 16 (a) {path}: kills {kills}"
+                                         f", recoveries {log}")
+                for stage, mode, t_kill in kills:
+                    end = min((r["end"] for r in log if r["stage"] == stage
+                               and r["end"] >= t_kill), default=None)
+                    if end is None:
+                        raise AssertionError(
+                            f"phase 16 (a) {path}: stage {stage} ({mode}) "
+                            f"was never recovered: {log}")
+                    rec.append((stage, mode, end - t_kill))
+                    if end - t_kill > budget:
+                        raise AssertionError(
+                            f"phase 16 (a) {path}: stage {stage} ({mode}) "
+                            f"recovered {end - t_kill:.2f} s after its kill "
+                            f"(budget {budget:.1f} s)")
+            print(f"phase 16 (a) PipelinedDecoder[{kv}"
+                  f"{', crash + hang' if faults else ''}] on {card}: 8 ragged "
+                  f"prompts {lens}, {steps} tokens, {M} microbatches, 3 "
+                  f"stages + 1 spare: streams equal generate() per "
+                  f"microbatch (one 8-row generate(): "
+                  f"{'equal' if np.array_equal(got, whole) else 'differs'}), "
+                  f"{got.size} tokens in {wall:.3f} s = {got.size / wall:.1f}"
+                  f" tok/s"
+                  + "".join(f", stage {s} {m} recovered in {t:.3f} s"
+                            for s, m, t in rec)
+                  + f" (budget {budget:.1f} s), launches {runs[path]}")
+
+
+def serve_waves(server, waves, steps=64):
+    """Two staggered waves through a batcher or a ``DisaggServer`` (two
+    ticks between them). Returns ({id: prompt}, results, wall s)."""
+    t0 = time.perf_counter()
+    ids = [server.submit(p, steps) for p in waves[0]]
+    server.tick()
+    server.tick()
+    ids += [server.submit(p, steps) for p in waves[1]]
+    out = server.run()
+    return (dict(zip(ids, list(waves[0]) + list(waves[1]))), out,
+            time.perf_counter() - t0)
+
+
+def windowed(reg, before):
+    """(prefill-stall count, sum s; handoff count, sum s; handoff bytes,
+    raw bytes, pages streamed) in the metrics window since ``before``."""
+    win = reg.snapshot(since=before)
+    h, c = win["histograms"], win["counters"]
+    stall = h.get("continuous.prefill_stall_s", {})
+    ho = h.get("disagg.handoff_s", {})
+    return (stall.get("count", 0), stall.get("sum", 0.0), ho.get("count", 0),
+            ho.get("sum", 0.0), c.get("disagg.handoff_bytes", 0.0),
+            c.get("disagg.handoff_bytes_raw", 0.0),
+            c.get("disagg.pages_streamed", 0.0))
+
+
+def disagg_pair(lm, kv="native", **batcher_kw):
+    """Phase 7's paged batcher (slots 8, chunk 8, page 128, prefill_chunk
+    256, the 65-page pool) behind a ``DisaggServer`` whose
+    ``PrefillWorker`` (2 slots, prefill_chunk 256) has its own pool; prompts
+    of 600 tokens and more disaggregate."""
+    from adapt_tpu_torch.config import DisaggConfig
+    from adapt_tpu_torch.runtime.continuous import ContinuousBatcher
+    from adapt_tpu_torch.runtime.disagg import DisaggServer, PrefillWorker
+
+    decode = ContinuousBatcher(lm, slots=8, chunk=8, kv_layout="paged",
+                               page_size=128, prefill_chunk=256,
+                               kv_cache_dtype=kv, **batcher_kw)
+    worker = PrefillWorker(lm, page_size=128, slots=2, prefill_chunk=256,
+                           kv_cache_dtype=kv)
+    k4 = [0]
+    step = worker.step
+
+    def counted_step():  # K4 launched inside the prefill tier
+        n0 = _paged_chunk_launches()
+        out = step()
+        k4[0] += _paged_chunk_launches() - n0
+        return out
+
+    worker.step = counted_step
+    return DisaggServer(decode, worker, DisaggConfig(
+        prompt_threshold=600, busy_prompt_threshold=600)), k4
+
+
+def _paged_chunk_launches():
+    from adapt_tpu_torch.ops import paged_attention as P
+
+    return P.paged_chunk_attn.launches
+
+
+def disagg_part(torch, lm, card, counters, runs, waves):
+    """Phase 16 (b): phase 7's paged traffic (two staggered waves, no
+    cancel, no fan-out) through ``disagg_pair`` and through the same
+    batcher served collocated, native, on an int8 pool, and with a
+    self-draft speculative batcher (``draft_k=4``): every stream equal to
+    the collocated one; the 600-900-token prompts disaggregated;
+    ``disagg.pages_streamed`` above 0; K4 (K4q) launched in the prefill
+    tier and K3 (K3q; K5 when speculative) in decode. Then a 769-token
+    prompt's handed-off pages ``torch.equal`` to an in-place chunked
+    prefill's, and one corrupted frame failing its request while the other
+    two complete with their streams."""
+    from adapt_tpu_torch.config import SpeculativeConfig
+    from adapt_tpu_torch.runtime import disagg as DG
+    from adapt_tpu_torch.runtime.continuous import ContinuousBatcher
+    from adapt_tpu_torch.runtime.paged import Pager
+    from adapt_tpu_torch.utils.metrics import global_metrics
+
+    reg = global_metrics()
+    outs = {}
+    for tag, kv, extra, want_dec in (
+        ("native", "native", {}, "paged_attn"),
+        ("int8", "int8", {}, "paged_attn"),
+        ("spec", "native", dict(draft_lm=lm, speculative=SpeculativeConfig(
+            draft_k=4)), "paged_verify_attn"),
+    ):
+        before = reg.snapshot(window=True)
+        colo = ContinuousBatcher(lm, slots=8, chunk=8, kv_layout="paged",
+                                 page_size=128, prefill_chunk=256,
+                                 kv_cache_dtype=kv, **extra)
+        cprompts, cout, cwall = counted(
+            counters, f"collocated_{tag}", ("paged_attn" if not extra else
+                                            "paged_verify_attn",), runs,
+            lambda: serve_waves(colo, waves))
+        c_stats = windowed(reg, before)
+        colo.close()
+        before = reg.snapshot(window=True)
+        srv, k4 = disagg_pair(lm, kv, **extra)
+        path = f"disagg_{tag}"
+        dprompts, dout, dwall = counted(
+            counters, path, ("paged_chunk_attn", want_dec), runs,
+            lambda: serve_waves(srv, waves))
+        d_stats = windowed(reg, before)
+        torch.cuda.synchronize()
+        if k4[0] == 0:
+            raise AssertionError(f"phase 16 (b) {path}: no K4 launch in the "
+                                 "prefill tier")
+        decode_k4 = runs[path]["paged_chunk_attn"] - k4[0]
+        ndis = sum(1 for p in dprompts.values() if len(p) >= 600)
+        if srv.disaggregated != ndis or srv.failed or d_stats[6] <= 0:
+            raise AssertionError(
+                f"phase 16 (b) {path}: {srv.disaggregated} disaggregated of "
+                f"{ndis} long prompts, {srv.failed} failed, pages streamed "
+                f"{d_stats[6]}")
+        cby = {tuple(p): cout[r] for r, p in cprompts.items()}
+        for sid, p in dprompts.items():
+            if not np.array_equal(dout[sid], cby[tuple(p)]):
+                bad = int((dout[sid] != cby[tuple(p)]).argmax())
+                raise AssertionError(
+                    f"phase 16 (b) {path}: request {sid} (prompt {len(p)}) "
+                    f"differs from the collocated stream at token {bad}")
+        st = srv.stats()
+        if st["pages_in_use"] != 0:
+            raise AssertionError(f"phase 16 (b) {path}: pool not drained {st}")
+        outs[tag] = {tuple(p): dout[s] for s, p in dprompts.items()}
+        ntok = sum(len(v) for v in dout.values())
+        print(f"phase 16 (b) DisaggServer[{tag}] on {card}: "
+              f"{len(dprompts)} requests ({srv.disaggregated} disaggregated, "
+              f"{srv.collocated} collocated), streams equal the collocated "
+              f"batcher's; {ntok} tokens in {dwall:.3f} s = "
+              f"{ntok / dwall:.1f} tok/s (collocated {cwall:.3f} s = "
+              f"{ntok / cwall:.1f} tok/s); handoffs {d_stats[2]}: "
+              f"{d_stats[4]:.0f} wire bytes ({d_stats[5]:.0f} raw), "
+              f"{d_stats[6]:.0f} pages, {d_stats[3]:.4f} s in all; "
+              f"continuous.prefill_stall_s {d_stats[0]} samples, "
+              f"{d_stats[1]:.4f} s (collocated {c_stats[0]} samples, "
+              f"{c_stats[1]:.4f} s); K4 launches: {k4[0]} in the prefill "
+              f"tier, {decode_k4} in decode; launches {runs[path]}")
+        srv.close()
+        srv.decode.close()
+
+    # Handed-off pages == an in-place chunked prefill's (769 tokens: six
+    # full pages, three chunks of 256 in both tiers).
+    p769 = torch.randint(0, lm.vocab, (769,), generator=torch.Generator(
+        ).manual_seed(161)).numpy()
+    colo = ContinuousBatcher(lm, slots=8, chunk=8, kv_layout="paged",
+                             page_size=128, prefill_chunk=256)
+    colo.submit(p769, 1)
+    colo.run()
+    srv, _ = disagg_pair(lm)
+    srv.submit(p769, 1)
+    srv.run()
+    for j in range(768 // 128):
+        key = Pager.prefix_key(p769, (j + 1) * 128)
+        cp, dp = colo._pager._by_key[key], srv.decode._pager._by_key[key]
+        for b, (cpair, dpair) in enumerate(zip(colo._caches,
+                                               srv.decode._caches)):
+            for cpool, dpool in zip(cpair, dpair):
+                if not torch.equal(cpool[cp], dpool[dp]):
+                    raise AssertionError(f"phase 16 (b): handed-off page {j} "
+                                         f"of block {b} differs from the "
+                                         "in-place chunked prefill's")
+    colo.close()
+    srv.close()
+    srv.decode.close()
+
+    # One corrupted frame fails its request; the other two complete.
+    longp = [p for w in waves for p in w if len(p) >= 600][:3]
+    srv, _ = disagg_pair(lm)
+    real = DG.loopback
+    hit = []
+
+    def corrupting(msg):
+        if hit:
+            return real(msg)
+        hit.append(msg.request_id)
+        wire = bytearray(b"".join(DG.frame_parts(msg)))
+        wire[len(wire) // 2] ^= 0xFF
+        return DG.parse_frame(memoryview(wire)[8:])
+
+    DG.loopback = corrupting
+    try:
+        sids = [srv.submit(p, 64) for p in longp]
+        got = srv.run()
+    finally:
+        DG.loopback = real
+    bad = [s for s in sids if len(got[s]) == 0]
+    if bad != hit or srv.failed != 1:
+        raise AssertionError(f"phase 16 (b): corrupted request {hit}, empty "
+                             f"results {bad}, failed {srv.failed}")
+    for s, p in zip(sids, longp):
+        if s not in hit and not np.array_equal(got[s], outs["native"][
+                tuple(p)]):
+            raise AssertionError(f"phase 16 (b): request {s} beside the "
+                                 "corrupted frame differs from its stream")
+    srv.close()
+    srv.decode.close()
+    print(f"phase 16 (b) on {card}: handed-off pages of a 769-token prompt "
+          f"torch.equal to an in-place chunked prefill's (6 pages x 12 "
+          f"blocks x K, V); a corrupted frame failed request {hit[0]} "
+          f"cleanly, the other two completed with their streams")
+
+
+def tier_traffic(torch, lm, waves, tier=None, pool_pages=38):
+    """Phase 7's two waves served twice by one paged batcher (slots 8,
+    chunk 8, page 128, prefill_chunk 256) of ``pool_pages`` pages, with
+    ``tier`` as its host KV tier. Returns the batcher, {id: prompt},
+    results, admit events by id and the wall."""
+    from adapt_tpu_torch.runtime.continuous import ContinuousBatcher
+    from adapt_tpu_torch.utils.tracing import global_flight_recorder
+
+    fr = global_flight_recorder()
+    _, cursor = fr.events_since(1 << 62)
+    bat = ContinuousBatcher(lm, slots=8, chunk=8, kv_layout="paged",
+                            page_size=128, prefill_chunk=256,
+                            pool_pages=pool_pages, cache_tier=tier)
+    prompts, out, wall = {}, {}, 0.0
+    for _ in range(2):
+        p, o, w = serve_waves(bat, waves)
+        prompts.update(p)
+        out.update(o)
+        wall += w
+    torch.cuda.synchronize()
+    events, _ = fr.events_since(cursor)
+    admits = {e["data"]["request"]: e["data"] for e in events
+              if e["kind"] == "admit"}
+    return bat, prompts, out, admits, wall
+
+
+def tier_part(torch, lm, card, counters, runs, waves, solo):
+    """Phase 16 (c): phase 7's traffic served twice by a paged batcher of
+    38 pages (the prefix LRU evicts, and admission never waits on the
+    pool) with ``CacheTierConfig(warm_codec="lz")``:
+    ``cache_tier.spilled_total`` and ``readmitted_total`` above 0 and
+    every stream equal to the same traffic on a 200-page batcher with
+    no tier (nothing evicted: its second round hits where the tiered one
+    readmits). Then a cold ``int8`` codec (warm capacity 0) on the same
+    traffic, held by phase 7's tie-aware check against ``generate()`` at
+    max(0.1, 2 x the first-token logit error of a lossy readmit against a
+    lossless one), with no cap on exemptions, as phase 9 holds its int8
+    pool; every spill demoted to the cold sub-tier. On bf16 pages the
+    lossy codecs degrade to "lz", as the JAX package's do on
+    ``ml_dtypes.bfloat16`` pages: the codecs the cold pages took are
+    printed."""
+    from adapt_tpu_torch.config import CacheTierConfig
+    from adapt_tpu_torch.runtime.continuous import ContinuousBatcher
+    from adapt_tpu_torch.utils.metrics import global_metrics
+
+    reg = global_metrics()
+    want = ("flash_attn_fwd", "paged_attn", "paged_chunk_attn")
+    ref, rprompts, rout, _, rwall = counted(
+        counters, "tier_reference", want, runs,
+        lambda: tier_traffic(torch, lm, waves, pool_pages=200))
+    ref.close()
+    rby = {}
+    for r, p in rprompts.items():
+        rby.setdefault(tuple(p), []).append(rout[r])
+    lossless = CacheTierConfig(warm_codec="lz", spill_pages_per_tick=64,
+                               readmit_pages_per_tick=64)
+    before = reg.snapshot(window=True)
+    bat, prompts, out, admits, wall = counted(
+        counters, "tier_lz", want, runs,
+        lambda: tier_traffic(torch, lm, waves, lossless))
+    c = reg.snapshot(since=before)["counters"]
+    spilled = c.get("cache_tier.spilled_total", 0)
+    readmitted = c.get("cache_tier.readmitted_total", 0)
+    st = bat.stats()
+    if spilled <= 0 or readmitted <= 0 or st["pages_in_use"] != 0:
+        raise AssertionError(f"phase 16 (c): spilled {spilled}, readmitted "
+                             f"{readmitted}, {st}")
+    seen: dict = {}
+    for r, p in prompts.items():
+        k = tuple(p)
+        i = seen.get(k, 0)
+        seen[k] = i + 1
+        if not np.array_equal(out[r], rby[k][i]):
+            bad = int((out[r] != rby[k][i]).argmax())
+            raise AssertionError(f"phase 16 (c): request {r} (prompt {len(p)}"
+                                 f") differs from the untiered run at token "
+                                 f"{bad}")
+    ntok = sum(len(v) for v in out.values())
+    paths = {}
+    for r in prompts:
+        a = admits[r]
+        k = "hit" if a["prefix_pages"] else "chunked" if a["chunked"] else \
+            "whole"
+        paths[k] = paths.get(k, 0) + 1
+    bat.close()
+    print(f"phase 16 (c) host KV tier[lz] on {card}: {len(prompts)} requests"
+          f" on a 38-page pool (paths {paths}), streams equal the untiered "
+          f"200-page run's; spilled {spilled:.0f}, readmitted "
+          f"{readmitted:.0f}, dropped {st['tier_dropped']}, host pages "
+          f"{st['host_pages']}, host bytes {st['host_bytes']} (codec saved "
+          f"{st['tier_codec_bytes_saved']}); {ntok} tokens in {wall:.3f} s "
+          f"= {ntok / wall:.1f} tok/s (untiered {ntok / rwall:.1f}); "
+          f"launches {runs['tier_lz']}")
+
+    cold = CacheTierConfig(warm_capacity_pages=0, cold_codec="int8",
+                           spill_pages_per_tick=64, readmit_pages_per_tick=64)
+    # The bar: a readmitted prefix hit's first-token logits through the
+    # cold codec against the same pass through the lossless one, for the
+    # shared-prefix prompt and a long one (every pool page evicted, so
+    # spilled, between the prompt's first pass and its readmitted one).
+    err = 0.0
+    for p in (waves[0][0], max(waves[0], key=len)):
+        lg = []
+        for cfg in (lossless, cold):
+            b = ContinuousBatcher(lm, slots=8, chunk=8, kv_layout="paged",
+                                  page_size=128, prefill_chunk=256,
+                                  pool_pages=38, cache_tier=cfg)
+            b.submit(p, 1)
+            b.run()
+            b._pager.evict_cached()
+            lg.append(first_token_logits(b, p))
+            if b.stats()["tier_readmitted"] < 1:
+                raise AssertionError("phase 16 (c): the probe did not "
+                                     "readmit")
+            b.close()
+        err = max(err, float((lg[0] - lg[1]).abs().max()))
+    bar = max(0.1, 2 * err)
+    bat, prompts, out, admits, wall = counted(
+        counters, "tier_cold_int8", want, runs,
+        lambda: tier_traffic(torch, lm, waves, cold))
+    exempt, paths = check_paged_streams(torch, lm, prompts, out, admits, None,
+                                        [], None, solo, bar, None)
+    st = bat.stats()
+    ts = bat._tier.stats()
+    applied: dict = {}
+    for entry in bat._tier._cold.values():
+        for pair in entry.blocks:
+            for member in pair:
+                for _, meta in member:
+                    applied[meta["codec"]] = applied.get(meta["codec"], 0) + 1
+    bat.close()
+    if ts.cold < 1 or ts.warm != 0:
+        raise AssertionError(f"phase 16 (c) cold int8: pages not demoted "
+                             f"{ts}")
+    print(f"phase 16 (c) host KV tier[cold int8] on {card}: "
+          f"{len(prompts)} requests (paths {paths}), {len(exempt)} tie "
+          f"exemptions at bar {bar:.4f} (a lossy readmit's first-token logit"
+          f" error {err:.4f}); readmitted {st['tier_readmitted']}, {ts.cold} "
+          f"cold pages, their leaves' codecs {applied}, codec saved "
+          f"{st['tier_codec_bytes_saved']} bytes; launches "
+          f"{runs['tier_cold_int8']}")
+
+
+def fleet_phase(torch, A, D, P, lm, card, kernels, solo, waves):
+    """Phase 16: (a) pipelined decode through stage workers with a crash
+    and a hang, (b) disaggregated prefill, (c) the host KV tier. Adds
+    ``fleet_launches`` (phase 16's launches of each kernel, its runs
+    summed) to every row of ``kernels``."""
+    t_phase = time.perf_counter()
+    counters = {"flash_attn_fwd": A.flash_attn_fwd,
+                "decode_attn": D.decode_attn, "paged_attn": P.paged_attn,
+                "paged_chunk_attn": P.paged_chunk_attn,
+                "paged_verify_attn": P.paged_verify_attn}
+    runs: dict = {}
+    took = []
+    t = time.perf_counter()
+    pipelined_part(torch, lm, card, counters, runs)
+    took.append(time.perf_counter() - t)
+    disagg_part(torch, lm, card, counters, runs, waves)
+    took.append(time.perf_counter() - t - sum(took))
+    tier_part(torch, lm, card, counters, runs, waves, solo)
+    took.append(time.perf_counter() - t - sum(took))
+    totals: dict = {}
+    for path, launches in runs.items():
+        rows = FLEET_ROWS["int8" if path.endswith("int8")
+                          and "cold" not in path else "native"]
+        for k, n in launches.items():
+            if k in rows:
+                totals[rows[k]] = totals.get(rows[k], 0) + n
+    for kr in kernels:
+        kr["fleet_launches"] = totals.get(kr["name"], 0)
+    print(f"phase 16 launches by path: {json.dumps(runs)}")
+    print(f"phase 16 (pipelined decode, disaggregated prefill, host KV tier) "
+          f"took {time.perf_counter() - t_phase:.1f} s on {card} ((a) "
+          f"{took[0]:.1f}, (b) {took[1]:.1f}, (c) {took[2]:.1f})")
 
 
 #: GPT-2-small widths: vocab, dim, depth, heads, MLP.
@@ -4989,6 +5515,9 @@ def main(argv) -> int:
     # -- phase 15: MoE blocks, engine observability, worker telemetry -----
     obs_phase(torch, A, D, P, lm, card, kernels, root, prompt, lens, prompts,
               (wave1, wave2), fan)
+
+    # -- phase 16: pipelined decode, disaggregated prefill, host KV tier ---
+    fleet_phase(torch, A, D, P, lm, card, kernels, solo, (wave1, wave2))
 
     if "--profile" in argv:
         profile_train(torch, *train_case, card)

@@ -1,6 +1,7 @@
 """The port's boundary: ``adapt_tpu_torch``, ``chip_smoke.py``,
 ``scripts/sched_phase.py``, ``scripts/obs_phase.py``,
-``scripts/obs_overhead.py`` and ``scripts/obs_ab.py`` import
+``scripts/obs_overhead.py``, ``scripts/obs_ab.py`` and
+``scripts/fleet_phase.py`` import
 neither JAX, its dependency ``ml_dtypes`` (absent beside the card) nor the
 JAX package, and entry points never quietly run on
 the CPU when no card is present."""
@@ -20,6 +21,7 @@ def _port_files():
         ROOT / "chip_smoke.py", ROOT / "scripts" / "sched_phase.py",
         ROOT / "scripts" / "obs_phase.py", ROOT / "scripts" / "obs_overhead.py",
         ROOT / "scripts" / "obs_ab.py",
+        ROOT / "scripts" / "fleet_phase.py",
     ]
 
 
@@ -68,6 +70,10 @@ def test_port_files_exist():
         "scripts/sched_phase.py",
         "scripts/obs_phase.py",
         "scripts/obs_ab.py",
+        "adapt_tpu_torch/runtime/decode_pipeline.py",
+        "adapt_tpu_torch/runtime/disagg.py",
+        "adapt_tpu_torch/parallel/sharding.py",
+        "scripts/fleet_phase.py",
     ):
         assert want in names
 
@@ -135,3 +141,28 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     assert paged_attn.launches == paged_attn_split.launches == 0
     assert paged_chunk_attn.launches == 0
     assert kernel_books() == books  # booked only by a launch
+
+
+def test_fleet_entry_points_refuse_to_run_without_a_card():
+    """``PipelinedDecoder``, ``PrefillWorker`` and ``DisaggServer`` run on
+    the card unless given CPU devices: with no card they raise."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the no-card rule does not apply")
+    from adapt_tpu_torch.models.transformer_lm import lm_tiny
+    from adapt_tpu_torch.runtime.continuous import ContinuousBatcher
+    from adapt_tpu_torch.runtime.decode_pipeline import PipelinedDecoder
+    from adapt_tpu_torch.runtime.disagg import DisaggServer, PrefillWorker
+
+    lm = lm_tiny(device="cpu")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        PipelinedDecoder(lm, [2])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        PrefillWorker(lm, page_size=8)
+    decode = ContinuousBatcher(lm, slots=1, kv_layout="paged", page_size=8)
+    worker = PrefillWorker(lm, page_size=8, device="cpu")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        DisaggServer(decode, worker)
+    cpu = torch.device("cpu")
+    with PipelinedDecoder(lm, [2], devices=[cpu, cpu]) as dec:
+        assert dec.generate([[1, 2, 3]], 2).shape == (1, 2)
+    DisaggServer(decode, worker, device="cpu").close()

@@ -192,3 +192,27 @@ def test_moe_lm_batcher_streams_equal_jax_and_generate(layout):
         solo = T.generate(tlm, p[None], 4)[0].numpy()
         np.testing.assert_array_equal(tout[ti], solo)
         np.testing.assert_array_equal(tout[ti], np.asarray(jout[ji]))
+
+
+def test_moe_lm_int8_chunked_paged_streams_equal_jax():
+    """Chunked MoE prefill on an int8 pool: the JAX package's batcher and
+    the port's, same weights, same prompts, ``prefill_chunk`` below every
+    long prompt. Greedy streams must be token-equal (a chunked pass
+    attends the already quantized window in both packages, so any drift
+    from ``generate(kv_cache_dtype="int8")`` is the model's own)."""
+    jlm, v, tlm = _moe_lm()
+    rng = np.random.RandomState(23)
+    prompts = [rng.randint(0, 53, size=n).astype(np.int32)
+               for n in (30, 19, 27, 7, 34)]
+    kw = dict(kv_layout="paged", page_size=8, prefill_chunk=8,
+              kv_cache_dtype="int8")
+    jb = JC.ContinuousBatcher(jlm, v, slots=2, chunk=2, **kw)
+    tb = ContinuousBatcher(tlm, slots=2, chunk=2, **kw)
+    jids = [jb.submit(p, 6) for p in prompts]
+    tids = [tb.submit(p, 6) for p in prompts]
+    jout, tout = jb.run(), tb.run()
+    tb.close()
+    assert tb.stats()["prefill_tokens"] == sum(len(p) for p in prompts)
+    for p, ji, ti in zip(prompts, jids, tids):
+        np.testing.assert_array_equal(tout[ti], np.asarray(jout[ji]),
+                                      err_msg=f"prompt of {len(p)}")
