@@ -4,13 +4,14 @@
 ``TenantQuota``, which the latter names), ``SLOSpec``, ``RuntimeConfig``,
 ``PipelineConfig``, the ``ObservabilityConfig`` fields the dispatcher and
 the batcher read, ``CapacityConfig``, ``DisaggConfig``, ``PrefillConfig``,
-``CacheTierConfig`` and ``ServeConfig``, same field names and defaults, so
-one config means the same thing in both packages.
+``CacheTierConfig``, ``RouterConfig`` and ``ServeConfig``, same field names
+and defaults, so one config means the same thing in both packages.
 
-``ServeConfig`` holds the subsystem configs the port has. The others
-(``ParallelConfig``, ``RecoveryConfig``, ``RouterConfig``) come with the
-slices that port those subsystems; ``PrefillConfig``'s sequence-parallel
-path (``sp_width`` above 1) is refused until the multi-GPU slice.
+``RouterConfig`` configures the fleet router and its autoscaler
+(``runtime/router.py``). ``ServeConfig`` holds the subsystem configs the
+port has. The others (``ParallelConfig``, ``RecoveryConfig``) come with
+the multi-GPU slice (ROADMAP.md item 11), as does ``PrefillConfig``'s
+sequence-parallel path (``sp_width`` above 1), refused until then.
 
 What differs is what ``KernelConfig`` selects on this card:
 
@@ -547,6 +548,91 @@ class CacheTierConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class RouterConfig:
+    """Fleet router and autoscaler (``runtime/router.FleetRouter``): the
+    router owns N decode replicas and places every submit by scoring each
+    live replica's capacity book — prefix affinity folded into the TTFT
+    forecast, health and queue pressure as additive penalties — so a
+    resident prefix on replica A beats a free slot on replica B until A's
+    queue costs more than the prefill the hit would save."""
+
+    #: Placement policy: "affinity" (score books: forecast + affinity +
+    #: health + queue), "least_loaded" (headroom only, what affinity
+    #: degrades to when every book is cold) or "random" (a seeded shuffle:
+    #: the control arm affinity is measured against).
+    policy: str = "affinity"
+    #: Books older than this are not placement candidates (the router-side
+    #: bound; ``FederatedStore.capacity_max_age_s`` is the federation-side
+    #: evict, and this one must be the tighter of the two).
+    book_max_age_s: float = 5.0
+    #: Additive placement penalty (seconds-equivalent) for a replica
+    #: publishing health "degraded". "critical" replicas sort behind every
+    #: other one.
+    degraded_penalty_s: float = 0.25
+    #: Seconds-equivalent cost per request already queued on the replica:
+    #: the least-loaded term, and the tiebreak that lets a cold but idle
+    #: replica beat a hot but swamped one.
+    queue_cost_s: float = 0.01
+    #: Seconds-equivalent placement bonus for the prompt's rendezvous HOME
+    #: replica (highest-random-weight hash of its first prefix page over
+    #: live replica names) while no sketch has seen the prompt: repeats of
+    #: a prefix co-locate before its first prefill registers any page.
+    #: Sized a few ``queue_cost_s``; 0 disables.
+    rendezvous_bias_s: float = 0.02
+    #: Leave-edge recovery budget: a replica's unfinished work is re-placed
+    #: on survivors within this many seconds of its leave.
+    recovery_budget_s: float = 2.0
+    #: TTL on each replica's membership lease (heartbeated every router
+    #: tick; expiry is a leave edge).
+    lease_ttl_s: float = 2.0
+    #: Bounded ring of placement decisions ``GET /fleet/placements``
+    #: serves (why each request landed where it did).
+    placements_capacity: int = 256
+    #: Autoscaler floor and ceiling on the replica count.
+    min_replicas: int = 1
+    max_replicas: int = 4
+    #: Scale up when fleet queue occupancy (queued over the summed queue
+    #: bound) holds at or above this for ``autoscale_dwell_s``.
+    scale_up_queue_frac: float = 0.5
+    #: Scale down when a replica has sat idle (no slot, no queue) this
+    #: long and the fleet is above ``min_replicas``.
+    scale_down_idle_s: float = 3.0
+    #: Pressure must hold this long before a scale-up fires (one burst
+    #: tick must not spawn a replica).
+    autoscale_dwell_s: float = 0.5
+
+    def __post_init__(self):
+        if self.policy not in ("affinity", "least_loaded", "random"):
+            raise ValueError(
+                "policy must be 'affinity', 'least_loaded' or "
+                f"'random', got {self.policy!r}")
+        if self.book_max_age_s <= 0:
+            raise ValueError("book_max_age_s must be > 0")
+        if self.degraded_penalty_s < 0:
+            raise ValueError("degraded_penalty_s must be >= 0")
+        if self.queue_cost_s < 0:
+            raise ValueError("queue_cost_s must be >= 0")
+        if self.rendezvous_bias_s < 0:
+            raise ValueError("rendezvous_bias_s must be >= 0")
+        if self.recovery_budget_s <= 0:
+            raise ValueError("recovery_budget_s must be > 0")
+        if self.lease_ttl_s <= 0:
+            raise ValueError("lease_ttl_s must be > 0")
+        if self.placements_capacity < 1:
+            raise ValueError("placements_capacity must be >= 1")
+        if self.min_replicas < 1:
+            raise ValueError("min_replicas must be >= 1")
+        if self.max_replicas < self.min_replicas:
+            raise ValueError("max_replicas must be >= min_replicas")
+        if not 0 < self.scale_up_queue_frac <= 1:
+            raise ValueError("scale_up_queue_frac must be in (0, 1]")
+        if self.scale_down_idle_s < 0:
+            raise ValueError("scale_down_idle_s must be >= 0")
+        if self.autoscale_dwell_s < 0:
+            raise ValueError("autoscale_dwell_s must be >= 0")
+
+
+@dataclasses.dataclass(frozen=True)
 class ServeConfig:
     """Top-level serving configuration."""
 
@@ -573,3 +659,4 @@ class ServeConfig:
     #: The host KV tier (None = off: evicted prefix pages die). Opt-in, as
     #: in the JAX package.
     cache_tier: CacheTierConfig | None = None
+    router: RouterConfig = dataclasses.field(default_factory=RouterConfig)

@@ -388,6 +388,17 @@ class PrefillWorker:
         self._slots: list[_PrefillJob | None] = [None] * slots
         self.prefill_tokens = 0
         self.handoffs = 0
+        #: The sequence-parallel state: the config and the prefiller that
+        #: runs a whole span over the ranks (None: the one-rank port, until
+        #: ROADMAP.md item 11 builds it from an enabled config).
+        self._sp_cfg = prefill
+        self._sp = None
+        self.sp_prefills = 0
+        #: ``(req_id, reason)`` of jobs that could neither run nor fall back
+        #: to the chunk path; the server (or router) driving this tier
+        #: drains it every tick and fails each request cleanly. Only the
+        #: sequence-parallel path appends to it.
+        self.failed_jobs: list[tuple[int, str]] = []
 
     # -- request lifecycle -------------------------------------------------
 
@@ -425,6 +436,14 @@ class PrefillWorker:
     def pending(self) -> int:
         """Jobs queued or mid-prefill."""
         return len(self._queue) + sum(1 for j in self._slots if j is not None)
+
+    def sp_eligible(self, s0: int) -> bool:
+        """Whether a prompt of ``s0`` tokens takes the sequence-parallel
+        path (``PrefillConfig.sp_threshold``). The placement policy asks
+        too: sp jobs are exempt from the pool-capacity bound."""
+        return (self._sp is not None
+                and s0 >= self._sp_cfg.sp_threshold
+                and (s0 - 1) // self.page_size >= 1)
 
     def _admit(self) -> None:
         for i, job in enumerate(self._slots):
@@ -510,9 +529,8 @@ class PrefillWorker:
             "active": sum(1 for j in self._slots if j is not None),
             "prefill_tokens": self.prefill_tokens,
             "handoffs": self.handoffs,
-            # One rank: the sequence-parallel books of the JAX package's.
-            "sp_prefills": 0,
-            "sp_width": 1,
+            "sp_prefills": self.sp_prefills,
+            "sp_width": self._sp.sp if self._sp is not None else 1,
             "pool_pages": ps.num_pages,
             "pages_in_use": ps.in_use,
         }
@@ -809,6 +827,12 @@ class DisaggServer:
                     ttl_s=self._lease_ttl)
         for handoff in self.prefill.step():
             self._land(handoff)
+        if self.prefill.failed_jobs:
+            # A job the prefill tier could neither run nor fall back on
+            # fails its REQUEST cleanly, as a corrupt handoff does.
+            for sid, err in self.prefill.failed_jobs:
+                self._fail(sid, RuntimeError(err))
+            self.prefill.failed_jobs.clear()
         return self.decode.tick()
 
     def drain(self) -> int:

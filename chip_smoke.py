@@ -218,7 +218,34 @@ Phases (no phase failure is caught; any mismatch exits non-zero):
    7's traffic served twice by a 38-page paged batcher: spills and
    readmits above 0, streams equal an untiered 200-page run's; then a cold
    int8 codec held by the tie-aware check. Launches of each kernel are
-   added to its row as ``fleet_launches``.
+   added to its row as ``fleet_launches``;
+17. the fleet router (``router_phase``, on the 12-layer model): replicas
+   are phase 7's paged batcher on the one card over the one model, with a
+   capacity book rebuilt every tick. A stream admitted on the same path
+   (whole, hit, chunked) as in its reference run must equal it; any other
+   passes phase 7's tie-aware check (at most 2 exemptions); every client
+   sees each token index once, in order; no replica leaves and no request
+   fails unless the part causes it. (a) phase 7's traffic (no cancel, no
+   fan-out) through ``FleetRouter`` over two replicas with leases in a
+   ``WorkerRegistry``, held to one replica alone: decode books on both
+   leases, 16 "placed" decisions, K1, K3 and K4 launched; (b) 24 requests
+   on 6 recurring 384-token prefixes (seed 17, 3 waves of 8, 32 tokens)
+   through two fleets, ``policy="affinity"`` and ``"random"``: the
+   affinity arm's prefix hits at least the random arm's, hit ratio, TTFT
+   p50 and tok/s printed; (c) three replicas on phase 7's traffic, the
+   lease of the one holding the most requests deregistered: one "lost"
+   leave whose ``moved`` equals ``router.replaced`` (above 0), its wall
+   below ``recovery_budget_s``, two replicas live; (d) 12 submits into a
+   queue bound of 4 with no tick: 4 accepted, 8 ``QueueFullError`` s, each
+   booked; an autoscaler over a queue bound of 8: one ``scale_up`` within
+   3 ticks, one ``scale_down`` within 5 s of the drain, streams equal
+   ``generate()``; (e) two replicas with a ``PrefillWorker`` tier (2 slots,
+   prefill_chunk 256; 600+-token prompts disaggregated) on phase 7's
+   traffic, native then int8, held to the replicas served collocated: one
+   ``kv_handoff`` a long prompt (one tile, adopted), K4 (K4q) launched in
+   the tier, ``disagg.pages_streamed`` above 0, and a page-size and a
+   KV-dtype mismatch refused at ``add_replica``. Launches of each kernel
+   are added to its row as ``router_launches``.
 
 The line before the last is the kernels' JSON; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -1207,6 +1234,12 @@ def drive_paged(torch, lm, kernel, waves, fan, cancel_at,
     return bat, prompts, out, admits, cancelled, fan_ids, wall, tokens, ttft
 
 
+def admit_path(a):
+    """An admit event's path: "cow", "hit", "chunked" or "whole"."""
+    return ("cow" if a["cow"] else "hit" if a["prefix_pages"] else
+            "chunked" if a["chunked"] else "whole")
+
+
 def check_paged_streams(torch, lm, prompts, out, admits, cancelled, fan_ids,
                         split, ref, bar=0.1, max_exempt=2):
     """Whole-prompt admissions (no hit, not chunked) with split 1 must
@@ -1217,9 +1250,7 @@ def check_paged_streams(torch, lm, prompts, out, admits, cancelled, fan_ids,
     first one. Returns (exemptions, {path: count})."""
     exempt, paths = [], {}
     for rid, p in prompts.items():
-        a = admits[rid]
-        path = ("cow" if a["cow"] else "hit" if a["prefix_pages"] else
-                "chunked" if a["chunked"] else "whole")
+        path = admit_path(admits[rid])
         paths[path] = paths.get(path, 0) + 1
         got = out[rid]
         if rid == cancelled:
@@ -4289,17 +4320,20 @@ def pipelined_part(torch, lm, card, counters, runs):
                   + f" (budget {budget:.1f} s), launches {runs[path]}")
 
 
-def serve_waves(server, waves, steps=64):
-    """Two staggered waves through a batcher or a ``DisaggServer`` (two
-    ticks between them). Returns ({id: prompt}, results, wall s)."""
+def serve_waves(server, waves, steps=64, on_token=None):
+    """Submit ``waves`` to a batcher, a ``DisaggServer`` or a router with
+    two ticks between waves, then run. Returns ({id: prompt}, results,
+    wall s)."""
     t0 = time.perf_counter()
-    ids = [server.submit(p, steps) for p in waves[0]]
-    server.tick()
-    server.tick()
-    ids += [server.submit(p, steps) for p in waves[1]]
+    prompts = {}
+    for i, wave in enumerate(waves):
+        if i:
+            server.tick()
+            server.tick()
+        for p in wave:
+            prompts[server.submit(p, steps, on_token=on_token)] = p
     out = server.run()
-    return (dict(zip(ids, list(waves[0]) + list(waves[1]))), out,
-            time.perf_counter() - t0)
+    return prompts, out, time.perf_counter() - t0
 
 
 def windowed(reg, before):
@@ -4329,18 +4363,23 @@ def disagg_pair(lm, kv="native", **batcher_kw):
                                kv_cache_dtype=kv, **batcher_kw)
     worker = PrefillWorker(lm, page_size=128, slots=2, prefill_chunk=256,
                            kv_cache_dtype=kv)
-    k4 = [0]
-    step = worker.step
+    return DisaggServer(decode, worker, DisaggConfig(
+        prompt_threshold=600, busy_prompt_threshold=600)), tier_k4(worker)
 
-    def counted_step():  # K4 launched inside the prefill tier
+
+def tier_k4(worker):
+    """Count the K4 launches made inside a prefill tier's ``step``: returns
+    the one-element count the wrapped step adds to."""
+    k4, step = [0], worker.step
+
+    def counted_step():
         n0 = _paged_chunk_launches()
         out = step()
         k4[0] += _paged_chunk_launches() - n0
         return out
 
     worker.step = counted_step
-    return DisaggServer(decode, worker, DisaggConfig(
-        prompt_threshold=600, busy_prompt_threshold=600)), k4
+    return k4
 
 
 def _paged_chunk_launches():
@@ -4666,6 +4705,588 @@ def fleet_phase(torch, A, D, P, lm, card, kernels, solo, waves):
     print(f"phase 16 (pipelined decode, disaggregated prefill, host KV tier) "
           f"took {time.perf_counter() - t_phase:.1f} s on {card} ((a) "
           f"{took[0]:.1f}, (b) {took[1]:.1f}, (c) {took[2]:.1f})")
+
+
+# -- phase 17: the fleet router and autoscaler --------------------------------
+
+
+def router_replica(lm, kv="native", scheduler=None):
+    """Phase 7's paged batcher (slots 8, chunk 8, page 128, prefill_chunk
+    256, the 65-page pool) rebuilding its capacity book every tick: one
+    replica behind a ``FleetRouter``."""
+    from adapt_tpu_torch.config import CapacityConfig
+    from adapt_tpu_torch.runtime.continuous import ContinuousBatcher
+
+    return ContinuousBatcher(lm, slots=8, chunk=8, kv_layout="paged",
+                             page_size=128, prefill_chunk=256,
+                             kv_cache_dtype=kv,
+                             capacity=CapacityConfig(refresh_s=0.0),
+                             scheduler=scheduler)
+
+
+def solo_reference(lm, waves, steps):
+    """The traffic served by one replica alone: {prompt bytes: (stream,
+    admission path)} and the wall."""
+    from adapt_tpu_torch.utils.tracing import global_flight_recorder
+
+    fr = global_flight_recorder()
+    _, cursor = fr.events_since(1 << 62)
+    bat = router_replica(lm)
+    prompts, out, wall = serve_waves(bat, waves, steps)
+    events, _ = fr.events_since(cursor)
+    paths = {e["data"]["request"]: admit_path(e["data"]) for e in events
+             if e["kind"] == "admit"}
+    bat.close()
+    return {p.tobytes(): (out[r], paths[r]) for r, p in prompts.items()}, wall
+
+
+class FleetRun:
+    """One router run's books: where each request was last submitted for
+    decode (replica, engine id), the admission path there (admit events
+    attributed to the replica whose tick recorded them: the router ticks
+    its replicas one after another on one thread) and the token indices
+    its client saw."""
+
+    def __init__(self, router):
+        self.where: dict = {}
+        self.paths: dict = {}
+        self.seen: dict = {}
+        submit = router._decode_submit
+
+        def decode_submit(t, rep):
+            submit(t, rep)
+            self.where[t.sid] = (rep.name, t.rid)
+
+        router._decode_submit = decode_submit
+        for rep in list(router._replicas.values()):
+            self._watch(rep.name, rep.engine)
+
+    def _watch(self, name, engine):
+        from adapt_tpu_torch.utils.tracing import global_flight_recorder
+
+        fr = global_flight_recorder()
+        tick = engine.tick
+
+        def watched_tick():
+            _, cursor = fr.events_since(1 << 62)
+            try:
+                return tick()
+            finally:
+                events, _ = fr.events_since(cursor)
+                for e in events:
+                    if e["kind"] == "admit":
+                        self.paths[name, e["data"]["request"]] = admit_path(
+                            e["data"])
+
+        engine.tick = watched_tick
+
+    def on_token(self, sid, tok, idx):
+        self.seen.setdefault(sid, []).append(idx)
+
+    def path(self, sid):
+        return self.paths[self.where[sid]]
+
+    def reference(self, prompts, out):
+        """This run as a reference: {prompt bytes: (stream, path)}."""
+        return {p.tobytes(): (out[s], self.path(s))
+                for s, p in prompts.items()}
+
+
+def hold_streams(torch, lm, label, run, prompts, out, ref, solo, steps,
+                 kv="native", bar=0.1, max_exempt=2):
+    """Phase 17's rule: a stream admitted on the same path (whole, hit,
+    chunked) as in ``ref`` must equal ``ref``'s stream; any other passes
+    phase 7's tie-aware check against ``generate()`` alone (a first
+    difference only at a top-2 gap below ``bar``, at most ``max_exempt``
+    streams). Every client saw indices 0..n-1 exactly once, in order.
+    Returns (exemptions, {path: count}, requests whose path moved)."""
+    exempt, paths, moved = [], {}, 0
+    for sid, p in prompts.items():
+        got = out[sid]
+        want, want_path = ref[p.tobytes()]
+        if len(got) != steps:
+            raise AssertionError(f"{label}: request {sid} has {len(got)} "
+                                 f"tokens, not {steps}")
+        if run.seen.get(sid) != list(range(steps)):
+            raise AssertionError(f"{label}: request {sid}'s client saw "
+                                 f"indices {run.seen.get(sid)}")
+        path = run.path(sid)
+        paths[path] = paths.get(path, 0) + 1
+        moved += path != want_path
+        if np.array_equal(got, want):
+            continue
+        if path == want_path:
+            bad = int((got != want).argmax())
+            raise AssertionError(f"{label}: request {sid} ({path}, prompt "
+                                 f"{len(p)}) differs from its reference "
+                                 f"run on the same path at token {bad}")
+        tg = first_gap(torch, lm, p, got, solo(p, None, kv, steps))
+        if tg is None:
+            continue
+        t, gap = tg
+        print(f"tie-aware exemption: {label} request {sid} ({path}; "
+              f"{want_path} in the reference, prompt {len(p)}) first "
+              f"differs from generate() at token {t}, top-2 gap {gap:.4f}")
+        if gap >= bar:
+            raise AssertionError(f"{label}: request {sid} differs at token "
+                                 f"{t} with top-2 gap {gap:.4f} >= {bar:.4f}")
+        exempt.append(sid)
+    if len(exempt) > max_exempt:
+        raise AssertionError(f"{label}: {len(exempt)} streams needed the tie "
+                             f"exemption (at most {max_exempt})")
+    return exempt, paths, moved
+
+
+def flight_since(cursor, kind):
+    from adapt_tpu_torch.utils.tracing import global_flight_recorder
+
+    events, _ = global_flight_recorder().events_since(cursor)
+    return [e["data"] for e in events if e["kind"] == kind]
+
+
+def flight_cursor():
+    from adapt_tpu_torch.utils.tracing import global_flight_recorder
+
+    return global_flight_recorder().events_since(1 << 62)[1]
+
+
+def no_leave(label, cursor, router):
+    """Phase 17's guard against a silent re-placement: no replica left and
+    no request failed."""
+    leaves = flight_since(cursor, "replica_leave")
+    if leaves or router.failed:
+        raise AssertionError(f"{label}: replica_leave {leaves}, "
+                             f"{router.failed} requests failed")
+
+
+def placement_part(torch, lm, card, counters, runs, waves, solo):
+    """Phase 17 (a): phase 7's paged traffic (two waves, no cancel, no
+    fan-out) through a ``FleetRouter`` over two replicas with leases in a
+    ``WorkerRegistry``, held to one replica serving it alone. Returns that
+    solo reference ((c)'s) and this run as (e)'s collocated reference."""
+    from adapt_tpu_torch.control.registry import WorkerRegistry
+    from adapt_tpu_torch.runtime.router import FleetRouter
+    from adapt_tpu_torch.utils.metrics import global_metrics
+
+    ref, swall = solo_reference(lm, waves, 64)
+    reg = WorkerRegistry()
+    router = FleetRouter({"r0": router_replica(lm), "r1": router_replica(lm)},
+                         registry=reg)
+    run = FleetRun(router)
+    cursor = flight_cursor()
+    prompts, out, wall = counted(
+        counters, "router_placement",
+        ("flash_attn_fwd", "paged_attn", "paged_chunk_attn"), runs,
+        lambda: serve_waves(router, waves, 64, run.on_token))
+    torch.cuda.synchronize()
+    kinds = {n: m.get("capacity", {}).get("kind")
+             for n, m in reg.alive_meta().items()}
+    if kinds != {"decode:r0": "decode", "decode:r1": "decode"}:
+        raise AssertionError(f"phase 17 (a): lease books {kinds}")
+    decisions = router.placements()["decisions"]
+    if len(decisions) != 16 or any(d["kind"] != "placed" for d in decisions):
+        raise AssertionError(f"phase 17 (a): decisions "
+                             f"{[d['kind'] for d in decisions]}")
+    no_leave("phase 17 (a)", cursor, router)
+    st = router.stats()
+    if st["pages_in_use"] != 0 or st["placed"] != 16:
+        raise AssertionError(f"phase 17 (a): {st}")
+    exempt, paths, moved = hold_streams(torch, lm, "phase 17 (a)", run,
+                                        prompts, out, ref, solo, 64)
+    by_rep = {n: sum(d["replica"] == n for d in decisions)
+              for n in ("r0", "r1")}
+    ntok = sum(len(v) for v in out.values())
+    ratio = global_metrics().snapshot()["gauges"].get(
+        "router.affinity_hit_ratio")
+    print(f"phase 17 (a) FleetRouter[2 replicas] on {card}: 16 requests "
+          f"placed {by_rep} (paths {paths}, {moved} on another path than "
+          f"alone), streams held to one replica alone ({len(exempt)} tie "
+          f"exemptions), exactly-once delivery, both leases carry decode "
+          f"books; affinity hit ratio {ratio}; {ntok} tokens in {wall:.3f} s"
+          f" = {ntok / wall:.1f} tok/s (one replica alone {ntok / swall:.1f}"
+          f"); launches {runs['router_placement']}")
+    router.close(close_engines=True)
+    return ref, run.reference(prompts, out)
+
+
+def affinity_traffic(torch, vocab):
+    """Phase 17 (b)'s requests from seed 17: 6 prefixes of 384 tokens (3
+    full pages), each 4 times with a unique tail of 16-64 tokens,
+    interleaved (request i carries prefix i mod 6), in 3 waves of 8:
+    recurring system prompts shared by many users."""
+    rng = torch.Generator().manual_seed(17)
+    prefixes = [torch.randint(0, vocab, (384,), generator=rng).numpy()
+                for _ in range(6)]
+    reqs = []
+    for i in range(24):
+        n = int(torch.randint(16, 65, (1,), generator=rng))
+        reqs.append(np.concatenate([
+            prefixes[i % 6],
+            torch.randint(0, vocab, (n,), generator=rng).numpy()]))
+    return [reqs[0:8], reqs[8:16], reqs[16:24]]
+
+
+def affinity_part(torch, lm, card, counters, runs, solo):
+    """Phase 17 (b): ``affinity_traffic`` (32 new tokens) through two fresh
+    two-replica fleets, ``policy="affinity"`` and ``policy="random"`` (seed
+    0): the affinity arm's fleet-summed prefix hits at least the random
+    arm's; both arms held to one replica alone."""
+    from adapt_tpu_torch.config import RouterConfig
+    from adapt_tpu_torch.runtime.router import FleetRouter
+    from adapt_tpu_torch.utils.metrics import global_metrics
+
+    reg = global_metrics()
+    waves = affinity_traffic(torch, lm.vocab)
+    ref, swall = solo_reference(lm, waves, 32)
+    hits, line = {}, []
+    for policy in ("affinity", "random"):
+        router = FleetRouter(
+            {"r0": router_replica(lm), "r1": router_replica(lm)},
+            config=RouterConfig(policy=policy), seed=0)
+        run = FleetRun(router)
+        cursor = flight_cursor()
+        before = reg.snapshot(window=True)
+        path = f"router_{policy}"
+        prompts, out, wall = counted(
+            counters, path, ("paged_attn", "paged_chunk_attn"), runs,
+            lambda: serve_waves(router, waves, 32, run.on_token))
+        torch.cuda.synchronize()
+        ttft = reg.snapshot(since=before)["histograms"].get(
+            "continuous.ttft_s", {})
+        no_leave(f"phase 17 (b) {policy}", cursor, router)
+        exempt, paths, moved = hold_streams(
+            torch, lm, f"phase 17 (b) {policy}", run, prompts, out, ref,
+            solo, 32)
+        st = router.stats()
+        hits[policy] = st["prefix_hits"]
+        ratio = reg.snapshot()["gauges"]["router.affinity_hit_ratio"]
+        ntok = sum(len(v) for v in out.values())
+        line.append(
+            f"{policy}: prefix hits {st['prefix_hits']}, misses "
+            f"{st['prefix_misses']}, affinity hit ratio {ratio:.4f}, "
+            f"paths {paths} "
+            f"({moved} moved), {len(exempt)} tie exemptions, TTFT p50 "
+            f"{ttft.get('p50', float('nan')):.4f} s (mean "
+            f"{ttft.get('mean', float('nan')):.4f}), {ntok / wall:.1f} tok/s,"
+            f" launches {runs[path]}")
+        router.close(close_engines=True)
+    if hits["affinity"] < hits["random"]:
+        raise AssertionError(f"phase 17 (b): affinity hits {hits['affinity']}"
+                             f" < random's {hits['random']}")
+    print(f"phase 17 (b) affinity against random on {card}: 24 requests of "
+          f"6 recurring 384-token prefixes, streams held to one replica "
+          f"alone ({24 * 32 / swall:.1f} tok/s); " + "; ".join(line))
+
+
+def kill_part(torch, lm, card, counters, runs, waves, ref, solo):
+    """Phase 17 (c): phase 7's traffic over three replicas; after the
+    second wave and 2 ticks, the lease of the replica holding the most
+    requests is deregistered. Its work is re-placed on the two survivors
+    within the recovery budget, streams held to one replica alone,
+    delivery exactly-once."""
+    from adapt_tpu_torch.config import RouterConfig
+    from adapt_tpu_torch.control.registry import WorkerRegistry
+    from adapt_tpu_torch.runtime.router import FleetRouter
+
+    cfg = RouterConfig()
+    reg = WorkerRegistry()
+    router = FleetRouter({f"r{i}": router_replica(lm) for i in range(3)},
+                         registry=reg, config=cfg)
+    run = FleetRun(router)
+    cursor = flight_cursor()
+
+    def go():
+        t0 = time.perf_counter()
+        prompts = {}
+        for i, wave in enumerate(waves):
+            if i:
+                router.tick()
+                router.tick()
+            for p in wave:
+                prompts[router.submit(p, 64, on_token=run.on_token)] = p
+        router.tick()
+        router.tick()
+        victim = max(router._live(), key=lambda r: len(r.sids))
+        held = len(victim.sids)
+        reg.deregister(victim.lease_key, victim.lease_token)
+        out = router.run()
+        return prompts, out, victim.name, held, time.perf_counter() - t0
+
+    prompts, out, victim, held, wall = counted(
+        counters, "router_kill", ("paged_attn",), runs, go)
+    torch.cuda.synchronize()
+    leaves = flight_since(cursor, "replica_leave")
+    st = router.stats()
+    if (len(leaves) != 1 or leaves[0]["reason"] != "lost"
+            or leaves[0]["replica"] != victim
+            or leaves[0]["moved"] != router.replaced or router.replaced < 1
+            or leaves[0]["wall_s"] >= cfg.recovery_budget_s
+            or st["replicas_live"] != 2 or router.failed):
+        raise AssertionError(f"phase 17 (c): leaves {leaves}, replaced "
+                             f"{router.replaced}, {st}")
+    exempt, paths, moved = hold_streams(torch, lm, "phase 17 (c)", run,
+                                        prompts, out, ref, solo, 64)
+    ntok = sum(len(v) for v in out.values())
+    print(f"phase 17 (c) kill one of three on {card}: {victim}'s lease "
+          f"deregistered holding {held} requests, {router.replaced} "
+          f"re-placed in {leaves[0]['wall_s']:.6f} s (budget "
+          f"{cfg.recovery_budget_s} s); paths {paths} ({moved} on another "
+          f"path than alone), {len(exempt)} tie exemptions, exactly-once "
+          f"delivery, 2 replicas live; {ntok} tokens in {wall:.3f} s; "
+          f"launches {runs['router_kill']}")
+    router.close(close_engines=True)
+
+
+def short_prompts(torch, vocab, seed, n):
+    """``n`` unique prompts of 16-128 tokens from ``seed``."""
+    rng = torch.Generator().manual_seed(seed)
+    lens = torch.randint(16, 129, (n,), generator=rng).tolist()
+    return [torch.randint(0, vocab, (k,), generator=rng).numpy()
+            for k in lens]
+
+
+def scale_part(torch, lm, card, counters, runs, solo):
+    """Phase 17 (d): the synchronous shed (one replica with a queue bound
+    of 4 takes 12 submits with no tick between: 4 accepted, 8 raise
+    ``QueueFullError``) and the autoscaler (three bursts of 8 on one
+    replica with a queue bound of 8: a second replica on the same model
+    within 3 ticks, retired within 5 s of the drain). Whole-prompt
+    streams equal ``generate()``."""
+    from adapt_tpu_torch.config import RouterConfig, SchedulerConfig
+    from adapt_tpu_torch.runtime.router import FleetAutoscaler, FleetRouter
+    from adapt_tpu_torch.runtime.scheduler import QueueFullError
+    from adapt_tpu_torch.utils.metrics import global_metrics
+
+    reg = global_metrics()
+    sched = SchedulerConfig(max_queue_depth=4, preempt=False, degrade=False)
+    router = FleetRouter({"r0": router_replica(lm, scheduler=sched)})
+    cursor = flight_cursor()
+    before = reg.snapshot(window=True)
+
+    def shed_run():
+        accepted, shed = {}, 0
+        for p in short_prompts(torch, lm.vocab, 171, 12):
+            try:
+                accepted[router.submit(p, 16)] = p
+            except QueueFullError:
+                shed += 1
+        return accepted, shed, router.run()
+
+    accepted, shed, out = counted(counters, "router_shed",
+                                  ("flash_attn_fwd", "paged_attn"), runs,
+                                  shed_run)
+    counters_now = reg.snapshot(since=before)["counters"]
+    kinds = [d["kind"] for d in router.placements()["decisions"]]
+    if (len(accepted) != sched.max_queue_depth or shed != 8
+            or router.shed != shed or kinds.count("shed") != shed
+            or counters_now.get("router.shed_total") != shed):
+        raise AssertionError(f"phase 17 (d) shed: {len(accepted)} accepted, "
+                             f"{shed} shed, books {router.shed} / "
+                             f"{kinds.count('shed')} / "
+                             f"{counters_now.get('router.shed_total')}")
+    for sid, p in accepted.items():
+        if not np.array_equal(out[sid], solo(p, None, "native", 16)):
+            raise AssertionError(f"phase 17 (d) shed: request {sid} differs "
+                                 "from generate()")
+    no_leave("phase 17 (d) shed", cursor, router)
+    router.close(close_engines=True)
+
+    cfg = RouterConfig(min_replicas=1, max_replicas=2,
+                       scale_up_queue_frac=0.5, autoscale_dwell_s=0.0,
+                       scale_down_idle_s=0.5)
+    sched = SchedulerConfig(max_queue_depth=8, preempt=False, degrade=False)
+    router = FleetRouter({"r0": router_replica(lm, scheduler=sched)},
+                         config=cfg)
+    scaler = FleetAutoscaler(
+        router, lambda i: (f"auto{i}", router_replica(lm, scheduler=sched)),
+        cfg)
+    cursor = flight_cursor()
+    bursts = [short_prompts(torch, lm.vocab, 172 + k, 8) for k in range(3)]
+
+    def scale_run():
+        t0 = time.perf_counter()
+        prompts, ticks = {}, []
+
+        def tick():
+            router.tick()
+            ticks.append(scaler.scale_ups)
+
+        def submit(burst):
+            for p in burst:
+                prompts[router.submit(p, 32)] = p
+
+        submit(bursts[0])
+        tick()
+        submit(bursts[1])
+        tick()
+        if not scaler.scale_ups:
+            tick()
+        submit(bursts[2])  # a full queue on r0: raises without a spawn
+        out = router.run()
+        up_at = ticks.index(1) + 1 if 1 in ticks else None
+        return prompts, out, up_at, time.perf_counter() - t0
+
+    prompts, out, up_at, wall = counted(
+        counters, "router_autoscale", ("flash_attn_fwd", "paged_attn"), runs,
+        scale_run)
+    torch.cuda.synchronize()
+    ups = flight_since(cursor, "scale_up")
+    if scaler.scale_ups != 1 or up_at is None or len(ups) != 1:
+        raise AssertionError(f"phase 17 (d): scale_up {ups} after "
+                             f"{up_at} ticks")
+    decisions = router.placements()["decisions"]
+    served = {n: sum(d["replica"] == n for d in decisions)
+              for n in ("r0", ups[0]["replica"])}
+    for sid, p in prompts.items():
+        if not np.array_equal(out[sid], solo(p, None, "native", 32)):
+            raise AssertionError(f"phase 17 (d) autoscale: request {sid} "
+                                 "differs from generate()")
+    t0 = time.monotonic()
+    while not scaler.scale_downs and time.monotonic() - t0 < 5.0:
+        time.sleep(0.05)
+        router.tick()
+    down_s = time.monotonic() - t0
+    downs = flight_since(cursor, "scale_down")
+    leaves = flight_since(cursor, "replica_leave")
+    if (scaler.scale_downs != 1 or len(downs) != 1 or router.failed
+            or [e["reason"] for e in leaves] != ["drain"]
+            or router.stats()["replicas_live"] != 1):
+        raise AssertionError(f"phase 17 (d): scale_down {downs}, leaves "
+                             f"{leaves} {down_s:.2f} s after the drain")
+    ntok = sum(len(v) for v in out.values())
+    print(f"phase 17 (d) on {card}: shed {shed} of 12 at a queue bound of 4 "
+          f"(accepted streams equal generate()); autoscaler: scale_up "
+          f"({ups[0]['replica']}, queue frac {ups[0]['queue_frac']}) at tick "
+          f"{up_at}, placements {served}, 24 streams equal generate(), "
+          f"{ntok} tokens in {wall:.3f} s; scale_down of "
+          f"{downs[0]['replica']} {down_s:.2f} s after the drain; launches "
+          f"{runs['router_shed']} / {runs['router_autoscale']}")
+    router.close(close_engines=True)
+
+
+def prefill_tier_part(torch, lm, card, counters, runs, waves, colo, solo,
+                      int8_bar):
+    """Phase 17 (e): two replicas behind a ``FleetRouter`` with a
+    ``PrefillWorker`` tier (2 slots, prefill_chunk 256) on phase 7's
+    traffic, native and on int8 pools: one ``kv_handoff`` (one tile,
+    adopted) for each prompt of 600+ tokens, K4 (K4q) launched in the tier,
+    ``disagg.pages_streamed`` above 0, streams held to the same replicas
+    served collocated (``colo``: (a)'s run for native; an int8 run here).
+    Then a page-size and a KV-dtype mismatch raise ``ValueError`` at
+    ``add_replica``."""
+    from adapt_tpu_torch.config import DisaggConfig
+    from adapt_tpu_torch.runtime.disagg import PrefillWorker
+    from adapt_tpu_torch.runtime.router import FleetRouter
+    from adapt_tpu_torch.utils.metrics import global_metrics
+
+    reg = global_metrics()
+    for kv in ("native", "int8"):
+        bar = 0.1 if kv == "native" else int8_bar
+        if kv != "native":
+            router = FleetRouter({"r0": router_replica(lm, kv),
+                                  "r1": router_replica(lm, kv)})
+            run = FleetRun(router)
+            prompts, out, _ = counted(
+                counters, f"router_collocated_{kv}", ("paged_attn",), runs,
+                lambda: serve_waves(router, waves, 64, run.on_token))
+            colo = run.reference(prompts, out)
+            router.close(close_engines=True)
+        worker = PrefillWorker(lm, page_size=128, slots=2, prefill_chunk=256,
+                               kv_cache_dtype=kv)
+        k4 = tier_k4(worker)
+        router = FleetRouter(
+            {"r0": router_replica(lm, kv), "r1": router_replica(lm, kv)},
+            prefill=worker, disagg=DisaggConfig(prompt_threshold=600,
+                                                busy_prompt_threshold=600))
+        run = FleetRun(router)
+        cursor = flight_cursor()
+        before = reg.snapshot(window=True)
+        path = f"router_prefill_{kv}"
+        prompts, out, wall = counted(
+            counters, path, ("paged_chunk_attn", "paged_attn"), runs,
+            lambda: serve_waves(router, waves, 64, run.on_token))
+        torch.cuda.synchronize()
+        win = reg.snapshot(since=before)
+        streamed = win["counters"].get("disagg.pages_streamed", 0.0)
+        handoffs = flight_since(cursor, "kv_handoff")
+        nlong = sum(1 for p in prompts.values() if len(p) >= 600)
+        if (len(handoffs) != nlong or k4[0] == 0 or streamed <= 0
+                or any(h["tiles"] != 1 or not h["adopted"] for h in handoffs)):
+            raise AssertionError(f"phase 17 (e) {kv}: handoffs {handoffs} "
+                                 f"for {nlong} long prompts, K4 in the tier "
+                                 f"{k4[0]}, pages streamed {streamed}")
+        no_leave(f"phase 17 (e) {kv}", cursor, router)
+        st = router.stats()
+        if st["pages_in_use"] != 0 or worker.stats()["pages_in_use"] != 0:
+            raise AssertionError(f"phase 17 (e) {kv}: pools not drained {st}")
+        exempt, paths, moved = hold_streams(
+            torch, lm, f"phase 17 (e) {kv}", run, prompts, out, colo, solo,
+            64, kv, bar)
+        ntok = sum(len(v) for v in out.values())
+        print(f"phase 17 (e) FleetRouter[2 replicas + prefill tier, {kv}] on "
+              f"{card}: {len(handoffs)} handoffs to "
+              f"{sorted({h['replica'] for h in handoffs})} "
+              f"({win['counters'].get('disagg.handoff_bytes', 0.0):.0f} wire "
+              f"bytes, {streamed:.0f} pages, 1 tile each, all adopted), K4 "
+              f"{k4[0]} in the tier and "
+              f"{runs[path]['paged_chunk_attn'] - k4[0]} in decode; streams held to the fleet collocated (paths "
+              f"{paths}, {moved} moved, {len(exempt)} tie exemptions at bar "
+              f"{bar:.4f}); {ntok} tokens in {wall:.3f} s = {ntok / wall:.1f} "
+              f"tok/s; launches {runs[path]}")
+        rep = router._replicas["r0"].engine  # the int8 run's
+        router.close(close_engines=True)
+    for what, tier in (
+        ("page size", PrefillWorker(lm, page_size=64, slots=1,
+                                    kv_cache_dtype="int8")),
+        ("kv dtype", PrefillWorker(lm, page_size=128, slots=1)),
+    ):
+        try:
+            FleetRouter({"r0": rep}, prefill=tier)
+        except ValueError as e:
+            print(f"phase 17 (e): a {what} mismatch refused at add_replica: "
+                  f"{e}")
+            continue
+        raise AssertionError(f"phase 17 (e): a {what} mismatch was accepted")
+
+
+def router_phase(torch, A, D, P, lm, card, kernels, solo, waves, int8_bar):
+    """Phase 17: the fleet router over replicas sharing the card: (a)
+    placement, (b) affinity against random, (c) a lost lease, (d) shed and
+    autoscale, (e) the prefill tier across replicas. Adds
+    ``router_launches`` (phase 17's launches of each kernel, its runs
+    summed) to every row of ``kernels``."""
+    t_phase = time.perf_counter()
+    counters = {"flash_attn_fwd": A.flash_attn_fwd,
+                "decode_attn": D.decode_attn, "paged_attn": P.paged_attn,
+                "paged_chunk_attn": P.paged_chunk_attn,
+                "paged_verify_attn": P.paged_verify_attn}
+    runs: dict = {}
+    marks = [time.perf_counter()]
+    solo_ref, colo = placement_part(torch, lm, card, counters, runs, waves,
+                                    solo)
+    marks.append(time.perf_counter())
+    affinity_part(torch, lm, card, counters, runs, solo)
+    marks.append(time.perf_counter())
+    kill_part(torch, lm, card, counters, runs, waves, solo_ref, solo)
+    marks.append(time.perf_counter())
+    scale_part(torch, lm, card, counters, runs, solo)
+    marks.append(time.perf_counter())
+    prefill_tier_part(torch, lm, card, counters, runs, waves, colo, solo,
+                      int8_bar)
+    marks.append(time.perf_counter())
+    totals: dict = {}
+    for path, launches in runs.items():
+        rows = FLEET_ROWS["int8" if path.endswith("int8") else "native"]
+        for k, n in launches.items():
+            if k in rows:
+                totals[rows[k]] = totals.get(rows[k], 0) + n
+    for kr in kernels:
+        kr["router_launches"] = totals.get(kr["name"], 0)
+    print(f"phase 17 launches by path: {json.dumps(runs)}")
+    took = ", ".join(f"({part}) {b - a:.1f}"
+                     for part, a, b in zip("abcde", marks, marks[1:]))
+    print(f"phase 17 (fleet router and autoscaler) took "
+          f"{time.perf_counter() - t_phase:.1f} s on {card} ({took})")
 
 
 #: GPT-2-small widths: vocab, dim, depth, heads, MLP.
@@ -5518,6 +6139,10 @@ def main(argv) -> int:
 
     # -- phase 16: pipelined decode, disaggregated prefill, host KV tier ---
     fleet_phase(torch, A, D, P, lm, card, kernels, solo, (wave1, wave2))
+
+    # -- phase 17: the fleet router and autoscaler ------------------------
+    router_phase(torch, A, D, P, lm, card, kernels, solo, (wave1, wave2),
+                 qbar)
 
     if "--profile" in argv:
         profile_train(torch, *train_case, card)
