@@ -4,14 +4,16 @@
 ``TenantQuota``, which the latter names), ``SLOSpec``, ``RuntimeConfig``,
 ``PipelineConfig``, the ``ObservabilityConfig`` fields the dispatcher and
 the batcher read, ``CapacityConfig``, ``DisaggConfig``, ``PrefillConfig``,
-``CacheTierConfig``, ``RouterConfig`` and ``ServeConfig``, same field names
-and defaults, so one config means the same thing in both packages.
+``CacheTierConfig``, ``RouterConfig``, ``ParallelConfig`` and
+``ServeConfig``, same field names and defaults, so one config means the
+same thing in both packages.
 
 ``RouterConfig`` configures the fleet router and its autoscaler
-(``runtime/router.py``). ``ServeConfig`` holds the subsystem configs the
-port has. The others (``ParallelConfig``, ``RecoveryConfig``) come with
-the multi-GPU slice (ROADMAP.md item 11), as does ``PrefillConfig``'s
-sequence-parallel path (``sp_width`` above 1), refused until then.
+(``runtime/router.py``); ``ParallelConfig`` the batcher's tensor-parallel
+shards (``runtime/continuous``). ``ServeConfig`` holds the subsystem
+configs the port has. ``RecoveryConfig`` comes with elastic recovery, and
+``PrefillConfig``'s sequence-parallel path (``sp_width`` above 1) with
+sequence parallelism (ROADMAP.md item 11); it is refused until then.
 
 What differs is what ``KernelConfig`` selects on this card:
 
@@ -633,6 +635,31 @@ class RouterConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class ParallelConfig:
+    """Tensor parallelism for the serving tier (``runtime/continuous`` and
+    ``parallel/sharding.lm_tp_rules``). ``tp > 1`` makes the continuous
+    batcher run the LM as ``tp`` shards over a mesh's ``axis``: megatron
+    splits (qkv / mlp-in column-split, attn-out / mlp-out / head row-split,
+    their partial sums reduced in shard order) and KV caches split on their
+    head axis, so each shard holds the logical KV bytes / tp. Page tables,
+    the sampling state and the draft model stay replicated; admission and
+    commit are sharding-blind."""
+
+    #: Mesh size along ``axis``: each block's heads, KV heads, model dim
+    #: and MLP hidden must divide by it
+    #: (``models.transformer_lm.validate_tp``).
+    tp: int = 1
+    #: Mesh axis name the splits land on.
+    axis: str = "tp"
+
+    def __post_init__(self):
+        if self.tp < 1:
+            raise ValueError(f"tp must be >= 1, got {self.tp}")
+        if not self.axis:
+            raise ValueError("axis must be a non-empty mesh axis name")
+
+
+@dataclasses.dataclass(frozen=True)
 class ServeConfig:
     """Top-level serving configuration."""
 
@@ -660,3 +687,5 @@ class ServeConfig:
     #: in the JAX package.
     cache_tier: CacheTierConfig | None = None
     router: RouterConfig = dataclasses.field(default_factory=RouterConfig)
+    parallel: ParallelConfig = dataclasses.field(
+        default_factory=ParallelConfig)

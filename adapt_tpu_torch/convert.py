@@ -36,6 +36,11 @@ map to the port's ``conv0``, ``conv1``, ``conv2`` (bottleneck branch),
 ``conv`` (stem, projection) or ``expand`` / ``depthwise`` / ``project``
 (MBConv branch, in the order flax created them).
 
+``shard_state_dict(sd, mesh, rules)`` cuts a converted state dict onto a
+tensor-parallel mesh by a rule set (``parallel/sharding``): shard ``i`` of
+every tensor is the converted piece of the JAX leaf's
+``addressable_shards[i]`` under the JAX package's rules.
+
 ``vit_from_flax(variables)`` does the same for ``adapt_tpu.models.vit``'s
 per-node variables and the port's ViT ``LayerGraph`` (keys
 ``layers.<node>.<param>``): the patch ``Conv_0`` kernel is HWIO and becomes
@@ -122,6 +127,20 @@ def from_flax(variables) -> dict[str, torch.Tensor]:
             if proj in attn:
                 _dense(sd, f"{name}.attn.{proj}", attn[proj])
     return sd
+
+
+def shard_state_dict(sd: dict, mesh, rules) -> dict:
+    """A converted ``state_dict`` cut onto ``mesh`` by ``rules(name,
+    ndim)`` (``parallel.sharding.lm_tp_rules`` / ``vit_tp_rules``, or
+    ``parallel.expert.expert_shardings``' specs): name -> ``Shards``, piece
+    ``i`` on mesh position ``i``'s device. The pieces of a JAX leaf placed
+    by the same rules are its ``addressable_shards``, converted leaf by
+    leaf; ``models.transformer_lm.shard_lm`` builds the sharded model from
+    them."""
+    from adapt_tpu_torch.parallel.sharding import Sharding
+
+    return {name: Sharding(mesh, rules(name, t.ndim)).shard(t)
+            for name, t in sd.items()}
 
 
 def vit_from_flax(variables) -> dict[str, torch.Tensor]:

@@ -15,6 +15,10 @@ carries them across as they are.
   rest). A token's output depends on its own hidden state only, so the
   cached decode, verify and chunked-prefill schedules agree with the full
   forward, and a row's bits do not depend on its batch.
+- :func:`expert_mix` — that masked-dense mixture over any expert stacks:
+  the sharded model (``transformer_lm.shard_lm``) runs it per shard on
+  its hidden slice (tensor parallel) or its own experts (expert parallel)
+  and sums the shards' partials.
 - :class:`MoEMlp` — the training layer: capacity routing (``capacity =
   ceil(cf * N * k / E)`` slots an expert, tokens past it dropped), dispatch
   and combine as one-hot einsums.
@@ -141,17 +145,38 @@ class MoEDecoderMlp(_ExpertParams):
     def forward(self, x):
         b, s, d = x.shape
         tokens = x.reshape(b * s, d)
-        gates = self._gates(tokens)
-        combine, first_onehot = _topk_combine(gates, self.top_k)
-        self.aux_loss = _switch_aux_loss(gates, first_onehot)
-        dt = self.dtype
-        xt = tokens.to(dt)
-        h = F.gelu(torch.einsum("nd,edh->neh", xt, self.w1.to(dt))
-                   + self.b1[None].to(dt), approximate="tanh")
-        out_e = (torch.einsum("neh,ehd->ned", h, self.w2.to(dt))
-                 + self.b2[None].to(dt))
-        out = torch.einsum("ned,ne->nd", out_e, combine.to(dt))
+        combine, self.aux_loss = topk_route(tokens, self.gate, self.top_k)
+        out = expert_mix(tokens.to(self.dtype), combine, self.w1, self.b1,
+                         self.w2, self.b2, self.dtype)
         return out.reshape(b, s, d).to(x.dtype)
+
+
+def topk_route(tokens, gate, top_k: int):
+    """Dropless routing of tokens (N, d) by ``gate`` (d, E): the per-token
+    top-k combine weights (N, E) and the load-balance loss."""
+    gates = torch.softmax(tokens.float() @ gate.float(), dim=-1)
+    combine, first_onehot = _topk_combine(gates, top_k)
+    return combine, _switch_aux_loss(gates, first_onehot)
+
+
+def expert_mix(xt, combine, w1, b1, w2, b2, dt, partial: bool = False):
+    """Masked-dense expert mixture of tokens ``xt`` (N, d): ``sum_e
+    combine[:, e] * (gelu(xt w1_e + b1_e) w2_e + b2_e)`` over the experts
+    of the stacks given, in ``dt``. ``partial``: one shard's part of a sum
+    over shards, returned in f32 (the experts' sum in f32) so that the
+    sum is rounded once, after the reduction. A tensor-parallel shard
+    passes its slice of the hidden axis and no ``b2`` (its ``w2`` product
+    is itself a partial sum, in f32); an expert-parallel shard its own
+    experts and their combine columns."""
+    h = F.gelu(torch.einsum("nd,edh->neh", xt, w1.to(dt))
+               + b1[None].to(dt), approximate="tanh")
+    if b2 is None:
+        out_e = torch.einsum("neh,ehd->ned", h.float(), w2.float())
+    else:
+        out_e = torch.einsum("neh,ehd->ned", h, w2.to(dt)) + b2[None].to(dt)
+    if partial:
+        return torch.einsum("ned,ne->nd", out_e.float(), combine.float())
+    return torch.einsum("ned,ne->nd", out_e, combine.to(dt))
 
 
 class MoEMlp(_ExpertParams):

@@ -46,6 +46,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from adapt_tpu_torch import resolve_device
+from adapt_tpu_torch.convert import shard_state_dict
 from adapt_tpu_torch.ops.attention import flash_attention
 from adapt_tpu_torch.ops.decode_attention import (
     _row_index,
@@ -59,7 +60,13 @@ from adapt_tpu_torch.ops.paged_attention import (
     paged_verify_attention,
     pool_values,
 )
-from adapt_tpu_torch.models.moe import MoEDecoderMlp
+from adapt_tpu_torch.models.moe import MoEDecoderMlp, expert_mix, topk_route
+from adapt_tpu_torch.parallel.sharding import (
+    Blocks,
+    Shards,
+    lm_tp_rules,
+    reduce_shards,
+)
 from adapt_tpu_torch.ops.quantize import quantize_kv_vectors
 
 #: Decode row count is rounded up to a multiple of this (see module doc).
@@ -188,7 +195,10 @@ def sample_next_tokens(logits, seed, step, temperature, *, do_sample, top_k,
 
 def map_cache(fn, cache):
     """Apply ``fn`` to a cache tensor, or to each member of a quantized
-    ``(values, scales)`` pair (returning a pair)."""
+    ``(values, scales)`` pair (returning a pair), or to each shard's cache
+    of a tensor-parallel ``Shards`` (returning one)."""
+    if isinstance(cache, Shards):
+        return cache.like([map_cache(fn, c) for c in cache])
     if isinstance(cache, tuple):
         return tuple(fn(m) for m in cache)
     return fn(cache)
@@ -240,12 +250,16 @@ class CausalSelfAttention(nn.Module):
     un-repeated (b, kv_h, L, hd) cache."""
 
     def __init__(self, dim, heads, dtype=torch.float32, kv_heads=None,
-                 window=None, rope=False, device=None):
+                 window=None, rope=False, device=None, head_dim=None,
+                 out_bias=True):
         super().__init__()
-        if dim % heads:
-            raise ValueError(f"model dim {dim} not divisible by {heads} heads")
-        if rope and (dim // heads) % 2:
-            raise ValueError(f"rope needs an even head_dim, got {dim // heads}")
+        if head_dim is None:
+            if dim % heads:
+                raise ValueError(
+                    f"model dim {dim} not divisible by {heads} heads")
+            head_dim = dim // heads
+        if rope and head_dim % 2:
+            raise ValueError(f"rope needs an even head_dim, got {head_dim}")
         if kv_heads is not None:
             if not 1 <= kv_heads <= heads:
                 raise ValueError(f"kv_heads {kv_heads} outside [1, heads={heads}]")
@@ -255,14 +269,17 @@ class CausalSelfAttention(nn.Module):
                 )
         self.dim, self.heads, self.kv_heads = dim, heads, kv_heads
         self.window, self.rope, self.dtype = window, rope, dtype
-        hd = dim // heads
+        self._hd = hd = head_dim
         kw = dict(dtype=dtype, device=device)
         if self._group == 1:
             self.qkv = nn.Linear(dim, 3 * heads * hd, **kw)
         else:
             self.q = nn.Linear(dim, heads * hd, **kw)
             self.kv = nn.Linear(dim, 2 * kv_heads * hd, **kw)
-        self.out = nn.Linear(dim, dim, **kw)
+        # heads * hd is dim, except on a tensor-parallel shard (heads/tp
+        # heads of the model's head_dim, whose out projection is a partial
+        # sum added without bias: shard_lm).
+        self.out = nn.Linear(heads * hd, dim, bias=out_bias, **kw)
 
     @property
     def _group(self) -> int:
@@ -274,7 +291,12 @@ class CausalSelfAttention(nn.Module):
 
     @property
     def head_dim(self) -> int:
-        return self.dim // self.heads
+        return self._hd
+
+    @property
+    def inner(self) -> int:
+        """Width of the attention output: heads x head_dim."""
+        return self.heads * self._hd
 
     def _project(self, x):
         """-> q (b, h, s, hd); k, v (b, kv_h, s, hd)."""
@@ -306,14 +328,14 @@ class CausalSelfAttention(nn.Module):
         return apply_rope(q, positions), apply_rope(k, positions)
 
     def forward(self, x):
-        b, s, d = x.shape
+        b, s, _ = x.shape
         q, k, v = self._project(x)
         q, k = self._rope_qk(q, k, torch.arange(s, device=x.device))
         o = flash_attention(
             q, self._repeat_kv(k), self._repeat_kv(v), causal=True,
             window=self.window,
         )
-        return self.out(o.transpose(1, 2).reshape(b, s, d))
+        return self.out(o.transpose(1, 2).reshape(b, s, self.inner))
 
     def _window_from(self, index, b, valid_from):
         """Effective ``valid_from`` of cached decode under a sliding
@@ -348,7 +370,7 @@ class CausalSelfAttention(nn.Module):
         row's left padding. ``quantize_cache`` (``"int8"`` or True, or
         ``"int4"``) returns the caches as ``(values, scales)`` pairs,
         quantized after the native attention."""
-        b, s, d = x.shape
+        b, s, _ = x.shape
         q, k, v = self._project(x)
         pos = torch.arange(s, device=x.device)
         if valid_from is not None:
@@ -359,7 +381,7 @@ class CausalSelfAttention(nn.Module):
             q, self._repeat_kv(k), self._repeat_kv(v), causal=True,
             valid_from=valid_from, window=self.window,
         )
-        out = self.out(o.transpose(1, 2).reshape(b, s, d))
+        out = self.out(o.transpose(1, 2).reshape(b, s, self.inner))
         pad = (0, 0, 0, max_len - s)
         if quantize_cache:
             dt = "int4" if quantize_cache == "int4" else "int8"
@@ -389,7 +411,7 @@ class CausalSelfAttention(nn.Module):
             self._window_from(index, b, valid_from), prefer=attn_impl,
             split=split,
         ).to(x_t.dtype)
-        o = self._ungroup_o(o, 1).transpose(1, 2).reshape(b, 1, self.dim)
+        o = self._ungroup_o(o, 1).transpose(1, 2).reshape(b, 1, self.inner)
         return self.out(o), cache_k, cache_v
 
     def decode_step_paged(self, x_t, k_pool, v_pool, page_table, index,
@@ -440,7 +462,7 @@ class CausalSelfAttention(nn.Module):
             self._window_from(idx, b, valid_from), prefer=attn_impl,
             split=split,
         ).to(x_t.dtype)
-        o = self._ungroup_o(o, 1).transpose(1, 2).reshape(b, 1, self.dim)
+        o = self._ungroup_o(o, 1).transpose(1, 2).reshape(b, 1, self.inner)
         return self.out(o), k_pool, v_pool
 
     def prefill_chunk_paged(self, x, k_pool, v_pool, pages, pos0: int,
@@ -473,7 +495,7 @@ class CausalSelfAttention(nn.Module):
             q, k_pool, v_pool, pages, pos0, c, prefer=attn_impl,
             window=self.window,
         ).to(x.dtype)
-        o = self._ungroup_o(o, c).transpose(1, 2).reshape(b, c, self.dim)
+        o = self._ungroup_o(o, c).transpose(1, 2).reshape(b, c, self.inner)
         return self.out(o), k_pool, v_pool
 
 
@@ -508,7 +530,7 @@ class CausalSelfAttention(nn.Module):
             q, cache_k, cache_v, index, kc, window=self.window,
             tree_tail=tree_tail,
         ).to(x.dtype)
-        o = self._ungroup_o(o, kc).transpose(1, 2).reshape(b, kc, self.dim)
+        o = self._ungroup_o(o, kc).transpose(1, 2).reshape(b, kc, self.inner)
         return self.out(o), cache_k, cache_v
 
     def verify_chunk_paged(self, x, k_pool, v_pool, page_table, index,
@@ -553,7 +575,7 @@ class CausalSelfAttention(nn.Module):
             q, k_pool, v_pool, page_table, idx, kc, prefer=attn_impl,
             window=self.window, tree_tail=tree_tail, split=split,
         ).to(x.dtype)
-        o = self._ungroup_o(o, kc).transpose(1, 2).reshape(b, kc, self.dim)
+        o = self._ungroup_o(o, kc).transpose(1, 2).reshape(b, kc, self.inner)
         return self.out(o), k_pool, v_pool
 
 
@@ -792,6 +814,406 @@ def lm_tiny(vocab: int = 256, max_len: int = 64, device=None,
     """Small LM for tests."""
     return transformer_lm(vocab, 64, 4, 4, 128, max_len, name="lm_tiny",
                           device=device, seed=seed)
+
+
+# -- tensor-parallel shards --------------------------------------------------
+
+
+def validate_tp(lm, tp: int) -> None:
+    """Divisibility checks for megatron tensor parallelism
+    (``parallel.sharding.lm_tp_rules`` and head-split KV caches): every
+    block's query heads, KV heads, model dim and MLP hidden must divide by
+    ``tp``. The KV-head check is the GQA one: each shard's query-head
+    groups must sit on its own KV heads. Raises a named ``ValueError``."""
+    if tp <= 1:
+        return
+    for name in lm.block_names:
+        block = getattr(lm, name)
+        for what, n in (
+            ("heads", block.heads),
+            ("cache (KV) heads", block.cache_heads),
+            ("model dim", block.dim),
+            ("mlp hidden dim", block.mlp_dim),
+        ):
+            if n % tp:
+                raise ValueError(
+                    f"{name}: {what} {n} not divisible by tp={tp} — "
+                    "megatron TP splits heads/KV-heads column-wise and "
+                    "dim/mlp row-wise, all must divide evenly"
+                )
+
+
+def _reduced(parts, dtype, bias=None):
+    """Shard partials (f32: :class:`_PartialLinear`) summed in f32
+    (:func:`~adapt_tpu_torch.parallel.sharding.reduce_shards`, shard
+    order), the replicated bias added once after the sum, rounded once to
+    ``dtype``."""
+    total = reduce_shards([p.float() for p in parts])[0]
+    if bias is not None:
+        total = total + bias.float()
+    return total.to(dtype)
+
+
+class _PartialLinear(nn.Linear):
+    """A shard's input-column slice of a projection (attn-out, mlp-out),
+    without bias: its partial product computed in f32 on every device
+    (16-bit operands are exact in f32), so that the sum over shards is
+    rounded once, after the reduction, as one matmul rounds once."""
+
+    def forward(self, x):
+        return F.linear(x.float(), self.weight.float())
+
+
+def _attn_shard(a, n, state):
+    """Attention over heads/n query and KV heads of ``a``'s head_dim, its
+    out projection a :class:`_PartialLinear`."""
+    kvh = None if a.kv_heads is None else a.kv_heads // n
+    att = CausalSelfAttention(a.dim, a.heads // n, a.dtype, kvh, a.window,
+                              a.rope, "meta", head_dim=a.head_dim,
+                              out_bias=False)
+    att.out = _PartialLinear(att.inner, a.dim, bias=False, dtype=a.dtype,
+                             device="meta")
+    return _load(att, state)
+
+
+def _load(module, state: dict):
+    """Bind ``state``'s tensors (already on their device and dtype) to a
+    meta-built module without a copy."""
+    module.load_state_dict(state, assign=True)
+    return module
+
+
+class _MoEShard(nn.Module):
+    """One shard's expert stacks: its hidden slice of every expert (tp;
+    ``b2`` None, added after the reduction) or its own experts
+    ``[lo, hi)`` (ep)."""
+
+    def __init__(self, w1, b1, w2, b2, experts):
+        super().__init__()
+        self.w1, self.b1, self.w2 = (nn.Parameter(w1, False),
+                                     nn.Parameter(b1, False),
+                                     nn.Parameter(w2, False))
+        self.b2 = None if b2 is None else nn.Parameter(b2, False)
+        self.experts = experts
+
+
+class ShardedBlock(nn.Module):
+    """A decoder block run as ``n`` shards in lockstep on one device:
+    LayerNorms (and any replicated part) once; each shard's attention over
+    its own heads and its own KV cache (entries of a ``Shards``), its MLP
+    or expert slice; the partial sums reduced in shard order and the
+    biases added once after. Same schedule methods and signatures as
+    :class:`DecoderBlock`; caches are ``Shards`` when attention is split,
+    plain otherwise."""
+
+    def __init__(self, blk: DecoderBlock, pre: str, piece, n: int):
+        super().__init__()
+        self.dim, self.heads, self.mlp_dim = blk.dim, blk.heads, blk.mlp_dim
+        self.kv_heads, self.moe_experts = blk.kv_heads, blk.moe_experts
+        split = piece.split
+        self.ln1 = _load(LayerNorm(blk.dim, blk.ln1.dtype, "meta"),
+                         piece.sub(pre + ".ln1", 0))
+        self.ln2 = _load(LayerNorm(blk.dim, blk.ln2.dtype, "meta"),
+                         piece.sub(pre + ".ln2", 0))
+        a = blk.attn
+        proj = "qkv" if a._group == 1 else "q"
+        self.split_attn = split(f"{pre}.attn.{proj}.weight")
+        if self.split_attn:
+            self.attn_shards = nn.ModuleList(
+                _attn_shard(a, n, {k: v for k, v in piece.sub(
+                    pre + ".attn", s).items() if k != "out.bias"})
+                for s in range(n))
+            self.out_bias = nn.Parameter(
+                piece(pre + ".attn.out.bias", 0), False)
+        else:
+            self.attn_full = _load(CausalSelfAttention(
+                a.dim, a.heads, a.dtype, a.kv_heads, a.window, a.rope,
+                "meta", head_dim=a.head_dim), piece.sub(pre + ".attn", 0))
+        self.moe_kind = None
+        if blk.moe_experts is not None:
+            m = blk.moe
+            self.moe_dtype, self.top_k = m.dtype, m.top_k
+            self.gate = nn.Parameter(piece(pre + ".moe.gate", 0), False)
+            dims = split(pre + ".moe.w1")
+            e = m.num_experts
+            if 0 in dims:
+                self.moe_kind = "ep"
+                w = e // n
+                self.moe_shards = nn.ModuleList(_MoEShard(
+                    *(piece(f"{pre}.moe.{k}", s)
+                      for k in ("w1", "b1", "w2", "b2")),
+                    (s * w, (s + 1) * w)) for s in range(n))
+            elif 2 in dims:
+                self.moe_kind = "tp"
+                self.moe_shards = nn.ModuleList(_MoEShard(
+                    *(piece(f"{pre}.moe.{k}", s) for k in ("w1", "b1", "w2")),
+                    None, (0, e)) for s in range(n))
+                self.moe_b2 = nn.Parameter(piece(pre + ".moe.b2", 0), False)
+            else:
+                self.moe_kind = "full"
+                self.moe_shards = nn.ModuleList([_MoEShard(
+                    *(piece(f"{pre}.moe.{k}", 0)
+                      for k in ("w1", "b1", "w2", "b2")), (0, e))])
+        elif split(pre + ".mlp_in.weight"):
+            hid = blk.mlp_dim // n
+            kw = dict(dtype=blk.mlp_in.weight.dtype, device="meta")
+            self.mlp_shards = nn.ModuleList(nn.ModuleDict(dict(
+                mlp_in=_load(nn.Linear(blk.dim, hid, **kw),
+                             piece.sub(pre + ".mlp_in", s)),
+                mlp_out=_load(_PartialLinear(hid, blk.dim, bias=False, **kw),
+                              {"weight": piece(pre + ".mlp_out.weight", s)})))
+                for s in range(n))
+            self.mlp_bias = nn.Parameter(piece(pre + ".mlp_out.bias", 0),
+                                         False)
+        else:
+            kw = dict(dtype=blk.mlp_in.weight.dtype, device="meta")
+            self.mlp_in = _load(nn.Linear(blk.dim, blk.mlp_dim, **kw),
+                                piece.sub(pre + ".mlp_in", 0))
+            self.mlp_out = _load(nn.Linear(blk.mlp_dim, blk.dim, **kw),
+                                 piece.sub(pre + ".mlp_out", 0))
+
+    @property
+    def attn(self) -> CausalSelfAttention:
+        """Shard 0's attention (its ``window``, ``rope``; the batcher reads
+        ``attn.window``)."""
+        return self.attn_shards[0] if self.split_attn else self.attn_full
+
+    @property
+    def cache_heads(self) -> int:
+        return self.kv_heads or self.heads
+
+    @property
+    def head_dim(self) -> int:
+        return self.attn.head_dim
+
+    # -- the sublayers ------------------------------------------------------
+
+    def _attend(self, method, h, caches, args, kw):
+        """Run attention schedule ``method`` on the LN'd input ``h``:
+        returns (output, K, V); split attention runs every shard on its own
+        cache and reduces the out-projection partials."""
+        if not self.split_attn:
+            fn = getattr(self.attn_full, method)
+            if caches is None:
+                return fn(h, *args, **kw)
+            return fn(h, *caches, *args, **kw)
+        parts, ks, vs = [], [], []
+        for s, sh in enumerate(self.attn_shards):
+            fn = getattr(sh, method)
+            if caches is None:
+                res = fn(h, *args, **kw)
+            else:
+                res = fn(h, caches[0][s], caches[1][s], *args, **kw)
+            if isinstance(res, tuple):
+                parts.append(res[0])
+                ks.append(res[1])
+                vs.append(res[2])
+            else:
+                parts.append(res)
+        out = _reduced(parts, h.dtype, self.out_bias)
+        if not ks:
+            return out
+        if caches is not None:
+            return out, caches[0].like(ks), caches[1].like(vs)
+        return out, Shards(ks), Shards(vs)
+
+    def _mlp(self, x):
+        if self.moe_kind is not None:
+            return self._moe(x)
+        if not hasattr(self, "mlp_shards"):
+            return self.mlp_out(F.gelu(self.mlp_in(x), approximate="tanh"))
+        parts = [m["mlp_out"](F.gelu(m["mlp_in"](x), approximate="tanh"))
+                 for m in self.mlp_shards]
+        return _reduced(parts, x.dtype, self.mlp_bias)
+
+    def _moe(self, x):
+        b, s, d = x.shape
+        tokens = x.reshape(b * s, d)
+        combine, self.aux_loss = topk_route(tokens, self.gate, self.top_k)
+        dt = self.moe_dtype
+        xt = tokens.to(dt)
+        partial = self.moe_kind != "full"
+        parts = [expert_mix(xt, combine[:, m.experts[0]:m.experts[1]], m.w1,
+                            m.b1, m.w2, m.b2, dt, partial)
+                 for m in self.moe_shards]
+        if not partial:
+            out = parts[0]
+        else:
+            out = reduce_shards(parts)[0]
+            if self.moe_kind == "tp":
+                out = out + torch.einsum("ne,ed->nd", combine.float(),
+                                         self.moe_b2.float())
+            out = out.to(dt)
+        return out.reshape(b, s, d).to(x.dtype)
+
+    # -- the schedules (DecoderBlock's) ---------------------------------------
+
+    def _block(self, method, x, caches, args, kw):
+        res = self._attend(method, self.ln1(x), caches, args, kw)
+        a, ck, cv = res if isinstance(res, tuple) else (res, None, None)
+        x = x + a
+        x = x + self._mlp(self.ln2(x))
+        return x if ck is None else (x, ck, cv)
+
+    def forward(self, x):
+        return self._block("forward", x, None, (), {})
+
+    def prefill(self, x, max_len, valid_from=None, quantize_cache=False):
+        return self._block("prefill", x, None,
+                           (max_len, valid_from, quantize_cache), {})
+
+    def decode_step(self, x_t, cache_k, cache_v, index, valid_from=None,
+                    quantized=False, attn_impl=None, split=None):
+        return self._block("decode_step", x_t, (cache_k, cache_v),
+                           (index, valid_from, quantized, attn_impl, split),
+                           {})
+
+    def decode_step_paged(self, x_t, k_pool, v_pool, page_table, index,
+                          valid_from=None, attn_impl=None, split=None):
+        return self._block("decode_step_paged", x_t, (k_pool, v_pool),
+                           (page_table, index, valid_from, attn_impl, split),
+                           {})
+
+    def prefill_chunk_paged(self, x, k_pool, v_pool, pages, pos0,
+                            attn_impl=None):
+        return self._block("prefill_chunk_paged", x, (k_pool, v_pool),
+                           (pages, pos0, attn_impl), {})
+
+    def verify_chunk(self, x, cache_k, cache_v, index, tree_tail=0):
+        return self._block("verify_chunk", x, (cache_k, cache_v),
+                           (index, tree_tail), {})
+
+    def verify_chunk_paged(self, x, k_pool, v_pool, page_table, index,
+                           attn_impl=None, tree_tail=0, split=None):
+        return self._block("verify_chunk_paged", x, (k_pool, v_pool),
+                           (page_table, index, attn_impl, tree_tail, split),
+                           {})
+
+
+class ShardedHead(nn.Module):
+    """The LM head over shards: the final LN once, each shard's slice of
+    the model dim projected by its column slice of ``logits`` (f32), the
+    partial logits summed in shard order and the bias added once. Logits
+    come out whole."""
+
+    def __init__(self, head: LMHead, piece, n: int):
+        super().__init__()
+        split = piece.split
+        self.vocab = head.vocab
+        self.ln = _load(LayerNorm(head.ln.scale.shape[0], head.ln.dtype,
+                                  "meta"), piece.sub("head.ln", 0))
+        if split("head.logits.weight"):
+            ws = [piece("head.logits.weight", s) for s in range(n)]
+            self.cols = []
+            lo = 0
+            for w in ws:
+                self.cols.append((lo, lo + w.shape[1]))
+                lo += w.shape[1]
+            self.shards = nn.ModuleList(
+                _load(nn.Linear(w.shape[1], self.vocab, bias=False,
+                                device="meta"), {"weight": w}) for w in ws)
+            self.bias = nn.Parameter(piece("head.logits.bias", 0), False)
+        else:
+            self.logits = _load(nn.Linear(head.ln.scale.shape[0], self.vocab,
+                                          device="meta"),
+                                piece.sub("head.logits", 0))
+
+    def forward(self, x):
+        h = self.ln(x).float()
+        if not hasattr(self, "shards"):
+            return self.logits(h)
+        parts = [lin(h[..., lo:hi]) for lin, (lo, hi) in
+                 zip(self.shards, self.cols)]
+        return _reduced(parts, torch.float32, self.bias)
+
+
+class _Pieces:
+    """Reader of a sharded state dict at the shard positions in use."""
+
+    def __init__(self, state, positions, axis):
+        self.state, self.positions, self.axis = state, positions, axis
+
+    def __call__(self, name, s):
+        x = self.state[name]
+        return x[self.positions[s]] if isinstance(x, Shards) else x
+
+    def sub(self, prefix, s):
+        """``{suffix: piece}`` of every tensor under ``prefix.``."""
+        pre = prefix + "."
+        return {k[len(pre):]: self(k, s) for k in self.state
+                if k.startswith(pre)}
+
+    def split(self, name) -> tuple[int, ...]:
+        """The dims of ``name`` split over the axis (empty: whole)."""
+        x = self.state.get(name)
+        if not isinstance(x, Shards) or x.sharding is None:
+            return ()
+        return tuple(i for i, e in enumerate(x.sharding.spec)
+                     if (e.axis if isinstance(e, Blocks) else e) == self.axis)
+
+
+class ShardedLM(nn.Module):
+    """A :class:`TransformerLM` run as shards of a mesh axis by one
+    process (:func:`shard_lm`), every shard on the one device the axis
+    names (a mesh of distinct devices is refused until a multi-card slice
+    can test it): the embedding and final LN once, every block a
+    :class:`ShardedBlock`, the head a :class:`ShardedHead`. It has the
+    LM's surface — ``embed``, ``blocks``, ``head``, ``vocab``, ``max_len``,
+    ``dtype``, ``device`` — so
+    :func:`generate`, :func:`logits_full` and the continuous batcher run it
+    as they run the LM, with each split block's KV cache a ``Shards`` of
+    per-shard caches."""
+
+    def __init__(self, lm: TransformerLM, state: dict, mesh, axis: str):
+        super().__init__()
+        positions = mesh.axis_positions(axis)
+        self.devices = mesh.axis_devices(axis)
+        if len(set(self.devices)) > 1:
+            raise ValueError(
+                f"the {axis!r} axis names distinct devices {self.devices}: "
+                "tp shards run on one device (a mesh naming it tp times)")
+        self.mesh, self.axis, self.tp = mesh, axis, len(positions)
+        self.name, self.depth, self.max_len, self.dtype = (
+            f"{lm.name}_{axis}{self.tp}", lm.depth, lm.max_len, lm.dtype)
+        piece = _Pieces(state, positions, axis)
+        e = lm.embed
+        self.embed = _load(TokenEmbed(e.tok.num_embeddings,
+                                      e.tok.embedding_dim, e.max_len,
+                                      e.dtype, e.use_pos, "meta"),
+                           piece.sub("embed", 0))
+        for name, blk in zip(lm.block_names, lm.blocks):
+            self.add_module(name, ShardedBlock(blk, name, piece, self.tp))
+        self.head = ShardedHead(lm.head, piece, self.tp)
+
+    vocab = TransformerLM.vocab
+    block_names = TransformerLM.block_names
+    blocks = TransformerLM.blocks
+
+    @property
+    def device(self) -> torch.device:
+        return self.devices[0]
+
+    def forward(self, ids):
+        h = self.embed(ids)
+        for block in self.blocks:
+            h = block(h)
+        return self.head(h)
+
+
+def shard_lm(lm: TransformerLM, mesh, axis: str = "tp",
+             state: dict | None = None) -> ShardedLM:
+    """``lm`` as shards of ``mesh``'s ``axis``. ``state`` is a sharded
+    state dict (name -> ``Shards``: ``convert.shard_state_dict``,
+    ``parallel.expert.place_experts``); by default ``lm``'s own tensors
+    cut by ``parallel.sharding.lm_tp_rules`` (validated by
+    :func:`validate_tp`). Replicated tensors already on the lead device
+    are shared with ``lm``, not copied."""
+    if state is None:
+        validate_tp(lm, int(mesh.shape[axis]) if axis in mesh.shape else 1)
+        state = shard_state_dict(
+            lm.state_dict(), mesh,
+            lambda name, ndim: lm_tp_rules(name, ndim, axis))
+    return ShardedLM(lm, state, mesh, axis).eval()
 
 
 # -- generation --------------------------------------------------------------

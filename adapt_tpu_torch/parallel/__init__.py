@@ -1,3 +1,31 @@
-"""Pipeline schedule (``pipeline_spmd``), training step (``train``) and the
-head-axis tiling of KV tensors (``sharding.head_tiles``) of the port, on
-one rank."""
+"""Pipeline schedule (``pipeline_spmd``), training step (``train``),
+tensor-parallel sharding over a mesh of shards driven by one process
+(``sharding``) and expert placement (``expert``) of the port."""
+
+from adapt_tpu_torch.parallel.expert import (
+    expert_shardings,
+    expert_utilization,
+    place_experts,
+)
+from adapt_tpu_torch.parallel.sharding import (
+    batch_sharding,
+    lm_tp_rules,
+    merge_specs,
+    replicate,
+    shard_batch,
+    tree_shardings,
+    vit_tp_rules,
+)
+
+__all__ = [
+    "batch_sharding",
+    "expert_shardings",
+    "expert_utilization",
+    "lm_tp_rules",
+    "merge_specs",
+    "place_experts",
+    "replicate",
+    "shard_batch",
+    "tree_shardings",
+    "vit_tp_rules",
+]

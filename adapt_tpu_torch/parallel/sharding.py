@@ -1,16 +1,457 @@
-"""Head-axis tiling of KV tensors: ``head_tiles``, the one piece of
-``adapt_tpu/parallel/sharding.py`` the one-card slices need (the
-disaggregated wire's sender-side tiles, ``runtime/disagg.pack_handoff``).
-The rest of that file (the tp rules, KV reshard and handoff plans, head
-shard fetches) comes with the multi-GPU slice (ROADMAP.md item 11)."""
+"""Sharding of tensors over a :class:`~adapt_tpu_torch.core.mesh.Mesh` of
+shards driven by ONE process — the port of ``adapt_tpu/parallel/sharding.py``.
+
+The JAX package annotates shardings and lets GSPMD insert the collectives.
+The port has no compiler to do that, and its card is one: NCCL refuses two
+ranks of one communicator on one device. So a mesh here is a list of
+shards, each with its own device (a device may repeat), and a
+:class:`Sharding` cuts a tensor into one CONTIGUOUS piece per shard on
+that shard's device (a :class:`Shards` list). The model runs its shards in
+lockstep and sums their partial products with :func:`reduce_shards`, the
+one reduction, in shard order. The sharded model and the batcher take a
+mesh that names one device tp times; only :func:`reduce_shards` speaks of
+distinct devices, the seam where a collective across cards would go.
+
+The rules are written against the port's own parameter names and torch
+layouts: an ``nn.Linear`` weight is ``(out, in)``, so the JAX package's row
+split of a ``(in, out)`` kernel on its contracted axis is a column split
+here (``P(None, "tp")``), and its column split a row split. A fused
+projection (the MHA ``qkv``, the GQA ``kv``) splits on a head axis that is
+not the weight's leading axis; its entry is :class:`Blocks`: shard ``i``
+takes its slice of each of the q / k / v row blocks.
+
+The reshard plan of elastic recovery (``KVReshardPlan``) comes with
+recovery (ROADMAP.md item 11)."""
 
 from __future__ import annotations
+
+import dataclasses
+import re
+from collections.abc import Mapping
+
+import numpy as np
+import torch
+
+from adapt_tpu_torch.core.mesh import Mesh
+
+
+class P(tuple):
+    """A partition spec: one entry per tensor dim — a mesh axis name, a
+    :class:`Blocks` entry, or None (whole); missing trailing entries are
+    None."""
+
+    def __new__(cls, *dims):
+        return super().__new__(cls, dims)
+
+    def __repr__(self) -> str:
+        return "P(" + ", ".join(repr(d) for d in self) + ")"
+
+
+@dataclasses.dataclass(frozen=True)
+class Blocks:
+    """A spec entry for a dim made of ``n`` equal blocks, each split over
+    ``axis``: shard ``i`` takes its slice of every block, concatenated in
+    block order (a fused ``nn.Linear``'s q / k / v rows; the JAX spec
+    ``(None, None, "tp", None)`` on a ``(d, 3, heads, hd)`` kernel)."""
+
+    axis: str
+    n: int
+
+
+def _axis_of(entry):
+    return entry.axis if isinstance(entry, Blocks) else entry
+
+
+class Sharding:
+    """``spec`` over ``mesh``: one shard per mesh position (row-major), its
+    piece of a tensor cut by the entries that name an axis (its index on
+    that axis picks the chunk), whole on every other dim."""
+
+    def __init__(self, mesh: Mesh, spec: P = P()):
+        self.mesh = mesh
+        self.spec = spec if isinstance(spec, P) else P(*spec)
+        for e in self.spec:
+            ax = _axis_of(e)
+            if ax is not None and ax not in mesh.axis_names:
+                raise ValueError(f"spec {self.spec} names axis {ax!r}; the "
+                                 f"mesh has {mesh.axis_names}")
+        self.devices = list(mesh.devices.flat)
+        shape = mesh.devices.shape
+        self._coords = [dict(zip(mesh.axis_names, np.unravel_index(k, shape)))
+                        for k in range(len(self.devices))]
+
+    def __repr__(self) -> str:
+        return f"Sharding({dict(self.mesh.shape)}, {self.spec})"
+
+    def _dims(self, shape):
+        shape = tuple(int(d) for d in shape)
+        if len(self.spec) > len(shape):
+            raise ValueError(f"spec {self.spec} has {len(self.spec)} entries "
+                             f"for a {len(shape)}-dim tensor")
+        return shape, list(self.spec) + [None] * (len(shape) - len(self.spec))
+
+    def index(self, shape) -> list[tuple[slice, ...]]:
+        """Per shard, per dim: the slice its piece holds (within each block
+        for a :class:`Blocks` dim)."""
+        shape, spec = self._dims(shape)
+        out = []
+        for co in self._coords:
+            idx = []
+            for size, e in zip(shape, spec):
+                ax = _axis_of(e)
+                if ax is None:
+                    idx.append(slice(0, size))
+                    continue
+                n = int(self.mesh.shape[ax])
+                nb = e.n if isinstance(e, Blocks) else 1
+                if size % (nb * n):
+                    raise ValueError(f"dim of {size} does not split into "
+                                     f"{nb} x {n} equal pieces")
+                w = size // nb // n
+                i = int(co[ax])
+                idx.append(slice(i * w, (i + 1) * w))
+            out.append(tuple(idx))
+        return out
+
+    def piece_shape(self, shape) -> tuple[int, ...]:
+        shape, spec = self._dims(shape)
+        ix = self.index(shape)[0]
+        return tuple(
+            (s.stop - s.start) * (e.n if isinstance(e, Blocks) else 1)
+            for s, e in zip(ix, spec))
+
+    def _cut(self, t: torch.Tensor, idx) -> torch.Tensor:
+        _, spec = self._dims(t.shape)
+        for dim, (s, e) in enumerate(zip(idx, spec)):
+            if s.start == 0 and s.stop == t.shape[dim] and not isinstance(
+                    e, Blocks):
+                continue
+            if isinstance(e, Blocks):
+                bsize = t.shape[dim] // e.n
+                t = torch.cat([t.narrow(dim, b * bsize + s.start,
+                                        s.stop - s.start)
+                               for b in range(e.n)], dim)
+            else:
+                t = t.narrow(dim, s.start, s.stop - s.start)
+        return t
+
+    def shard(self, t: torch.Tensor) -> "Shards":
+        """``t`` cut into one contiguous piece per shard on the shard's
+        device. A whole piece of a contiguous ``t`` already on its device
+        is ``t`` itself (a replicated tensor costs no copy on a shared
+        card)."""
+        pieces = [self._cut(t, idx).contiguous().to(dev)
+                  for idx, dev in zip(self.index(t.shape), self.devices)]
+        return Shards(pieces, self, tuple(t.shape))
+
+    def map_pieces(self, fn, shape) -> "Shards":
+        """A :class:`Shards` whose piece ``i`` is ``fn(piece_shape,
+        device_i)`` (allocation: KV caches, quantized pairs)."""
+        ps = self.piece_shape(shape)
+        return Shards([fn(ps, d) for d in self.devices], self, tuple(shape))
+
+
+class Shards(list):
+    """The per-shard pieces of one logical tensor, in mesh order, or any
+    per-shard values (a quantized cache's ``(values, scales)`` pair a
+    shard). ``sharding`` and ``shape`` describe the cut; ``index`` is each
+    piece's slices of the logical tensor (given explicitly, or read off the
+    sharding)."""
+
+    def __init__(self, pieces=(), sharding: Sharding | None = None,
+                 shape=None, index=None):
+        super().__init__(pieces)
+        self.sharding = sharding
+        self.shape = None if shape is None else tuple(shape)
+        self._index = index
+
+    @property
+    def index(self):
+        if self._index is not None:
+            return self._index
+        if self.sharding is None or self.shape is None:
+            return None
+        return self.sharding.index(self.shape)
+
+    def like(self, pieces) -> "Shards":
+        """New pieces under the same cut (the same logical geometry)."""
+        return Shards(pieces, self.sharding, self.shape, self._index)
+
+
+def reduce_shards(parts: list) -> list:
+    """THE reduction of shard partial sums: ``parts[0] + parts[1] + ...``
+    in shard order (so a row's bits never depend on its company), handed to
+    every shard. Shards on one device share one sum; a part on another
+    device is copied to shard 0's device and the sum back. A collective
+    across cards would live here."""
+    lead = parts[0].device
+    total = parts[0]
+    for p in parts[1:]:
+        total = total + (p if p.device == lead else p.to(lead))
+    return [total if p.device == lead else total.to(p.device)
+            for p in parts]
+
+
+def batch_sharding(mesh: Mesh, axis: str = "dp") -> Sharding:
+    """Shard the leading (batch) dimension over ``axis``."""
+    return Sharding(mesh, P(axis))
+
+
+def shard_batch(x: torch.Tensor, mesh: Mesh, axis: str = "dp") -> Shards:
+    return batch_sharding(mesh, axis).shard(x)
+
+
+def replicate(tree, mesh: Mesh):
+    """Every tensor of ``tree`` (a tensor, or a mapping / list / tuple of
+    them) whole on every shard."""
+    sharding = Sharding(mesh, P())
+    if isinstance(tree, torch.Tensor):
+        return sharding.shard(tree)
+    if isinstance(tree, Mapping):
+        return {k: replicate(v, mesh) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(replicate(v, mesh) for v in tree)
+    return tree
+
+
+def kv_head_sharding(mesh: Mesh, axis: str = "tp") -> Sharding:
+    """THE KV-cache placement under tensor parallelism: dim 1, the head
+    axis, split over ``axis``. Dense slot strips ``(slots, kv_heads, L,
+    hd)``, paged pools ``(pages, kv_heads, P, hd)`` and the scale planes of
+    quantized ones ``(..., kv_heads, ..., 1)`` all put heads on dim 1, so
+    both members of a ``(values, scales)`` pair split alike."""
+    return Sharding(mesh, P(None, axis))
+
+
+def _rules(patterns, path: str, value_ndim: int, axis: str) -> P:
+    for pattern, spec in patterns:
+        if re.fullmatch(pattern, path) and len(spec) == value_ndim:
+            return P(*(Blocks(axis, e.n) if isinstance(e, Blocks)
+                       else (axis if e == "tp" else e) for e in spec))
+    return P()
+
+
+#: Tensor-parallel placement of the port's ViT encoder blocks
+#: (``models/vit.py``, ``layers.encoder_block_i.*``): qkv / mlp-in split
+#: their output rows, attn-out / mlp-out their input columns (the JAX
+#: package's ``_VIT_TP_PATTERNS`` in torch layout).
+_VIT_TP_PATTERNS: list[tuple[str, tuple]] = [
+    (r"(.*\.)?encoder_block_\d+\.attn\.qkv\.weight", (Blocks("tp", 3), None)),
+    (r"(.*\.)?encoder_block_\d+\.attn\.qkv\.bias", (Blocks("tp", 3),)),
+    (r"(.*\.)?encoder_block_\d+\.attn\.out\.weight", (None, "tp")),
+    (r"(.*\.)?encoder_block_\d+\.mlp_in\.weight", ("tp", None)),
+    (r"(.*\.)?encoder_block_\d+\.mlp_in\.bias", ("tp",)),
+    (r"(.*\.)?encoder_block_\d+\.mlp_out\.weight", (None, "tp")),
+]
+
+
+def vit_tp_rules(path: str, value_ndim: int, axis: str = "tp") -> P:
+    """A ViT state-dict name -> its tp spec (default: replicated)."""
+    return _rules(_VIT_TP_PATTERNS, path, value_ndim, axis)
+
+
+#: Tensor-parallel placement of the port's decoder LM
+#: (``models/transformer_lm.py`` state-dict names), megatron-style: each
+#: block sums shard partials twice (attn-out, mlp-out) and the head once.
+#:
+#: - ``attn.qkv`` (MHA, ``(3 * heads * hd, d)``): each shard's q, k and v
+#:   rows of its heads/tp heads (:class:`Blocks` of 3), so the KV cache's
+#:   head axis splits with it;
+#: - GQA ``attn.q`` ``(heads * hd, d)``: contiguous row blocks;
+#:   ``attn.kv`` ``(2 * kv_heads * hd, d)``: Blocks of 2. kv_heads % tp
+#:   == 0 keeps each shard's query-head groups on its own KV heads (the
+#:   ``_group_q`` fold), so attention needs no exchange;
+#: - ``attn.out`` ``(d, heads * hd)`` and ``mlp_out`` ``(d, hidden)``:
+#:   column split on the contracted axis, partials summed;
+#: - ``mlp_in`` ``(hidden, d)``: row split;
+#: - MoE ``w1`` ``(E, d, hidden)``, ``b1`` ``(E, hidden)``, ``w2`` ``(E,
+#:   hidden, d)`` (JAX layout kept): the HIDDEN axis splits; the expert
+#:   axis stays whole so ``parallel/expert``'s ``ep`` split composes
+#:   (:func:`merge_specs`); the ``gate`` replicates;
+#: - ``head.logits`` ``(vocab, d)``: column split on the model dim, the
+#:   logits summed (replicated after the reduction, so sampling is
+#:   sharding-blind). Embeddings, LayerNorms and the out / mlp_out / head
+#:   biases replicate; the biases add once, after the sum.
+_LM_TP_PATTERNS: list[tuple[str, tuple]] = [
+    (r"decoder_block_\d+\.attn\.qkv\.weight", (Blocks("tp", 3), None)),
+    (r"decoder_block_\d+\.attn\.qkv\.bias", (Blocks("tp", 3),)),
+    (r"decoder_block_\d+\.attn\.q\.weight", ("tp", None)),
+    (r"decoder_block_\d+\.attn\.q\.bias", ("tp",)),
+    (r"decoder_block_\d+\.attn\.kv\.weight", (Blocks("tp", 2), None)),
+    (r"decoder_block_\d+\.attn\.kv\.bias", (Blocks("tp", 2),)),
+    (r"decoder_block_\d+\.attn\.out\.weight", (None, "tp")),
+    (r"decoder_block_\d+\.mlp_in\.weight", ("tp", None)),
+    (r"decoder_block_\d+\.mlp_in\.bias", ("tp",)),
+    (r"decoder_block_\d+\.mlp_out\.weight", (None, "tp")),
+    (r"decoder_block_\d+\.moe\.w1", (None, None, "tp")),
+    (r"decoder_block_\d+\.moe\.b1", (None, "tp")),
+    (r"decoder_block_\d+\.moe\.w2", (None, "tp", None)),
+    (r"head\.logits\.weight", (None, "tp")),
+]
+
+
+def lm_tp_rules(path: str, value_ndim: int, axis: str = "tp") -> P:
+    """An LM state-dict name -> its tp spec (default: replicated).
+    ``axis`` renames the mesh axis (``config.ParallelConfig.axis``)."""
+    return _rules(_LM_TP_PATTERNS, path, value_ndim, axis)
+
+
+def merge_specs(a: P, b: P) -> P:
+    """Compose two specs for ONE tensor (an MoE expert stack's ``ep``
+    split with its ``tp`` hidden split: ``P('ep', None, 'tp')``). Each dim
+    takes whichever spec splits it; both splitting one dim differently is
+    a conflict and raises."""
+    out = []
+    for i in range(max(len(a), len(b))):
+        x = a[i] if i < len(a) else None
+        y = b[i] if i < len(b) else None
+        if x is not None and y is not None and x != y:
+            raise ValueError(f"specs conflict on dim {i}: {a} vs {b} "
+                             f"({x!r} != {y!r})")
+        out.append(x if x is not None else y)
+    return P(*out)
+
+
+def _flat(variables: Mapping, prefix: str = ""):
+    for k, v in variables.items():
+        name = f"{prefix}{k}"
+        if isinstance(v, Mapping):
+            yield from _flat(v, name + ".")
+        else:
+            yield name, v
+
+
+def tree_shardings(variables: Mapping, mesh: Mesh, rules=vit_tp_rules
+                   ) -> dict[str, Sharding]:
+    """name -> :class:`Sharding` for a state dict (nested mappings join
+    their keys with dots) from name-based ``rules(name, ndim)``."""
+    return {name: Sharding(mesh, rules(name, v.ndim))
+            for name, v in _flat(variables)}
+
+
+@dataclasses.dataclass
+class KVHandoffPlan:
+    """Placement of KV pages that arrive from outside the pool — the
+    disaggregated handoff and the host-tier readmit — onto the pool's
+    layout. The pages come as host page-major ``(n, kv_heads, page, w)``
+    tensors holding every head; under a head-split pool each shard's heads
+    are a contiguous slice of them, so each shard receives only its own
+    heads (logical bytes / tp each), never the whole page. No sharding
+    (``None``) is one ordinary placement. Both members of a quantized pair
+    place under one plan."""
+
+    #: The destination pool's :class:`Sharding` (:func:`kv_head_sharding`),
+    #: or None for an unsplit pool.
+    sharding: Sharding | None
+    #: Bytes handed to :meth:`place` / :meth:`split` (the logical bytes,
+    #: once per placed leaf; each shard stages only its slice of them).
+    staged_bytes: int = 0
+
+    def split(self, kv_host) -> Shards | torch.Tensor:
+        """Per-shard host slices (views, no copy) of ONE page-major host
+        tensor; the tensor itself without a sharding."""
+        kv_host = torch.as_tensor(np.asarray(kv_host)) if not isinstance(
+            kv_host, torch.Tensor) else kv_host
+        self.staged_bytes += kv_host.numel() * kv_host.element_size()
+        if self.sharding is None:
+            return kv_host
+        return Shards([self.sharding._cut(kv_host, idx)
+                       for idx in self.sharding.index(kv_host.shape)],
+                      self.sharding, tuple(kv_host.shape))
+
+    def place(self, leaves: list, stage) -> list:
+        """Land host ``leaves`` (page-major tensors; a quantized pool's
+        values and scales are two leaves) on the pool: each leaf cut by
+        :meth:`split`, every slice of every leaf handed to ONE
+        ``stage(slices) -> device tensors`` call (the batcher's counted,
+        pinned staging). Returns per leaf a :class:`Shards` of its landed
+        slices, or the landed tensor without a sharding."""
+        parts = [self.split(t) for t in leaves]
+        landed = iter(stage([p for ps in parts for p in (
+            ps if isinstance(ps, Shards) else [ps])]))
+        return [ps.like([next(landed) for _ in ps])
+                if isinstance(ps, Shards) else next(landed) for ps in parts]
+
+
+def plan_kv_handoff(sharding: Sharding | None) -> KVHandoffPlan:
+    """The :class:`KVHandoffPlan` for a destination pool's sharding (None
+    for an unsplit pool)."""
+    return KVHandoffPlan(sharding=sharding)
+
+
+def _head_order(x: Shards, head_dim: int) -> list[int]:
+    """Shard numbers whose head ranges tile ``x``'s head axis in order
+    (replicated duplicates skipped); raises on ranges that overlap without
+    nesting, leave a gap or stop short."""
+    h = x.shape[head_dim]
+    spans = sorted((idx[head_dim].start, idx[head_dim].stop, i)
+                   for i, idx in enumerate(x.index))
+    order, cover = [], 0
+    for lo, hi, i in spans:
+        if lo < cover:
+            if hi <= cover:
+                continue  # a replicated duplicate of a covered range
+            raise ValueError(f"head ranges overlap without nesting: "
+                             f"[{lo},{hi}) vs covered [0,{cover})")
+        if lo != cover:
+            raise ValueError(f"head ranges misaligned: next shard starts at "
+                             f"{lo}, covered to {cover}")
+        order.append(i)
+        cover = hi
+    if cover != h:
+        raise ValueError(f"head axis not covered: reached {cover} of {h}")
+    return order
+
+
+def host_copy(tensors: list) -> list:
+    """Host copies of ``tensors`` (any dtypes and shapes, on one device).
+    From a card: their bytes packed into one buffer on the device and
+    fetched with ONE device->host copy, then cut and viewed back; on the
+    CPU, clones."""
+    if not tensors or tensors[0].device.type != "cuda":
+        return [t.clone() for t in tensors]
+    parts, offs, off = [], [], 0
+    for t in tensors:
+        f = t.contiguous().view(-1).view(torch.uint8)
+        pad = -f.numel() % 16  # keeps every view's offset aligned
+        parts.append(f)
+        if pad:
+            parts.append(f.new_zeros(pad))
+        offs.append(off)
+        off += f.numel() + pad
+    host = torch.cat(parts).cpu()
+    return [host[o:o + t.numel() * t.element_size()].view(t.dtype).view(
+        t.shape) for t, o in zip(tensors, offs)]
+
+
+def fetch_head_shards(x, index, head_dim: int = 1):
+    """Host copy of ``x[index]`` assembled per shard along the head axis:
+    the device->host counterpart of :meth:`KVHandoffPlan.place`, the
+    host-tier spill's read. Each shard ships only its own heads and the
+    head range is concatenated on the HOST, never gathered on a device.
+    ``x`` is a pool leaf ``(pages, kv_heads, P, w)`` split on ``head_dim``
+    (a plain tensor is one piece), or a list of such leaves: then a list
+    comes back. Every piece of every leaf moves in ONE device->host copy
+    (:func:`host_copy`); head ranges that do not tile the axis raise."""
+    many = isinstance(x, list) and not isinstance(x, Shards)
+    pieces = [[y[i][index] for i in _head_order(y, head_dim)]
+              if isinstance(y, Shards) else [y[index]]
+              for y in (x if many else [x])]
+    host = iter(host_copy([p for ps in pieces for p in ps]))
+    axis = head_dim - 1 if isinstance(index, int) else head_dim
+    out = []
+    for ps in pieces:
+        got = [next(host) for _ in ps]
+        out.append(got[0] if len(got) == 1 else torch.cat(got, axis))
+    return out if many else out[0]
 
 
 def head_tiles(kv_heads: int, parts: int) -> list[tuple[int, int]]:
     """Contiguous even ``(lo, hi)`` tiles of a ``kv_heads`` head axis over
-    ``parts`` destination shards: the slices a sender frames so that each
-    shard of a head-sharded receiver gets exactly its own heads."""
+    ``parts`` destination shards: the slices :func:`kv_head_sharding` gives
+    each shard, computable without the destination's mesh (a sender knows
+    only the peer's tp). A sender framing KV pages per tile ships exactly
+    the bytes each destination shard receives."""
     kv_heads, parts = int(kv_heads), int(parts)
     if parts < 1:
         raise ValueError(f"parts must be >= 1, got {parts}")

@@ -116,13 +116,33 @@ the ``memory.host_bytes`` / ``memory.pages_spilled`` gauges and
 ``continuous.prefill_stall_s`` (decode delay spent on in-tick prefill
 while requests were decoding) are the books.
 
-Tensor parallelism and recovery (the journal branch of the replay, the
-batcher's ``journal=``) are later slices.
+Tensor-parallel serving (``mesh=`` + ``config.ParallelConfig(tp)``): the
+batcher runs the LM as ``tp`` shards of the mesh's ``tp`` axis, driven in
+lockstep by this one process (``models/transformer_lm.shard_lm``; the
+mesh names one card several times, and a mesh of distinct cards is
+refused until a multi-card slice can test it). Each shard holds its heads/tp query and
+KV heads, its MLP hidden slice and its own CONTIGUOUS KV cache — dense
+strips or page pools ``(…, kv_heads / tp, …)``, a quantized pair's two
+members alike — so every attention kernel runs at the shard's head count
+on that shard's tensors, and each shard holds the logical KV bytes / tp.
+The partial sums of attn-out, mlp-out and the head reduce in shard order
+(``parallel/sharding.reduce_shards``). Page tables, the sampling state,
+staged admission vectors and the speculative draft stay replicated on the
+lead (shard 0's) device: admission, commit and the pager are
+sharding-blind, and a steady tick still stages nothing. The handoff
+landing and the host-tier readmit place per-shard slices
+(``KVHandoffPlan``); the spill assembles a page from per-shard fetches
+(``fetch_head_shards``). A tp=1 mesh runs the single-device path on the
+mesh's device.
+
+Recovery (the journal branch of the replay, the batcher's ``journal=``)
+is a later slice.
 """
 
 from __future__ import annotations
 
 import collections
+import copy
 import dataclasses
 import threading
 import time
@@ -136,6 +156,7 @@ from adapt_tpu_torch.config import (
     CapacityConfig,
     KernelConfig,
     ObservabilityConfig,
+    ParallelConfig,
     RuntimeConfig,
     SchedulerConfig,
     SLOSpec,
@@ -148,14 +169,23 @@ from adapt_tpu_torch.models.speculative import (
     swapped_weights,
 )
 from adapt_tpu_torch.models.transformer_lm import (
+    ShardedLM,
     TransformerLM,
     chosen_logprob,
     nucleus_filter,
     sample_rows,
+    shard_lm,
     truncate_rows,
+    validate_tp,
 )
 from adapt_tpu_torch.ops.paged_attention import DEFAULT_PAGE_SIZE
 from adapt_tpu_torch.ops.quantize import quantize_params
+from adapt_tpu_torch.parallel.sharding import (
+    Shards,
+    fetch_head_shards,
+    kv_head_sharding,
+    plan_kv_handoff,
+)
 from adapt_tpu_torch.runtime.capacity import CapacityModel
 from adapt_tpu_torch.runtime.paged import (
     HostKVTier,
@@ -206,29 +236,28 @@ def fanout_seeds(seed: int, n: int) -> list[int]:
 
 
 def _members(cache):
-    """The tensors of a cache: both planes of a quantized pair."""
+    """The tensors of a cache: both planes of a quantized pair; every
+    shard's, shard by shard, of a tensor-parallel ``Shards``."""
+    if isinstance(cache, Shards):
+        return tuple(m for c in cache for m in _members(c))
     return cache if isinstance(cache, tuple) else (cache,)
 
 
-def host_copy(tensors: list) -> list:
-    """Host copies of ``tensors`` (any dtypes and shapes, on one device).
-    From a card: their bytes packed into one buffer on the device and
-    fetched with ONE device->host copy, then cut and viewed back; on the
-    CPU, clones."""
-    if not tensors or tensors[0].device.type != "cuda":
-        return [t.clone() for t in tensors]
-    parts, offs, off = [], [], 0
-    for t in tensors:
-        f = t.contiguous().view(-1).view(torch.uint8)
-        pad = -f.numel() % 16  # keeps every view's offset aligned
-        parts.append(f)
-        if pad:
-            parts.append(f.new_zeros(pad))
-        offs.append(off)
-        off += f.numel() + pad
-    host = torch.cat(parts).cpu()
-    return [host[o:o + t.numel() * t.element_size()].view(t.dtype).view(
-        t.shape) for t, o in zip(tensors, offs)]
+def _leaves(cache) -> list:
+    """A cache's logical leaves: its tensors, or for a ``Shards`` of
+    per-shard caches one ``Shards`` per member (values, then scales) over
+    the head-split geometry — what ``fetch_head_shards`` reads."""
+    if not isinstance(cache, Shards):
+        return list(_members(cache))
+    n = len(cache)
+    out = []
+    for m in range(len(_members(cache[0]))):
+        pieces = [_members(c)[m] for c in cache]
+        p0 = pieces[0]
+        out.append(Shards(pieces, cache.sharding,
+                          (p0.shape[0], p0.shape[1] * n) + tuple(
+                              p0.shape[2:])))
+    return out
 
 
 @dataclasses.dataclass
@@ -421,7 +450,10 @@ class ContinuousBatcher:
         observability: ObservabilityConfig | None = None,
         capacity: CapacityConfig | None = None,
         cache_tier: CacheTierConfig | None = None,
+        mesh=None,
+        parallel: ParallelConfig | None = None,
     ):
+        lm = self._setup_parallel(lm, mesh, parallel)
         if kv_cache_dtype not in ("native", "int8", "int4"):
             raise ValueError(
                 f"kv_cache_dtype={kv_cache_dtype!r}: expected 'native', "
@@ -542,7 +574,7 @@ class ContinuousBatcher:
             shape = (slots, heads, self._cache_len, hd)
         dev, dt = self.device, lm.dtype
 
-        def one_cache():
+        def one_cache(shape=shape, dev=dev):
             if not self._kv_quant:
                 return torch.zeros(shape, dtype=dt, device=dev)
             # (values, scales): the scale plane is one f32 per cached
@@ -554,7 +586,16 @@ class ContinuousBatcher:
                     torch.zeros(*shape[:-1], 1, dtype=torch.float32,
                                 device=dev))
 
-        self._caches = [(one_cache(), one_cache()) for _ in lm.block_names]
+        if self._kv_sharding is not None:
+            # One contiguous cache per shard, heads / tp each, on the
+            # shard's device: the kernels refuse a head view of a shared
+            # pool, and a shard holds only its own bytes.
+            self._caches = [tuple(self._kv_sharding.map_pieces(
+                one_cache, shape) for _ in range(2))
+                for _ in lm.block_names]
+        else:
+            self._caches = [(one_cache(), one_cache())
+                            for _ in lm.block_names]
         # -- host KV tier ----------------------------------------------
         if cache_tier is not None and not self._paged:
             raise ValueError(
@@ -721,6 +762,57 @@ class ContinuousBatcher:
         self._pager_books = self._pager.stats() if self._paged else None
         register_memory_source("continuous", self)
         register_roofline_source("continuous", self)
+
+    def _setup_parallel(self, lm, mesh, parallel):
+        """The ``mesh`` / ``parallel`` refusals of the JAX batcher, then
+        the model the batcher runs: ``lm`` cut into tp shards
+        (``shard_lm``; a ``ShardedLM`` is taken as it is, on its own mesh
+        when none is given), or on a tp=1 mesh ``lm`` on the mesh's
+        device."""
+        if mesh is None and isinstance(lm, ShardedLM):
+            mesh = lm.mesh
+            parallel = parallel or ParallelConfig(tp=lm.tp, axis=lm.axis)
+        if parallel is not None and parallel.tp > 1 and mesh is None:
+            raise ValueError(
+                f"ParallelConfig(tp={parallel.tp}) requires a mesh")
+        self._axis = (parallel or ParallelConfig()).axis
+        self._mesh = None
+        self._tp = 1
+        self._kv_sharding = None
+        if mesh is None:
+            return lm
+        axis = self._axis
+        if axis not in mesh.shape:
+            raise ValueError(f"mesh has no {axis!r} axis (axes: "
+                             f"{tuple(mesh.axis_names)})")
+        tp = int(mesh.shape[axis])
+        if parallel is not None and parallel.tp != tp:
+            raise ValueError(f"ParallelConfig.tp={parallel.tp} != mesh "
+                             f"{axis!r} size {tp}")
+        validate_tp(lm, tp)
+        if tp == 1:
+            # A size-1 tp axis partitions nothing: the single-device
+            # path on the mesh's device.
+            dev0 = mesh.axis_devices(axis)[0]
+            if isinstance(lm, ShardedLM):
+                raise ValueError("a tp=1 mesh serves an unsharded LM")
+            if lm.device != dev0:
+                lm = copy.deepcopy(lm).to(dev0)
+            return lm
+        if isinstance(lm, ShardedLM):
+            if lm.tp != tp or lm.axis != axis or lm.devices != (
+                    mesh.axis_devices(axis)):
+                raise ValueError(
+                    f"the ShardedLM runs {lm.tp} shards of {lm.axis!r} on "
+                    f"{lm.devices}, not the mesh's {axis!r} axis")
+        else:
+            lm = shard_lm(lm, mesh, axis)
+        self._mesh = mesh
+        self._tp = tp
+        # The KV caches split on their head axis over the shards of the
+        # tp axis, in shard order.
+        self._kv_sharding = kv_head_sharding(mesh.along(axis), axis)
+        return lm
 
     # -- device-side pieces ------------------------------------------------
 
@@ -1014,17 +1106,24 @@ class ContinuousBatcher:
                 out[i] = dev[j]
         return out
 
-    def _adopt_pages(self, pages: list[int], kvs: list) -> None:
+    def _adopt_pages(self, pages: list[int], kvs: list) -> int:
         """Scatter page-major K/V into pool ``pages`` in place: ``kvs``
         mirrors ``self._caches``' per-block (K, V) structure with host
         leaves ``(len(pages), kvh, page, w)`` (a quantized pool's values
-        and scales move together). One index_copy_ per pool member."""
-        pools = [m for pair in self._caches for c in pair for m in _members(c)]
-        leaves = [m for pair in kvs for c in pair for m in _members(c)]
-        staged = self._stage_leaves(leaves)
+        and scales move together). The pool's ``KVHandoffPlan`` lands the
+        leaves through :meth:`_stage_leaves` (under tp each shard receives
+        only its own heads); one index_copy_ per pool member. Returns the
+        logical bytes staged."""
+        plan = plan_kv_handoff(self._kv_sharding)
+        landed = plan.place([m for pair in kvs for c in pair
+                             for m in _members(c)], self._stage_leaves)
+        pools = [p for pair in self._caches for c in pair for p in _leaves(c)]
         pages_t = self._h2d(np.asarray(pages, np.int64), torch.int64)
-        for pool, kv in zip(pools, staged):
-            pool.index_copy_(0, pages_t, kv.to(pool.dtype))
+        for pool, kv in zip(pools, landed):
+            for p, k in (zip(pool, kv) if isinstance(pool, Shards)
+                         else ((pool, kv),)):
+                p.index_copy_(0, pages_t, k.to(p.dtype))
+        return plan.staged_bytes
 
     def adopt_prefill_pages(self, prompt, blocks, page_size: int,
                             quantized) -> int:
@@ -1110,16 +1209,14 @@ class ContinuousBatcher:
 
     def _fetch_page_host(self, page: int) -> list:
         """Host copy of one pool page's K/V across every block (the spill
-        side's ONE device->host copy, :func:`host_copy`), as per-block
-        ``(K, V)`` leaves of shape ``(kvh, page, w)``."""
-        it = iter(host_copy([m[page] for pair in self._caches for c in pair
-                             for m in _members(c)]))
-        out = []
-        for pair in self._caches:
-            out.append(tuple(
-                tuple(next(it) for _ in c) if isinstance(c, tuple)
-                else next(it) for c in pair))
-        return out
+        side's ONE device->host copy, ``fetch_head_shards``), as per-block
+        ``(K, V)`` leaves of shape ``(kvh, page, w)``. Under tp each leaf
+        is assembled on the host from its shards' heads."""
+        leaves = [_leaves(c) for pair in self._caches for c in pair]
+        it = iter(fetch_head_shards([x for ls in leaves for x in ls], page))
+        got = iter([tuple(next(it) for _ in ls) if len(ls) > 1 else next(it)
+                    for ls in leaves])
+        return [(next(got), next(got)) for _ in self._caches]
 
     def _spill_page(self, page: int, key: bytes) -> bool:
         """Capture one rc=0 page into the host tier (the caller checked
@@ -1226,16 +1323,14 @@ class ContinuousBatcher:
                 else:
                     pair.append(stack(*per_page))
             kvs.append(tuple(pair))
-        self._adopt_pages([p for _, p in adopted], kvs)
+        staged = self._adopt_pages([p for _, p in adopted], kvs)
         na = len(adopted)
         self._readmit_budget -= na
         self._tier_readmitted += na
         global_metrics().inc("cache_tier.readmitted_total", float(na))
         global_flight_recorder().record(
             "kv_readmit", request=req.req_id, pages=na,
-            staged_bytes=int(sum(m.numel() * m.element_size()
-                                 for pair in kvs for c in pair
-                                 for m in _members(c))))
+            staged_bytes=int(staged))
         return na
 
     # -- request lifecycle -------------------------------------------------
@@ -2467,19 +2562,21 @@ class ContinuousBatcher:
         """Pull-style memory source for ``utils.profiling``'s collector
         (scrape threads: reads only; the pager's books as of the latest
         tick half, see ``_pager_books``). Dense strips: ``memory.kv_bytes``
-        (scale planes included) and ``memory.kv_bytes_per_device`` (equal
-        on one card); pools: ``memory.pool_bytes`` (``_per_device``), the
+        (scale planes included) and ``memory.kv_bytes_per_device`` (one
+        shard's: logical / tp); pools: ``memory.pool_bytes``
+        (``_per_device``), the
         page partition ``memory.pages_used + pages_free + pages_cached ==
         memory.pool_pages`` (the allocatable pool, trash page excluded) and
         the pager's prefix and radix books; speculative mode:
         ``memory.draft_cache_bytes``; both layouts: ``memory.kv_bytes_ratio``
         (cache bytes over the model dtype's)."""
         cache_bytes = float(self._cache_bytes())
+        shard_bytes = float(self._shard_cache_bytes())
         out: dict[str, float] = {}
         if self._paged:
             ps = self._pager_books
             out["memory.pool_bytes"] = cache_bytes
-            out["memory.pool_bytes_per_device"] = cache_bytes
+            out["memory.pool_bytes_per_device"] = shard_bytes
             out["memory.pool_pages"] = float(self._pager.num_allocatable)
             out["memory.pages_used"] = float(ps.in_use)
             out["memory.pages_cached"] = float(ps.cached)
@@ -2503,7 +2600,7 @@ class ContinuousBatcher:
                 out["memory.pages_spilled"] = float(ts.pages)
         else:
             out["memory.kv_bytes"] = cache_bytes
-            out["memory.kv_bytes_per_device"] = cache_bytes
+            out["memory.kv_bytes_per_device"] = shard_bytes
         out["memory.kv_bytes_ratio"] = cache_bytes / float(
             self._native_cache_bytes)
         if self._draft_caches is not None:
@@ -2551,6 +2648,9 @@ class ContinuousBatcher:
                 # the model's dtype (1.0 native; (hd + 4) / (2 hd) for int8
                 # under bf16, (hd / 2 + 4) / (2 hd) for int4).
                 "cache_bytes": self._cache_bytes(),
+                # Under tp each shard holds its heads' bytes: logical / tp.
+                "tp": self._tp,
+                "cache_bytes_per_device": self._shard_cache_bytes(),
                 "cache_bytes_ratio": (self._cache_bytes()
                                       / float(self._native_cache_bytes)),
                 "slo_ttft_met": self._slo_totals["ttft_met"],
@@ -2603,6 +2703,12 @@ class ContinuousBatcher:
     def _cache_bytes(self) -> int:
         return sum(m.numel() * m.element_size() for pair in self._caches
                    for c in pair for m in _members(c))
+
+    def _shard_cache_bytes(self) -> int:
+        """KV bytes one shard holds (the whole cache without tp)."""
+        return sum(m.numel() * m.element_size() for pair in self._caches
+                   for c in pair for m in _members(
+                       c[0] if isinstance(c, Shards) else c))
 
     def logprobs(self, req_id: int) -> np.ndarray:
         """Per-token model logprobs of a FINISHED request (claims them)."""

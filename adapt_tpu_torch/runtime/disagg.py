@@ -22,7 +22,10 @@ module splits the two phases:
 - The landing: ``ContinuousBatcher.adopt_prefill_pages`` registers the
   pages in the decode pool's PREFIX CACHE, and the request then enters
   through the ordinary ``submit``: admission sees a prefix hit and
-  prefills only the suffix (K4 / K4q), decode runs K3 / K3q.
+  prefills only the suffix (K4 / K4q), decode runs K3 / K3q. A
+  tensor-parallel decode batcher (``mesh=`` + ``ParallelConfig(tp)``)
+  gets its frames cut into its head tiles (:func:`head_ranges_for`), and
+  each shard's pool receives only its own heads.
 - :class:`DisaggServer`: the placement policy (``config.DisaggConfig``)
   decides collocated vs disaggregated PER REQUEST; every fallback is
   collocated, counted (``disagg.collocated_total``) and logged. With a
@@ -35,10 +38,11 @@ module splits the two phases:
 Observability: ``disagg.{handoff_bytes,handoff_bytes_raw,handoff_s,
 pages_streamed}`` and the ``kv_handoff`` flight event per landing.
 
-Scope: one process, one card; the server drives both tiers from one
-thread. The sequence-parallel prefill branch (``config.PrefillConfig``
-with ``sp_width`` above 1) waits for the multi-GPU slice (ROADMAP.md item
-11) and raises ``NotImplementedError``.
+Scope: one process, one card (a tp decode batcher's shards may share it);
+the server drives both tiers from one thread. The sequence-parallel
+prefill branch (``config.PrefillConfig`` with ``sp_width`` above 1) waits
+for sequence parallelism (ROADMAP.md item 11) and raises
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -64,8 +68,9 @@ from adapt_tpu_torch.comm.framing import (
 from adapt_tpu_torch.config import DisaggConfig, PrefillConfig, SLOSpec
 from adapt_tpu_torch.models.transformer_lm import TransformerLM
 from adapt_tpu_torch.ops.quantize import PAGE_CODECS, decode_page, encode_page
+from adapt_tpu_torch.parallel.sharding import head_tiles, host_copy
 from adapt_tpu_torch.runtime.capacity import prefill_tier_book
-from adapt_tpu_torch.runtime.continuous import ContinuousBatcher, host_copy
+from adapt_tpu_torch.runtime.continuous import ContinuousBatcher
 from adapt_tpu_torch.runtime.paged import Pager
 from adapt_tpu_torch.runtime.scheduler import QueueFullError
 from adapt_tpu_torch.utils.logging import get_logger
@@ -156,6 +161,24 @@ def _wire_tensors(handoff: KVHandoff,
                        if isinstance(piece, np.ndarray)
                        else piece.contiguous())
     return out
+
+
+def head_ranges_for(engine, handoff: KVHandoff):
+    """The destination head tiles of ``handoff`` for the decode batcher
+    ``engine``: its tp shards' ``head_tiles``, or None (whole-leaf frames)
+    for an unsharded batcher, an empty handoff or heads that do not
+    tile."""
+    mesh = getattr(engine, "_mesh", None)
+    if mesh is None:
+        return None
+    tp = int(dict(mesh.shape).get(getattr(engine, "_axis", "tp"), 1))
+    if tp <= 1 or not handoff.blocks:
+        return None
+    k0 = handoff.blocks[0][0]
+    kv_heads = int((k0[0] if isinstance(k0, tuple) else k0).shape[1])
+    if kv_heads % tp:
+        return None
+    return head_tiles(kv_heads, tp)
 
 
 def pack_handoff(handoff: KVHandoff, wire_codec: str = "raw",
@@ -771,7 +794,9 @@ class DisaggServer:
             return  # cancelled between the last chunk and the handoff
         t0 = time.perf_counter()
         try:
-            msg = pack_handoff(handoff, wire_codec=self.wire_codec)
+            ranges = head_ranges_for(self.decode, handoff)
+            msg = pack_handoff(handoff, wire_codec=self.wire_codec,
+                               head_ranges=ranges)
             wire_bytes = sum(p.nbytes for p in frame_parts(msg))
             raw_bytes = handoff_raw_nbytes(handoff)
             landed = unpack_handoff(loopback(msg))
@@ -790,6 +815,7 @@ class DisaggServer:
         global_flight_recorder().record(
             "kv_handoff", request=sid, pages=handoff.n_pages, adopted=adopted,
             bytes=wire_bytes, blocks=len(handoff.blocks),
+            tiles=len(ranges) if ranges else 1,
             wall_s=round(wall, 6))
         kwargs = dict(r.kwargs)
         prompt = kwargs.pop("prompt")

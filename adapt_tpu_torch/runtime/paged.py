@@ -39,6 +39,7 @@ import numpy as np
 import torch
 
 from adapt_tpu_torch.ops.quantize import decode_page, encode_page
+from adapt_tpu_torch.parallel.sharding import Shards
 
 
 @dataclasses.dataclass
@@ -640,7 +641,11 @@ def insert_prefill_pages(pool, pages, kv):
     until decode overwrites them). One index_copy_ on the page axis. A
     quantized ``(values, scales)`` pool takes a pair and scatters both
     members by the same pages, so a page's scales travel with its
-    values."""
+    values. A tensor-parallel ``Shards`` pool takes the ``Shards`` of the
+    shards' prefilled K or V and scatters each into its own pool."""
+    if isinstance(pool, Shards):
+        return pool.like([insert_prefill_pages(p, pages, x)
+                          for p, x in zip(pool, kv)])
     if isinstance(pool, tuple):
         return tuple(insert_prefill_pages(p, pages, x)
                      for p, x in zip(pool, kv))

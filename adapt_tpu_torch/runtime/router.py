@@ -36,9 +36,10 @@ Cross-replica prefill rides the disaggregated wire: a
 :class:`~adapt_tpu_torch.runtime.disagg.PrefillWorker` tier streams each
 finished prefill to the CHOSEN decode replica as ``MSG_KV_PAGES`` frames
 over the loopback transport, landing through ``adopt_prefill_pages`` as
-an ordinary prefix hit. :meth:`FleetRouter._head_ranges` is the seam that
-cuts the wire into a tp destination's head tiles; the port's batcher has
-no tp mesh until ROADMAP.md item 11, so every frame carries whole leaves.
+an ordinary prefix hit. :meth:`FleetRouter._head_ranges` cuts the wire
+into a tensor-parallel destination's head tiles (a replica built with
+``mesh=`` + ``ParallelConfig(tp)``: tp tiles a leaf, each landing on its
+shard); an unsharded replica gets whole leaves.
 
 Membership: every replica holds a ``WorkerRegistry`` TTL lease
 (``decode:<name>``, its book in ``meta["capacity"]``). An external
@@ -74,7 +75,6 @@ import numpy as np
 from adapt_tpu_torch.comm.framing import frame_parts
 from adapt_tpu_torch.config import DisaggConfig, RouterConfig, SLOSpec
 from adapt_tpu_torch.control.registry import weak_watch
-from adapt_tpu_torch.parallel.sharding import head_tiles
 from adapt_tpu_torch.runtime.capacity import (
     affinity_score,
     forecast_from_snapshot,
@@ -84,6 +84,7 @@ from adapt_tpu_torch.runtime.disagg import (
     HandoffError,
     KVHandoff,
     PrefillWorker,
+    head_ranges_for,
     loopback,
     pack_handoff,
     unpack_handoff,
@@ -600,21 +601,10 @@ class FleetRouter:
 
     def _head_ranges(self, rep: _Replica, handoff: KVHandoff):
         """Destination head tiles for sender-side resharding: the chosen
-        replica's tp cuts the wire. None (whole-leaf frames) for an
-        unsharded destination or heads that do not tile. The port's
-        batcher has no tp mesh until ROADMAP.md item 11, so on one card
-        this is always None."""
-        mesh = getattr(rep.engine, "_mesh", None)
-        if mesh is None:
-            return None
-        tp = int(dict(mesh.shape).get("tp", 1))
-        if tp <= 1 or not handoff.blocks:
-            return None
-        k0 = handoff.blocks[0][0]
-        kv_heads = int((k0[0] if isinstance(k0, tuple) else k0).shape[1])
-        if kv_heads % tp:
-            return None
-        return head_tiles(kv_heads, tp)
+        replica's tp cuts the wire (``disagg.head_ranges_for``: one tile a
+        shard). None (whole-leaf frames) for an unsharded destination or
+        heads that do not tile."""
+        return head_ranges_for(rep.engine, handoff)
 
     def _land(self, handoff: KVHandoff) -> None:
         """Stream one finished prefill to its CHOSEN replica: frame ->

@@ -423,8 +423,9 @@ def program_work(lm, passes, kv_cache_dtype: str = "native") -> dict:
               if p.dim() >= 2 and n.rsplit(".", 1)[-1] not in ("b1", "b2"))
     block_bytes = sum(p.numel() * p.element_size() for b in blocks
                       for p in b.parameters())
-    head_w = lm.head.logits.weight
-    head_mat = head_w.numel()
+    # The projection's matrices (one, or a tensor-parallel model's column
+    # slices, which add up to it).
+    head_mat = sum(p.numel() for p in lm.head.parameters() if p.dim() >= 2)
     head_bytes = sum(p.numel() * p.element_size()
                      for p in lm.head.parameters())
     tok = lm.embed.tok.weight
@@ -437,7 +438,7 @@ def program_work(lm, passes, kv_cache_dtype: str = "native") -> dict:
         vec = hd // 2 + 4
     else:
         vec = hd * tok.element_size()
-    vocab = head_w.shape[0]
+    vocab = lm.vocab
     flops = 0.0
     nbytes = 0.0
     for tokens, attended, kv_read, kv_written, logit_rows in passes:

@@ -246,6 +246,22 @@ Phases (no phase failure is caught; any mismatch exits non-zero):
    the tier, ``disagg.pages_streamed`` above 0, and a page-size and a
    KV-dtype mismatch refused at ``add_replica``. Launches of each kernel
    are added to its row as ``router_launches``.
+18. tensor-parallel serving (``tp_phase``, on the 12-layer model) as
+   shards of the one card (meshes naming cuda:0 2 and 4 times). First the
+   precision gate: each tp model's largest logit difference from an f32
+   copy of the same weights is at most 2 x that of the bf16 model (e1).
+   Every stream, tp=1's included, then has each token within 2 x e1 of
+   the f32 copy's best logit given its own history (int8 paths: plus
+   phase 9's int8 bar); a tp stream may leave tp=1's only so. (a) dense
+   and paged traffic with a cancel at tp=1, 2 and 4: launches tp x tp=1's,
+   per-shard cache bytes x tp the logical bytes; (b) an int8 pool and int8
+   speculation (the draft replicated) at tp=2; (c) a steady tp=2 tick: 0
+   host->device copies, 1 fetch; (d) a host-tier spill and readmit at
+   tp=2 equal to an untiered run, and a router over a tp=2 replica with a
+   prefill tier: 2 head tiles a leaf, streams held to the replica
+   collocated; (e) K1-K5, native and int8, against their plain versions
+   at kv_h 6 and 3. Launches are added to each row as ``tp_launches``,
+   (e)'s errors as ``tp_shard_max_abs_err``.
 
 The line before the last is the kernels' JSON; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -3418,12 +3434,12 @@ def ladder_part(torch, lm, draft2, Q, S, card, counters, runs, solo,
           f"launches {launches}")
 
 
-def steady_sync_check(torch, lm, card, layout):
+def steady_sync_check(torch, lm, card, layout, label="phase 14 (c)"):
     """Phase 14 (c): one steady depth-2 tick on ``layout`` (8 slots of
     256-token prompts, every slot decoding, a tick in flight) makes 0
     host->device copies and 1 fetch, and its dispatch half runs under
     ``torch.cuda.set_sync_debug_mode("error")`` (no stream sync, no
-    blocking copy)."""
+    blocking copy). Phase 18 (c) runs it over tp shards."""
     from adapt_tpu_torch.config import RuntimeConfig
     from adapt_tpu_torch.runtime.continuous import ContinuousBatcher
 
@@ -3437,7 +3453,7 @@ def steady_sync_check(torch, lm, card, layout):
     for _ in range(3):
         bat.tick()
     if not bat.stats()["inflight"]:
-        raise AssertionError("phase 14 (c): no tick in flight")
+        raise AssertionError(f"{label}: no tick in flight")
     before = bat.stats()
     torch.cuda.set_sync_debug_mode("error")
     try:
@@ -3450,11 +3466,11 @@ def steady_sync_check(torch, lm, card, layout):
     steady = (after["h2d_transfers"] - before["h2d_transfers"],
               after["d2h_fetches"] - before["d2h_fetches"])
     if fl is None or fl.n_active != 8 or steady != (0, 1):
-        raise AssertionError(f"phase 14 (c) {layout}: a steady depth-2 tick "
+        raise AssertionError(f"{label} {layout}: a steady depth-2 tick "
                              f"made {steady[0]} host->device copies and "
                              f"{steady[1]} fetches (want 0 and 1)")
     bat.close()
-    print(f"phase 14 (c) steady depth-2 tick [{layout}] on {card}: 0 "
+    print(f"{label} steady depth-2 tick [{layout}] on {card}: 0 "
           f"host->device copies, 1 fetch, dispatch half free of stream "
           f"syncs (torch.cuda.set_sync_debug_mode('error'))")
 
@@ -5289,6 +5305,499 @@ def router_phase(torch, A, D, P, lm, card, kernels, solo, waves, int8_bar):
           f"{time.perf_counter() - t_phase:.1f} s on {card} ({took})")
 
 
+# -- phase 18: tensor-parallel shards on one card ------------------------------
+
+#: Phase 18's kernel rows by path kind: int8 paths count into the int8
+#: rows, except the speculative path's draft, whose strips are native.
+TP_ROWS = {
+    "native": dict(FLEET_ROWS["native"]),
+    "int8": dict(FLEET_ROWS["int8"],
+                 paged_verify_attn="paged_verify_attn[int8]"),
+}
+TP_ROWS["spec_int8"] = dict(TP_ROWS["int8"], decode_attn="decode_attn")
+
+
+def tp_paged_waves(waves):
+    """Phase 18's paged traffic, cut from phase 7's: wave 1 the first
+    shared-prefix prompt, the shortest unique one (a whole-prompt
+    admission) and the first long one (chunked at 256), wave 2 three more
+    shared-prefix prompts (prefix hits)."""
+    return ([waves[0][0], min(waves[0][1:5], key=len), waves[0][5]],
+            list(waves[1][:3]))
+
+
+def f32_copy(torch, lm):
+    """``lm``'s weights held in f32 at the same widths: the reference whose
+    distance from ``lm`` (bf16, one shard) sets phase 18's bars, so that
+    no limit comes from the tp code under test."""
+    from adapt_tpu_torch.models.transformer_lm import TransformerLM
+
+    b = lm.blocks[0]
+    ref = TransformerLM(lm.vocab, b.dim, lm.depth, b.heads, b.mlp_dim,
+                        lm.max_len, torch.float32, f"{lm.name}_f32",
+                        b.kv_heads, device=lm.device)
+    ref.load_state_dict(lm.state_dict())
+    return ref.eval()
+
+
+def tp_precision(torch, lm, lm32, slms, prompts):
+    """Phase 18's precision gate: over ``prompts``' full forwards, e1 is
+    the largest |logit| difference of ``lm`` (bf16, one shard) from its f32
+    copy ``lm32`` and e_tp that of each tp model in ``slms``; each e_tp
+    must be at most 2 x e1 (the tp forward as close to the f32 model as
+    the unsharded bf16 one, give or take rounding order). Prints the f32
+    logits' mean spread (best minus mean logit a position: what a token
+    picked at random lies below the best). Returns e1."""
+    from adapt_tpu_torch.models.transformer_lm import logits_full
+
+    e1, etp, spread = 0.0, dict.fromkeys(slms, 0.0), []
+    for p in prompts:
+        want = logits_full(lm32, p[None])[0]
+        e1 = max(e1, float((logits_full(lm, p[None])[0] - want).abs().max()))
+        for tp, slm in slms.items():
+            etp[tp] = max(etp[tp], float(
+                (logits_full(slm, p[None])[0] - want).abs().max()))
+        spread.append(float((want.max(-1).values - want.mean(-1)).mean()))
+    print("phase 18 precision: largest logit difference from the f32 copy "
+          f"over {len(prompts)} prompts: tp=1 (bf16) e1 {e1:.4f}, "
+          + ", ".join(f"tp={tp} {e:.4f}" for tp, e in etp.items())
+          + f" (limit 2 x e1 = {2 * e1:.4f}); f32 logits' mean spread "
+          f"{np.mean(spread):.4f}")
+    bad = {tp: e for tp, e in etp.items() if e > 2 * e1}
+    if bad:
+        raise AssertionError(f"phase 18 precision: tp logits {bad} further "
+                             f"than 2 x e1 = {2 * e1:.4f} from the f32 copy")
+    return e1
+
+
+def deficits(torch, lm32, prompt, toks):
+    """Teacher-forced along a stream: how far each token of ``toks`` lies
+    below the f32 copy's best logit at its position, given the stream's
+    own history (one full forward over ``prompt`` + ``toks``)."""
+    from adapt_tpu_torch.models.transformer_lm import logits_full
+
+    if len(toks) == 0:
+        return np.zeros(0)
+    seq = np.concatenate([prompt, toks[:-1]]).astype(np.int64)
+    lg = logits_full(lm32, seq[None])[0, len(prompt) - 1:]
+    pick = torch.as_tensor(np.asarray(toks, np.int64), device=lg.device)
+    return (lg.max(-1).values - lg.gather(1, pick[:, None])[:, 0]
+            ).cpu().numpy()
+
+
+def hold_to_tp1(torch, lm32, label, prompts, out, ref, cancelled, steps,
+                bar, known=None):
+    """Phase 18's stream rule, its bar set without the tp code: every
+    stream has its length (the cancelled request cut short alike in both
+    runs) and every token of it lies within ``bar`` of the f32 copy's
+    best logit given the stream's own history (:func:`deficits`). A tp
+    stream may leave tp=1's (``ref``; ``out is ref`` for tp=1's own run,
+    the control): random weights put top-2 gaps of 0.0004-0.03 at many
+    steps and a tp step sums its partials in another order, so both
+    tokens where it leaves must pass the same bar. ``known``: tp=1's
+    deficits by request, reused for a stream equal to tp=1's. Returns the
+    requests that left tp=1's stream, the largest and mean deficit, and
+    the deficits by request."""
+    left, worst, every, by_rid = [], 0.0, [], {}
+    for rid, p in prompts.items():
+        got, want = out[rid], ref[rid]
+        if rid == cancelled:
+            if not 0 < len(got) < steps or len(got) != len(want):
+                raise AssertionError(f"{label}: cancelled request {rid} has "
+                                     f"{len(got)} tokens (tp=1 {len(want)})")
+        elif len(got) != steps:
+            raise AssertionError(f"{label}: request {rid} has {len(got)} "
+                                 f"tokens")
+        same = np.array_equal(got, want)
+        d = (known[rid] if known is not None and same
+             else deficits(torch, lm32, p, got))
+        by_rid[rid] = d
+        every.extend(d.tolist())
+        if len(d) and d.max() > bar:
+            t = int(d.argmax())
+            raise AssertionError(
+                f"{label}: request {rid} (prompt {len(p)}) token {t} lies "
+                f"{d[t]:.4f} below the f32 copy's best logit (bar {bar:.4f})")
+        worst = max(worst, float(d.max()) if len(d) else 0.0)
+        diff = np.nonzero(got != want[:len(got)])[0]
+        if not same and len(diff):
+            t = int(diff[0])
+            d1 = deficits(torch, lm32, p, want[:t + 1])[t]
+            print(f"{label}: request {rid} (prompt {len(p)}) leaves tp=1's "
+                  f"stream at token {t}, {d[t]:.4f} below the f32 best there "
+                  f"(tp=1's token {d1:.4f})")
+            left.append(rid)
+    return left, worst, float(np.mean(every)) if every else 0.0, by_rid
+
+
+def tp_check_run(label, tp, runs, path, ref_path, st, ref_st,
+                 draft=False):
+    """tp x the tp=1 run's launches of every kernel (with a replicated
+    ``draft``: of the target's K3 / K4 / K5, the draft's K2 launches once,
+    and K1 serves both), and each shard holding the logical KV bytes / tp
+    (the logical bytes equal to tp=1's)."""
+    got, want = runs[path], runs[ref_path]
+    scaled = (("paged_attn", "paged_chunk_attn", "paged_verify_attn")
+              if draft else tuple(want))
+    if (any(got[k] != tp * want[k] for k in scaled)
+            or draft and got["decode_attn"] != want["decode_attn"]):
+        raise AssertionError(f"{label}: launches {got}, not {tp} x tp=1's "
+                             f"{want}")
+    if (st["tp"] != tp or st["cache_bytes"] != ref_st["cache_bytes"]
+            or st["cache_bytes_per_device"] * tp != st["cache_bytes"]):
+        raise AssertionError(f"{label}: tp {st['tp']}, cache bytes "
+                             f"{st['cache_bytes']} (tp=1 "
+                             f"{ref_st['cache_bytes']}), per shard "
+                             f"{st['cache_bytes_per_device']}")
+
+
+def tp_serving_part(torch, lm, lm32, slms, card, counters, runs, dprompts,
+                    pwaves, rates, bar):
+    """Phase 18 (a): phase 6's first 8 prompts (32 tokens, dense strips)
+    and :func:`tp_paged_waves` (64 tokens, paged, prefix hits and a
+    chunked prompt), each with a mid-flight cancel, served at tp=1, 2 and 4
+    (shards of ``lm`` on the one card): streams, tp=1's included, held by
+    :func:`hold_to_tp1` at ``bar``, every kernel's launches tp x tp=1's,
+    per-shard cache bytes x tp the logical bytes."""
+    from adapt_tpu_torch.config import KernelConfig
+
+    for layout in ("slots", "paged"):
+        want = (("flash_attn_fwd", "decode_attn") if layout == "slots" else
+                ("flash_attn_fwd", "paged_attn", "paged_chunk_attn"))
+        ref = None
+        for tp in (1, 2, 4):
+            model = lm if tp == 1 else slms[tp]
+            path = f"tp{tp}_{layout}"
+            if layout == "slots":
+                out, ids, cancelled, wall, ntok, _, st = counted(
+                    counters, path, want, runs,
+                    lambda: drive_batcher(torch, model, dprompts, 32,
+                                          KernelConfig(), 1))
+                prompts, steps = dict(zip(ids, dprompts)), 32
+            else:
+                bat, prompts, out, _, cancelled, _, wall, ntok, _ = counted(
+                    counters, path, want, runs,
+                    lambda: drive_paged(torch, model, KernelConfig(), pwaves,
+                                        None, 1))
+                st, steps = bat.stats(), 64
+                bat.close()
+            rates[layout, tp] = ntok / wall
+            label = f"phase 18 (a) {layout} tp={tp}"
+            if tp == 1:
+                ref = (out, st, None)
+            else:
+                tp_check_run(label, tp, runs, path, f"tp1_{layout}", st,
+                             ref[1])
+            left, worst, mean, known = hold_to_tp1(
+                torch, lm32, label, prompts, out, ref[0], cancelled, steps,
+                bar, ref[2])
+            if tp == 1:
+                ref = (out, st, known)
+            print(f"{label} on {card}: {len(prompts)} requests (1 cancelled"
+                  f"), {len(left)} leaving tp=1's stream; token deficits "
+                  f"from the f32 copy max {worst:.4f} mean {mean:.5f} (bar "
+                  f"{bar:.4f}), "
+                  f"{ntok} tokens in {wall:.3f} s = {ntok / wall:.1f} tok/s, "
+                  f"cache bytes {st['cache_bytes']} "
+                  f"({st['cache_bytes_per_device']} a shard), launches "
+                  f"{runs[path]}")
+
+
+def tp_int8_part(torch, lm, lm32, slm2, draft, card, counters, runs, pwaves,
+                 dprompts, bar):
+    """Phase 18 (b): at tp=1 and tp=2, :func:`tp_paged_waves` over an int8
+    pool (K3q, K4q), then speculative decoding with the 2-layer draft
+    replicated (one copy, on the lead device) over an int8 pool (K5q, K4q;
+    four of phase 6's prompts a wave, 32 tokens, draft_k 4), each steady
+    tick 0 host->device copies and 1 fetch: streams, tp=1's included,
+    held by :func:`hold_to_tp1` at ``bar`` (the native bar plus phase 9's
+    int8 bar), launches 2 x tp=1's."""
+    from adapt_tpu_torch.config import KernelConfig, SpeculativeConfig
+
+    spec = SpeculativeConfig(draft_k=4)
+    swaves = (dprompts[:4], dprompts[4:8])
+    for kind in ("paged_int8", "spec_int8"):
+        want = (("paged_attn", "paged_chunk_attn") if kind == "paged_int8"
+                else ("paged_verify_attn", "paged_chunk_attn"))
+        ref = None
+        for tp in (1, 2):
+            model = lm if tp == 1 else slm2
+            path = f"tp{tp}_{kind}"
+            steady = None
+            if kind == "paged_int8":
+                bat, prompts, out, _, cancelled, _, wall, ntok, _ = counted(
+                    counters, path, want, runs,
+                    lambda: drive_paged(torch, model, KernelConfig(), pwaves,
+                                        None, 1, kv_cache_dtype="int8"))
+                steps = 64
+            else:
+                bat, prompts, out, cancelled, _, wall, ntok, steady = counted(
+                    counters, path, want, runs,
+                    lambda: drive_spec(torch, model, draft, spec,
+                                       KernelConfig(), "paged", "int8",
+                                       swaves, 32, 1, prefill_chunk=256))
+                steps = 32
+                if steady != (0, 1):
+                    raise AssertionError(f"phase 18 (b) {kind} tp={tp}: a "
+                                         f"steady tick made {steady}")
+            st = bat.stats()
+            bat.close()
+            label = f"phase 18 (b) {kind} tp={tp}"
+            if tp == 1:
+                ref = (out, st, None)
+            else:
+                tp_check_run(label, tp, runs, path, f"tp1_{kind}", st, ref[1],
+                             draft=kind == "spec_int8")
+            left, worst, mean, known = hold_to_tp1(
+                torch, lm32, label, prompts, out, ref[0], cancelled, steps,
+                bar, ref[2])
+            if tp == 1:
+                ref = (out, st, known)
+            note = (f", acceptance {st['spec_acceptance']:.4f}, steady tick "
+                    f"{steady[0]} host->device copies, {steady[1]} fetch"
+                    if steady else "")
+            print(f"{label} on {card}: {len(prompts)} requests (1 cancelled"
+                  f"), {len(left)} leaving tp=1's stream; token deficits max "
+                  f"{worst:.4f} mean {mean:.5f} (bar {bar:.4f}){note}, "
+                  f"{ntok} tokens in {wall:.3f} s = "
+                  f"{ntok / wall:.1f} tok/s, launches {runs[path]}")
+
+
+def tp_fleet_part(torch, lm, slm2, card, counters, runs, pwaves, solo):
+    """Phase 18 (d): at tp=2, (1) :func:`tp_paged_waves` served twice by a
+    paged batcher with a lossless host tier, every cached page evicted
+    (spilled) between the rounds: the second round readmits and its streams
+    equal an untiered batcher's second round (prefix hits); (2) a
+    ``FleetRouter`` with a tp=2 replica and a prefill tier (threshold 600):
+    each long prompt's handoff framed as 2 head tiles a leaf and adopted,
+    streams held to the same replica served collocated (phase 17's
+    rule)."""
+    from adapt_tpu_torch.config import CacheTierConfig, DisaggConfig
+    from adapt_tpu_torch.runtime.continuous import ContinuousBatcher
+    from adapt_tpu_torch.runtime.disagg import PrefillWorker
+    from adapt_tpu_torch.runtime.router import FleetRouter
+
+    want = ("flash_attn_fwd", "paged_attn", "paged_chunk_attn")
+
+    def two_rounds(tier):
+        bat = ContinuousBatcher(slm2, slots=8, chunk=8, kv_layout="paged",
+                                page_size=128, prefill_chunk=256,
+                                cache_tier=tier)
+        serve_waves(bat, pwaves)
+        if tier is not None:
+            bat._pager.evict_cached()
+        prompts, out, wall = serve_waves(bat, pwaves)
+        return bat, prompts, out, wall
+
+    ref, rprompts, rout, _ = counted(counters, "tp2_tier_reference", want,
+                                     runs, lambda: two_rounds(None))
+    ref.close()
+    tier = CacheTierConfig(warm_codec="lz", spill_pages_per_tick=512,
+                           readmit_pages_per_tick=512)
+    bat, prompts, out, wall = counted(counters, "tp2_tier", want, runs,
+                                      lambda: two_rounds(tier))
+    st = bat.stats()
+    bat.close()
+    if st["tier_spilled"] < 1 or st["tier_readmitted"] < 1:
+        raise AssertionError(f"phase 18 (d) tier: spilled "
+                             f"{st['tier_spilled']}, readmitted "
+                             f"{st['tier_readmitted']}")
+    for (r, p), (rr, rp) in zip(prompts.items(), rprompts.items()):
+        if not np.array_equal(p, rp) or not np.array_equal(out[r], rout[rr]):
+            raise AssertionError(f"phase 18 (d) tier: request {r} (prompt "
+                                 f"{len(p)}) differs from the untiered run")
+    print(f"phase 18 (d) host KV tier at tp=2 on {card}: {len(prompts)} "
+          f"readmitting requests equal the untiered run's; spilled "
+          f"{st['tier_spilled']}, readmitted {st['tier_readmitted']} pages "
+          f"(each spill assembled from 2 shards' heads, each readmit landed "
+          f"per shard); launches {runs['tp2_tier']}")
+
+    router = FleetRouter({"r0": router_replica(slm2)})
+    run = FleetRun(router)
+    prompts, out, _ = counted(
+        counters, "tp2_router_collocated", ("paged_attn",), runs,
+        lambda: serve_waves(router, pwaves, 64, run.on_token))
+    colo = run.reference(prompts, out)
+    router.close(close_engines=True)
+    worker = PrefillWorker(lm, page_size=128, slots=2, prefill_chunk=256,
+                           device=lm.device)
+    router = FleetRouter({"r0": router_replica(slm2)}, prefill=worker,
+                         disagg=DisaggConfig(prompt_threshold=600,
+                                             busy_prompt_threshold=600))
+    run = FleetRun(router)
+    cursor = flight_cursor()
+    prompts, out, wall = counted(
+        counters, "tp2_router_prefill", ("paged_attn",), runs,
+        lambda: serve_waves(router, pwaves, 64, run.on_token))
+    handoffs = flight_since(cursor, "kv_handoff")
+    nlong = sum(1 for p in prompts.values() if len(p) >= 600)
+    if (nlong < 1 or len(handoffs) != nlong
+            or any(h["tiles"] != 2 or not h["adopted"] for h in handoffs)):
+        raise AssertionError(f"phase 18 (d) router: handoffs {handoffs} for "
+                             f"{nlong} long prompts")
+    no_leave("phase 18 (d) router", cursor, router)
+    exempt, paths, moved = hold_streams(torch, lm, "phase 18 (d) router",
+                                        run, prompts, out, colo, solo, 64)
+    router.close(close_engines=True)
+    print(f"phase 18 (d) FleetRouter[tp=2 replica + prefill tier] on {card}:"
+          f" {len(handoffs)} handoffs, each leaf framed as 2 head tiles and "
+          f"adopted per shard; streams held to the replica collocated (paths "
+          f"{paths}, {moved} moved, {len(exempt)} tie exemptions); launches "
+          f"{runs['tp2_router_prefill']}")
+
+
+def check_shard_kernels(torch, A, D, P, Q, dev, errs):
+    """Phase 18 (e): K1, K2, K3, K4 and K5 (K2-K5 native and int8) against
+    their plain versions at the head counts of GPT-2-small's tp=2 and tp=4
+    shards (kv_h 6 and 3, g 1, head_dim 64, bf16) and phase 18 (a)'s
+    shapes: K1 at a 512-token prompt, K2 / K3 at 8 rows of 1025 keys / 8
+    pages of 128, K4 at a 256-token chunk after 512, K5 at 5 verify rows;
+    atol = rtol = 1e-2, K3 == K2 and K4's rows == K1's bit for bit.
+    ``errs`` collects the largest error by kernel row name."""
+    for kvh in (6, 3):
+        g = torch.Generator(device=dev).manual_seed(80 + kvh)
+
+        def rnd(*shape):
+            return torch.randn(*shape, generator=g, device=dev).to(
+                torch.bfloat16)
+
+        q, k, v = rnd(1, kvh, 512, 64), rnd(1, kvh, 512, 64), rnd(
+            1, kvh, 512, 64)
+        out, _ = A.flash_attn_fwd(q, k, v, True)
+        torch.cuda.synchronize()
+        ref, _ = A._reference_with_lse(q, k, v, True)
+        e = close(out, ref, 1e-2, 1e-2, f"K1 at kv_h {kvh}")
+        errs["flash_attn_fwd"] = max(errs.get("flash_attn_fwd", 0.0), e)
+        for kv in ("native", "int8"):
+            tag = "" if kv == "native" else f"[{kv}]"
+
+            def cache(t):
+                return t if kv == "native" else quantized(Q, t, kv)
+
+            qd, kp, vp, table, idx = paged_inputs(torch, dev, 8, kvh, 1, 64,
+                                                  128, 8, 65, seed=90 + kvh)
+            kp, vp = cache(kp), cache(vp)
+            strip = (lambda pool: tuple(as_strip(torch, m, table, 1025)
+                                        for m in pool)) if kv != "native" \
+                else (lambda pool: as_strip(torch, pool, table, 1025))
+            ck, cv = strip(kp), strip(vp)
+            k2 = D.decode_attn(qd, ck, cv, idx)
+            k3 = P.paged_attn(qd, kp, vp, table, idx)
+            torch.cuda.synchronize()
+            for name, got, plain in (
+                ("decode_attn", k2, D.decode_attention_plain(qd, ck, cv,
+                                                             idx)),
+                ("paged_attn", k3, P.paged_attention_plain(qd, kp, vp, table,
+                                                           idx)),
+            ):
+                e = close(got, plain, 1e-2, 1e-2, f"{name}{tag} kv_h {kvh}")
+                errs[name + tag] = max(errs.get(name + tag, 0.0), e)
+            if not torch.equal(k3, k2):
+                raise AssertionError(f"K3{tag} != K2{tag} at kv_h {kvh}")
+            qc, kc, vc, pages = chunk_inputs(torch, dev, kvh, 1, 64, 256, 512)
+            kc, vc = cache(kc), cache(vc)
+            k4 = P.paged_chunk_attn(qc, kc, vc, pages, 512, 256)
+            torch.cuda.synchronize()
+            e = close(k4, P.paged_chunk_attention_reference(
+                qc, kc, vc, pages, 512, 256), 1e-2, 1e-2,
+                f"paged_chunk_attn{tag} kv_h {kvh}")
+            errs["paged_chunk_attn" + tag] = max(
+                errs.get("paged_chunk_attn" + tag, 0.0), e)
+            if kv == "native":
+                q_all = torch.zeros(1, kvh, 768, 64, device=dev,
+                                    dtype=qc.dtype)
+                q_all[:, :, 512:] = qc
+
+                def whole(pool):
+                    return pool[pages.long()].movedim(1, 0).reshape(
+                        1, kvh, -1, 64)[:, :, :768].contiguous()
+
+                k1, _ = A.flash_attn_fwd(q_all, whole(kc), whole(vc), True)
+                torch.cuda.synchronize()
+                if not torch.equal(k4, k1[:, :, 512:]):
+                    raise AssertionError(f"K4 rows != K1 rows at kv_h {kvh}")
+            qv, kv5, vv5, tv, iv = verify_inputs(torch, dev, 8, kvh, 1, 5, 64,
+                                                 128, 8, 65, seed=95 + kvh)
+            kv5, vv5 = cache(kv5), cache(vv5)
+            k5 = P.paged_verify_attn(qv, kv5, vv5, tv, iv, 5)
+            torch.cuda.synchronize()
+            e = close(k5, P.paged_verify_attention_plain(qv, kv5, vv5, tv, iv,
+                                                         5), 1e-2, 1e-2,
+                      f"paged_verify_attn{tag} kv_h {kvh}")
+            errs["paged_verify_attn" + tag] = max(
+                errs.get("paged_verify_attn" + tag, 0.0), e)
+        print(f"phase 18 (e) kernels at kv_h {kvh} (g 1, hd 64, bf16): K1, "
+              f"K2, K3, K4, K5 native and K2q-K5q int8 within 1e-2 + "
+              f"1e-2|ref| of their plain versions; K3 == K2 and K4's rows "
+              f"== K1's bit for bit")
+
+
+def tp_phase(torch, A, D, P, Q, lm, draft, card, kernels, solo, dprompts,
+             waves, int8_bar):
+    """Phase 18: tensor-parallel serving as tp shards of GPT-2-small on the
+    one card (meshes of 2 and 4 shards naming cuda:0): the precision gate
+    against an f32 copy (:func:`tp_precision`), whose e1 sets the streams'
+    bar (2 x e1, :func:`hold_to_tp1`); (a) streams and
+    launches at tp=1 / 2 / 4 on both layouts, (b) an int8 pool and int8
+    speculation at tp=2, (c) a steady tp=2 tick, (d) the host tier and the
+    router's prefill tier at tp=2, (e) the kernels at the shards' head
+    counts. Adds ``tp_launches`` (phase 18's launches of each kernel, its
+    runs summed) and ``tp_shard_max_abs_err`` ((e)'s) to every row of
+    ``kernels``."""
+    from adapt_tpu_torch.core.mesh import MeshSpec, build_mesh
+    from adapt_tpu_torch.models.transformer_lm import shard_lm
+
+    t_phase = time.perf_counter()
+    counters = {"flash_attn_fwd": A.flash_attn_fwd,
+                "decode_attn": D.decode_attn, "paged_attn": P.paged_attn,
+                "paged_chunk_attn": P.paged_chunk_attn,
+                "paged_verify_attn": P.paged_verify_attn}
+    runs: dict = {}
+    marks = [time.perf_counter()]
+    slms = {tp: shard_lm(lm, build_mesh(MeshSpec((("tp", tp),)),
+                                        [lm.device] * tp))
+            for tp in (2, 4)}
+    pwaves = tp_paged_waves(waves)
+    lm32 = f32_copy(torch, lm)
+    bar = 2 * tp_precision(torch, lm, lm32, slms, [pwaves[0][0],
+                                                    dprompts[0]])
+    rates: dict = {}
+    tp_serving_part(torch, lm, lm32, slms, card, counters, runs,
+                    dprompts[:8], pwaves, rates, bar)
+    marks.append(time.perf_counter())
+    tp_int8_part(torch, lm, lm32, slms[2], draft, card, counters, runs,
+                 pwaves, dprompts, bar + int8_bar)
+    marks.append(time.perf_counter())
+    for layout in ("slots", "paged"):
+        steady_sync_check(torch, slms[2], card, layout, "phase 18 (c) tp=2")
+    marks.append(time.perf_counter())
+    tp_fleet_part(torch, lm, slms[2], card, counters, runs, pwaves, solo)
+    marks.append(time.perf_counter())
+    serr: dict = {}
+    check_shard_kernels(torch, A, D, P, Q, lm.device, serr)
+    marks.append(time.perf_counter())
+    totals: dict = {}
+    for path, launches in runs.items():
+        rows = TP_ROWS["spec_int8" if path.endswith("spec_int8") else
+                       "int8" if path.endswith("int8") else "native"]
+        for k, n in launches.items():
+            if k in rows:
+                totals[rows[k]] = totals.get(rows[k], 0) + n
+    for kr in kernels:
+        kr["tp_launches"] = totals.get(kr["name"], 0)
+        kr["tp_shard_max_abs_err"] = serr.get(kr["name"])
+    print(f"phase 18 launches by path: {json.dumps(runs)}")
+    print("phase 18 tok/s (tp shards of ONE card, not a multi-GPU figure) on "
+          f"{card}: " + "; ".join(
+              f"{layout} " + ", ".join(f"tp={tp} {rates[layout, tp]:.1f}"
+                                       for tp in (1, 2, 4))
+              for layout in ("slots", "paged")))
+    took = ", ".join(f"({part}) {b - a:.1f}"
+                     for part, a, b in zip("abcde", marks, marks[1:]))
+    print(f"phase 18 (tensor-parallel shards) took "
+          f"{time.perf_counter() - t_phase:.1f} s on {card} ({took})")
+
+
 #: GPT-2-small widths: vocab, dim, depth, heads, MLP.
 GPT2_SMALL = (50257, 768, 12, 12, 3072)
 
@@ -6143,6 +6652,10 @@ def main(argv) -> int:
     # -- phase 17: the fleet router and autoscaler ------------------------
     router_phase(torch, A, D, P, lm, card, kernels, solo, (wave1, wave2),
                  qbar)
+
+    # -- phase 18: tensor-parallel shards on one card ----------------------
+    tp_phase(torch, A, D, P, Q, lm, draft2, card, kernels, solo, prompts,
+             (wave1, wave2), qbar)
 
     if "--profile" in argv:
         profile_train(torch, *train_case, card)

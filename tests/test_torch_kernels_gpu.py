@@ -33,7 +33,9 @@ the largest reference magnitude in bf16 / f16, and two runs on the same
 inputs must be ``torch.equal`` (two passes, no atomics). The 16-bit K1 and
 K7 (tensor cores) must give the same bits on the models' strided q / k / v
 views as on contiguous copies, and K1's rows must not depend on the batch,
-on padding of s_q or on key tiles a mask removes."""
+on padding of s_q or on key tiles a mask removes. K2-K5 (native and int8)
+are also held at the head counts of GPT-2-small's tp=2 and tp=4 shards
+(kv_h 6 and 3, g 1)."""
 
 import pytest
 import torch
@@ -1166,3 +1168,54 @@ def test_split_on_two_streams(cuda, layout):
     torch.cuda.synchronize()
     for sp, outs in got.items():
         assert all(torch.equal(o, want[sp]) for o in outs), sp
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kv_dtype", ["native", "int8"])
+@pytest.mark.parametrize("kvh", [3, 6])
+@pytest.mark.parametrize("kernel", ["K2", "K3", "K4", "K5"])
+def test_kernels_at_shard_head_counts_match_plain(cuda, kernel, kvh,
+                                                  kv_dtype):
+    """GPT-2-small's 12 heads as tp=2 / tp=4 shards see them: kv_h 6 and 3,
+    g 1, head_dim 64, bf16, at the serving shapes (8 rows, 1025-key strips,
+    page 128, chunk 256, 5 verify rows); K3 equals K2 on the same K/V bit
+    for bit."""
+    dtype = torch.bfloat16
+    if kernel in ("K2", "K3"):
+        q, kp, vp, table, idx = _paged_case(cuda, dtype, 8, kvh, 1, 64, 128,
+                                            8, seed=40 + kvh)
+        if kv_dtype != "native":
+            kp, vp = _q(kp, kv_dtype), _q(vp, kv_dtype)
+        ck, cv = _strip(kp, table, 1025), _strip(vp, table, 1025)
+        k2 = TD.decode_attn(q, ck, cv, idx)
+        k3 = TP.paged_attn(q, kp, vp, table, idx)
+        torch.cuda.synchronize()
+        got, ref = (k2, TD.decode_attention_plain(q, ck, cv, idx)) if (
+            kernel == "K2") else (k3, TP.paged_attention_plain(q, kp, vp,
+                                                               table, idx))
+        assert torch.equal(k3, k2)
+    elif kernel == "K4":
+        gen = torch.Generator(device=cuda).manual_seed(50 + kvh)
+        page, chunk, pos0, npages = 128, 256, 512, 12
+        kp = torch.randn(npages, kvh, page, 64, generator=gen,
+                         device=cuda).to(dtype)
+        vp = torch.randn(npages, kvh, page, 64, generator=gen,
+                         device=cuda).to(dtype)
+        if kv_dtype != "native":
+            kp, vp = _q(kp, kv_dtype), _q(vp, kv_dtype)
+        q = torch.randn(1, kvh, chunk, 64, generator=gen,
+                        device=cuda).to(dtype)
+        pages = torch.tensor([3, 7, 1, 9, 5, 0, 0, 0], dtype=torch.int32,
+                             device=cuda)
+        got = TP.paged_chunk_attn(q, kp, vp, pages, pos0, chunk)
+        torch.cuda.synchronize()
+        ref = TP.paged_chunk_attention_reference(q, kp, vp, pages, pos0,
+                                                 chunk)
+    else:
+        q, kp, vp, table, idx = _verify_case(cuda, dtype, kv_dtype, 1, 5, 64,
+                                             128, b=8, kvh=kvh, seed=60)
+        got = TP.paged_verify_attn(q, kp, vp, table, idx, 5)
+        torch.cuda.synchronize()
+        ref = TP.paged_verify_attention_plain(q, kp, vp, table, idx, 5)
+    torch.testing.assert_close(got.float(), ref.float(), atol=1e-2,
+                               rtol=1e-2)
