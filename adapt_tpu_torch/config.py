@@ -660,6 +660,45 @@ class ParallelConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class RecoveryConfig:
+    """Elastic recovery of the tensor-parallel batcher
+    (``runtime/continuous`` with ``control.registry.DeviceHealthMonitor``).
+
+    When a member of the batcher's mesh is reported dead, the batcher
+    rebuilds its mesh from the surviving members (tp shrinks to the
+    largest divisor of the old tp that the survivors can host), rebuilds
+    the sharded model at the new tp from the old shards' slices, and moves
+    live request state across by an explicit plan
+    (``parallel.sharding.KVReshardPlan``), or replays requests from the
+    journal and the prefix cache where their state does not migrate. The
+    lost shard's KV heads are read through host memory."""
+
+    #: Recover inline at the next ``tick()`` after a loss. False: the tick
+    #: raises ``DeviceLostError`` and the caller calls
+    #: :meth:`ContinuousBatcher.recover` itself.
+    auto_reshard: bool = True
+    #: Live-state policy for in-flight requests at recovery: ``"migrate"``
+    #: moves KV and sampling state onto the shrunk mesh (per shard, the
+    #: lost shard's heads through the host), so a request continues where
+    #: it stopped; ``"replay"`` re-queues every in-flight request from the
+    #: journal (or the in-memory record), paid by a re-prefill that the
+    #: paged prefix cache makes cheap. Requests mid-chunked-prefill always
+    #: replay: they have emitted nothing.
+    policy: str = "migrate"
+    #: Refuse to shrink below this tp (raise ``DeviceLostError`` instead):
+    #: a floor for deployments where a small remnant cannot hold the model.
+    min_tp: int = 1
+
+    def __post_init__(self):
+        if self.policy not in ("migrate", "replay"):
+            raise ValueError(
+                f"policy={self.policy!r}: expected 'migrate' or 'replay'"
+            )
+        if self.min_tp < 1:
+            raise ValueError(f"min_tp must be >= 1, got {self.min_tp}")
+
+
+@dataclasses.dataclass(frozen=True)
 class ServeConfig:
     """Top-level serving configuration."""
 
@@ -689,3 +728,5 @@ class ServeConfig:
     router: RouterConfig = dataclasses.field(default_factory=RouterConfig)
     parallel: ParallelConfig = dataclasses.field(
         default_factory=ParallelConfig)
+    recovery: RecoveryConfig = dataclasses.field(
+        default_factory=RecoveryConfig)

@@ -3,13 +3,14 @@
 Counterpart of ``adapt_tpu/control/registry.py`` (the reference's etcd
 control plane: workers own ``/workers/<ip>`` under a lease, the dispatcher
 reads and watches the live pool). Membership is an in-process key space
-with TTL leases, an expiry reaper and watch callbacks. The device-health
-monitor of the JAX package (``DeviceHealthMonitor``) waits for the
-multi-GPU slice.
+with TTL leases, an expiry reaper and watch callbacks.
+:class:`DeviceHealthMonitor` puts the members of a tensor-parallel mesh on
+the same membership: a lost shard is a ``leave`` event.
 """
 
 from __future__ import annotations
 
+import numbers
 import threading
 import time
 import weakref
@@ -188,3 +189,121 @@ def weak_watch(watchable, obj, method_name: str) -> None:
             getattr(o, method_name)(event, key)
 
     watchable.watch(_cb)
+
+
+def _member_id(member) -> int:
+    """A mesh member's id: an int, or anything with an ``id`` (a
+    ``core.mesh.MeshMember``)."""
+    return int(member if isinstance(member, numbers.Integral)
+               else member.id)
+
+
+class DeviceHealthMonitor:
+    """Health of a mesh's members over the same membership machinery the
+    worker tier uses: every tracked member owns a :class:`WorkerRegistry`
+    lease under ``device:<member id>``, and a loss is a ``leave`` event —
+    the membership-drives-repartitioning shape of the source paper,
+    applied to the shards of a tensor-parallel mesh.
+
+    A member is keyed by its member id (``core.mesh.MeshMember.id``, its
+    flat position in the mesh it was first built as), not by its
+    ``torch.device``: the shards of a mesh on one card all name the same
+    device. :meth:`kill` simulates a loss: it marks the member dead and
+    revokes its lease, firing every registry watcher (the
+    ``ContinuousBatcher`` subscribes and re-shards at its next tick, or
+    raises ``DeviceLostError`` when ``RecoveryConfig.auto_reshard`` is
+    off). A lease that expires (a member whose host agent stops
+    heartbeating) arrives as the same ``leave`` edge, so the recovery path
+    tested against :meth:`kill` is the one a real loss takes.
+
+    Member leases default to a very long TTL: tracked members have no
+    heartbeat loop in-process."""
+
+    #: Lease TTL for tracked members (effectively "until killed or
+    #: deregistered").
+    DEVICE_TTL_S = 1e9
+
+    def __init__(self, registry: WorkerRegistry | None = None):
+        self.registry = registry if registry is not None else WorkerRegistry()
+        self._lock = threading.Lock()
+        self._dead: set[int] = set()
+        self._devices: dict[int, object] = {}  # member id -> member
+        self._retired = False
+        # Any membership leave of a tracked member folds into the dead set,
+        # so a lease expiry and kill() land alike and recover()'s
+        # dead_ids() agrees with the event the batcher queued. Weak: the
+        # watcher list outlives monitors.
+        weak_watch(self.registry, self, "_fold_leave")
+
+    def close(self) -> None:
+        """Retire the monitor: its fold watcher goes quiet (the shared
+        registry and its other watchers are untouched)."""
+        self._retired = True
+
+    def _fold_leave(self, event: str, key: str) -> None:
+        if event != "leave" or not key.startswith("device:"):
+            return
+        try:
+            did = int(key.split(":", 1)[1])
+        except ValueError:
+            return
+        with self._lock:
+            if did in self._devices:
+                self._dead.add(did)
+
+    @staticmethod
+    def device_key(member) -> str:
+        """Membership key of a mesh member (or a member id): the
+        ``/workers/<ip>`` analog."""
+        return f"device:{_member_id(member)}"
+
+    def track(self, members) -> None:
+        """Register every member of a mesh (idempotent: re-tracking renews
+        the lease); a dead member does not rejoin."""
+        for m in members:
+            mid = _member_id(m)
+            with self._lock:
+                self._devices[mid] = m
+                dead = mid in self._dead
+            if dead:
+                continue
+            self.registry.register(
+                self.device_key(mid),
+                meta={"platform": getattr(m, "platform", "unknown")},
+                ttl_s=self.DEVICE_TTL_S,
+            )
+
+    def kill(self, member) -> str:
+        """Simulate losing ``member`` (a mesh member or its id): mark it
+        dead and revoke its lease; registry watchers fire ``('leave',
+        'device:<id>')`` on the calling thread. Returns the membership key.
+        Idempotent."""
+        mid = _member_id(member)
+        with self._lock:
+            already = mid in self._dead
+            self._dead.add(mid)
+        key = f"device:{mid}"
+        if not already:
+            self.registry.deregister(key)
+        return key
+
+    def is_dead(self, member) -> bool:
+        with self._lock:
+            return _member_id(member) in self._dead
+
+    def dead_ids(self) -> set[int]:
+        with self._lock:
+            return set(self._dead)
+
+    def alive_devices(self, members) -> list:
+        """``members`` without the dead ones, order kept (a mesh rebuild
+        depends on it)."""
+        with self._lock:
+            dead = set(self._dead)
+        return [m for m in members if _member_id(m) not in dead]
+
+    def watch(self, callback: Callable[[str, str], None]) -> None:
+        """Subscribe to membership events (``callback(event, key)``, event
+        in {'join', 'leave'}) through the registry, so a monitor sharing a
+        registry with real workers delivers both populations."""
+        self.registry.watch(callback)

@@ -9,6 +9,13 @@ are small and stateless. :func:`build_mesh` arranges devices into a named
 shards on one card is ``build_mesh(MeshSpec((("tp", 4),)), ["cuda:0"] *
 4)`` (or ``devices=None``). One process drives every shard of a mesh
 (``parallel/sharding``): nothing here starts a process group.
+
+Since the entries of such a mesh all name one card, a device cannot tell
+its shards apart. Each entry therefore carries a member id, its flat
+position in the mesh it was first built as (:class:`MeshMember`):
+``control.registry.DeviceHealthMonitor`` keys a shard by it, and
+:meth:`Mesh.survivors` builds the shrunk mesh of an elastic recovery with
+the survivors keeping their ids.
 """
 
 from __future__ import annotations
@@ -16,6 +23,7 @@ from __future__ import annotations
 import collections
 import dataclasses
 import math
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -42,16 +50,37 @@ class MeshSpec:
         return math.prod(self.shape)
 
 
+class MeshMember(NamedTuple):
+    """One entry of a :class:`Mesh`: its stable member ``id`` and its
+    ``device``. ``id`` plays the part of a ``jax.Device``'s id (a health
+    monitor's key, a reshard plan's accounting), so that shards sharing a
+    card stay distinct."""
+
+    id: int
+    device: torch.device
+
+    @property
+    def platform(self) -> str:
+        return self.device.type
+
+
 @dataclasses.dataclass(frozen=True, eq=False)
 class Mesh:
     """Devices arranged by a :class:`MeshSpec`: ``devices`` is an object
     array of ``torch.device`` shaped by the spec, ``axis_names`` the axes
     in order and ``shape`` an ordered name -> size mapping (``dict(
     mesh.shape)`` reads as in JAX). Entries may repeat: shards that share a
-    card."""
+    card. ``ids`` (same shape) are the entries' member ids, by default
+    their flat positions."""
 
     devices: np.ndarray
     axis_names: tuple[str, ...]
+    ids: np.ndarray | None = None
+
+    def __post_init__(self):
+        if self.ids is None:
+            object.__setattr__(self, "ids", np.arange(
+                self.devices.size).reshape(self.devices.shape))
 
     @property
     def shape(self) -> collections.OrderedDict:
@@ -77,11 +106,39 @@ class Mesh:
         flat = list(self.devices.flat)
         return [flat[k] for k in self.axis_positions(axis)]
 
+    def members(self, axis: str | None = None) -> list[MeshMember]:
+        """Every entry as a :class:`MeshMember`, in flat order, or only
+        those at :meth:`axis_positions` of ``axis``."""
+        flat = list(zip(self.ids.flat, self.devices.flat))
+        pos = range(len(flat)) if axis is None else self.axis_positions(axis)
+        return [MeshMember(int(flat[k][0]), flat[k][1]) for k in pos]
+
     def along(self, axis: str) -> "Mesh":
-        """The one-axis mesh of :meth:`axis_devices`."""
-        arr = np.empty(self.shape[axis], dtype=object)
-        arr[:] = self.axis_devices(axis)
-        return Mesh(arr, (axis,))
+        """The one-axis mesh of :meth:`axis_devices`, member ids kept."""
+        return _one_axis(self.members(axis), axis)
+
+    def survivors(self, axis: str, dead_ids, size: int | None = None
+                  ) -> "Mesh":
+        """The one-axis mesh of the members along ``axis`` whose ids are
+        not in ``dead_ids``, in the old axis order, the first ``size`` of
+        them (all by default), each keeping its member id: the shrunk mesh
+        of an elastic recovery."""
+        dead = {int(i) for i in dead_ids}
+        alive = [m for m in self.members(axis) if m.id not in dead]
+        if size is not None:
+            if not 1 <= size <= len(alive):
+                raise ValueError(f"{len(alive)} surviving members cannot "
+                                 f"make a mesh of {size}")
+            alive = alive[:size]
+        if not alive:
+            raise ValueError(f"no member of the {axis!r} axis survives")
+        return _one_axis(alive, axis)
+
+
+def _one_axis(members: list[MeshMember], axis: str) -> Mesh:
+    devs = np.empty(len(members), dtype=object)
+    devs[:] = [m.device for m in members]
+    return Mesh(devs, (axis,), np.asarray([m.id for m in members]))
 
 
 def build_mesh(spec: MeshSpec, devices=None) -> Mesh:

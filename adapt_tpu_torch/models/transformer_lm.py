@@ -62,7 +62,9 @@ from adapt_tpu_torch.ops.paged_attention import (
 )
 from adapt_tpu_torch.models.moe import MoEDecoderMlp, expert_mix, topk_route
 from adapt_tpu_torch.parallel.sharding import (
+    P,
     Blocks,
+    Sharding,
     Shards,
     lm_tp_rules,
     reduce_shards,
@@ -1175,6 +1177,11 @@ class ShardedLM(nn.Module):
         self.mesh, self.axis, self.tp = mesh, axis, len(positions)
         self.name, self.depth, self.max_len, self.dtype = (
             f"{lm.name}_{axis}{self.tp}", lm.depth, lm.max_len, lm.dtype)
+        #: The sharded state dict the shards were built from (its tensors
+        #: are the modules' own, no copy) and the unsharded model's
+        #: arguments: what :func:`reshard_lm` rebuilds the model from.
+        self.shard_state = state
+        self.lm_args = lm_config(lm)
         piece = _Pieces(state, positions, axis)
         e = lm.embed
         self.embed = _load(TokenEmbed(e.tok.num_embeddings,
@@ -1214,6 +1221,62 @@ def shard_lm(lm: TransformerLM, mesh, axis: str = "tp",
             lm.state_dict(), mesh,
             lambda name, ndim: lm_tp_rules(name, ndim, axis))
     return ShardedLM(lm, state, mesh, axis).eval()
+
+
+def lm_config(lm: TransformerLM) -> dict:
+    """The :class:`TransformerLM` arguments that build ``lm``'s structure
+    (``TransformerLM(**lm_config(lm), device="meta")`` is its weightless
+    twin)."""
+    b = lm.blocks[0]
+    return dict(vocab=lm.vocab, dim=b.dim, depth=lm.depth, heads=b.heads,
+                mlp_dim=b.mlp_dim, max_len=lm.max_len, dtype=lm.dtype,
+                name=lm.name, kv_heads=b.kv_heads, moe_experts=b.moe_experts,
+                moe_top_k=b.moe.top_k if b.moe_experts is not None else 1,
+                window=b.attn.window,
+                pos="rope" if b.attn.rope else "learned")
+
+
+def reshard_lm(model: ShardedLM, plan, new_mesh):
+    """``model`` rebuilt over ``new_mesh`` (a recovery's shrunk one-axis
+    mesh of surviving members) from its own shards' slices, by ``plan``
+    (``parallel.sharding.KVReshardPlan``): each split tensor's new piece is
+    the ordered concatenation of the old pieces that tile its range (a
+    fused q / k / v projection within each block), the lost members'
+    pieces read through the host; each replicated tensor is read from a
+    surviving member. A one-member mesh gives a plain
+    :class:`TransformerLM` on the survivor's device. Tensor for tensor it
+    equals :func:`shard_lm` of the original LM on ``new_mesh``."""
+    axis = model.axis
+    positions = model.mesh.axis_positions(axis)
+    line = model.mesh.along(axis)
+    ids = [m.id for m in line.members()]
+    src = next(k for k, i in enumerate(ids) if i not in plan.lost_ids)
+    piece = _Pieces(model.shard_state, positions, axis)
+    names, views, shardings, dims, whole = [], [], [], [], {}
+    for name, x in model.shard_state.items():
+        split = piece.split(name)
+        if len(split) > 1:
+            raise ValueError(f"{name} splits {len(split)} dims over "
+                             f"{axis!r}: a reshard moves one")
+        if not split:
+            t = x[positions[src]] if isinstance(x, Shards) else x
+            whole[name] = plan.migrate_replicated(t, Sharding(new_mesh, P()))
+            continue
+        spec = x.sharding.spec
+        names.append(name)
+        views.append(Shards([x[p] for p in positions], Sharding(line, spec),
+                            x.shape))
+        shardings.append(Sharding(new_mesh, spec))
+        dims.append(split[0])
+    moved = plan.migrate_leaves(views, shardings, dims)
+    twin = TransformerLM(**model.lm_args, device="meta")
+    if new_mesh.devices.size == 1:
+        state = dict(whole, **{n: m[0] for n, m in zip(names, moved)})
+        twin.load_state_dict(state, assign=True)
+        return twin.eval()
+    state = {n: Sharding(new_mesh, P()).shard(t) for n, t in whole.items()}
+    state.update(zip(names, moved))
+    return ShardedLM(twin, state, new_mesh, axis).eval()
 
 
 # -- generation --------------------------------------------------------------

@@ -20,14 +20,16 @@ projection (the MHA ``qkv``, the GQA ``kv``) splits on a head axis that is
 not the weight's leading axis; its entry is :class:`Blocks`: shard ``i``
 takes its slice of each of the q / k / v row blocks.
 
-The reshard plan of elastic recovery (``KVReshardPlan``) comes with
-recovery (ROADMAP.md item 11)."""
+A mesh shrink (elastic recovery: a shard lost, tp=4 -> tp=2) moves live
+state by an explicit :class:`KVReshardPlan`: each new shard is the ordered
+concatenation of the old shards' ranges, per shard, never a global
+gather; the lost shard's pieces go through host memory."""
 
 from __future__ import annotations
 
 import dataclasses
 import re
-from collections.abc import Mapping
+from collections.abc import Callable, Mapping
 
 import numpy as np
 import torch
@@ -377,6 +379,272 @@ def plan_kv_handoff(sharding: Sharding | None) -> KVHandoffPlan:
     """The :class:`KVHandoffPlan` for a destination pool's sharding (None
     for an unsplit pool)."""
     return KVHandoffPlan(sharding=sharding)
+
+
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
+
+
+def member_shards(x: Shards, head_dim: int = 1) -> list[Shards]:
+    """A :class:`Shards` whose pieces are tuples (a quantized cache's
+    ``(values, scales)`` a shard) as one ``Shards`` per member, each over
+    the member's own logical shape (the pieces' shape with the whole
+    ``head_dim``); a ``Shards`` of tensors as itself."""
+    if not isinstance(x[0], tuple):
+        return [x]
+    out = []
+    for m in range(len(x[0])):
+        pieces = [p[m] for p in x]
+        shape = list(pieces[0].shape)
+        shape[head_dim] = x.shape[head_dim]
+        out.append(Shards(pieces, x.sharding, shape))
+    return out
+
+
+def _tree_map(fn: Callable, tree):
+    """``fn`` over every tensor of ``tree`` (mappings, lists, tuples and
+    dataclass instances such as ``ops.quantize.QuantizedTensor``)."""
+    if isinstance(tree, torch.Tensor):
+        return fn(tree)
+    if isinstance(tree, Mapping):
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_tree_map(fn, v) for v in tree)
+    if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
+        return dataclasses.replace(tree, **{
+            f.name: _tree_map(fn, getattr(tree, f.name))
+            for f in dataclasses.fields(tree)
+            if isinstance(getattr(tree, f.name), torch.Tensor)})
+    return tree
+
+
+@dataclasses.dataclass
+class KVReshardPlan:
+    """Explicit redistribution plan for live head-sharded state across a
+    mesh SHRINK (elastic recovery: tp=4 -> tp=2 after a shard is lost) —
+    the ``runtime/continuous`` migration executor, the port of the JAX
+    package's plan.
+
+    Per SHARD, never a global gather: each new shard's range is an aligned
+    union of old shard ranges (``new_tp`` divides ``old_tp``, both divide
+    the head count), built as their ordered concatenation, and every old
+    piece moves by the route its source allows —
+
+    - a **surviving** member's piece is re-placed onto the new owner
+      (counted in :attr:`moved_bytes` when the owner's member id differs
+      from its own: the bytes a link between cards would carry);
+    - the **lost** member's piece goes through HOST memory, a
+      device->host copy and back onto the card
+      (:attr:`host_staged_bytes`): under the simulated kill this reads the
+      lost shard's still-resident buffer, and in a real deployment it is
+      the seam where a host-side recovery source (a KV mirror, a KV store,
+      a recompute from the journal) plugs in. Requests that do not pay it
+      replay from the journal instead (``config.RecoveryConfig.policy``).
+
+    Members are ``core.mesh.MeshMember``s, told apart by their member ids
+    (shards of one card share a device). Replicated state (the sampling
+    state, the draft, staged tables) moves through
+    :meth:`migrate_replicated`, read from a SURVIVING member."""
+
+    #: Old tp-axis members in order (member i held range i).
+    old_devices: tuple
+    #: New tp-axis members (the shrunk mesh's; one for the tp=1 remnant).
+    new_devices: tuple
+    #: Member ids whose shards are lost (host-staged sources).
+    lost_ids: frozenset
+    #: Mesh axis the splits live on.
+    axis: str = "tp"
+    #: Bytes re-placed from a surviving member onto another member.
+    moved_bytes: int = 0
+    #: Bytes staged through the host (the lost members' pieces).
+    host_staged_bytes: int = 0
+
+    def __post_init__(self):
+        old_n, new_n = len(self.old_devices), len(self.new_devices)
+        if new_n < 1:
+            raise ValueError("plan needs at least one new device")
+        if old_n % new_n:
+            raise ValueError(
+                f"new tp {new_n} must divide old tp {old_n} — head "
+                "ranges only tile exactly for divisor shrinks"
+            )
+        survivors = {int(d.id) for d in self.old_devices} - set(
+            self.lost_ids)
+        for d in self.new_devices:
+            if int(d.id) not in survivors:
+                raise ValueError(
+                    f"new device {d} is not a surviving old-mesh device"
+                )
+
+    @staticmethod
+    def _route(x: Shards, new_sharding: Sharding, dim: int) -> list:
+        """Per new shard, the old piece numbers whose ranges on ``dim``
+        tile its range, in order; raises on misaligned or uncovered
+        ranges."""
+        spans = sorted((s[dim].start, s[dim].stop, i)
+                       for i, s in enumerate(x.index))
+        routes = []
+        for nidx in new_sharding.index(x.shape):
+            lo, hi = nidx[dim].start, nidx[dim].stop
+            got, cover = [], lo
+            for slo, shi, i in spans:
+                if slo < lo or shi > hi:
+                    continue  # outside this new shard's range
+                if slo != cover:
+                    raise ValueError(
+                        f"head ranges misaligned: need [{lo},{hi}), next "
+                        f"source starts at {slo}, covered to {cover}")
+                got.append(i)
+                cover = shi
+            if cover != hi:
+                raise ValueError(
+                    f"head range [{lo},{hi}) not covered (reached {cover}) "
+                    "— old/new shardings do not tile")
+            routes.append(got)
+        return routes
+
+    def migrate_leaves(self, xs: list, shardings: list, dims: list
+                       ) -> list[Shards]:
+        """Move every ``Shards`` of ``xs`` (split on its ``dims`` entry)
+        onto its entry of ``shardings``; the lost members' pieces of ALL of
+        them go to the host in one device->host copy."""
+        routes, lost, host_src = [], {}, []
+        for li, (x, sh, dim) in enumerate(zip(xs, shardings, dims)):
+            old_ids = [int(i) for i in x.sharding.mesh.ids.flat]
+            new_ids = [int(i) for i in sh.mesh.ids.flat]
+            r = self._route(x, sh, dim)
+            for j, route in enumerate(r):
+                for i in route:
+                    if old_ids[i] in self.lost_ids:
+                        # Host staging: the ONLY read of a lost shard.
+                        lost[li, i] = len(host_src)
+                        host_src.append(x[i])
+                    elif old_ids[i] != new_ids[j]:
+                        self.moved_bytes += _nbytes(x[i])
+            routes.append(r)
+        staged = host_copy(host_src) if host_src else []
+        self.host_staged_bytes += sum(_nbytes(t) for t in staged)
+        out = []
+        for li, (x, sh, dim, r) in enumerate(zip(xs, shardings, dims,
+                                                 routes)):
+            e = x.sharding.spec[dim] if dim < len(x.sharding.spec) else None
+            nb = e.n if isinstance(e, Blocks) else 1
+            pieces = []
+            for j, route in enumerate(r):
+                parts = [(staged[lost[li, i]] if (li, i) in lost else x[i])
+                         .to(sh.devices[j]) for i in route]
+                if len(parts) == 1:
+                    pieces.append(parts[0])
+                elif nb == 1:
+                    pieces.append(torch.cat(parts, dim))
+                else:
+                    # Each block's slices concatenate within the block.
+                    pieces.append(torch.cat(
+                        [p.unflatten(dim, (nb, -1)) for p in parts],
+                        dim + 1).flatten(dim, dim + 1))
+            out.append(Shards(pieces, sh, x.shape))
+        return out
+
+    def migrate(self, x: Shards, new_sharding: Sharding, head_dim: int = 1):
+        """Move ONE leaf split on ``head_dim`` (the KV convention: dense
+        strips, pools and scale planes put heads on dim 1; a weight passes
+        its split dim, a :class:`Blocks` entry concatenating within each
+        block) onto ``new_sharding``. The result holds the same bytes
+        re-placed. A one-shard layout (the tp=1 remnant) gives the lone
+        tensor."""
+        out = self.migrate_leaves([x], [new_sharding], [head_dim])[0]
+        return out[0] if len(out) == 1 else out
+
+    def migrate_tree(self, tree, new_sharding: Sharding, head_dim: int = 1):
+        """:meth:`migrate` over every ``Shards`` of a KV tree (lists,
+        tuples, mappings); a ``Shards`` of ``(values, scales)`` pairs moves
+        both members under the SAME plan, so a page's scales travel with
+        its payload. All the lost pieces share one device->host copy."""
+        leaves: list[Shards] = []
+
+        def collect(t):
+            if isinstance(t, Shards):
+                leaves.append(t)
+            elif isinstance(t, Mapping):
+                for v in t.values():
+                    collect(v)
+            elif isinstance(t, (list, tuple)):
+                for v in t:
+                    collect(v)
+
+        collect(tree)
+        members, spans = [], []
+        for x in leaves:
+            ms = member_shards(x, head_dim)
+            spans.append((len(members), len(ms)))
+            members.extend(ms)
+        moved = self.migrate_leaves(members, [new_sharding] * len(members),
+                              [head_dim] * len(members))
+        new = {}
+        for x, (a, n) in zip(leaves, spans):
+            ms = moved[a:a + n]
+            pieces = ([tuple(m[j] for m in ms) for j in range(len(ms[0]))]
+                      if isinstance(x[0], tuple) else list(ms[0]))
+            new[id(x)] = (pieces[0] if len(pieces) == 1
+                          else Shards(pieces, new_sharding, x.shape))
+
+        def rebuild(t):
+            if isinstance(t, Shards):
+                return new[id(t)]
+            if isinstance(t, Mapping):
+                return {k: rebuild(v) for k, v in t.items()}
+            if isinstance(t, (list, tuple)):
+                return type(t)(rebuild(v) for v in t)
+            return t
+
+        return rebuild(tree)
+
+    def migrate_replicated(self, tree, new_sharding: Sharding):
+        """Re-place replicated state (the sampling state, the draft's
+        weights and caches) onto the new layout's lead device, read from a
+        SURVIVING member. The port keeps one physical copy of it, on the
+        lead device; every old member holds it logically, so the source is
+        the first surviving member in old order (a lost lead is never
+        read), and the bytes count once per new member other than the
+        source, the JAX plan's formula."""
+        new_ids = [int(i) for i in new_sharding.mesh.ids.flat]
+        lead = new_sharding.devices[0]
+        src = next((int(m.id) for m in self.old_devices
+                    if int(m.id) not in self.lost_ids), None)
+
+        def one(x):
+            if src is None:  # every replica lost: the host fallback
+                h = host_copy([x])[0]
+                self.host_staged_bytes += _nbytes(h)
+                return h.to(lead)
+            self.moved_bytes += _nbytes(x) * sum(1 for i in new_ids
+                                                 if i != src)
+            return x.to(lead)
+
+        return _tree_map(one, tree)
+
+    def summary(self) -> dict:
+        """Accounting for flight events and logs."""
+        return {
+            "old_tp": len(self.old_devices),
+            "new_tp": len(self.new_devices),
+            "lost": sorted(self.lost_ids),
+            "moved_bytes": self.moved_bytes,
+            "host_staged_bytes": self.host_staged_bytes,
+        }
+
+
+def plan_kv_reshard(old_devices, new_devices, lost_ids, axis: str = "tp"
+                    ) -> KVReshardPlan:
+    """The :class:`KVReshardPlan` of a mesh shrink: ``old_devices`` the old
+    tp-axis members in order, ``new_devices`` the survivors chosen for the
+    shrunk axis, ``lost_ids`` the dead member ids."""
+    return KVReshardPlan(
+        old_devices=tuple(old_devices),
+        new_devices=tuple(new_devices),
+        lost_ids=frozenset(int(i) for i in lost_ids),
+        axis=axis,
+    )
 
 
 def _head_order(x: Shards, head_dim: int) -> list[int]:

@@ -135,8 +135,30 @@ landing and the host-tier readmit place per-shard slices
 (``fetch_head_shards``). A tp=1 mesh runs the single-device path on the
 mesh's device.
 
-Recovery (the journal branch of the replay, the batcher's ``journal=``)
-is a later slice.
+Elastic recovery (``health=`` a ``control.registry.DeviceHealthMonitor``,
+``recovery=config.RecoveryConfig(...)``, ``journal=`` a
+``control.journal.DispatcherJournal``): the batcher tracks its mesh's
+members by member id (``core.mesh.MeshMember``; shards of one card share
+a device) as leases, and a member's ``leave`` queues a loss. The next tick
+(or :meth:`ContinuousBatcher.adopt_prefill_pages`) calls :meth:`recover`,
+or raises :class:`DeviceLostError` when ``auto_reshard`` is off.
+``recover()`` commits the tick in flight, shrinks tp to the largest
+divisor of the old tp the survivors can host (not below ``min_tp``),
+rebuilds the sharded model at the new tp from the old shards' slices
+(``models.transformer_lm.reshard_lm``; a tp=1 remnant is a plain LM on the
+survivor's device), moves every block's KV per shard by a
+``parallel.sharding.KVReshardPlan`` (the lost shard's heads through the
+host) and the replicated state from a surviving member, and re-uploads
+the page table at the next paged tick. Decoding slots migrate and
+continue; mid-chunked-prefill slots, and every slot under
+``policy="replay"``, replay from the journal (payload and sampling meta,
+the request's seed included) through the prefix cache, in FIFO order.
+Submits are journaled before the request is reachable and done-marked at
+finish, drop, queued cancel and rejection. Books: ``stats()``'s
+``recoveries`` / ``recovery_*`` keys, the ``recovery.wall_s`` histogram,
+``recovery.{migrated,replayed,dropped}_total`` and the ``device_lost``,
+``mesh_reshard``, ``kv_migrated`` and ``replayed_from_journal`` flight
+events. Recovery builds no kernel.
 """
 
 from __future__ import annotations
@@ -157,11 +179,13 @@ from adapt_tpu_torch.config import (
     KernelConfig,
     ObservabilityConfig,
     ParallelConfig,
+    RecoveryConfig,
     RuntimeConfig,
     SchedulerConfig,
     SLOSpec,
     SpeculativeConfig,
 )
+from adapt_tpu_torch.control.registry import weak_watch
 from adapt_tpu_torch.models.speculative import (
     accept_speculation,
     draft_chunk,
@@ -173,18 +197,23 @@ from adapt_tpu_torch.models.transformer_lm import (
     TransformerLM,
     chosen_logprob,
     nucleus_filter,
+    reshard_lm,
     sample_rows,
     shard_lm,
     truncate_rows,
     validate_tp,
 )
+from adapt_tpu_torch.ops.decode_attention import check_head_parity
 from adapt_tpu_torch.ops.paged_attention import DEFAULT_PAGE_SIZE
 from adapt_tpu_torch.ops.quantize import quantize_params
 from adapt_tpu_torch.parallel.sharding import (
+    Sharding,
     Shards,
     fetch_head_shards,
     kv_head_sharding,
+    member_shards,
     plan_kv_handoff,
+    plan_kv_reshard,
 )
 from adapt_tpu_torch.runtime.capacity import CapacityModel
 from adapt_tpu_torch.runtime.paged import (
@@ -216,9 +245,19 @@ from adapt_tpu_torch.utils.tracing import global_flight_recorder, global_tracer
 
 log = get_logger("continuous")
 
-__all__ = ["ContinuousBatcher", "QueueFullError", "fanout_seeds"]
+__all__ = ["ContinuousBatcher", "DeviceLostError", "QueueFullError",
+           "fanout_seeds"]
 
 _M64 = (1 << 64) - 1
+
+
+class DeviceLostError(RuntimeError):
+    """A member of the batcher's mesh was reported dead and automatic
+    resharding is off (``config.RecoveryConfig.auto_reshard=False``), or
+    recovery itself is impossible (every member lost, or the survivors
+    cannot support ``min_tp``). Call :meth:`ContinuousBatcher.recover`, or
+    re-raise to the serving layer."""
+
 
 def fanout_seeds(seed: int, n: int) -> list[int]:
     """The per-sibling seeds of a sampled :meth:`ContinuousBatcher.
@@ -249,15 +288,7 @@ def _leaves(cache) -> list:
     the head-split geometry — what ``fetch_head_shards`` reads."""
     if not isinstance(cache, Shards):
         return list(_members(cache))
-    n = len(cache)
-    out = []
-    for m in range(len(_members(cache[0]))):
-        pieces = [_members(c)[m] for c in cache]
-        p0 = pieces[0]
-        out.append(Shards(pieces, cache.sharding,
-                          (p0.shape[0], p0.shape[1] * n) + tuple(
-                              p0.shape[2:])))
-    return out
+    return member_shards(cache)
 
 
 @dataclasses.dataclass
@@ -421,7 +452,10 @@ class ContinuousBatcher:
     window and the engine knobs (``obs_engine``, ``trace_enabled`` and
     ``compile_warmup``, applied as the ``Dispatcher`` applies them);
     ``capacity`` the capacity plane (``runtime/capacity``, on by default);
-    ``cache_tier`` the host KV tier under a paged pool (off by default).
+    ``cache_tier`` the host KV tier under a paged pool (off by default);
+    ``mesh`` / ``parallel`` tensor-parallel shards, and over them
+    ``recovery``, ``health`` and ``journal`` elastic recovery (see the
+    module docstring and :meth:`recover`).
     Engine telemetry (``utils/profiling``): the batcher is a memory and a
     roofline source, (re-)registers the compile sentinel's kernel-library
     watch, and times its tick phases when ``global_engine_obs()`` is
@@ -452,6 +486,9 @@ class ContinuousBatcher:
         cache_tier: CacheTierConfig | None = None,
         mesh=None,
         parallel: ParallelConfig | None = None,
+        recovery: RecoveryConfig | None = None,
+        health=None,
+        journal=None,
     ):
         lm = self._setup_parallel(lm, mesh, parallel)
         if kv_cache_dtype not in ("native", "int8", "int4"):
@@ -731,6 +768,29 @@ class ContinuousBatcher:
         self._server: threading.Thread | None = None
         self._stopping = False
         self._server_error: BaseException | None = None
+        # -- elastic recovery --------------------------------------------
+        self._recovery = recovery or RecoveryConfig()
+        #: ``control.registry.DeviceHealthMonitor`` (duck-typed): the mesh's
+        #: members are its leases, and a ``leave`` lands in _lost_pending.
+        self._health = health
+        #: ``control.journal.DispatcherJournal``: submits journaled, finishes
+        #: done-marked, replays rebuilt from the journaled record.
+        self._journal = journal
+        if journal is not None:
+            # Serving over an existing journal must not recycle a pending
+            # id (its payload would be replaced and done-marked away).
+            self._next_id = max(self._next_id, journal.next_request_id)
+        #: Membership keys of members lost but not yet recovered from
+        #: (guarded by ``_cv``; consumed by recover()).
+        self._lost_pending: list[str] = []
+        self._mesh_device_ids = {m.id for m in self._mesh_devices}
+        self._recoveries = 0
+        self._recovery_migrated = 0
+        self._recovery_replayed = 0
+        self._recovery_dropped = 0
+        self._last_recovery_wall_s = 0.0
+        #: close() sets it: a retired batcher ignores membership events.
+        self._retired = False
         # -- capacity plane ----------------------------------------------
         cap_cfg = capacity or CapacityConfig()
         self._capacity: CapacityModel | None = (
@@ -762,6 +822,15 @@ class ContinuousBatcher:
         self._pager_books = self._pager.stats() if self._paged else None
         register_memory_source("continuous", self)
         register_roofline_source("continuous", self)
+        if health is not None and self._mesh_devices:
+            health.track(self._mesh_devices)
+            # Weak: the watcher list has no unwatch and outlives batchers.
+            weak_watch(health, self, "_on_device_event")
+            # A member dead before construction (or killed between track()
+            # and watch()) sends no future leave: seed the loss from the
+            # monitor's dead roster.
+            for did in sorted(health.dead_ids() & self._mesh_device_ids):
+                self._on_device_event("leave", f"device:{did}")
 
     def _setup_parallel(self, lm, mesh, parallel):
         """The ``mesh`` / ``parallel`` refusals of the JAX batcher, then
@@ -779,6 +848,11 @@ class ContinuousBatcher:
         self._mesh = None
         self._tp = 1
         self._kv_sharding = None
+        #: The members serving this batcher, in tp-axis order
+        #: (``core.mesh.MeshMember``): a tp=1 mesh, or the remnant of a
+        #: recovery down to tp=1, keeps its one member, so losing it raises
+        #: instead of dispatching onto a dead shard. Empty without a mesh.
+        self._mesh_devices: list = []
         if mesh is None:
             return lm
         axis = self._axis
@@ -790,6 +864,7 @@ class ContinuousBatcher:
             raise ValueError(f"ParallelConfig.tp={parallel.tp} != mesh "
                              f"{axis!r} size {tp}")
         validate_tp(lm, tp)
+        self._mesh_devices = mesh.members(axis)
         if tp == 1:
             # A size-1 tp axis partitions nothing: the single-device
             # path on the mesh's device.
@@ -1143,7 +1218,9 @@ class ContinuousBatcher:
         the pages adopted (resident keys dedupe; pool pressure adopts
         nothing, all-or-nothing, and the request prefills itself). Raises
         ``ValueError`` on a geometry mismatch, before any pager
-        mutation."""
+        mutation. A member loss pending recovers first (or raises), so no
+        slice lands on the old layout."""
+        self._ensure_mesh()
         if not self._paged:
             raise ValueError(
                 "adopt_prefill_pages requires kv_layout='paged' (the handoff "
@@ -1425,13 +1502,38 @@ class ContinuousBatcher:
             hit = self._pager.radix_probe(prompt)[1] if self._paged else 0
             req.ttft_forecast_s = self._capacity.forecast_ttft(
                 prompt.shape[0], hit)
+        tenant, prio = request_tenant(req), request_priority(req)
+        if self._journal is not None:
+            # Shed a flood before paying journal I/O (the bounded append
+            # below stays the authoritative check).
+            try:
+                with self._cv:
+                    self._queue.check(tenant, prio)
+            except QueueFullError as e:
+                self._record_rejection(tenant, prio, e, request=req_id)
+                raise
+            # Payload and knobs BEFORE the request is reachable: a replay
+            # (or a crash-recovering process) rebuilds the request from
+            # this record alone; the seed keys a sampled replay's stream.
+            try:
+                self._journal.record_submit(
+                    req_id, prompt.astype(np.int32),
+                    meta={"steps": steps, "temperature": req.temperature,
+                          "top_k": req.top_k, "top_p": req.top_p,
+                          "eos_id": eos_id,
+                          "stop": [list(q) for q in req.stop],
+                          "seed": req.seed})
+            except Exception as e:  # noqa: BLE001 — serve anyway, loudly
+                log.warning("journal submit failed for %d: %r", req_id, e)
         try:
             with self._cv:
                 self._queue.append(req)  # bounded: may raise
                 self._cv.notify_all()
         except QueueFullError as e:
-            self._record_rejection(request_tenant(req), request_priority(req),
-                                   e, request=req_id)
+            self._record_rejection(tenant, prio, e, request=req_id)
+            # Done-marked, so that no crash recovery resurrects a request
+            # the client was told was rejected.
+            self._journal_done(req_id)
             raise
         global_metrics().inc("scheduler.admitted_total")
         return req_id
@@ -1523,33 +1625,35 @@ class ContinuousBatcher:
             if req_id in self._done or not 0 <= req_id < self._next_id:
                 return False
             req = self._queue.remove_id(req_id)
-            if req is not None:
-                self._cancelled.discard(req_id)
-                self._fanout_dec_locked(req)
-                if req.delivered_tokens is not None:
-                    # A replayed request waiting for re-admission already
-                    # streamed its first life: result() is that stream.
-                    self._done[req_id] = req.delivered_tokens
-                    self._done_lps[req_id] = req.delivered_lps
-                else:
-                    self._done[req_id] = np.zeros((0,), np.int32)
-                    self._done_lps[req_id] = np.zeros((0,), np.float32)
-                self._cv.notify_all()
+            if req is None:
+                live = req_id == self._admitting or any(
+                    s.req is not None and s.req.req_id == req_id
+                    for s in self.slots
+                )
+                if not live:
+                    return False
+                self._cancelled.add(req_id)
                 global_flight_recorder().record(
-                    "cancel", request=req_id, state="queued"
+                    "cancel", request=req_id, state="live"
                 )
                 return True
-            live = req_id == self._admitting or any(
-                s.req is not None and s.req.req_id == req_id
-                for s in self.slots
-            )
-            if not live:
-                return False
-            self._cancelled.add(req_id)
+            self._cancelled.discard(req_id)
+            self._fanout_dec_locked(req)
+            if req.delivered_tokens is not None:
+                # A replayed request waiting for re-admission already
+                # streamed its first life: result() is that stream.
+                self._done[req_id] = req.delivered_tokens
+                self._done_lps[req_id] = req.delivered_lps
+            else:
+                self._done[req_id] = np.zeros((0,), np.int32)
+                self._done_lps[req_id] = np.zeros((0,), np.float32)
+            self._cv.notify_all()
             global_flight_recorder().record(
-                "cancel", request=req_id, state="live"
+                "cancel", request=req_id, state="queued"
             )
-            return True
+        # The done mark's disk write runs outside the handoff lock.
+        self._journal_done(req_id)
+        return True
 
     # -- traffic control ----------------------------------------------------
 
@@ -1641,16 +1745,20 @@ class ContinuousBatcher:
                  vid, vprio, delivered, req.req_id, prio, waited,
                  req.slo.ttft_budget_s)
 
-    def _replay_slot(self, slot: _Slot, event: str = "preempted",
+    def _replay_slot(self, slot: _Slot, event: str = "replayed_from_journal",
                      extra: dict | None = None) -> None:
         """Replay one slot's request: free the slot (paged: its registered
         prompt pages drop into the prefix LRU, so the re-admission is a
         suffix-only prefill), discard the partial stream and re-queue the
         request at the FRONT with ``stream_skip`` set to what the client
-        already received. Greedy replays regenerate the same stream, and
-        sampled ones the same key schedule (keyed by request seed and
-        token index). This is the in-memory path; the journal-backed one
-        comes with recovery."""
+        already received. With a journal the request is rebuilt from its
+        journaled payload and meta (``source="journal"`` on the flight
+        event), else from the in-memory record (``"memory"``, also the
+        loud fallback when the journal read fails). Greedy replays
+        regenerate the same stream, and sampled ones the same key schedule
+        (keyed by the request's seed and token index). Recovery replays
+        with the default event; preemption (``event="preempted"``) rides
+        the same path."""
         req = slot.req
         # Per-life stamps of the interrupted life, riding its flight edge.
         life: dict = {}
@@ -1671,10 +1779,33 @@ class ContinuousBatcher:
                 # This life delivered new tokens: the next new token's ITL
                 # measures from its last one.
                 req.t_last_delivered = slot.t_last
+        source = "memory"
+        if self._journal is not None:
+            try:
+                payload = self._journal.read_payload(req.req_id)
+                meta = self._journal.submit_meta(req.req_id)
+                if meta is not None:
+                    req = dataclasses.replace(
+                        req,
+                        prompt=np.asarray(payload, np.int64).reshape(-1),
+                        steps=int(meta["steps"]),
+                        temperature=float(meta["temperature"]),
+                        top_k=int(meta["top_k"]),
+                        top_p=float(meta["top_p"]),
+                        eos_id=meta["eos_id"],
+                        seed=int(meta["seed"]),
+                        stop=tuple(tuple(int(t) for t in q)
+                                   for q in meta.get("stop", [])))
+                    source = "journal"
+            except Exception as e:  # noqa: BLE001 — fallback, loudly
+                log.warning("journal replay of request %d fell back to the "
+                            "in-memory record: %r", req.req_id, e)
+        # Host-side attachments (on_token, slo, the delivered stream and
+        # its stamps) carry over from the live record.
         req.stream_skip = delivered
         req.t_requeued = time.perf_counter()
         global_flight_recorder().record(
-            event, request=req.req_id, slot=slot.idx, source="memory",
+            event, request=req.req_id, slot=slot.idx, source=source,
             tokens_discarded=len(slot.tokens), **life, **(extra or {}),
         )
         with self._cv:
@@ -1704,8 +1835,19 @@ class ContinuousBatcher:
             self._completed += 1
             self._release_slot(slot)
             self._cv.notify_all()
+        self._journal_done(req.req_id)
         global_metrics().inc("continuous.completed")
         self._park_slot_row(slot.idx)
+
+    def _journal_done(self, req_id: int) -> None:
+        """Done-mark a request in the journal (no-op without one; a
+        journal write failure must not poison the serving path)."""
+        if self._journal is None:
+            return
+        try:
+            self._journal.record_done(req_id)
+        except Exception as e:  # noqa: BLE001 — serving outlives the WAL
+            log.warning("journal done mark failed for %d: %r", req_id, e)
 
     def _slo_violation(self, slot: _Slot, budget: str, budget_s: float,
                        measured_s: float) -> None:
@@ -1718,6 +1860,219 @@ class ContinuousBatcher:
                 "slo_missed", request=slot.req.req_id,
                 tenant=slot.req.slo.tenant, budget=budget, budget_s=budget_s,
                 measured_s=round(measured_s, 6))
+
+    # -- elastic recovery ---------------------------------------------------
+
+    def _on_device_event(self, event: str, key: str) -> None:
+        """Membership watch callback (on the killer's or the reaper's
+        thread): a ``leave`` of a member of the CURRENT mesh is queued for
+        the ticking thread, which owns the state recovery rebuilds."""
+        if event != "leave" or not key.startswith("device:"):
+            return
+        try:
+            did = int(key.split(":", 1)[1])
+        except ValueError:
+            return
+        with self._cv:
+            if did not in self._mesh_device_ids or key in self._lost_pending:
+                return
+            self._lost_pending.append(key)
+            self._cv.notify_all()  # wake an idle server thread
+        global_flight_recorder().record("device_lost", device=key,
+                                        tp=self._tp)
+        log.warning("mesh device lost: %s (tp=%d)", key, self._tp)
+
+    def device_lost_pending(self) -> bool:
+        """True when a member loss awaits recovery (the next tick re-shards,
+        or raises under ``auto_reshard=False``)."""
+        with self._cv:
+            return bool(self._lost_pending)
+
+    def _ensure_mesh(self) -> None:
+        """The device-lost gate of every dispatch entry on the ticking
+        thread (``tick``, :meth:`adopt_prefill_pages`): recover before
+        anything runs on the broken layout, or raise when ``auto_reshard``
+        is off."""
+        if self._lost_pending:
+            if self._recovery.auto_reshard:
+                self.recover()
+            else:
+                with self._cv:
+                    lost = list(self._lost_pending)
+                raise DeviceLostError(
+                    f"mesh device(s) lost: {lost} — auto_reshard is off; "
+                    "call recover()")
+
+    @torch.no_grad()
+    def recover(self) -> dict:
+        """Re-shard the batcher onto its surviving members after a loss:
+
+        1. **shrink the mesh**: the new tp is the largest divisor of the
+           old tp the survivors can host (``validate_tp`` and a per-block
+           head-parity check run anyway, by name), on the survivors in the
+           old axis order, each keeping its member id;
+        2. **re-place the weights**: the sharded model is rebuilt at the
+           new tp from the old shards' slices, the lost shard's through the
+           host (``models.transformer_lm.reshard_lm``; a tp=1 remnant is a
+           plain LM on the survivor's device);
+        3. **migrate live state** by a ``parallel.sharding.KVReshardPlan``:
+           every block's KV per shard (the lost shard's heads through the
+           host), the sampling state and the draft's weights and caches
+           from a surviving member; the page table re-uploads at the next
+           paged tick;
+        4. **replay** the requests whose state does not migrate
+           (``policy="replay"``, or mid-chunked-prefill slots) from the
+           journal, through the prefix cache, in FIFO order.
+
+        Runs on the ticking thread (``tick`` calls it under
+        ``auto_reshard``); call it yourself only between synchronous ticks.
+        Builds no kernel. Returns the plan's summary with the migrated /
+        replayed / dropped counts and the wall (also the ``mesh_reshard``
+        flight event). Raises :class:`DeviceLostError` when no recovery
+        exists (every member lost, or the survivors below ``min_tp``); the
+        loss then stays pending."""
+        # The tick in flight (pipeline depth 2) commits first: its results
+        # came off the old layout, and its commits move slot.tokens, which
+        # the migrate-or-replay choice and the replay's arithmetic read.
+        fl, self._inflight = self._inflight, None
+        if fl is not None:
+            self._tick_commit(fl)
+        t0 = time.perf_counter()
+        old = self._mesh_devices
+        dead = self._health.dead_ids() if self._health is not None else set()
+        lost_here = sorted(m.id for m in old if m.id in dead)
+        if not lost_here:
+            # Never on a mesh, or nothing of ours died.
+            with self._cv:
+                self._lost_pending.clear()
+            return {"old_tp": self._tp, "new_tp": self._tp, "lost": []}
+        survivors = [m for m in old if m.id not in dead]
+        if not survivors:
+            raise DeviceLostError(
+                f"every device of the tp={self._tp} mesh is lost")
+        old_tp = new_tp = self._tp
+        while new_tp > len(survivors) or old_tp % new_tp:
+            new_tp -= 1
+        if new_tp < self._recovery.min_tp:
+            raise DeviceLostError(
+                f"{len(survivors)} survivors support tp={new_tp}, below "
+                f"RecoveryConfig.min_tp={self._recovery.min_tp}")
+        validate_tp(self.lm, new_tp)
+        axis = self._axis
+        new_mesh = self._mesh.survivors(axis, dead, new_tp)
+        new_devices = new_mesh.members()
+        plan = plan_kv_reshard(old, new_devices, lost_here, axis)
+        # The weights' bytes are booked apart: the plan's summary is the
+        # live state's, as in the JAX package.
+        wplan = plan_kv_reshard(old, new_devices, lost_here, axis)
+        self.lm = reshard_lm(self.lm, wplan, new_mesh)
+        self.device = self.lm.device
+        kv_sh = kv_head_sharding(new_mesh, axis)
+        self._caches = plan.migrate_tree(self._caches, kv_sh)
+        for name, block, (ck, _) in zip(self.lm.block_names, self.lm.blocks,
+                                        self._caches):
+            # A plan bug shows as a shard holding the wrong head span.
+            leaf = _members(ck[0] if isinstance(ck, Shards) else ck)[0]
+            try:
+                check_head_parity(block.cache_heads, leaf.shape[1] * new_tp)
+            except ValueError as e:
+                raise ValueError(f"{name}: {e}") from None
+        repl = Sharding(new_mesh)
+        self._dstate = plan.migrate_replicated(self._dstate, repl)
+        self._rows0 = self._rows0.to(self.device)
+        if self._spec:
+            self._draft_caches = plan.migrate_replicated(self._draft_caches,
+                                                         repl)
+            if self._draft_weights is not None:
+                self._draft_weights = plan.migrate_replicated(
+                    self._draft_weights, repl)
+            else:
+                self._draft_lm.load_state_dict(plan.migrate_replicated(
+                    self._draft_lm.state_dict(), repl), assign=True)
+        self._mesh = new_mesh if new_tp > 1 else None
+        self._tp = new_tp
+        self._kv_sharding = kv_sh if new_tp > 1 else None
+        # Placement changed even where the host table did not.
+        self._table_dev = None
+        self._table_snapshot = None
+        with self._cv:
+            # Consume only the losses THIS recovery handled: a member
+            # killed on another thread since the dead_ids() snapshot stays
+            # pending, so the next tick recovers again.
+            consumed = {f"device:{i}" for i in lost_here}
+            self._lost_pending = [k for k in self._lost_pending
+                                  if k not in consumed]
+            self._mesh_devices = list(new_devices)
+            self._mesh_device_ids = {m.id for m in new_devices}
+        # Per request: decoding slots migrate (their state just did);
+        # mid-chunked-prefill slots, and every slot under "replay", replay.
+        migrated = replayed = dropped = 0
+        replay_ids: list[int] = []
+        replay_all = self._recovery.policy == "replay"
+        for slot in self.slots:
+            if slot.req is None:
+                continue
+            if replay_all or slot.pf_done >= 0:
+                rid = slot.req.req_id
+                try:
+                    self._replay_slot(slot)
+                except Exception:  # noqa: BLE001 — drop, don't wedge
+                    if slot.req is not None:
+                        log.exception("replay failed for request %d; "
+                                      "dropping", rid)
+                        self._drop_slot(slot)
+                        dropped += 1
+                        continue
+                    # Released and re-queued before failing: in flight.
+                    log.exception("replay of request %d raised after "
+                                  "re-queue; replay proceeds", rid)
+                replayed += 1
+                replay_ids.append(rid)
+            else:
+                migrated += 1
+                global_flight_recorder().record(
+                    "kv_migrated", request=slot.req.req_id, slot=slot.idx,
+                    tokens_kept=len(slot.tokens))
+        if len(replay_ids) > 1:
+            # Each replay re-queued at the front in slot order; restore
+            # FIFO (ids rise in submit order) by MEMBERSHIP, since a cancel
+            # may have taken a replay off the queue since.
+            ids = set(replay_ids)
+            with self._cv:
+                head = sorted((r for r in self._queue if r.req_id in ids),
+                              key=lambda r: r.req_id)
+                if head:
+                    rest = [r for r in self._queue if r.req_id not in ids]
+                    self._queue.clear()
+                    self._queue.extend(head + rest)
+        wall = time.perf_counter() - t0
+        with self._cv:
+            self._recoveries += 1
+            self._recovery_migrated += migrated
+            self._recovery_replayed += replayed
+            self._recovery_dropped += dropped
+            self._last_recovery_wall_s = wall
+        reg = global_metrics()
+        reg.observe("recovery.wall_s", wall)
+        for what, n in (("migrated", migrated), ("replayed", replayed),
+                        ("dropped", dropped)):
+            if n:
+                reg.inc(f"recovery.{what}_total", float(n))
+        summary = plan.summary()
+        summary.update(migrated=migrated, replayed=replayed, dropped=dropped,
+                       wall_s=wall,
+                       weight_host_staged_bytes=wplan.host_staged_bytes)
+        global_flight_recorder().record(
+            "mesh_reshard", old_tp=old_tp, new_tp=new_tp, lost=lost_here,
+            migrated=migrated, replayed=replayed, dropped=dropped,
+            moved_bytes=plan.moved_bytes,
+            host_staged_bytes=plan.host_staged_bytes,
+            weight_host_staged_bytes=wplan.host_staged_bytes,
+            wall_s=round(wall, 6))
+        log.warning("mesh reshard: tp %d -> %d (lost %s): %d migrated, %d "
+                    "replayed, %d dropped in %.3fs", old_tp, new_tp,
+                    lost_here, migrated, replayed, dropped, wall)
+        return summary
 
     # -- retirement ---------------------------------------------------------
 
@@ -1771,6 +2126,7 @@ class ContinuousBatcher:
             self._completed += 1
             self._release_slot(slot)
             self._cv.notify_all()
+        self._journal_done(req.req_id)
         self._park_slot_row(slot.idx)
         global_metrics().inc("continuous.completed")
 
@@ -2362,6 +2718,7 @@ class ContinuousBatcher:
         sweep, chunked-prefill passes and gauges, then ONE decode (or
         speculative) dispatch with its fetch started. None when no slot
         decodes."""
+        self._ensure_mesh()
         t0 = time.perf_counter()
         if self._controller is not None:
             # Before admission: this tick's admits see the current rung.
@@ -2662,6 +3019,13 @@ class ContinuousBatcher:
                 "rejected": self._rejected,
                 "preempted": self._preempted,
                 "regen_mismatches": self._regen_mismatches,
+                # Elastic-recovery books (mirrors of the recovery.*
+                # counters; wall_s is the latest recovery's).
+                "recoveries": self._recoveries,
+                "recovery_migrated": self._recovery_migrated,
+                "recovery_replayed": self._recovery_replayed,
+                "recovery_dropped": self._recovery_dropped,
+                "last_recovery_wall_s": self._last_recovery_wall_s,
             }
             if self._controller is not None:
                 out["degradation_level"] = self._controller.level
@@ -2809,6 +3173,7 @@ class ContinuousBatcher:
         gauges. Idempotent."""
         self.stop()
         self._inflight = None
+        self._retired = True  # membership events no longer reach it
         unregister_memory_source("continuous", self)
         unregister_roofline_source("continuous", self)
 

@@ -261,7 +261,27 @@ Phases (no phase failure is caught; any mismatch exits non-zero):
    prefill tier: 2 head tiles a leaf, streams held to the replica
    collocated; (e) K1-K5, native and int8, against their plain versions
    at kv_h 6 and 3. Launches are added to each row as ``tp_launches``,
-   (e)'s errors as ``tp_shard_max_abs_err``.
+   (e)'s errors as ``tp_shard_max_abs_err``;
+19. elastic recovery of the tp batcher (``recovery_phase``, on the 12-layer
+   model, held with phase 18's f32 copy and bar; meshes of 4 member ids
+   naming cuda:0): (a) phase 6's first 8 prompts staggered on a tp=4
+   batcher until every slot decodes, member 3 killed on dense strips and
+   on a paged pool, then member 0 (the lead) on the pool: the tick raises
+   ``DeviceLostError``, ``recover()`` shrinks to tp=2; each new shard's KV
+   ``torch.equal`` to the ordered concatenation of the old shards' head
+   ranges, the books (tp 2, every slot migrated), per-shard bytes x 2 the
+   logical bytes, a steady tick after it 0 host->device copies, 1 fetch
+   and a tp=2 step's launches, no compile event, tokens up to the kill
+   equal to the uninterrupted tp=4 run's and every token within the bar;
+   (b) an int8 pool with the 2-layer int8-weight draft, recovering inside
+   a tick, both members of every pair checked; (c) ``policy="replay"``
+   with a ``DispatcherJournal``: every request replays from the journal,
+   prefix hits rise, each index delivered once, the journal empty at
+   drain, each life's tokens within the bar along its own history,
+   ``regen_mismatches`` printed; (d) a 4-block model killed down to a tp=1
+   remnant. Each run prints the recovery's wall, moved and host-staged
+   bytes and tok/s before and after; launches are added to each row as
+   ``recovery_launches``.
 
 The line before the last is the kernels' JSON; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -2761,7 +2781,11 @@ def resnet_remote_runs(torch, Q, dev, card, procs, srv, kernels, tmp, case):
     t0 = time.perf_counter()
     pipe.start()
     ports = [procs.port(p) for p in joiners]
-    wait_for(lambda: {"w0", "w1", "w2"} <= set(pipe.registry.alive()),
+    # The gateway registers a joiner's lease before it lists its proxy:
+    # wait for both.
+    wait_for(lambda: {"w0", "w1", "w2"} <= set(pipe.registry.alive())
+             and {"w0", "w1", "w2"} <= {p.worker_id
+                                        for p in pipe.gateway.proxies},
              "three workers joining the gateway")
     print(f"phase 13: 2 worker processes and this process's server joined "
           f"the gateway in {time.perf_counter() - t0:.1f} s")
@@ -4095,7 +4119,9 @@ def telemetry_part(torch, dev, card, root, case):
         pipe.start()
         for p in workers:
             procs.port(p)
-        wait_for(lambda: {"t0", "t1", "t2"} <= set(pipe.registry.alive()),
+        wait_for(lambda: {"t0", "t1", "t2"} <= set(pipe.registry.alive())
+                 and {"t0", "t1", "t2"} <= {p.worker_id
+                                            for p in pipe.gateway.proxies},
                  "three telemetry workers joining the gateway")
         by_id = {p.worker_id: p for p in pipe.gateway.proxies}
         host = plan.extract_variables()
@@ -5340,7 +5366,7 @@ def f32_copy(torch, lm):
     return ref.eval()
 
 
-def tp_precision(torch, lm, lm32, slms, prompts):
+def tp_precision(torch, lm, lm32, slms, prompts, label="phase 18"):
     """Phase 18's precision gate: over ``prompts``' full forwards, e1 is
     the largest |logit| difference of ``lm`` (bf16, one shard) from its f32
     copy ``lm32`` and e_tp that of each tp model in ``slms``; each e_tp
@@ -5358,14 +5384,14 @@ def tp_precision(torch, lm, lm32, slms, prompts):
             etp[tp] = max(etp[tp], float(
                 (logits_full(slm, p[None])[0] - want).abs().max()))
         spread.append(float((want.max(-1).values - want.mean(-1)).mean()))
-    print("phase 18 precision: largest logit difference from the f32 copy "
+    print(f"{label} precision: largest logit difference from the f32 copy "
           f"over {len(prompts)} prompts: tp=1 (bf16) e1 {e1:.4f}, "
           + ", ".join(f"tp={tp} {e:.4f}" for tp, e in etp.items())
           + f" (limit 2 x e1 = {2 * e1:.4f}); f32 logits' mean spread "
           f"{np.mean(spread):.4f}")
     bad = {tp: e for tp, e in etp.items() if e > 2 * e1}
     if bad:
-        raise AssertionError(f"phase 18 precision: tp logits {bad} further "
+        raise AssertionError(f"{label} precision: tp logits {bad} further "
                              f"than 2 x e1 = {2 * e1:.4f} from the f32 copy")
     return e1
 
@@ -5743,7 +5769,8 @@ def tp_phase(torch, A, D, P, Q, lm, draft, card, kernels, solo, dprompts,
     router's prefill tier at tp=2, (e) the kernels at the shards' head
     counts. Adds ``tp_launches`` (phase 18's launches of each kernel, its
     runs summed) and ``tp_shard_max_abs_err`` ((e)'s) to every row of
-    ``kernels``."""
+    ``kernels``. Returns the f32 copy, the streams' bar (2 x e1) and the
+    sharded models by tp, which phase 19 reuses."""
     from adapt_tpu_torch.core.mesh import MeshSpec, build_mesh
     from adapt_tpu_torch.models.transformer_lm import shard_lm
 
@@ -5795,6 +5822,519 @@ def tp_phase(torch, A, D, P, Q, lm, draft, card, kernels, solo, dprompts,
     took = ", ".join(f"({part}) {b - a:.1f}"
                      for part, a, b in zip("abcde", marks, marks[1:]))
     print(f"phase 18 (tensor-parallel shards) took "
+          f"{time.perf_counter() - t_phase:.1f} s on {card} ({took})")
+    return lm32, bar, slms
+
+
+# -- phase 19: elastic recovery of the tensor-parallel batcher ----------------
+
+
+def rec_snapshot(bat):
+    """Per-shard clones of every block's K and V (both members of a
+    quantized pair): the live state a recovery must migrate."""
+    return [[[tuple(m.clone() for m in piece) if isinstance(piece, tuple)
+              else piece.clone() for piece in c] for c in pair]
+            for pair in bat._caches]
+
+
+def rec_check_concat(torch, label, bat, snap, new_tp):
+    """Each new shard's K and V (both members of a pair) ``torch.equal``
+    to the ordered concatenation of the snapshot's head ranges; a tp=1
+    remnant's plain cache to all of them."""
+    for b, (pair, spair) in enumerate(zip(bat._caches, snap)):
+        for c, sc in zip(pair, spair):
+            new = [c] if new_tp == 1 else list(c)
+            if len(new) != new_tp:
+                raise AssertionError(f"{label}: block {b} holds {len(new)} "
+                                     f"shards, not {new_tp}")
+            r = len(sc) // new_tp
+            for j, got in enumerate(new):
+                olds = sc[j * r:(j + 1) * r]
+                pair_of = isinstance(olds[0], tuple)
+                want = (tuple(torch.cat([o[m] for o in olds], 1)
+                              for m in range(len(olds[0]))) if pair_of
+                        else (torch.cat(olds, 1),))
+                if not all(torch.equal(g, w) for g, w in zip(
+                        got if pair_of else (got,), want)):
+                    raise AssertionError(
+                        f"{label}: block {b} shard {j}'s KV is not the "
+                        "ordered concatenation of the old shards' heads")
+
+
+class RecRun:
+    """One phase 19 run's books: the tokens ``on_token`` delivered (index
+    by index, exactly-once checked), the delivered counts at the kill, the
+    decode rates before the kill and after the recovery, the recovery's
+    summary and wall."""
+
+    def __init__(self):
+        self.delivered: dict = {}
+        self.at_kill: dict = {}
+        self.summary: dict = {}
+        self.rates = (0.0, 0.0)
+        self.t0 = time.perf_counter()
+
+    def on_token(self, rid, tok, idx):
+        self.delivered.setdefault(rid, []).append((idx, int(tok)))
+
+    def ntok(self):
+        return sum(len(v) for v in self.delivered.values())
+
+    def stream(self, rid, label):
+        got = self.delivered.get(rid, [])
+        if [i for i, _ in got] != list(range(len(got))):
+            raise AssertionError(f"{label}: request {rid}'s on_token indices "
+                                 f"are not each index once")
+        return np.asarray([t for _, t in got], np.int64)
+
+
+def rec_stagger(bat, prompts, steps, run):
+    """Half the prompts, two ticks, the rest; tick until every request is
+    admitted and none is mid-prefill, then one more tick; every slot must
+    then be decoding. Returns the ids."""
+    half = len(prompts) // 2
+    ids = [bat.submit(p, steps, on_token=run.on_token) for p in prompts[:half]]
+    bat.tick()
+    bat.tick()
+    ids += [bat.submit(p, steps, on_token=run.on_token)
+            for p in prompts[half:]]
+    while len(bat._queue) or any(s.req is not None and s.pf_done >= 0
+                                 for s in bat.slots):
+        bat.tick()
+    bat.tick()
+    live = sum(1 for s in bat.slots if s.req is not None and s.pf_done < 0)
+    if live != len(bat.slots):
+        raise AssertionError(f"{live} of {len(bat.slots)} slots decoding at "
+                             "the kill")
+    return ids
+
+
+def rec_kill(torch, bat, mon, kill, run, auto):
+    """Kill members ``kill``: with ``auto`` off the next tick must raise
+    ``DeviceLostError`` and ``recover()`` is called by hand."""
+    from adapt_tpu_torch.runtime.continuous import DeviceLostError
+
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - run.t0
+    run.rates = (run.ntok() / wall, 0.0)
+    run.at_kill = {r: len(v) for r, v in run.delivered.items()}
+    members = bat._mesh.members()
+    for k in kill:
+        mon.kill(members[k])
+    if auto:
+        return
+    try:
+        bat.tick()
+    except DeviceLostError:
+        pass
+    else:
+        raise AssertionError("a tick after the kill did not raise "
+                             "DeviceLostError (auto_reshard off)")
+    run.summary = bat.recover()
+    torch.cuda.synchronize()
+
+
+def rec_finish(torch, bat, run, inside=False):
+    """Run to drain and record the decode rate after the recovery (less the
+    recovery's wall when it runs ``inside`` the drain's first tick)."""
+    t1, n1 = time.perf_counter(), run.ntok()
+    out = bat.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t1 - (run.summary.get("wall_s", 0.0)
+                                       if inside else 0.0)
+    run.rates = (run.rates[0], (run.ntok() - n1) / wall)
+    return out
+
+
+def rec_steady(torch, label, bat, counter, want):
+    """One tick after the recovery's table upload: 0 host->device copies,
+    1 fetch, and ``want`` launches of the decode kernel (a tp=2 step's:
+    one a shard, block and step)."""
+    bat.tick()  # the first paged tick after a recovery re-uploads the table
+    before, n0 = bat.stats(), counter.launches
+    if bat.tick() < 1:
+        raise AssertionError(f"{label}: the steady tick decoded no slot")
+    after, n = bat.stats(), counter.launches - n0
+    steady = (after["h2d_transfers"] - before["h2d_transfers"],
+              after["d2h_fetches"] - before["d2h_fetches"])
+    if steady != (0, 1) or n != want:
+        raise AssertionError(f"{label}: a steady tick after the recovery "
+                             f"made {steady[0]} host->device copies, "
+                             f"{steady[1]} fetches and {n} launches (want 0, "
+                             f"1 and {want})")
+    return steady, n
+
+
+def rec_hold(torch, lm32, label, prompts, ids, out, run, ref, bar,
+             replayed=False):
+    """Phase 19's stream rule (phase 18's, each token given the history it
+    was picked from): the tokens delivered up to the kill equal the
+    uninterrupted tp=4 run's (``ref``); every token within ``bar`` of the
+    f32 copy's best logit given that history (:func:`deficits`). A
+    migrated stream is one history: the result equals what ``on_token``
+    delivered. A ``replayed`` request has two lives: the first's delivered
+    tokens are held along themselves, the last life's result along itself,
+    and the tokens it delivered after the kill must be its own. Where the
+    last life regenerated another token than the one delivered (a near
+    tie, counted in ``regen_mismatches``), the delivered stream splices two
+    histories: its deficits along the splice are printed, not gated.
+    Returns (streams leaving the uninterrupted one, largest gated deficit,
+    largest deficit along a spliced delivered stream, requests whose last
+    life left the delivered stream)."""
+    left, worst, spliced, regen = 0, 0.0, 0.0, []
+
+    def hold(rid, p, toks):
+        d = deficits(torch, lm32, p, toks)
+        if len(d) and d.max() > bar:
+            t = int(d.argmax())
+            raise AssertionError(
+                f"{label}: request {rid} (prompt {len(p)}) token {t} lies "
+                f"{d[t]:.4f} below the f32 copy's best logit (bar {bar:.4f})")
+        return float(d.max()) if len(d) else 0.0
+
+    for rid, p in zip(ids, prompts):
+        got = run.stream(rid, label)
+        res = np.asarray(out[rid])
+        n = run.at_kill.get(rid, 0)
+        if ref is not None:
+            want = np.asarray(ref[rid])
+            if not np.array_equal(got[:n], want[:n]):
+                raise AssertionError(f"{label}: request {rid}'s first {n} "
+                                     "tokens differ from the uninterrupted "
+                                     "run's")
+            left += not np.array_equal(got, want)
+        if not replayed:
+            if not np.array_equal(res, got):
+                raise AssertionError(f"{label}: request {rid}'s result "
+                                     "differs from what on_token delivered")
+            worst = max(worst, hold(rid, p, got))
+            continue
+        if len(res) != len(got) or not np.array_equal(res[n:], got[n:]):
+            raise AssertionError(f"{label}: request {rid}'s last life "
+                                 "delivered other tokens than its result")
+        worst = max(worst, hold(rid, p, got[:n]), hold(rid, p, res))
+        diff = np.nonzero(res[:n] != got[:n])[0]
+        if len(diff):
+            d = deficits(torch, lm32, p, got)
+            regen.append((rid, int(diff[0]), float(d.max())))
+            spliced = max(spliced, float(d.max()))
+    return left, worst, spliced, regen
+
+
+def rec_print(label, card, run, st, extra=""):
+    sm = run.summary
+    print(f"{label} on {card}: recovery wall {sm['wall_s']:.4f} s, moved "
+          f"{sm['moved_bytes']} B, host-staged {sm['host_staged_bytes']} B "
+          f"(weights: host-staged {sm['weight_host_staged_bytes']} B), tp "
+          f"{sm['old_tp']} -> {sm['new_tp']}, lost {sm['lost']}, "
+          f"{sm['migrated']} migrated / {sm['replayed']} replayed / "
+          f"{sm['dropped']} dropped; tok/s before the kill "
+          f"{run.rates[0]:.1f}, after the recovery {run.rates[1]:.1f}; "
+          f"cache bytes {st['cache_bytes']} ({st['cache_bytes_per_device']} "
+          f"a shard){extra}")
+
+
+def rec_books(label, st, tp, migrated, replayed):
+    if (st["tp"], st["recoveries"], st["recovery_migrated"],
+            st["recovery_replayed"], st["recovery_dropped"]) != (
+            tp, 1, migrated, replayed, 0):
+        raise AssertionError(f"{label}: books tp {st['tp']}, recoveries "
+                             f"{st['recoveries']}, migrated "
+                             f"{st['recovery_migrated']}, replayed "
+                             f"{st['recovery_replayed']}, dropped "
+                             f"{st['recovery_dropped']}")
+    if st["cache_bytes_per_device"] * tp != st["cache_bytes"]:
+        raise AssertionError(f"{label}: {st['cache_bytes_per_device']} a "
+                             f"shard x {tp} != {st['cache_bytes']}")
+
+
+def rec_migrate_run(torch, slm4, layout, prompts, steps, kill, counters,
+                    label, new_tp=2):
+    """One migrate run on ``slm4`` (8 slots, chunk 8, ``auto_reshard``
+    off): staggered until every slot decodes, a snapshot, the kill of
+    ``kill``, a tick that raises, ``recover()``, each new shard's KV
+    checked against the snapshot, a steady tick, then the drain. ``kill``
+    None is the uninterrupted reference. Returns the batcher, ids, results
+    and the run's books."""
+    from adapt_tpu_torch.config import RecoveryConfig
+    from adapt_tpu_torch.control.registry import DeviceHealthMonitor
+    from adapt_tpu_torch.runtime.continuous import ContinuousBatcher
+
+    extra = dict(kv_layout="paged", page_size=128) if layout == "paged" else {}
+    mon = DeviceHealthMonitor()
+    bat = ContinuousBatcher(slm4, slots=8, chunk=8, health=mon,
+                            recovery=RecoveryConfig(auto_reshard=False),
+                            **extra)
+    run = RecRun()
+    ids = rec_stagger(bat, prompts, steps, run)
+    steady = None
+    if kill is not None:
+        snap = rec_snapshot(bat)
+        rec_kill(torch, bat, mon, kill, run, auto=False)
+        rec_check_concat(torch, label, bat, snap, new_tp)
+        del snap
+        dec = counters["paged_attn" if layout == "paged" else "decode_attn"]
+        steady = rec_steady(torch, label, bat, dec,
+                            new_tp * len(bat.lm.blocks) * bat.chunk)
+    out = rec_finish(torch, bat, run)
+    return bat, ids, out, run, steady
+
+
+def rec_migrate_part(torch, slm4, lm32, card, counters, runs, prompts, bar):
+    """Phase 19 (a): phase 6's first 8 prompts (64 new) staggered on a
+    tp=4 batcher (8 slots) until every slot decodes, member 3 killed, on
+    dense strips and on a paged pool, then member 0 (the lead) on the pool;
+    each against the uninterrupted tp=4 run of its layout."""
+    from adapt_tpu_torch.utils.profiling import global_compile_sentinel
+
+    sentinel = global_compile_sentinel()
+    for layout, kill in (("slots", None), ("slots", (3,)), ("paged", None),
+                         ("paged", (3,)), ("paged", (0,))):
+        want = (("flash_attn_fwd", "decode_attn") if layout == "slots" else
+                ("flash_attn_fwd", "paged_attn"))
+        path = f"rec_{layout}_" + ("ref" if kill is None else
+                                   f"kill{kill[0]}")
+        label = f"phase 19 (a) {layout} kill {kill}"
+        counts0, events0 = sentinel.counts(), sentinel.events
+        bat, ids, out, run, steady = counted(
+            counters, path, want, runs,
+            lambda: rec_migrate_run(torch, slm4, layout, prompts, 64, kill,
+                                    counters, label))
+        st = bat.stats()
+        bat.close()
+        if kill is None:
+            ref = out
+            continue
+        if sentinel.counts() != counts0 or sentinel.events != events0:
+            raise AssertionError(f"{label}: the compile sentinel moved "
+                                 f"({counts0} -> {sentinel.counts()})")
+        rec_books(label, st, 2, len(ids), 0)
+        left, worst, _, _ = rec_hold(torch, lm32, label, prompts, ids, out,
+                                     run, ref, bar)
+        rec_print(label, card, run, st,
+                  f"; {len(ids)} requests migrated (each new shard's KV the "
+                  f"ordered concatenation of the old shards'), {left} leaving "
+                  f"the uninterrupted stream after the kill, largest deficit "
+                  f"{worst:.4f} (bar {bar:.4f}); a steady tick {steady[0][0]} "
+                  f"h2d / {steady[0][1]} fetch / {steady[1]} launches; no "
+                  f"compile event; launches {runs[path]}")
+
+
+def rec_spec_part(torch, slm4, draft, lm32, card, counters, runs, prompts,
+                  bar):
+    """Phase 19 (b): 8 of phase 6's prompts (40 new) on an int8 pool with
+    the 2-layer draft in int8 weights (``draft_k=4``) at tp=4,
+    ``auto_reshard`` on: member 1 killed once every slot decodes, the next
+    tick recovers (tp=2) inside itself; both members of every ``(values,
+    scales)`` pair checked against a snapshot taken as recover() starts."""
+    from adapt_tpu_torch.config import SpeculativeConfig
+    from adapt_tpu_torch.control.registry import DeviceHealthMonitor
+    from adapt_tpu_torch.runtime.continuous import ContinuousBatcher
+
+    label = "phase 19 (b) int8 speculative"
+    spec = SpeculativeConfig(draft_k=4, draft_weight_dtype="int8")
+
+    def go():
+        mon = DeviceHealthMonitor()
+        bat = ContinuousBatcher(slm4, slots=8, kv_layout="paged",
+                                page_size=128, prefill_chunk=256,
+                                kv_cache_dtype="int8", draft_lm=draft,
+                                speculative=spec, health=mon)
+        run = RecRun()
+        recover = bat.recover
+
+        def checked_recover():
+            snap = rec_snapshot(bat)
+            run.summary = recover()
+            rec_check_concat(torch, label, bat, snap, 2)
+            return run.summary
+
+        bat.recover = checked_recover
+        ids = rec_stagger(bat, prompts, 40, run)
+        rec_kill(torch, bat, mon, (1,), run, auto=True)
+        out = rec_finish(torch, bat, run, inside=True)
+        return bat, ids, out, run
+
+    bat, ids, out, run = counted(
+        counters, "rec_spec_int8", ("paged_verify_attn", "paged_chunk_attn",
+                                    "dequantize_blocks"), runs, go)
+    st = bat.stats()
+    bat.close()
+    if not run.summary:
+        raise AssertionError(f"{label}: no recovery ran")
+    rec_books(label, st, 2, len(ids), 0)
+    _, worst, _, _ = rec_hold(torch, lm32, label, prompts, ids, out, run,
+                              None, bar)
+    rec_print(label, card, run, st,
+              f"; both members of every (values, scales) pair the ordered "
+              f"concatenation of the old shards'; largest deficit "
+              f"{worst:.4f} (bar {bar:.4f}); acceptance "
+              f"{st['spec_acceptance']:.4f}; launches {runs['rec_spec_int8']}")
+
+
+def rec_replay_part(torch, slm4, lm32, card, counters, runs, prompts, bar):
+    """Phase 19 (c): phase 6's first 8 prompts (64 new) on a paged pool at
+    tp=4 with ``policy="replay"`` and a ``DispatcherJournal`` in a
+    temporary directory: member 2 killed once every slot decodes; every
+    in-flight request replays from the journal, re-entering through the
+    prefix cache; ``on_token`` delivers each index once; the journal ends
+    with nothing pending."""
+    import tempfile
+
+    from adapt_tpu_torch.config import RecoveryConfig
+    from adapt_tpu_torch.control.journal import DispatcherJournal
+    from adapt_tpu_torch.control.registry import DeviceHealthMonitor
+    from adapt_tpu_torch.runtime.continuous import ContinuousBatcher
+    from adapt_tpu_torch.utils.tracing import global_flight_recorder
+
+    label = "phase 19 (c) replay from the journal"
+    fr = global_flight_recorder()
+    with tempfile.TemporaryDirectory() as tmp:
+        journal = DispatcherJournal(os.path.join(tmp, "wal"))
+
+        def go():
+            mon = DeviceHealthMonitor()
+            bat = ContinuousBatcher(slm4, slots=8, chunk=8, kv_layout="paged",
+                                    page_size=128, health=mon,
+                                    journal=journal,
+                                    recovery=RecoveryConfig(
+                                        policy="replay", auto_reshard=False))
+            run = RecRun()
+            ids = rec_stagger(bat, prompts, 64, run)
+            hits0 = bat.stats()["prefix_hits"]
+            _, cursor = fr.events_since(1 << 62)
+            rec_kill(torch, bat, mon, (2,), run, auto=False)
+            events = [e["data"] for e in fr.events_since(cursor)[0]
+                      if e["kind"] == "replayed_from_journal"]
+            out = rec_finish(torch, bat, run)
+            return bat, ids, out, run, hits0, events
+
+        bat, ids, out, run, hits0, events = counted(
+            counters, "rec_replay", ("flash_attn_fwd", "paged_attn",
+                                     "paged_chunk_attn"), runs, go)
+        st = bat.stats()
+        bat.close()
+        pending = journal.pending_ids()
+        journal.close()
+    if (len(events) != len(ids)
+            or any(e["source"] != "journal" for e in events)):
+        raise AssertionError(f"{label}: replay events {events}")
+    if st["prefix_hits"] <= hits0:
+        raise AssertionError(f"{label}: prefix hits {hits0} -> "
+                             f"{st['prefix_hits']}: no replay re-entered "
+                             "through the prefix cache")
+    if pending:
+        raise AssertionError(f"{label}: the journal still holds {pending}")
+    rec_books(label, st, 2, 0, len(ids))
+    _, worst, spliced, regen = rec_hold(torch, lm32, label, prompts, ids,
+                                        out, run, None, bar, replayed=True)
+    rec_print(label, card, run, st,
+              f"; {len(events)} replays from the journal, prefix hits "
+              f"{hits0} -> {st['prefix_hits']}, each index delivered once, "
+              f"journal empty at drain; regen_mismatches "
+              f"{st['regen_mismatches']} in {len(regen)} requests "
+              f"(request, first regenerated index that left the delivered "
+              f"token, largest deficit along the spliced delivered stream: "
+              f"{regen}); largest deficit of a token given its own life's "
+              f"history {worst:.4f} (bar {bar:.4f}), along a splice "
+              f"{spliced:.4f} (not gated); launches {runs['rec_replay']}")
+
+
+def reduced_lm(torch, lm, depth):
+    """``lm``'s widths at ``depth`` blocks, sharing its embedding, first
+    blocks and head."""
+    from adapt_tpu_torch.models.transformer_lm import transformer_lm
+
+    vocab, dim, _, heads, mlp = GPT2_SMALL
+    small = transformer_lm(vocab, dim, depth, heads, mlp, max_len=1024,
+                           dtype=torch.bfloat16, name=f"gpt2_small_{depth}",
+                           seed=1, device=lm.device)
+    small.load_state_dict({k: v for k, v in lm.state_dict().items()
+                           if k in small.state_dict()})
+    return small.eval()
+
+
+def rec_triple_part(torch, lm, card, counters, runs, prompts):
+    """Phase 19 (d): a 4-block model of GPT-2-small's widths (its own f32
+    copy and e1 bar, :func:`tp_precision`) on dense strips at tp=4, members
+    0, 2 and 3 killed: the tp=1 remnant (a plain LM on member 1's device)
+    serves on; streams held as in (a)."""
+    from adapt_tpu_torch.core.mesh import MeshSpec, build_mesh
+    from adapt_tpu_torch.models.transformer_lm import TransformerLM, shard_lm
+
+    small = reduced_lm(torch, lm, 4)
+    small32 = f32_copy(torch, small)
+    slm = shard_lm(small, build_mesh(MeshSpec((("tp", 4),)),
+                                     [lm.device] * 4))
+    bar = 2 * tp_precision(torch, small, small32, {4: slm}, prompts[:2],
+                           "phase 19 (d)")
+    label = "phase 19 (d) triple kill"
+    for kill in (None, (0, 2, 3)):
+        path = "rec_triple_" + ("ref" if kill is None else "kill")
+        bat, ids, out, run, steady = counted(
+            counters, path, ("flash_attn_fwd", "decode_attn"), runs,
+            lambda: rec_migrate_run(torch, slm, "slots", prompts, 64, kill,
+                                    counters, label, new_tp=1))
+        st = bat.stats()
+        remnant = bat.lm
+        bat.close()
+        if kill is None:
+            ref = out
+            continue
+    if not isinstance(remnant, TransformerLM):
+        raise AssertionError(f"{label}: the remnant runs a "
+                             f"{type(remnant).__name__}")
+    rec_books(label, st, 1, len(ids), 0)
+    left, worst, _, _ = rec_hold(torch, small32, label, prompts, ids, out,
+                                 run, ref, bar)
+    rec_print(label, card, run, st,
+              f"; the remnant a plain 4-block LM on {remnant.device}; "
+              f"{left} leaving the uninterrupted stream, largest deficit "
+              f"{worst:.4f} (bar {bar:.4f}); a steady tick {steady[0][0]} "
+              f"h2d / {steady[0][1]} fetch / {steady[1]} launches; "
+              f"launches {runs[path]}")
+
+
+def recovery_phase(torch, A, D, P, Q, lm, draft, lm32, slm4, card, kernels,
+                   dprompts, bar, int8_bar):
+    """Phase 19: elastic recovery of the tp=4 batcher on the one card
+    (meshes of 4 member ids naming cuda:0), held with phase 18's f32 copy
+    and bar: (a) migrate on both layouts, member 3 then the lead, (b) an
+    int8 pool with int8 speculation recovering inside a tick, (c) replay
+    from a journal, (d) a triple kill to a tp=1 remnant at 4 blocks. Adds
+    ``recovery_launches`` (phase 19's launches of each kernel, its runs
+    summed) to every row of ``kernels``."""
+    t_phase = time.perf_counter()
+    counters = {"flash_attn_fwd": A.flash_attn_fwd,
+                "decode_attn": D.decode_attn, "paged_attn": P.paged_attn,
+                "paged_chunk_attn": P.paged_chunk_attn,
+                "paged_verify_attn": P.paged_verify_attn,
+                "dequantize_blocks": Q.dequantize_blocks}
+    runs: dict = {}
+    prompts = list(dprompts[:8])
+    marks = [time.perf_counter()]
+    rec_migrate_part(torch, slm4, lm32, card, counters, runs, prompts, bar)
+    marks.append(time.perf_counter())
+    rec_spec_part(torch, slm4, draft, lm32, card, counters, runs, prompts,
+                  bar + int8_bar)
+    marks.append(time.perf_counter())
+    rec_replay_part(torch, slm4, lm32, card, counters, runs, prompts, bar)
+    marks.append(time.perf_counter())
+    rec_triple_part(torch, lm, card, counters, runs, prompts)
+    marks.append(time.perf_counter())
+    totals: dict = {}
+    for path, launches in runs.items():
+        rows = dict(TP_ROWS["spec_int8" if path.endswith("spec_int8") else
+                            "native"], dequantize_blocks="dequantize_blocks")
+        for k, n in launches.items():
+            if k in rows:
+                totals[rows[k]] = totals.get(rows[k], 0) + n
+    for kr in kernels:
+        kr["recovery_launches"] = totals.get(kr["name"], 0)
+    print(f"phase 19 launches by path: {json.dumps(runs)}")
+    took = ", ".join(f"({part}) {b - a:.1f}"
+                     for part, a, b in zip("abcd", marks, marks[1:]))
+    print(f"phase 19 (elastic recovery) took "
           f"{time.perf_counter() - t_phase:.1f} s on {card} ({took})")
 
 
@@ -6654,8 +7194,12 @@ def main(argv) -> int:
                  qbar)
 
     # -- phase 18: tensor-parallel shards on one card ----------------------
-    tp_phase(torch, A, D, P, Q, lm, draft2, card, kernels, solo, prompts,
-             (wave1, wave2), qbar)
+    lm32, bar, slms = tp_phase(torch, A, D, P, Q, lm, draft2, card, kernels,
+                               solo, prompts, (wave1, wave2), qbar)
+
+    # -- phase 19: elastic recovery of the tensor-parallel batcher ---------
+    recovery_phase(torch, A, D, P, Q, lm, draft2, lm32, slms[4], card,
+                   kernels, prompts, bar, qbar)
 
     if "--profile" in argv:
         profile_train(torch, *train_case, card)

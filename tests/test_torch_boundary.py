@@ -1,7 +1,7 @@
 """The port's boundary: ``adapt_tpu_torch``, ``chip_smoke.py``,
 ``scripts/sched_phase.py``, ``scripts/obs_phase.py``,
-``scripts/obs_overhead.py``, ``scripts/obs_ab.py`` and
-``scripts/fleet_phase.py`` import
+``scripts/obs_overhead.py``, ``scripts/obs_ab.py``,
+``scripts/fleet_phase.py`` and ``scripts/rec_phase.py`` import
 neither JAX, its dependency ``ml_dtypes`` (absent beside the card) nor the
 JAX package, and entry points never quietly run on
 the CPU when no card is present."""
@@ -22,6 +22,7 @@ def _port_files():
         ROOT / "scripts" / "obs_phase.py", ROOT / "scripts" / "obs_overhead.py",
         ROOT / "scripts" / "obs_ab.py",
         ROOT / "scripts" / "fleet_phase.py",
+        ROOT / "scripts" / "rec_phase.py",
     ]
 
 
