@@ -13,7 +13,7 @@ same thing in both packages.
 shards (``runtime/continuous``). ``ServeConfig`` holds the subsystem
 configs the port has. ``RecoveryConfig`` comes with elastic recovery, and
 ``PrefillConfig``'s sequence-parallel path (``sp_width`` above 1) with
-sequence parallelism (ROADMAP.md item 11); it is refused until then.
+sequence parallelism (``parallel/sp_prefill``).
 
 What differs is what ``KernelConfig`` selects on this card:
 
@@ -443,11 +443,10 @@ class DisaggConfig:
 @dataclasses.dataclass(frozen=True)
 class PrefillConfig:
     """Sequence-parallel long-context prefill: prompts of at least
-    ``sp_threshold`` tokens split their token axis over ``sp_width``
-    ranks. The port runs one rank until ``torch.distributed`` serving is
-    ported (ROADMAP.md item 11): a ``PrefillWorker`` given an enabled
-    config (``sp_width`` above 1 and a threshold) raises
-    ``NotImplementedError``."""
+    ``sp_threshold`` tokens split their token axis over ``sp_width`` ranks
+    of a ring (``parallel/sp_prefill.SPPrefiller``, one process driving
+    every rank), in the collocated ``ContinuousBatcher`` (paged pools) and
+    in the disaggregated ``PrefillWorker``."""
 
     #: Prompts with at least this many tokens prefill sp-sharded (None:
     #: the sp path is off).

@@ -49,6 +49,9 @@ from adapt_tpu_torch import resolve_device
 from adapt_tpu_torch.convert import shard_state_dict
 from adapt_tpu_torch.ops.attention import flash_attention
 from adapt_tpu_torch.ops.decode_attention import (
+    _operand,
+    _pv,
+    _qk,
     _row_index,
     append_kv,
     decode_attention,
@@ -73,6 +76,10 @@ from adapt_tpu_torch.ops.quantize import quantize_kv_vectors
 
 #: Decode row count is rounded up to a multiple of this (see module doc).
 ROW_QUANTUM = 8
+
+#: The masked-score sentinel of the plain attention paths (finite, as in
+#: the JAX package).
+_NEG_INF = -1e30
 
 
 # -- sampling ----------------------------------------------------------------
@@ -500,6 +507,72 @@ class CausalSelfAttention(nn.Module):
         o = self._ungroup_o(o, c).transpose(1, 2).reshape(b, c, self.inner)
         return self.out(o), k_pool, v_pool
 
+    def prefill_sp(self, xs, gather, quantize_cache=False):
+        """SEQUENCE-PARALLEL prefill body (``parallel/sp_prefill``): the
+        whole span's attention in one layer-synchronous pass over the ranks
+        of a ring, each row computed as :meth:`prefill_chunk_paged`'s plain
+        version computes it (``paged_chunk_attention_reference``: f32
+        scores, scale columns, the -1e30 mask ``col <= row`` and the
+        window, softmax, scale-weighted probabilities), with no kernel, as
+        in the JAX package.
+
+        ``xs`` holds each rank's (1, S/P, d) input in rank order, rank r's
+        rows at positions [r * S/P, (r + 1) * S/P) (one process drives every
+        rank). Projections, rope and quantization are token-local per rank;
+        ``gather`` is the ring collect (``parallel/sp_prefill.ring_collect``:
+        a list of per-rank blocks in, each rank's full window out) and is
+        applied to the POOL REPRESENTATION of K/V — native, or quantized
+        int8 / packed int4 ``(values, scales)`` planes, both rotating —
+        BEFORE the window is read, so the chunk-attends-the-quantized-window
+        fine print of chunked prefill holds here too.
+
+        Returns ``(outs, cache_k, cache_v)``: per rank its (1, S/P, d)
+        output and its (1, kv_h, S/P, w) pool-representation K and V (or
+        ``(values, scales)`` tuples)."""
+        n = len(xs)
+        b, sl, _ = xs[0].shape
+        s = n * sl
+        dt = False
+        if quantize_cache:
+            dt = "int4" if quantize_cache == "int4" else "int8"
+        qs, cks, cvs = [], [], []
+        for r, x in enumerate(xs):
+            q, k, v = self._project(x)
+            q, k = self._rope_qk(
+                q, k, r * sl + torch.arange(sl, device=x.device))
+            if dt:
+                k, v = quantize_kv_vectors(k, dt), quantize_kv_vectors(v, dt)
+            qs.append(self._group_q(q))
+            cks.append(k)
+            cvs.append(v)
+
+        def collect(blocks):
+            if not dt:
+                return gather(blocks)
+            planes = [gather([blk[i] for blk in blocks]) for i in range(2)]
+            return list(zip(*planes))
+
+        kg, vg = collect(cks), collect(cvs)
+        hd = self.head_dim
+        sm = float(1.0 / torch.sqrt(torch.tensor(float(hd))))
+        outs = []
+        for r, q in enumerate(qs):
+            dev = q.device
+            kv_, ksc = _operand(kg[r], hd)
+            vv_, vsc = _operand(vg[r], hd)
+            sc = _qk(q, kv_, ksc, sm)
+            rows = r * sl + torch.arange(q.shape[2], device=dev) % sl
+            cols = torch.arange(s, device=dev)
+            live = cols[None, :] <= rows[:, None]
+            if self.window is not None:
+                live = live & (cols[None, :] > rows[:, None] - self.window)
+            sc = torch.where(live[None, None], sc, _NEG_INF)
+            p = torch.softmax(sc, dim=-1)
+            o = _pv(p, vv_, vsc).to(q.dtype)
+            o = self._ungroup_o(o, sl).transpose(1, 2).reshape(
+                b, sl, self.inner)
+            outs.append(self.out(o))
+        return outs, cks, cvs
 
     def _verify_offsets(self, kc, tree_tail, device):
         """Logical offsets of a verify chunk's rows: chain rows at their
@@ -657,6 +730,17 @@ class DecoderBlock(nn.Module):
         x = x + a
         return x + self._mlp(self.ln2(x)), kp, vp
 
+    def prefill_sp(self, xs, gather, quantize_cache=False):
+        """The block around :meth:`CausalSelfAttention.prefill_sp`, per
+        rank. Dense blocks only: the JAX package's MoE block has no
+        sequence-parallel prefill."""
+        if self.moe_experts is not None:
+            raise NotImplementedError(
+                "MoE blocks have no sequence-parallel prefill")
+        a, ck, cv = self.attn.prefill_sp([self.ln1(x) for x in xs], gather,
+                                         quantize_cache)
+        xs = [x + ai for x, ai in zip(xs, a)]
+        return [x + self._mlp(self.ln2(x)) for x in xs], ck, cv
 
     def verify_chunk(self, x, cache_k, cache_v, index, tree_tail=0):
         a, ck, cv = self.attn.verify_chunk(
@@ -1084,6 +1168,29 @@ class ShardedBlock(nn.Module):
     def verify_chunk(self, x, cache_k, cache_v, index, tree_tail=0):
         return self._block("verify_chunk", x, (cache_k, cache_v),
                            (index, tree_tail), {})
+
+    def prefill_sp(self, xs, gather, quantize_cache=False):
+        """:meth:`DecoderBlock.prefill_sp` over the shards: each attention
+        shard runs the sequence-parallel body over its own heads (its K/V
+        through ``gather`` shard by shard), and each rank's out-projection
+        partials reduce in shard order, as in the tp batcher's chunk pass.
+        K and V come back per rank as a ``Shards`` of the tp pieces (plain
+        when attention is whole)."""
+        if self.moe_kind is not None:
+            raise NotImplementedError(
+                "MoE blocks have no sequence-parallel prefill")
+        hs = [self.ln1(x) for x in xs]
+        if not self.split_attn:
+            a, ck, cv = self.attn_full.prefill_sp(hs, gather, quantize_cache)
+        else:
+            res = [sh.prefill_sp(hs, gather, quantize_cache)
+                   for sh in self.attn_shards]
+            a = [_reduced([r[0][i] for r in res], h.dtype, self.out_bias)
+                 for i, h in enumerate(hs)]
+            ck = [Shards([r[1][i] for r in res]) for i in range(len(hs))]
+            cv = [Shards([r[2][i] for r in res]) for i in range(len(hs))]
+        xs = [x + ai for x, ai in zip(xs, a)]
+        return [x + self._mlp(self.ln2(x)) for x in xs], ck, cv
 
     def verify_chunk_paged(self, x, k_pool, v_pool, page_table, index,
                            attn_impl=None, tree_tail=0, split=None):

@@ -1,7 +1,9 @@
 """Pipeline schedule (``pipeline_spmd``), training step (``train``),
 tensor-parallel sharding over a mesh of shards driven by one process, with
-the reshard plan of elastic recovery (``sharding``), and expert placement
-(``expert``) of the port."""
+the reshard plan of elastic recovery (``sharding``), expert placement
+(``expert``), and sequence parallelism over a ring of ranks driven by one
+process: ring attention, Ulysses and the sp-sharded prefill
+(``ring_attention``, ``ulysses``, ``sp_prefill``) of the port."""
 
 from adapt_tpu_torch.parallel.expert import (
     expert_shardings,
@@ -12,6 +14,11 @@ from adapt_tpu_torch.parallel.pipeline_spmd import (
     spmd_pipeline,
     stack_stage_params,
 )
+from adapt_tpu_torch.parallel.ring_attention import (
+    ring_attention,
+    stripe_sequence,
+    unstripe_sequence,
+)
 from adapt_tpu_torch.parallel.sharding import (
     batch_sharding,
     lm_tp_rules,
@@ -21,6 +28,7 @@ from adapt_tpu_torch.parallel.sharding import (
     tree_shardings,
     vit_tp_rules,
 )
+from adapt_tpu_torch.parallel.ulysses import ulysses_attention
 
 __all__ = [
     "batch_sharding",
@@ -30,9 +38,13 @@ __all__ = [
     "merge_specs",
     "place_experts",
     "replicate",
+    "ring_attention",
     "shard_batch",
     "spmd_pipeline",
     "stack_stage_params",
+    "stripe_sequence",
     "tree_shardings",
+    "ulysses_attention",
+    "unstripe_sequence",
     "vit_tp_rules",
 ]

@@ -159,6 +159,19 @@ finish, drop, queued cancel and rejection. Books: ``stats()``'s
 ``recovery.{migrated,replayed,dropped}_total`` and the ``device_lost``,
 ``mesh_reshard``, ``kv_migrated`` and ``replayed_from_journal`` flight
 events. Recovery builds no kernel.
+
+Sequence-parallel prefill (``prefill=config.PrefillConfig(sp_threshold,
+sp_width)``, paged pools): an admission of at least ``sp_threshold``
+tokens first prefills its full pages over an ``(sp,)`` or ``(sp, tp)``
+ring (``parallel/sp_prefill.SPPrefiller``, on ``sp_mesh`` or a ring of
+this batcher's device; its tp must be this batcher's) and lands them
+through :meth:`ContinuousBatcher.adopt_prefill_pages`, so the request then
+admits as a prefix hit and only its suffix runs here (K4). A failed sp
+dispatch falls back to the chunked path, and three in a row retire the
+ring until a recovery rebuilds it from the old ring's surviving members
+(halving its width while it does not fit); each failure is counted in
+``stats()["sp_failures"]`` and a ``sp_prefill`` flight event with ``ok``
+False.
 """
 
 from __future__ import annotations
@@ -179,6 +192,7 @@ from adapt_tpu_torch.config import (
     KernelConfig,
     ObservabilityConfig,
     ParallelConfig,
+    PrefillConfig,
     RecoveryConfig,
     RuntimeConfig,
     SchedulerConfig,
@@ -215,6 +229,7 @@ from adapt_tpu_torch.parallel.sharding import (
     plan_kv_handoff,
     plan_kv_reshard,
 )
+from adapt_tpu_torch.parallel.sp_prefill import SPPrefiller, build_sp_mesh
 from adapt_tpu_torch.runtime.capacity import CapacityModel
 from adapt_tpu_torch.runtime.paged import (
     HostKVTier,
@@ -455,7 +470,8 @@ class ContinuousBatcher:
     ``cache_tier`` the host KV tier under a paged pool (off by default);
     ``mesh`` / ``parallel`` tensor-parallel shards, and over them
     ``recovery``, ``health`` and ``journal`` elastic recovery (see the
-    module docstring and :meth:`recover`).
+    module docstring and :meth:`recover`); ``prefill`` / ``sp_mesh`` the
+    sequence-parallel prefill of long admissions.
     Engine telemetry (``utils/profiling``): the batcher is a memory and a
     roofline source, (re-)registers the compile sentinel's kernel-library
     watch, and times its tick phases when ``global_engine_obs()`` is
@@ -489,6 +505,8 @@ class ContinuousBatcher:
         recovery: RecoveryConfig | None = None,
         health=None,
         journal=None,
+        prefill: PrefillConfig | None = None,
+        sp_mesh=None,
     ):
         lm = self._setup_parallel(lm, mesh, parallel)
         if kv_cache_dtype not in ("native", "int8", "int4"):
@@ -791,6 +809,45 @@ class ContinuousBatcher:
         self._last_recovery_wall_s = 0.0
         #: close() sets it: a retired batcher ignores membership events.
         self._retired = False
+        # -- sequence-parallel long-context prefill ------------------------
+        self._sp_cfg = prefill
+        self._sp: SPPrefiller | None = None
+        self._sp_prefills = 0
+        #: Failed sp dispatches: consecutive (three retire the ring until a
+        #: recovery rebuilds it) and lifetime.
+        self._sp_fail_run = 0
+        self._sp_failures = 0
+        #: The ring's members as first built: a recovery after the breaker
+        #: retired the ring rebuilds from their survivors.
+        self._sp_pool: list = []
+        #: Compile-sentinel allowance granted to rebuilt rings (revoked at
+        #: close()).
+        self._sp_granted = 0
+        if prefill is not None and prefill.enabled:
+            if not self._paged:
+                raise ValueError(
+                    "PrefillConfig sp prefill requires kv_layout='paged' (the "
+                    "sp pages land through the paged prefix cache)")
+            if sp_mesh is None:
+                need = prefill.sp_width * self._tp
+                sp_mesh = build_sp_mesh(prefill.sp_width, self._tp,
+                                        prefill.sp_axis, self._axis,
+                                        devices=[self.device] * need)
+            if self._tp > 1:
+                if (self._axis not in sp_mesh.shape
+                        or int(sp_mesh.shape[self._axis]) != self._tp):
+                    raise ValueError(
+                        f"sp_mesh must carry the batcher's tp axis "
+                        f"{self._axis!r} at size {self._tp} — sp pages must "
+                        "be what this batcher's own tp-sharded chunked "
+                        "prefill would write")
+            sp_tp_axis = self._axis if self._axis in sp_mesh.shape else None
+            self._sp_pool = sp_mesh.members()
+            self._sp = SPPrefiller(
+                self.lm, sp_mesh, self._page, kv_cache_dtype=kv_cache_dtype,
+                sp_axis=prefill.sp_axis, tp_axis=sp_tp_axis,
+                name="batcher-sp", health=health)
+            global_metrics().set_gauge("prefill.sp_width", float(self._sp.sp))
         # -- capacity plane ----------------------------------------------
         cap_cfg = capacity or CapacityConfig()
         self._capacity: CapacityModel | None = (
@@ -1281,6 +1338,102 @@ class ContinuousBatcher:
         self._adopt_pages([p for _, p in adopted],
                           [(pick(k), pick(v)) for k, v in blocks])
         return len(adopted)
+
+    def _sp_admit(self, req: _Request) -> None:
+        """Sequence-parallel prefill of one long admission: the sp ring
+        computes the prompt's full pages (``parallel/sp_prefill``) and they
+        land through :meth:`adopt_prefill_pages`, the disaggregated
+        handoff's landing, so the admission below prefix-hits them and
+        pays only the suffix pass. A failure degrades to the ordinary
+        (chunked) prefill: counted, logged and recorded; three in a row
+        retire the ring."""
+        s0 = req.prompt.shape[0]
+        m = self._sp.covers(s0)
+        if m < 1 or self.prefix_cached(req.prompt) >= m:
+            return  # nothing to do, or hierarchy-resident already
+        eo = self._eobs
+        t_ph = eo.now() if eo.enabled else 0.0
+        tracer = global_tracer()
+        t0 = tracer.now() if tracer.enabled else 0.0
+        sp = self._sp.sp
+        try:
+            n, blocks = self._sp.prefill(req.prompt)
+            adopted = self.adopt_prefill_pages(req.prompt, blocks, self._page,
+                                               self._kv_quant)
+        except Exception:  # noqa: BLE001 — degrade, never wedge
+            log.exception("sp prefill failed for request %d; admission "
+                          "falls back to the chunked path", req.req_id)
+            self._sp_failures += 1
+            self._sp_fail_run += 1
+            global_metrics().inc("prefill.sp_failures_total")
+            global_flight_recorder().record("sp_prefill", request=req.req_id,
+                                            pages=0, sp=sp, ok=False)
+            if self._sp_fail_run >= 3:
+                # A deterministic failure (a dead ring-only member): stop
+                # paying a doomed dispatch per long admission until a
+                # recovery rebuilds the ring.
+                log.warning("sp prefill disabled after %d consecutive "
+                            "failures", self._sp_fail_run)
+                self._sp.close()
+                self._sp = None
+                global_metrics().set_gauge("prefill.sp_width", 1.0)
+            return
+        self._sp_fail_run = 0
+        with self._cv:
+            self._sp_prefills += 1
+        # n full pages of prompt positions: the same prefill-work books as
+        # an in-tick chunk pass.
+        self._count_prefill(n * self._page)
+        if tracer.enabled:
+            tracer.add_span("batcher.sp_prefill", start=t0, end=tracer.now(),
+                            request=req.req_id, pages=n, adopted=adopted,
+                            sp=sp)
+        if eo.enabled:
+            eo.phase("sp_prefill", t_ph, span=False)
+        global_flight_recorder().record("sp_prefill", request=req.req_id,
+                                        pages=n, adopted=adopted, sp=sp,
+                                        ok=True)
+
+    def _rebuild_sp(self, dead: set, new_tp: int) -> None:
+        """A recovery's ring rebuild: from the old ring's surviving members
+        (the first ring's, when the breaker had retired it), in their
+        order and keeping their ids, at this batcher's new tp, the width
+        halved while it does not fit; no ring of 2 fits: the ordinary
+        prefill path. The sentinel is re-armed for the old ring's variants
+        (a ring that never ran banks nothing)."""
+        cfg = self._sp_cfg
+        if self._sp is not None:
+            variants = len(self._sp.variants)
+            alive = [m for m in self._sp._mesh.members() if m.id not in dead]
+            self._sp.close()
+            self._sp = None
+        else:
+            variants = 0
+            alive = [m for m in self._sp_pool if m.id not in dead]
+        self._sp_fail_run = 0
+        w = cfg.sp_width
+        while w > 1 and w * new_tp > len(alive):
+            w //= 2
+        if w > 1:
+            try:
+                self._sp = SPPrefiller(
+                    self.lm, build_sp_mesh(w, new_tp, cfg.sp_axis, self._axis,
+                                           devices=alive),
+                    self._page, kv_cache_dtype=self._kv_quant or "native",
+                    sp_axis=cfg.sp_axis,
+                    tp_axis=self._axis if new_tp > 1 else None,
+                    name="batcher-sp", health=self._health)
+                if variants:
+                    self._sentinel.rearm("sp.prefill", expect=variants)
+                    self._sp_granted += variants
+            except Exception:  # noqa: BLE001 — degrade, don't wedge
+                log.exception("sp prefiller rebuild failed; sp prefill "
+                              "disabled until the next recovery")
+        else:
+            log.warning("sp prefill disabled: %d surviving ring members "
+                        "support no sp >= 2 at tp=%d", len(alive), new_tp)
+        global_metrics().set_gauge(
+            "prefill.sp_width", float(self._sp.sp if self._sp else 1))
 
     # -- the host KV tier --------------------------------------------------
 
@@ -2004,6 +2157,10 @@ class ContinuousBatcher:
                                   if k not in consumed]
             self._mesh_devices = list(new_devices)
             self._mesh_device_ids = {m.id for m in new_devices}
+        if self._sp_cfg is not None and self._sp_cfg.enabled:
+            # The ring may hold the lost member, and its tp must track this
+            # batcher's.
+            self._rebuild_sp(dead, new_tp)
         # Per request: decoding slots migrate (their state just did);
         # mid-chunked-prefill slots, and every slot under "replay", replay.
         migrated = replayed = dropped = 0
@@ -2060,7 +2217,7 @@ class ContinuousBatcher:
                 reg.inc(f"recovery.{what}_total", float(n))
         summary = plan.summary()
         summary.update(migrated=migrated, replayed=replayed, dropped=dropped,
-                       wall_s=wall,
+                       wall_s=wall, sp_width=self._sp.sp if self._sp else 1,
                        weight_host_staged_bytes=wplan.host_staged_bytes)
         global_flight_recorder().record(
             "mesh_reshard", old_tp=old_tp, new_tp=new_tp, lost=lost_here,
@@ -2483,6 +2640,10 @@ class ContinuousBatcher:
             i = slot.idx
             s0 = req.prompt.shape[0]
             bucket = next(b for b in self.prompt_buckets if b >= s0)
+            if self._sp is not None and s0 >= self._sp_cfg.sp_threshold:
+                # Long admission: the ring computes its full pages BEFORE
+                # the prefix probe, which then shares them as hits.
+                self._sp_admit(req)
             m = 0
             if self._paged:
                 P = self._page
@@ -3054,6 +3215,12 @@ class ContinuousBatcher:
                 out["radix_evictions"] = self._pager.radix_evictions
                 out["cow_forks"] = ps.cow_forks
                 out["fanout_groups"] = len(self._fanout_groups)
+            if self._sp_cfg is not None:
+                # The live ring width (1: the ordinary path), admissions
+                # the ring prefilled, and its failed dispatches.
+                out["sp_width"] = self._sp.sp if self._sp is not None else 1
+                out["sp_prefills"] = self._sp_prefills
+                out["sp_failures"] = self._sp_failures
             if self._tier is not None:
                 ts = self._tier.stats()
                 out["host_pages"] = ts.pages
@@ -3174,6 +3341,14 @@ class ContinuousBatcher:
         self.stop()
         self._inflight = None
         self._retired = True  # membership events no longer reach it
+        if self._sp is not None:
+            self._sp.close()
+            self._sp = None
+        if self._sp_granted:
+            # Leftover allowance would absorb another prefiller's real
+            # growth.
+            self._sentinel.disarm("sp.prefill", self._sp_granted)
+            self._sp_granted = 0
         unregister_memory_source("continuous", self)
         unregister_roofline_source("continuous", self)
 

@@ -39,10 +39,10 @@ Observability: ``disagg.{handoff_bytes,handoff_bytes_raw,handoff_s,
 pages_streamed}`` and the ``kv_handoff`` flight event per landing.
 
 Scope: one process, one card (a tp decode batcher's shards may share it);
-the server drives both tiers from one thread. The sequence-parallel
-prefill branch (``config.PrefillConfig`` with ``sp_width`` above 1) waits
-for sequence parallelism (ROADMAP.md item 11) and raises
-``NotImplementedError``.
+the server drives both tiers from one thread. With ``config.PrefillConfig``
+(``sp_width`` above 1) the prefill tier runs a long job's whole span over
+a sequence-parallel ring (``parallel/sp_prefill``) in one :meth:`step`,
+outside its pool: a prompt longer than the pool still hands off.
 """
 
 from __future__ import annotations
@@ -69,6 +69,7 @@ from adapt_tpu_torch.config import DisaggConfig, PrefillConfig, SLOSpec
 from adapt_tpu_torch.models.transformer_lm import TransformerLM
 from adapt_tpu_torch.ops.quantize import PAGE_CODECS, decode_page, encode_page
 from adapt_tpu_torch.parallel.sharding import head_tiles, host_copy
+from adapt_tpu_torch.parallel.sp_prefill import SPPrefiller, build_sp_mesh
 from adapt_tpu_torch.runtime.capacity import prefill_tier_book
 from adapt_tpu_torch.runtime.continuous import ContinuousBatcher
 from adapt_tpu_torch.runtime.paged import Pager
@@ -337,6 +338,8 @@ class _PrefillJob:
     target: int
     slot: int = -1
     pf_done: int = 0
+    #: Set when its sp dispatch failed: the sp scan never picks it again.
+    no_sp: bool = False
 
 
 class PrefillWorker:
@@ -354,14 +357,20 @@ class PrefillWorker:
     writes with the same chunk schedule.
 
     ``lm`` must sit on ``device`` (None: the CUDA card, raising without
-    one). A ``prefill`` config with ``sp_width`` above 1 raises
-    ``NotImplementedError`` (ROADMAP.md item 11)."""
+    one). ``prefill`` (``sp_width`` above 1) sends jobs of at least
+    ``sp_threshold`` tokens through a sequence-parallel ring instead
+    (``parallel/sp_prefill.SPPrefiller`` on ``sp_mesh``, by default a ring
+    naming ``device`` ``sp_width`` times): the whole span in one dispatch,
+    never in the pool. A failed sp dispatch falls back to the chunk path
+    when the pool can hold the job, else the job lands in
+    :attr:`failed_jobs`."""
 
     def __init__(self, lm: TransformerLM, page_size: int = 128,
                  slots: int = 2, pool_pages: int | None = None,
                  prefill_chunk: int | None = None,
                  kv_cache_dtype: str = "native", name: str = "prefill0",
-                 prefill: PrefillConfig | None = None, device=None):
+                 prefill: PrefillConfig | None = None, device=None,
+                 sp_mesh=None):
         if kv_cache_dtype not in ("native", "int8", "int4"):
             raise ValueError(f"kv_cache_dtype={kv_cache_dtype!r}: expected "
                              "'native', 'int8' or 'int4'")
@@ -370,11 +379,6 @@ class PrefillWorker:
             raise ValueError(
                 f"prefill_chunk must be a positive multiple of page_size "
                 f"{page_size}, got {prefill_chunk}")
-        if prefill is not None and prefill.enabled:
-            raise NotImplementedError(
-                f"PrefillConfig(sp_width={prefill.sp_width}): the "
-                "sequence-parallel prefill runs on several ranks, which the "
-                "port serves only from ROADMAP.md item 11 (multi-GPU) on")
         self.device = resolve_device(device)
         if lm.device != self.device:
             raise ValueError(f"the prefill tier's model is on {lm.device}, "
@@ -412,16 +416,28 @@ class PrefillWorker:
         self.prefill_tokens = 0
         self.handoffs = 0
         #: The sequence-parallel state: the config and the prefiller that
-        #: runs a whole span over the ranks (None: the one-rank port, until
-        #: ROADMAP.md item 11 builds it from an enabled config).
+        #: runs a whole span over the ranks (None: off).
         self._sp_cfg = prefill
-        self._sp = None
+        self._sp: SPPrefiller | None = None
         self.sp_prefills = 0
+        #: Failed sp dispatches (each fell back to the chunk path or landed
+        #: in failed_jobs).
+        self.sp_failures = 0
         #: ``(req_id, reason)`` of jobs that could neither run nor fall back
         #: to the chunk path; the server (or router) driving this tier
         #: drains it every tick and fails each request cleanly. Only the
         #: sequence-parallel path appends to it.
         self.failed_jobs: list[tuple[int, str]] = []
+        if prefill is not None and prefill.enabled:
+            if sp_mesh is None:
+                sp_mesh = build_sp_mesh(prefill.sp_width, 1, prefill.sp_axis,
+                                        devices=[dev] * prefill.sp_width)
+            self._sp = SPPrefiller(
+                lm, sp_mesh, page_size, kv_cache_dtype=kv_cache_dtype,
+                sp_axis=prefill.sp_axis,
+                tp_axis="tp" if "tp" in sp_mesh.shape else None,
+                name=f"{name}-sp")
+            global_metrics().set_gauge("prefill.sp_width", float(self._sp.sp))
 
     # -- request lifecycle -------------------------------------------------
 
@@ -435,7 +451,8 @@ class PrefillWorker:
         if m < 1:
             raise ValueError(f"prompt of {s0} tokens has no full "
                              f"{self.page_size}-token page to hand off")
-        if m > self._pager.num_allocatable:
+        # sp-eligible jobs never touch the pool: the bound does not apply.
+        if m > self._pager.num_allocatable and not self.sp_eligible(s0):
             raise ValueError(f"prompt needs {m} pages but the prefill pool "
                              f"holds {self._pager.num_allocatable}")
         self._queue.append(_PrefillJob(req_id=req_id, prompt=prompt,
@@ -467,6 +484,50 @@ class PrefillWorker:
         return (self._sp is not None
                 and s0 >= self._sp_cfg.sp_threshold
                 and (s0 - 1) // self.page_size >= 1)
+
+    def _sp_pass(self, job: _PrefillJob) -> KVHandoff | None:
+        """One sp-eligible job through the sequence-parallel ring: the
+        whole prefill in ONE dispatch, the handoff built straight from its
+        page-major output; the job never touches the pool. On failure: the
+        chunk path when the pool can cover the job (front re-queue), else
+        the request fails cleanly through :attr:`failed_jobs`."""
+        tracer = global_tracer()
+        t0 = tracer.now() if tracer.enabled else 0.0
+        try:
+            m, blocks = self._sp.prefill(job.prompt)
+        except Exception as e:  # noqa: BLE001 — degrade, never wedge
+            self.sp_failures += 1
+            global_metrics().inc("prefill.sp_failures_total")
+            global_flight_recorder().record(
+                "sp_prefill", request=job.req_id, pages=0, sp=self._sp.sp,
+                tier="prefill", ok=False)
+            if job.target // self.page_size <= self._pager.num_allocatable:
+                log.exception("sp prefill failed for request %d; falling "
+                              "back to the chunked path", job.req_id)
+                job.no_sp = True
+                self._queue.appendleft(job)
+            else:
+                log.exception("sp prefill failed for request %d, which the "
+                              "pool cannot hold", job.req_id)
+                self.failed_jobs.append((job.req_id, str(e)[:200]))
+            return None
+        toks = m * self.page_size
+        self.prefill_tokens += toks
+        self.sp_prefills += 1
+        self.handoffs += 1
+        reg = global_metrics()
+        reg.inc("disagg.prefill_tokens_total", float(toks))
+        reg.inc("disagg.sp_prefills_total")
+        if tracer.enabled:
+            tracer.add_span("disagg.sp_prefill", start=t0, end=tracer.now(),
+                            request=job.req_id, pages=m, sp=self._sp.sp)
+        global_flight_recorder().record(
+            "sp_prefill", request=job.req_id, pages=m, sp=self._sp.sp,
+            tier="prefill", ok=True)
+        return KVHandoff(req_id=job.req_id, prompt=job.prompt,
+                         page_size=self.page_size, n_pages=m,
+                         quantized=self.quantized, blocks=blocks,
+                         kv_dtype=self.kv_cache_dtype)
 
     def _admit(self) -> None:
         for i, job in enumerate(self._slots):
@@ -526,10 +587,20 @@ class PrefillWorker:
                          kv_dtype=self.kv_cache_dtype)
 
     def step(self) -> list[KVHandoff]:
-        """One scheduling round: admit waiting jobs, run ONE chunk pass per
-        active slot, and hand off the finished ones. Returns this round's
-        handoffs (possibly none)."""
+        """One scheduling round: at most ONE sp-eligible job through the
+        sequence-parallel ring (its whole span: the sp counterpart of the
+        chunk pass's stall bound), then admit waiting jobs, run ONE chunk
+        pass per active slot, and hand off the finished ones. Returns this
+        round's handoffs (possibly none)."""
         done: list[KVHandoff] = []
+        if self._sp is not None:
+            for i, job in enumerate(self._queue):
+                if not job.no_sp and self.sp_eligible(job.prompt.shape[0]):
+                    del self._queue[i]
+                    h = self._sp_pass(job)
+                    if h is not None:
+                        done.append(h)
+                    break
         self._admit()
         tracer = global_tracer()
         for job in list(self._slots):
@@ -554,6 +625,7 @@ class PrefillWorker:
             "handoffs": self.handoffs,
             "sp_prefills": self.sp_prefills,
             "sp_width": self._sp.sp if self._sp is not None else 1,
+            "sp_failures": self.sp_failures,
             "pool_pages": ps.num_pages,
             "pages_in_use": ps.in_use,
         }
@@ -692,7 +764,10 @@ class DisaggServer:
                      else self.cfg.prompt_threshold)
         if s0 < threshold:
             return False
-        if m > self.prefill._pager.num_allocatable:
+        if (m > self.prefill._pager.num_allocatable
+                and not self.prefill.sp_eligible(s0)):
+            # Unless the tier's sequence-parallel ring takes it: sp jobs
+            # hold their span on the ring, never in the pool.
             return self._fallback(s0, f"{m} pages exceed the prefill pool")
         if not self._prefill_alive():
             return self._fallback(s0, "the prefill tier's lease expired")

@@ -36,7 +36,8 @@ Phases (no phase failure is caught; any mismatch exits non-zero):
    kernel from ``adapt_tpu_torch/csrc`` (one nvcc per source, in parallel);
 2. K1 (``flash_attn_fwd``) against its plain version in bf16 at the
    prefill shapes of the main path, plus ragged, ``valid_from``, window and
-   head_dim-128 cases;
+   head_dim-128 cases, and the striped ring's device int32 ``causal_shift``
+   0 and 1 at s 1024 and 2048 (a row with no live key not compared);
 3. K2 (``decode_attn``) and K2-split (``decode_attn_split``, split 4)
    against the plain version on the batcher's dense strip (L = 1025), plus
    GQA and ``valid_from`` cases, and split 1 against split 4; then with
@@ -281,7 +282,31 @@ Phases (no phase failure is caught; any mismatch exits non-zero):
    ``regen_mismatches`` printed; (d) a 4-block model killed down to a tp=1
    remnant. Each run prints the recovery's wall, moved and host-staged
    bytes and tok/s before and after; launches are added to each row as
-   ``recovery_launches``.
+   ``recovery_launches``;
+20. sequence parallelism (``sp_phase``; rings of 2 and 4 ranks naming
+   cuda:0, one process driving every rank): (a) ``ring_attention`` at b1
+   h12 S4096 d64 bf16, {flash, jnp} x {contiguous, striped} x causal or
+   not, and ``ulysses_attention``, each within 1e-2 + 1e-2|ref| of
+   ``attention_reference``, K1 launched exactly what each layout needs (a
+   contiguous causal ring nothing on its dead steps), then the device ms of
+   the striped against the contiguous causal flash ring; (b) the paged
+   batcher (phase 7's pool) on phase 7's four 600-900-token and four
+   16-512-token prompts, 32 new tokens, with ``PrefillConfig(sp_threshold=
+   512, sp_width=2)`` and 4, native and int8: ``sp_prefills`` = the prompts
+   of 512+ tokens, as many prefix hits, no sp failure, a steady tick 0
+   host->device copies and 1 fetch after a fresh sp admission, each stream
+   leaving the run without sp only at a top-2 gap below phase 7's bar
+   (int8: phase 9's) and every token within phase 18's bar (int8: plus
+   phase 9's) of the f32 copy's best logit given its own history; printed:
+   the sp pages' largest difference from the chunked prefill's (K4) per
+   block, the long prompts' TTFT, the K4 launches; (c) a ``PrefillWorker``
+   whose 3-page pool holds no long prompt: no handoff without sp, every
+   long prompt handed off with sp_width 2, no failed job, streams held as
+   in (b); (d) a tp=2 batcher with an (sp=2, tp=2) ring and a journal,
+   member 1 killed with every slot decoding: tp 1, the ring rebuilt from
+   members {0, 2, 3} at sp 2, tp 1, a later long admission on the sp path,
+   phase 19's delivery, journal and bar gates. Launches are added to each
+   row as ``sp_launches``.
 
 The line before the last is the kernels' JSON; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -368,26 +393,35 @@ def check_k1(torch, A, dev, errs):
         (dict(b=1, h=12, s=1024, d=64, causal=True), {"window": 256}),
         (dict(b=1, h=8, s=256, d=128, causal=True), {}),
     ]
+    # The striped ring's steps (phase 20): a device int32 diagonal shift.
+    cases += [(dict(b=1, h=12, s=s, d=64, causal=True), {
+        "causal_shift": torch.full((), sh, dtype=torch.int32, device=dev)})
+        for s in (1024, 2048) for sh in (0, 1)]
     for shp, kw in cases:
         b, h, s, d = shp["b"], shp["h"], shp["s"], shp["d"]
         q, k, v = rnd(b, h, s, d), rnd(b, h, s, d), rnd(b, h, s, d)
         out, lse = A.flash_attn_fwd(q, k, v, shp["causal"],
-                                    kw.get("valid_from"), None,
-                                    kw.get("window"))
+                                    kw.get("valid_from"),
+                                    kw.get("causal_shift"), kw.get("window"))
         torch.cuda.synchronize()
         ref, ref_lse = A._reference_with_lse(
-            q, k, v, shp["causal"], kw.get("valid_from"), None,
-            kw.get("window"))
+            q, k, v, shp["causal"], kw.get("valid_from"),
+            kw.get("causal_shift"), kw.get("window"))
         rows = slice(None)
         if "valid_from" in kw:  # padded query rows are unspecified
             vf = kw["valid_from"]
             keep = torch.arange(s, device=dev)[None, :] >= vf[:, None]
             out, ref = out.transpose(1, 2)[keep], ref.transpose(1, 2)[keep]
             lse, ref_lse = lse.transpose(1, 2)[keep], ref_lse.transpose(1, 2)[keep]
+        if "causal_shift" in kw:  # a row with no live key is unspecified
+            keep = ref_lse > -1e29
+            out, ref, lse, ref_lse = out[keep], ref[keep], lse[keep], ref_lse[keep]
+            kw = {"causal_shift": int(kw["causal_shift"])}
         e = close(out[rows], ref[rows], 1e-2, 1e-2, f"K1 out {shp} {kw}")
         close(lse, ref_lse, 1e-3, 1e-5, f"K1 lse {shp} {kw}")
         errs["flash_attn_fwd"] = max(errs.get("flash_attn_fwd", 0.0), e)
-        print(f"K1 {shp} {list(kw)}: max abs err {e:.3e} (tol 1e-2 + 1e-2|ref|)")
+        what = kw if "causal_shift" in kw else list(kw)
+        print(f"K1 {shp} {what}: max abs err {e:.3e} (tol 1e-2 + 1e-2|ref|)")
 
 
 def decode_inputs(torch, dev, b, kvh, g, L, hd, seed=2):
@@ -6338,6 +6372,453 @@ def recovery_phase(torch, A, D, P, Q, lm, draft, lm32, slm4, card, kernels,
           f"{time.perf_counter() - t_phase:.1f} s on {card} ({took})")
 
 
+# -- phase 20: sequence parallelism -------------------------------------------
+
+#: Phase 20 (a)'s q / k / v: b, heads, S, head_dim (bf16).
+SP_RING_SHAPE = (1, 12, 4096, 64)
+
+
+def sp_rings_part(torch, A, dev, card, counters, runs):
+    """Phase 20 (a): ``ring_attention`` at b1 h12 S4096 d64 bf16 over rings
+    of 2 and 4 ranks naming the card, {flash, jnp} x {contiguous, striped}
+    x causal or not, and ``ulysses_attention`` at the same widths, each
+    within 1e-2 + 1e-2|ref| of ``attention_reference`` (striped outputs
+    unstriped first). K1 launches of each flash ring exactly what its
+    layout needs (a contiguous causal ring launches nothing for its dead
+    steps); no jnp ring launches K1. Then the device ms per call of the
+    striped against the contiguous causal flash ring (printed)."""
+    import importlib
+
+    from adapt_tpu_torch.core.mesh import MeshSpec, build_mesh
+    from adapt_tpu_torch.parallel.ulysses import ulysses_attention
+
+    R = importlib.import_module("adapt_tpu_torch.parallel.ring_attention")
+    g = torch.Generator(device=dev).manual_seed(20)
+    S = SP_RING_SHAPE[2]
+    q, k, v = (torch.randn(*SP_RING_SHAPE, generator=g, device=dev).to(
+        torch.bfloat16) for _ in range(3))
+    refs = {c: A.attention_reference(q, k, v, causal=c) for c in (False, True)}
+    worst, meshes = 0.0, {}
+    for sp in (2, 4):
+        mesh = meshes[sp] = build_mesh(MeshSpec((("sp", sp),)), [dev] * sp)
+        striped = tuple(R.stripe_sequence(t, sp) for t in (q, k, v))
+        for impl in ("flash", "jnp"):
+            for layout in ("contiguous", "striped"):
+                for causal in (False, True):
+                    path = (f"ring_{impl}_{layout}_"
+                            f"{'causal' if causal else 'full'}_sp{sp}")
+                    args = striped if layout == "striped" else (q, k, v)
+                    out = counted(
+                        counters, path,
+                        ("flash_attn_fwd",) if impl == "flash" else (), runs,
+                        lambda args=args, impl=impl, layout=layout,
+                        causal=causal: R.ring_attention(
+                            *args, mesh, causal=causal, block_impl=impl,
+                            layout=layout))
+                    torch.cuda.synchronize()
+                    if layout == "striped":
+                        out = R.unstripe_sequence(out, sp)
+                    worst = max(worst, close(out, refs[causal], 1e-2, 1e-2,
+                                             f"phase 20 (a) {path}"))
+                    want = (0 if impl == "jnp" else sp * (sp + 1) // 2
+                            if causal and layout == "contiguous" else sp * sp)
+                    if runs[path]["flash_attn_fwd"] != want:
+                        raise AssertionError(
+                            f"phase 20 (a) {path}: "
+                            f"{runs[path]['flash_attn_fwd']} K1 launches, "
+                            f"want {want}")
+        for causal in (False, True):
+            path = f"ulysses_{'causal' if causal else 'full'}_sp{sp}"
+            out = counted(counters, path, ("flash_attn_fwd",), runs,
+                          lambda causal=causal: ulysses_attention(
+                              q, k, v, mesh, causal=causal))
+            torch.cuda.synchronize()
+            worst = max(worst, close(out, refs[causal], 1e-2, 1e-2,
+                                     f"phase 20 (a) {path}"))
+            if runs[path]["flash_attn_fwd"] != sp:
+                raise AssertionError(f"phase 20 (a) {path}: "
+                                     f"{runs[path]['flash_attn_fwd']} K1 "
+                                     f"launches, want {sp}")
+    b, h, _, d = SP_RING_SHAPE
+    print(f"phase 20 (a) rings on {card}: 16 ring_attention and 4 "
+          f"ulysses_attention calls at b{b} h{h} S{S} d{d} bf16 within 1e-2 + "
+          f"1e-2|ref| of attention_reference (largest abs err {worst:.3e}); "
+          "K1 launches per call: " + ", ".join(
+              f"{p} {n['flash_attn_fwd']}" for p, n in runs.items()
+              if n["flash_attn_fwd"]))
+    timing = []
+    for sp in (2, 4):
+        striped = tuple(R.stripe_sequence(t, sp) for t in (q, k, v))
+        for layout, args in (("contiguous", (q, k, v)),
+                             ("striped", striped)):
+            ms, events = device_ms_sum(torch, lambda args=args, sp=sp,
+                                       layout=layout: R.ring_attention(
+                                           *args, meshes[sp], causal=True,
+                                           block_impl="flash", layout=layout))
+            timing.append(f"sp{sp} {layout} {ms:.4f} ms ({events:.0f} "
+                          "device events)")
+    print(f"phase 20 (a) causal flash ring, device ms a call "
+          f"(torch.profiler, summed device events; the ranks run one after "
+          f"another on one card) on {card}: " + "; ".join(timing)
+          + " (not gated)")
+
+
+def sp_traffic(waves):
+    """Phase 20 (b)'s prompts: phase 7's four of 600-900 tokens, then its
+    four unique ones of 16-512."""
+    return list(waves[0][5:8]) + list(waves[1][7:]) + list(waves[0][1:5])
+
+
+def sp_batcher(lm, kv, width):
+    """Phase 7's paged batcher (slots 8, chunk 8, page 128, the 65-page
+    pool, prefill_chunk 256), with ``PrefillConfig(sp_threshold=512,
+    sp_width=width)`` unless ``width`` is None."""
+    from adapt_tpu_torch.config import PrefillConfig
+    from adapt_tpu_torch.runtime.continuous import ContinuousBatcher
+
+    sp = (PrefillConfig(sp_threshold=512, sp_width=width) if width else None)
+    return ContinuousBatcher(lm, slots=8, chunk=8, kv_layout="paged",
+                             page_size=128, prefill_chunk=256,
+                             kv_cache_dtype=kv, prefill=sp)
+
+
+def sp_serve(torch, bat, prompts, steps):
+    """Submit every prompt at once and run to drain; returns the ids, the
+    results and each request's TTFT in s (submit to its first token)."""
+    first = {}
+
+    def on_token(rid, tok, idx):
+        if idx == 0:
+            first[rid] = time.perf_counter()
+
+    t0 = time.perf_counter()
+    ids = [bat.submit(p, steps, on_token=on_token) for p in prompts]
+    out = bat.run()
+    torch.cuda.synchronize()
+    return ids, out, {rid: first[rid] - t0 for rid in ids}
+
+
+def sp_hold(torch, lm, lm32, label, prompts, ids, out, ref_ids, ref_out,
+            steps, gap_bar, bar):
+    """Phase 20's stream rule: every stream has its length; where it leaves
+    the same traffic's stream without sp, the reference's top-2 gap there
+    is below ``gap_bar`` (phase 7's tie-aware rule); every token lies within
+    ``bar`` of the f32 copy's best logit given the stream's own history
+    (phase 18's rule). Returns the exemptions and the largest deficit."""
+    exempt, worst = [], 0.0
+    for rid, rrid, p in zip(ids, ref_ids, prompts):
+        got, want = np.asarray(out[rid]), np.asarray(ref_out[rrid])
+        if len(got) != steps:
+            raise AssertionError(f"{label}: request {rid} has {len(got)} "
+                                 "tokens")
+        tg = first_gap(torch, lm, p, got, want)
+        if tg is not None:
+            t, gap = tg
+            print(f"{label}: request {rid} (prompt {len(p)}) leaves the "
+                  f"stream without sp at token {t}, top-2 gap {gap:.4f}")
+            if gap >= gap_bar:
+                raise AssertionError(f"{label}: request {rid} differs at "
+                                     f"token {t} with top-2 gap {gap:.4f} "
+                                     f">= {gap_bar:.4f}")
+            exempt.append(rid)
+        d = deficits(torch, lm32, p, got)
+        if d.max() > bar:
+            t = int(d.argmax())
+            raise AssertionError(
+                f"{label}: request {rid} (prompt {len(p)}) token {t} lies "
+                f"{d[t]:.4f} below the f32 copy's best logit (bar {bar:.4f})")
+        worst = max(worst, float(d.max()))
+    return exempt, worst
+
+
+def sp_steady(torch, label, bat, prompt):
+    """A fresh long prompt (an sp admission) alone, until it decodes; one
+    more tick; then one steady tick must make 0 host->device copies and 1
+    fetch. Runs the batcher to drain after."""
+    bat.submit(prompt, 64)
+    while len(bat._queue) or any(s.req is not None and s.pf_done >= 0
+                                 for s in bat.slots):
+        bat.tick()
+    bat.tick()
+    before = bat.stats()
+    if bat.tick() < 1:
+        raise AssertionError(f"{label}: the steady tick decoded no slot")
+    after = bat.stats()
+    steady = (after["h2d_transfers"] - before["h2d_transfers"],
+              after["d2h_fetches"] - before["d2h_fetches"])
+    if steady != (0, 1):
+        raise AssertionError(f"{label}: a steady tick made {steady[0]} "
+                             f"host->device copies and {steady[1]} fetches "
+                             "(want 0 and 1)")
+    bat.run()
+    return steady
+
+
+def sp_page_diff(torch, lm, prompt, kv):
+    """The largest difference per block between the sp ring's pages (sp 2)
+    and the port's own chunked prefill's (a ``PrefillWorker``, K4 / K4q at
+    prefill_chunk 256) of ``prompt``, over K and V (a quantized pool
+    compared as values x scales)."""
+    from adapt_tpu_torch.ops.quantize import kv_values
+    from adapt_tpu_torch.parallel.sp_prefill import SPPrefiller, build_sp_mesh
+    from adapt_tpu_torch.runtime.disagg import PrefillWorker
+
+    pf = SPPrefiller(lm, build_sp_mesh(2, devices=[lm.device] * 2), 128,
+                     kv_cache_dtype=kv)
+    _, sp_blocks = pf.prefill(prompt)
+    pf.close()
+    worker = PrefillWorker(lm, page_size=128, slots=1, prefill_chunk=256,
+                           kv_cache_dtype=kv)
+    worker.submit(0, prompt)
+    outs = []
+    while not outs:
+        outs = worker.step()
+    hd = lm.blocks[0].head_dim
+
+    def values(t):
+        if isinstance(t, tuple):
+            return kv_values(t[0], hd).float() * t[1].float()
+        return t.float()
+
+    return [max(float((values(a) - values(b)).abs().max())
+                for a, b in zip(sa, sb))
+            for sa, sb in zip(sp_blocks, outs[0].blocks)]
+
+
+def sp_batcher_part(torch, lm, lm32, card, counters, runs, waves, bar,
+                    int8_bar):
+    """Phase 20 (b): phase 7's long and unique prompts (32 new tokens)
+    through the paged batcher without sp, then with sp_width 2 and 4, on a
+    native and an int8 pool: ``sp_prefills`` equal to the prompts of 512+
+    tokens, at least as many prefix hits, no sp failure, each stream held
+    by :func:`sp_hold` against the run without sp (int8: phase 9's bar, and
+    phase 18's bar plus it); then a steady tick after a fresh sp admission.
+    Prints the sp pages' largest difference from the chunked prefill's per
+    block, the long prompts' TTFT and the K4 launches."""
+    prompts = sp_traffic(waves)
+    n_long = sum(len(p) >= 512 for p in prompts)
+    steps = 32
+    for kv, gap_bar, dbar in (("native", 0.1, bar),
+                              ("int8", int8_bar, bar + int8_bar)):
+        diff = sp_page_diff(torch, lm, prompts[0], kv)
+        print(f"phase 20 (b) [{kv}] largest difference per block, sp ring "
+              f"pages (plain f32 attention) against the port's chunked "
+              f"prefill pages (K4) of a {len(prompts[0])}-token prompt: "
+              + ", ".join(f"{d:.4g}" for d in diff) + " (not gated)")
+        want = ("paged_attn", "paged_chunk_attn")
+        bat = sp_batcher(lm, kv, None)
+        ref_ids, ref, ref_ttft = counted(
+            counters, f"sp_base_{kv}", want, runs,
+            lambda bat=bat: sp_serve(torch, bat, prompts, steps))
+        bat.close()
+        long_ttft = {None: np.mean([ref_ttft[r] for r, p in zip(ref_ids,
+                                                                prompts)
+                                    if len(p) >= 512])}
+        for width in (2, 4):
+            label = f"phase 20 (b) sp{width} [{kv}]"
+            path = f"sp{width}_{kv}"
+            bat = sp_batcher(lm, kv, width)
+            ids, out, ttft = counted(
+                counters, path, want, runs,
+                lambda bat=bat: sp_serve(torch, bat, prompts, steps))
+            st = bat.stats()
+            if (st["sp_prefills"] != n_long or st["prefix_hits"] < n_long
+                    or st["sp_failures"] or st["sp_width"] != width):
+                raise AssertionError(
+                    f"{label}: sp_prefills {st['sp_prefills']} (want "
+                    f"{n_long}), prefix_hits {st['prefix_hits']}, "
+                    f"sp_failures {st['sp_failures']}, sp_width "
+                    f"{st['sp_width']}")
+            exempt, worst = sp_hold(torch, lm, lm32, label, prompts, ids,
+                                    out, ref_ids, ref, steps, gap_bar, dbar)
+            long_ttft[width] = np.mean([ttft[r] for r, p in zip(ids, prompts)
+                                        if len(p) >= 512])
+            steady = sp_steady(torch, label, bat,
+                               np.roll(prompts[0], 1).copy())
+            if bat.stats()["sp_prefills"] != n_long + 1:
+                raise AssertionError(f"{label}: the fresh long admission did "
+                                     "not take the sp path")
+            bat.close()
+            print(f"{label} on {card}: {len(prompts)} requests, sp_prefills "
+                  f"{st['sp_prefills']}, prefix_hits {st['prefix_hits']}, "
+                  f"sp_failures 0, {len(exempt)} streams leaving the run "
+                  f"without sp (each at a top-2 gap below {gap_bar:.4f}), "
+                  f"largest deficit {worst:.4f} (bar {dbar:.4f}); steady "
+                  f"tick {steady[0]} h2d / {steady[1]} fetch; launches "
+                  f"{runs[path]} (without sp: {runs[f'sp_base_{kv}']})")
+        print(f"phase 20 (b) [{kv}] mean TTFT of the {n_long} long prompts "
+              f"on {card}: without sp {long_ttft[None] * 1e3:.1f} ms, sp2 "
+              f"{long_ttft[2] * 1e3:.1f} ms, sp4 {long_ttft[4] * 1e3:.1f} ms "
+              "(one card: the ranks run one after another; not gated)")
+    return prompts, n_long
+
+
+def sp_tier_part(torch, lm, lm32, card, counters, runs, prompts, n_long,
+                 bar):
+    """Phase 20 (c): phase 20 (b)'s traffic behind a ``DisaggServer`` whose
+    ``PrefillWorker`` pool (4 pages of 128, 3 allocatable) holds none of
+    the long prompts: without sp no handoff (they collocate); with
+    sp_width 2 every long prompt hands off, no job fails, and the streams
+    pass :func:`sp_hold` against the run without sp."""
+    from adapt_tpu_torch.config import DisaggConfig, PrefillConfig
+    from adapt_tpu_torch.runtime.continuous import ContinuousBatcher
+    from adapt_tpu_torch.runtime.disagg import DisaggServer, PrefillWorker
+
+    steps = 32
+
+    def serve(sp_cfg):
+        decode = ContinuousBatcher(lm, slots=8, chunk=8, kv_layout="paged",
+                                   page_size=128, prefill_chunk=256)
+        worker = PrefillWorker(lm, page_size=128, slots=2, pool_pages=4,
+                               prefill_chunk=256, prefill=sp_cfg)
+        srv = DisaggServer(decode, worker, DisaggConfig(
+            prompt_threshold=512, busy_prompt_threshold=512))
+        sids = [srv.submit(p, steps) for p in prompts]
+        out = srv.run()
+        torch.cuda.synchronize()
+        got = (sids, out, worker.stats(), srv.failed, list(worker.failed_jobs))
+        srv.close()
+        decode.close()
+        return got
+
+    label = "phase 20 (c) prefill tier"
+    ref_ids, ref, st0, _, _ = counted(counters, "sp_tier_off",
+                                      ("paged_attn",), runs,
+                                      lambda: serve(None))
+    if st0["handoffs"] != 0:
+        raise AssertionError(f"{label}: {st0['handoffs']} handoffs without "
+                             "sp from a pool that holds no long prompt")
+    ids, out, st, failed, failed_jobs = counted(
+        counters, "sp_tier", ("paged_attn", "paged_chunk_attn"), runs,
+        lambda: serve(PrefillConfig(sp_threshold=512, sp_width=2)))
+    if (st["handoffs"] != n_long or st["sp_prefills"] != n_long or failed
+            or failed_jobs or st["sp_failures"]):
+        raise AssertionError(f"{label}: handoffs {st['handoffs']}, "
+                             f"sp_prefills {st['sp_prefills']} (want "
+                             f"{n_long}), failed {failed}, failed_jobs "
+                             f"{failed_jobs}, sp_failures "
+                             f"{st['sp_failures']}")
+    exempt, worst = sp_hold(torch, lm, lm32, label, prompts, ids, out,
+                            ref_ids, ref, steps, 0.1, bar)
+    print(f"{label} on {card}: a 3-page prefill pool; without sp 0 "
+          f"handoffs, with sp_width 2 {st['handoffs']} handoffs "
+          f"({st['sp_prefills']} sp prefills), failed_jobs empty, "
+          f"{len(exempt)} streams leaving the collocated run's (each at a "
+          f"top-2 gap below 0.1), largest deficit {worst:.4f} (bar "
+          f"{bar:.4f}); launches {runs['sp_tier']}")
+
+
+def sp_recovery_part(torch, slm2, lm32, card, counters, runs, prompts, bar):
+    """Phase 20 (d): a tp=2 batcher (members 0, 1; phase 18's shards) with
+    an (sp=2, tp=2) ring (members 0-3) and a ``DispatcherJournal``; every
+    slot decoding, member 1 killed: the tick raises ``DeviceLostError``,
+    ``recover()`` goes to tp=1 and rebuilds the ring from the survivors
+    {0, 2, 3} at sp=2, tp=1 (members 0 and 2); a later long admission
+    takes the sp path. Phase 19's gates: each index delivered once, every
+    token within the bar given its own history, the journal empty."""
+    import tempfile
+
+    from adapt_tpu_torch.config import PrefillConfig, RecoveryConfig
+    from adapt_tpu_torch.control.journal import DispatcherJournal
+    from adapt_tpu_torch.control.registry import DeviceHealthMonitor
+    from adapt_tpu_torch.parallel.sp_prefill import build_sp_mesh
+    from adapt_tpu_torch.runtime.continuous import ContinuousBatcher
+
+    label = "phase 20 (d) sp x tp recovery"
+    n_long = sum(len(p) >= 512 for p in prompts)
+    fresh = np.roll(prompts[1], 3).copy()
+    with tempfile.TemporaryDirectory() as tmp:
+        journal = DispatcherJournal(os.path.join(tmp, "wal"))
+
+        def go():
+            mon = DeviceHealthMonitor()
+            bat = ContinuousBatcher(
+                slm2, slots=8, chunk=8, kv_layout="paged", page_size=128,
+                prefill_chunk=256, health=mon, journal=journal,
+                recovery=RecoveryConfig(auto_reshard=False),
+                prefill=PrefillConfig(sp_threshold=512, sp_width=2),
+                sp_mesh=build_sp_mesh(2, 2, devices=[slm2.device] * 4))
+            run = RecRun()
+            ids = rec_stagger(bat, prompts, 64, run)
+            sp0 = bat.stats()["sp_prefills"]
+            rec_kill(torch, bat, mon, (1,), run, auto=False)
+            ring = [m.id for m in bat._sp._mesh.members()]
+            out = rec_finish(torch, bat, run)
+            rid = bat.submit(fresh, 32, on_token=run.on_token)
+            out.update(bat.run())
+            torch.cuda.synchronize()
+            return bat, ids, out, run, sp0, ring, rid
+
+        bat, ids, out, run, sp0, ring, rid = counted(
+            counters, "sp_recovery", ("paged_attn", "paged_chunk_attn"),
+            runs, go)
+        st = bat.stats()
+        sp_tp = bat._sp.tp
+        bat.close()
+        pending = journal.pending_ids()
+        journal.close()
+    if sp0 != n_long or st["sp_prefills"] != n_long + 1:
+        raise AssertionError(f"{label}: sp_prefills {sp0} before the kill "
+                             f"(want {n_long}), {st['sp_prefills']} after "
+                             f"the later admission (want {n_long + 1})")
+    if (st["tp"], st["sp_width"], ring, sp_tp) != (1, 2, [0, 2], 1):
+        raise AssertionError(f"{label}: tp {st['tp']}, ring members {ring} "
+                             f"at sp {st['sp_width']}, tp {sp_tp}")
+    if pending:
+        raise AssertionError(f"{label}: the journal still holds {pending}")
+    rec_books(label, st, 1, len(ids), 0)
+    _, worst, _, _ = rec_hold(torch, lm32, label, prompts, ids, out, run,
+                              None, bar)
+    _, late, _, _ = rec_hold(torch, lm32, label, [fresh], [rid], out, run,
+                             None, bar)
+    rec_print(label, card, run, st,
+              f"; the ring rebuilt from members {{0, 2, 3}} as {ring} at sp "
+              f"2, tp 1; sp_prefills {sp0} before the kill, {st['sp_prefills']}"
+              f" after a later {len(fresh)}-token admission; each index "
+              f"delivered once, journal empty; largest deficit "
+              f"{max(worst, late):.4f} (bar {bar:.4f}); launches "
+              f"{runs['sp_recovery']}")
+
+
+def sp_phase(torch, A, lm, lm32, slm2, card, kernels, waves, bar, int8_bar):
+    """Phase 20: sequence parallelism on the one card (rings naming cuda:0):
+    (a) ring attention and Ulysses (K1), (b) the sp batcher, (c) the
+    prefill tier, (d) sp x tp recovery. Streams are held with phase 18's
+    f32 copy ``lm32`` and bar (2 x e1; int8 paths plus phase 9's bar).
+    Adds ``sp_launches`` (phase 20's launches of each kernel, its runs
+    summed) to every row of ``kernels``."""
+    from adapt_tpu_torch.ops import paged_attention as P
+
+    t_phase = time.perf_counter()
+    counters = {"flash_attn_fwd": A.flash_attn_fwd,
+                "paged_attn": P.paged_attn,
+                "paged_chunk_attn": P.paged_chunk_attn}
+    runs: dict = {}
+    marks = [time.perf_counter()]
+    sp_rings_part(torch, A, lm.device, card, counters, runs)
+    marks.append(time.perf_counter())
+    prompts, n_long = sp_batcher_part(torch, lm, lm32, card, counters, runs,
+                                      waves, bar, int8_bar)
+    marks.append(time.perf_counter())
+    sp_tier_part(torch, lm, lm32, card, counters, runs, prompts, n_long, bar)
+    marks.append(time.perf_counter())
+    sp_recovery_part(torch, slm2, lm32, card, counters, runs, prompts, bar)
+    marks.append(time.perf_counter())
+    totals: dict = {}
+    for path, launches in runs.items():
+        rows = FLEET_ROWS["int8" if path.endswith("int8") else "native"]
+        for k, n in launches.items():
+            if k in rows:
+                totals[rows[k]] = totals.get(rows[k], 0) + n
+    for kr in kernels:
+        kr["sp_launches"] = totals.get(kr["name"], 0)
+    print(f"phase 20 launches by path: {json.dumps(runs)}")
+    took = ", ".join(f"({part}) {b - a:.1f}"
+                     for part, a, b in zip("abcd", marks, marks[1:]))
+    print(f"phase 20 (sequence parallelism) took "
+          f"{time.perf_counter() - t_phase:.1f} s on {card} ({took})")
+
+
 #: GPT-2-small widths: vocab, dim, depth, heads, MLP.
 GPT2_SMALL = (50257, 768, 12, 12, 3072)
 
@@ -7200,6 +7681,10 @@ def main(argv) -> int:
     # -- phase 19: elastic recovery of the tensor-parallel batcher ---------
     recovery_phase(torch, A, D, P, Q, lm, draft2, lm32, slms[4], card,
                    kernels, prompts, bar, qbar)
+
+    # -- phase 20: sequence parallelism ------------------------------------
+    sp_phase(torch, A, lm, lm32, slms[2], card, kernels, (wave1, wave2), bar,
+             qbar)
 
     if "--profile" in argv:
         profile_train(torch, *train_case, card)

@@ -1,7 +1,8 @@
 """The port's boundary: ``adapt_tpu_torch``, ``chip_smoke.py``,
 ``scripts/sched_phase.py``, ``scripts/obs_phase.py``,
 ``scripts/obs_overhead.py``, ``scripts/obs_ab.py``,
-``scripts/fleet_phase.py`` and ``scripts/rec_phase.py`` import
+``scripts/fleet_phase.py``, ``scripts/rec_phase.py`` and
+``scripts/sp_phase.py`` import
 neither JAX, its dependency ``ml_dtypes`` (absent beside the card) nor the
 JAX package, and entry points never quietly run on
 the CPU when no card is present."""
@@ -23,6 +24,7 @@ def _port_files():
         ROOT / "scripts" / "obs_ab.py",
         ROOT / "scripts" / "fleet_phase.py",
         ROOT / "scripts" / "rec_phase.py",
+        ROOT / "scripts" / "sp_phase.py",
     ]
 
 
@@ -75,6 +77,10 @@ def test_port_files_exist():
         "adapt_tpu_torch/runtime/disagg.py",
         "adapt_tpu_torch/parallel/sharding.py",
         "scripts/fleet_phase.py",
+        "adapt_tpu_torch/parallel/ring_attention.py",
+        "adapt_tpu_torch/parallel/ulysses.py",
+        "adapt_tpu_torch/parallel/sp_prefill.py",
+        "scripts/sp_phase.py",
     ):
         assert want in names
 

@@ -16,8 +16,8 @@ both. Pinned, with their tolerances:
   prefill's;
 - the policy: the ``DisaggConfig`` thresholds, the role-tagged lease,
   the degradation ladder's ``busy_threshold`` rung, the admission
-  pre-check, ``continuous.prefill_stall_s``, the refused sequence-parallel
-  width."""
+  pre-check, ``continuous.prefill_stall_s``, the sequence-parallel ring's
+  one-device rule."""
 
 import importlib
 
@@ -37,6 +37,7 @@ from adapt_tpu_torch.config import (
     SLOSpec,
 )
 from adapt_tpu_torch.control.registry import WorkerRegistry
+from adapt_tpu_torch.parallel.sp_prefill import build_sp_mesh
 from adapt_tpu_torch.convert import from_flax
 from adapt_tpu_torch.models import transformer_lm as T
 from adapt_tpu_torch.parallel.sharding import head_tiles
@@ -424,12 +425,17 @@ def test_prefill_cancel_before_handoff(lm_setup):
 
 
 def test_refusals(lm_setup):
-    """The sequence-parallel width waits for the multi-GPU slice; the
-    tiers must agree on page size, KV dtype and device."""
+    """A sequence-parallel width builds a ring of the tier's device (one
+    naming two devices is refused); the tiers must agree on page size, KV
+    dtype and device."""
     tlm = lm_setup[2]
-    with pytest.raises(NotImplementedError, match="item 11"):
-        PrefillWorker(tlm, page_size=PAGE, device="cpu",
-                      prefill=PrefillConfig(sp_threshold=64, sp_width=2))
+    sp = PrefillConfig(sp_threshold=64, sp_width=2)
+    pf = PrefillWorker(tlm, page_size=PAGE, device="cpu", prefill=sp)
+    assert pf.stats()["sp_width"] == 2
+    assert pf.sp_eligible(64) and not pf.sp_eligible(63)
+    with pytest.raises(ValueError, match="distinct devices"):
+        PrefillWorker(tlm, page_size=PAGE, device="cpu", prefill=sp,
+                      sp_mesh=build_sp_mesh(2, devices=["cpu", "meta"]))
     decode = ContinuousBatcher(tlm, slots=2, kv_layout="paged",
                                page_size=PAGE)
     with pytest.raises(ValueError, match="page size"):

@@ -53,6 +53,7 @@ K1_CASES = {
     "window": (1, 2, 300, 300, dict(causal=True, window=64)),
     "valid_from": (3, 2, 130, 130, dict(causal=True, vf=[0, 7, 100])),
     "shift": (1, 2, 96, 96, dict(causal=True, shift=1)),
+    "shift0": (1, 2, 96, 96, dict(causal=True, shift=0)),
 }
 
 
@@ -94,6 +95,56 @@ def test_k1_matches_plain(cuda, name, dtype, d):
     torch.testing.assert_close(out.float()[ok], ref.float()[ok],
                                atol=tol, rtol=tol)
     torch.testing.assert_close(lse[ok], ref_lse[ok], atol=1e-3, rtol=1e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("s", [1024, 2048])
+@pytest.mark.parametrize("shift", [0, 1])
+def test_k1_device_shift_matches_plain(cuda, shift, s):
+    """The striped ring's K1 call: a device int32 ``causal_shift`` (built
+    once, no host->device copy a launch), b1 h12 d64 bf16, out and lse
+    against the plain version with the same shift; a row with no live key
+    (shift 1's row 0) is unspecified."""
+    g = torch.Generator(device=cuda).manual_seed(3)
+    q, k, v = (torch.randn(1, 12, s, 64, generator=g, device=cuda).to(
+        torch.bfloat16) for _ in range(3))
+    shift_t = torch.full((), shift, dtype=torch.int32, device=cuda)
+    out, lse = TA.flash_attention_with_lse(q, k, v, causal=True,
+                                           causal_shift=shift_t)
+    torch.cuda.synchronize()
+    ref, ref_lse = TA._reference_with_lse(q, k, v, True, None, shift_t)
+    ok = ref_lse > -1e29
+    torch.testing.assert_close(out.float()[ok], ref.float()[ok], atol=1e-2,
+                               rtol=1e-2)
+    torch.testing.assert_close(lse[ok], ref_lse[ok], atol=1e-3, rtol=1e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("sp", [2, 4])
+def test_ring_flash_striped_matches_jnp(cuda, sp, dtype):
+    """``ring_attention(block_impl="flash")`` on the striped causal ring
+    (K1 with shift 0 / 1 every step, sp * sp launches) against the plain
+    online-softmax ring (``"jnp"``) on the same striped inputs."""
+    import importlib
+
+    from adapt_tpu_torch.core.mesh import MeshSpec, build_mesh
+
+    R = importlib.import_module("adapt_tpu_torch.parallel.ring_attention")
+    mesh = build_mesh(MeshSpec((("sp", sp),)), [cuda] * sp)
+    g = torch.Generator(device=cuda).manual_seed(4)
+    q, k, v = (R.stripe_sequence(torch.randn(
+        1, 4, 1024, 64, generator=g, device=cuda).to(dtype), sp)
+        for _ in range(3))
+    n0 = TA.flash_attn_fwd.launches
+    got = R.ring_attention(q, k, v, mesh, causal=True, block_impl="flash",
+                           layout="striped")
+    torch.cuda.synchronize()
+    assert TA.flash_attn_fwd.launches == n0 + sp * sp
+    want = R.ring_attention(q, k, v, mesh, causal=True, block_impl="jnp",
+                            layout="striped")
+    tol = _tol(dtype)
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
 
 
 K7_CASES = {
