@@ -244,10 +244,9 @@ class PipelineConfig:
 
     The serial (GPipe) schedule puts every activation hop on the critical
     path; the overlap schedule issues each hop alongside the next
-    microbatch's compute so hop latency hides under it. On one rank there
-    is no hop: both schedules run each microbatch through the whole block
-    stack in order and give the same result. Consumed by
-    ``spmd_pipeline_from_config``.
+    microbatch's compute so hop latency hides under it. Both run each
+    microbatch through the same blocks in the same order and give
+    bit-identical results. Consumed by ``spmd_pipeline_from_config``.
     """
 
     # "serial" (GPipe; hop on the critical path) or "overlap"

@@ -130,6 +130,11 @@ class WorkerRegistry:
         with self._lock:
             return self._meta.get(worker_id, {}).get("role")
 
+    def meta(self, worker_id: str) -> dict:
+        """A copy of the lease's metadata (``{}`` for an unknown id)."""
+        with self._lock:
+            return dict(self._meta.get(worker_id, {}))
+
     def watch(self, callback: Callable[[str, str], None]) -> None:
         """callback(event, worker_id) with event in {'join', 'leave'}."""
         with self._lock:

@@ -11,6 +11,13 @@ NHWC images, as in the JAX package. Attention is
 ``ops.attention.flash_attention``: K1 forward and K7 backward on the card.
 
 Load the JAX package's weights with ``convert.vit_from_flax``.
+
+:func:`shard_vit` runs the ViT as tensor-parallel shards of a mesh axis
+driven by one process (``parallel/sharding``), with the batch over a ``dp``
+axis: each encoder block cut by ``parallel.sharding.vit_tp_rules``, each
+shard's attention (K1) over its heads/tp heads, the attn-out and mlp-out
+partials summed in f32 by ``reduce_shards`` and their biases added once
+after the sum (the LM's ``ShardedBlock`` pattern).
 """
 
 from __future__ import annotations
@@ -22,10 +29,17 @@ import torch.nn.functional as F
 from torch import nn
 
 from adapt_tpu_torch import resolve_device
-from adapt_tpu_torch.graph.ir import INPUT, LayerGraph, NodeModule
+from adapt_tpu_torch.convert import shard_state_dict
+from adapt_tpu_torch.graph.ir import INPUT, LayerGraph, NodeModule, rebuild
 from adapt_tpu_torch.models.layers import Dense, init_weights
-from adapt_tpu_torch.models.transformer_lm import LayerNorm
+from adapt_tpu_torch.models.transformer_lm import (
+    LayerNorm,
+    _load,
+    _Pieces,
+    _reduced,
+)
 from adapt_tpu_torch.ops.attention import flash_attention
+from adapt_tpu_torch.parallel.sharding import shard_batch, vit_tp_rules
 
 
 class MultiHeadSelfAttention(nn.Module):
@@ -47,15 +61,19 @@ class MultiHeadSelfAttention(nn.Module):
         self.out = Dense(dim, dim, dtype, device)
 
     def forward(self, x):
-        b, s, d = x.shape
-        q, k, v = self.qkv(x).view(b, s, 3, self.heads, d // self.heads) \
-            .unbind(2)
+        return self.out(self.attend(x))
+
+    def attend(self, x):
+        """Attention over ``self.heads`` heads of ``qkv(x)``, before the
+        out projection: ``(b, s, heads * head_dim)``."""
+        b, s, _ = x.shape
+        q, k, v = self.qkv(x).view(b, s, 3, self.heads, -1).unbind(2)
         q, k, v = (t.transpose(1, 2) for t in (q, k, v))
         if self.attn_fn is None:
             o = flash_attention(q, k, v, prefer=self.attn_prefer)
         else:
             o = self.attn_fn(q, k, v)
-        return self.out(o.transpose(1, 2).reshape(b, s, d))
+        return o.transpose(1, 2).reshape(b, s, -1)
 
 
 class PatchEmbed(NodeModule):
@@ -121,6 +139,139 @@ class ViTHead(NodeModule):
 
     def forward(self, x):
         return self.fc(self.ln(x)[:, 0].float())
+
+
+class _PartialDense(nn.Module):
+    """A shard's input-column slice of a :class:`Dense` without its bias:
+    the product of the ``dtype``-cast operands with an f32 result, so that
+    the sum over shards is rounded once, after the reduction. A 16-bit
+    product on the card accumulates on the tensor cores as the whole
+    projection does (``torch.mm(..., out_dtype=float32)``, unrounded);
+    elsewhere it is an f32 product of the cast operands."""
+
+    def __init__(self, weight, dtype):
+        super().__init__()
+        self.weight = nn.Parameter(weight, requires_grad=False)
+        self.dtype = dtype
+
+    def forward(self, x):
+        dt = self.dtype
+        x, w = x.to(dt), self.weight.to(dt)
+        if not x.is_cuda or dt == torch.float32:
+            return F.linear(x.float(), w.float())
+        flat = torch.mm(x.reshape(-1, x.shape[-1]), w.t(),
+                        out_dtype=torch.float32)
+        return flat.reshape(*x.shape[:-1], w.shape[0])
+
+
+class ShardedEncoderBlock(nn.Module):
+    """An :class:`EncoderBlock` run as ``n`` tensor-parallel shards in
+    lockstep on one device: the LayerNorms once; each shard's qkv rows of
+    its heads/n heads (``Blocks("tp", 3)``) and its attention; its rows of
+    ``mlp_in``; the attn-out and mlp-out column slices' f32 partials summed
+    in shard order and the biases added once after."""
+
+    def __init__(self, blk: EncoderBlock, pre: str, piece, n: int):
+        super().__init__()
+        a = blk.attn
+        if a.heads % n or blk.mlp_in.weight.shape[0] % n:
+            raise ValueError(f"{pre}: heads {a.heads} / mlp hidden "
+                             f"{blk.mlp_in.weight.shape[0]} not divisible "
+                             f"by tp={n}")
+        dt = a.qkv.dtype
+        self.ln1 = _load(LayerNorm(blk.ln1.scale.shape[0], blk.ln1.dtype,
+                                   "meta"), piece.sub(pre + ".ln1", 0))
+        self.ln2 = _load(LayerNorm(blk.ln2.scale.shape[0], blk.ln2.dtype,
+                                   "meta"), piece.sub(pre + ".ln2", 0))
+        dim = a.qkv.weight.shape[1]
+        self.attn_shards = nn.ModuleList()
+        self.mlp_shards = nn.ModuleList()
+        for s in range(n):
+            sh = MultiHeadSelfAttention(dim, a.heads, dt, a.attn_fn,
+                                        a.attn_prefer, "meta")
+            sh.heads = a.heads // n
+            sh.qkv = _load(Dense(dim, 3 * dim // n, dt, "meta"),
+                           piece.sub(pre + ".attn.qkv", s))
+            sh.out = _PartialDense(piece(pre + ".attn.out.weight", s), dt)
+            self.attn_shards.append(sh)
+            hid = piece(pre + ".mlp_in.weight", s).shape[0]
+            self.mlp_shards.append(nn.ModuleDict(dict(
+                mlp_in=_load(Dense(dim, hid, blk.mlp_in.dtype, "meta"),
+                             piece.sub(pre + ".mlp_in", s)),
+                mlp_out=_PartialDense(piece(pre + ".mlp_out.weight", s),
+                                      blk.mlp_out.dtype))))
+        self.out_bias = nn.Parameter(piece(pre + ".attn.out.bias", 0), False)
+        self.mlp_bias = nn.Parameter(piece(pre + ".mlp_out.bias", 0), False)
+        self.dtypes = (dt, blk.mlp_out.dtype)
+
+    def forward(self, x):
+        h = self.ln1(x)
+        parts = [sh.out(sh.attend(h)) for sh in self.attn_shards]
+        x = x + _reduced(parts, self.dtypes[0], self.out_bias.to(
+            self.dtypes[0]))
+        h = self.ln2(x)
+        parts = [m["mlp_out"](F.gelu(m["mlp_in"](h), approximate="tanh"))
+                 for m in self.mlp_shards]
+        return x + _reduced(parts, self.dtypes[1], self.mlp_bias.to(
+            self.dtypes[1]))
+
+
+class ShardedViT(nn.Module):
+    """A ViT ``LayerGraph`` run as tensor-parallel shards of ``axis`` with
+    the batch over ``batch_axis`` (:func:`shard_vit`): the patch embedding
+    and the head once, every encoder block a :class:`ShardedEncoderBlock`.
+    One process runs every shard and every batch shard on the one device
+    the mesh names."""
+
+    def __init__(self, graph: LayerGraph, state: dict, mesh, axis: str,
+                 batch_axis: str | None):
+        super().__init__()
+        devices = set(mesh.devices.flat)
+        if len(devices) > 1:
+            raise ValueError(f"the mesh names distinct devices {devices}: "
+                             "tp shards run on one device")
+        self.mesh, self.axis, self.batch_axis = mesh, axis, batch_axis
+        self.tp = int(mesh.shape[axis])
+        piece = _Pieces(state, mesh.axis_positions(axis), axis)
+        self.embed = _load(rebuild(graph.node("patch_embed").module, "meta"),
+                           piece.sub("layers.patch_embed", 0))
+        names = [n for n in graph.topo_order() if n.startswith(
+            "encoder_block_")]
+        self.blocks = nn.ModuleList(
+            ShardedEncoderBlock(graph.node(n).module, f"layers.{n}", piece,
+                                self.tp) for n in names)
+        self.head = _load(rebuild(graph.node("head").module, "meta"),
+                          piece.sub("layers.head", 0))
+
+    def forward(self, x):
+        """Logits of ``x``: its rows cut over ``batch_axis`` (each cut on
+        its own), concatenated in order."""
+        if self.batch_axis is None:
+            parts = [x]
+        else:
+            shards = shard_batch(x, self.mesh, self.batch_axis)
+            parts = [shards[k] for k in self.mesh.axis_positions(
+                self.batch_axis)]
+        outs = []
+        for h in parts:
+            h = self.embed(h)
+            for blk in self.blocks:
+                h = blk(h)
+            outs.append(self.head(h))
+        return torch.cat(outs)
+
+
+def shard_vit(graph: LayerGraph, mesh, axis: str = "tp",
+              batch_axis: str | None = "dp") -> ShardedViT:
+    """``graph`` (a :func:`vit`) as tp shards of ``mesh``'s ``axis``, the
+    batch over ``batch_axis`` (None, or an axis the mesh lacks: whole),
+    its weights cut by ``vit_tp_rules``. Replicated tensors already on the
+    mesh's device are shared with ``graph``, not copied."""
+    if batch_axis is not None and batch_axis not in mesh.axis_names:
+        batch_axis = None
+    state = shard_state_dict(graph.state_dict(), mesh,
+                             lambda name, ndim: vit_tp_rules(name, ndim, axis))
+    return ShardedViT(graph, state, mesh, axis, batch_axis).eval()
 
 
 def vit(patch, dim, depth, heads, mlp_dim, num_classes=1000,

@@ -1,4 +1,6 @@
-"""Pipeline schedule (``pipeline_spmd``), training step (``train``),
+"""Pipeline schedule over the ranks of a mesh (``pipeline_spmd``), pipelined
+KV-cache generation over them (``pipeline_decode``), training step over a
+dp x pp mesh (``train``),
 tensor-parallel sharding over a mesh of shards driven by one process, with
 the reshard plan of elastic recovery (``sharding``), expert placement
 (``expert``), and sequence parallelism over a ring of ranks driven by one
@@ -9,6 +11,10 @@ from adapt_tpu_torch.parallel.expert import (
     expert_shardings,
     expert_utilization,
     place_experts,
+)
+from adapt_tpu_torch.parallel.pipeline_decode import (
+    pipelined_generate,
+    shard_for_pipeline,
 )
 from adapt_tpu_torch.parallel.pipeline_spmd import (
     spmd_pipeline,
@@ -36,10 +42,12 @@ __all__ = [
     "expert_utilization",
     "lm_tp_rules",
     "merge_specs",
+    "pipelined_generate",
     "place_experts",
     "replicate",
     "ring_attention",
     "shard_batch",
+    "shard_for_pipeline",
     "spmd_pipeline",
     "stack_stage_params",
     "stripe_sequence",

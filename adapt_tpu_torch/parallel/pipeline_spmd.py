@@ -1,20 +1,38 @@
-"""The SPMD pipeline schedule over a stack of homogeneous blocks, on one
-rank.
+"""The SPMD pipeline schedule over a stack of homogeneous blocks, over the
+ranks of a mesh axis.
 
 Counterpart of ``adapt_tpu/parallel/pipeline_spmd.py``. There, L identical
 blocks are stacked (leading dim L), sharded over a ``pp`` mesh axis and run
-as a GPipe-style ``scan`` whose activation hand-off is a ``ppermute``, in
-a serial or an overlap (double-buffered) schedule; both give bit-identical
-outputs. The port runs one rank: both schedules run each microbatch
-through the whole block stack in order. A mesh with more than one rank on
-an axis raises ``NotImplementedError`` until the pipeline is ported to
-``torch.distributed`` (ROADMAP.md item 11).
+as one ``shard_map`` program: a ``scan`` over ticks whose activation
+hand-off is a ``ppermute``. Here one process drives every rank of a
+:class:`~adapt_tpu_torch.core.mesh.Mesh` (``parallel/sharding``'s single
+controller): rank p runs blocks ``[p L/P, (p + 1) L/P)`` on its mesh
+entry's device, the ticks are a Python loop in the reference's order, and
+the hop is ``parallel.ring_attention.ring_pass``, the one transport. A
+(rank, tick) with no valid microbatch runs nothing, where a lockstep
+program computes on garbage. Autograd flows through the loop, so the same
+schedule backs the pipelined train step (``parallel/train``).
 
-Layout. The blocks stay ``nn.Module``s (a ``ModuleList``, in the order
-they run); :func:`stack_stage_params` gives the JAX package's stacked
-layout of their parameters for checkpoints and comparisons. A mesh is a
-mapping of axis name to size (``{"dp": 1, "pp": 1}``), or ``None`` for one
-rank.
+Two schedules, one body:
+
+- ``schedule="serial"`` (GPipe): at tick t rank p runs microbatch t - p,
+  and rank p + 1 consumes its output at tick t + 1. T = M + P - 1.
+- ``schedule="overlap"`` (double-buffered): each rank keeps its last
+  ``d = hop_buffers - 1`` outputs in a circular buffer and at tick t sends
+  the one computed d ticks ago, so a hop lands d + 1 ticks after its
+  compute: rank p runs microbatch t - p (d + 1), and
+  T = M + (P - 1)(d + 1). On cards where a hop takes time it hides under
+  the next microbatch's compute; every microbatch still runs the same
+  blocks in the same order, so the outputs are bit-identical to serial.
+
+``batch_axis`` splits each microbatch's rows over that mesh axis (dp x pp
+in one call). A rank holds one copy of its blocks, so the batch shards of
+one rank must name one device; pipeline ranks may name distinct ones.
+
+Layout. The blocks stay ``nn.Module``s (a sequence, in the order they
+run); :func:`stack_stage_params` gives the JAX package's stacked layout of
+their parameters for checkpoints and comparisons. ``mesh=None`` is one
+rank on the input's device.
 """
 
 from __future__ import annotations
@@ -23,6 +41,9 @@ from collections.abc import Callable, Mapping, Sequence
 from typing import Any
 
 import torch
+
+from adapt_tpu_torch.core.mesh import Mesh
+from adapt_tpu_torch.parallel.ring_attention import ring_pass
 
 
 def stack_stage_params(
@@ -38,35 +59,102 @@ def stack_stage_params(
             for k in first}
 
 
-def _ranks(mesh: Mapping[str, int] | None, axis: str | None) -> int:
-    if mesh is None or axis is None:
-        return 1
-    if axis not in mesh:
-        raise ValueError(f"mesh {dict(mesh)} has no axis {axis!r}")
-    n = int(mesh[axis])
-    if n > 1:
-        raise NotImplementedError(
-            f"mesh axis {axis!r} of {n} ranks: the port's pipeline runs on "
-            "one rank until torch.distributed is ported (ROADMAP.md item 11)"
-        )
-    return n
+def rank_devices(mesh: Mesh, axis: str = "pp",
+                 batch_axis: str | None = None) -> list[list[torch.device]]:
+    """``grid[i][p]``: the device of pipeline rank ``p`` (along ``axis``)
+    in batch shard ``i`` (along ``batch_axis``; one shard without it), at
+    index 0 of every other axis. Raises when an axis is missing, or when a
+    rank's batch shards name distinct devices (one process holds one copy
+    of a rank's blocks)."""
+    names = mesh.axis_names
+    for ax in (axis, batch_axis):
+        if ax is not None and ax not in names:
+            raise ValueError(f"mesh has no axis {ax!r} (axes: {names})")
+    shards = int(mesh.shape[batch_axis]) if batch_axis is not None else 1
+    grid = []
+    for i in range(shards):
+        row = []
+        for p in range(int(mesh.shape[axis])):
+            idx = [0] * len(names)
+            idx[names.index(axis)] = p
+            if batch_axis is not None:
+                idx[names.index(batch_axis)] = i
+            row.append(torch.device(mesh.devices[tuple(idx)]))
+        grid.append(row)
+    for p in range(len(grid[0])):
+        if len({row[p] for row in grid}) > 1:
+            raise ValueError(
+                f"pipeline rank {p}'s {batch_axis!r} shards name distinct "
+                f"devices {[row[p] for row in grid]}: a rank's blocks are "
+                "one copy, on one device")
+    return grid
+
+
+def _local(block_fn, stack, h):
+    for blk in stack:
+        h = block_fn(blk, h)
+    return h
+
+
+def _serial(block_fn, stacks, xs, devices):
+    """GPipe: rank p runs microbatch t - p at tick t."""
+    ranks, num_micro = len(devices), xs.shape[0]
+    outputs = [None] * num_micro
+    sent = [None] * ranks
+    for t in range(num_micro + ranks - 1):
+        recv = ring_pass(sent, devices)
+        sent = [None] * ranks
+        for p in range(ranks):
+            m = t - p
+            if not 0 <= m < num_micro:
+                continue
+            h = xs[m].to(devices[0]) if p == 0 else recv[p]
+            y = _local(block_fn, stacks[p], h)
+            if p == ranks - 1:
+                outputs[m] = y
+            else:
+                sent[p] = y
+    return outputs
+
+
+def _overlap(block_fn, stacks, xs, devices, d):
+    """Double-buffered: rank p runs microbatch t - p (d + 1) at tick t; the
+    hop sent at tick t carries the output of tick t - d."""
+    ranks, num_micro = len(devices), xs.shape[0]
+    outputs = [None] * num_micro
+    bufs = [[None] * d for _ in range(ranks)]
+    cur = [xs[0]] + [None] * (ranks - 1)
+    for t in range(num_micro + (ranks - 1) * (d + 1)):
+        recv = ring_pass([buf[t % d] for buf in bufs], devices)
+        for p in range(ranks):
+            m = t - p * (d + 1)
+            y = None
+            if 0 <= m < num_micro:
+                y = _local(block_fn, stacks[p], cur[p].to(devices[p]))
+                if p == ranks - 1:
+                    outputs[m], y = y, None
+            bufs[p][t % d] = y
+        cur = [xs[t + 1] if t + 1 < num_micro else None] + recv[1:]
+    return outputs
 
 
 def spmd_pipeline(
     block_fn: Callable[[Any, torch.Tensor], torch.Tensor],
     blocks: Sequence[Any],
     xs: torch.Tensor,
-    mesh: Mapping[str, int] | None = None,
+    mesh: Mesh | None = None,
     axis: str = "pp",
     batch_axis: str | None = None,
     schedule: str = "serial",
     hop_buffers: int = 2,
 ) -> torch.Tensor:
-    """Run ``xs`` (shape ``[M, mb, ...]``) through the L ``blocks`` in
-    order: ``block_fn(blocks[i], x) -> y`` applies one block
-    (``y.shape == x.shape``). On one rank the serial and overlap schedules
-    both run microbatch by microbatch through the whole stack, so their
-    outputs are the same."""
+    """Run ``xs`` (shape ``[M, mb, ...]``) through the L ``blocks``
+    pipelined over the ``axis`` ranks of ``mesh``: ``block_fn(blocks[i],
+    x) -> y`` applies one block (``y.shape == x.shape``), and
+    ``blocks[i]`` must live on the device of rank ``i // (L / P)``. With
+    ``batch_axis`` each microbatch's rows split over that axis. Returns
+    ``[M, mb, ...]`` on ``xs``'s device. Each tick makes one
+    :func:`ring_pass` call a batch shard."""
     if schedule not in ("serial", "overlap"):
         raise ValueError(
             f"schedule={schedule!r}: expected 'serial' or 'overlap'"
@@ -76,26 +164,36 @@ def spmd_pipeline(
             f"hop_buffers must be >= 2 for the overlap schedule, got "
             f"{hop_buffers}"
         )
-    num_ranks = _ranks(mesh, axis)
-    _ranks(mesh, batch_axis)
+    grid = ([[xs.device]] if mesh is None
+            else rank_devices(mesh, axis, batch_axis))
+    num_ranks = len(grid[0])
     if len(blocks) % num_ranks:
         raise ValueError(
             f"stacked block count {len(blocks)} not divisible by pipeline "
             f"ranks {num_ranks}"
         )
-    ys = []
-    for x in xs:
-        for blk in blocks:
-            x = block_fn(blk, x)
-        ys.append(x)
-    return torch.stack(ys)
+    if xs.shape[1] % len(grid):
+        raise ValueError(
+            f"microbatch rows {xs.shape[1]} not divisible by the "
+            f"{batch_axis!r} size {len(grid)}")
+    per, w = len(blocks) // num_ranks, xs.shape[1] // len(grid)
+    stacks = [blocks[p * per:(p + 1) * per] for p in range(num_ranks)]
+    outs = []
+    for i, devices in enumerate(grid):
+        part = xs[:, i * w:(i + 1) * w]
+        if schedule == "serial":
+            ys = _serial(block_fn, stacks, part, devices)
+        else:
+            ys = _overlap(block_fn, stacks, part, devices, hop_buffers - 1)
+        outs.append(torch.stack([y.to(xs.device) for y in ys]))
+    return outs[0] if len(outs) == 1 else torch.cat(outs, 1)
 
 
 def spmd_pipeline_from_config(
     block_fn: Callable[[Any, torch.Tensor], torch.Tensor],
     blocks: Sequence[Any],
     x: torch.Tensor,
-    mesh: Mapping[str, int] | None,
+    mesh: Mesh | None,
     config,
     axis: str = "pp",
     batch_axis: str | None = None,

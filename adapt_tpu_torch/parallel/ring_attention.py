@@ -34,9 +34,11 @@ def ring_pass(blocks: list, devices: list) -> list:
     """THE ring hop: rank r's block handed to rank (r + 1) mod P, on that
     rank's device. After ``i`` hops rank r holds the block that originated
     at rank r - i (mod P). Blocks of ranks sharing a device move no
-    bytes."""
+    bytes. A ``None`` block (a pipeline rank with nothing to send this
+    tick) arrives as ``None``."""
     n = len(blocks)
-    return [blocks[(r - 1) % n].to(devices[r]) for r in range(n)]
+    return [None if blocks[(r - 1) % n] is None
+            else blocks[(r - 1) % n].to(devices[r]) for r in range(n)]
 
 
 def _shards(x, devices, s_local: int) -> list:

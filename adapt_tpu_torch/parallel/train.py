@@ -1,11 +1,12 @@
-"""The training step of the ViT pipeline.
+"""The training step of the ViT pipeline over a dp x pp mesh.
 
 Counterpart of ``adapt_tpu/parallel/train.py``: split a ViT ``LayerGraph``
 into patch embedding, a stack of encoder blocks and a head; run the blocks
-through the SPMD pipeline schedule over microbatches; take a mean
-integer-label cross-entropy and one optimizer update. On the card every
-attention forward runs K1 and every attention backward K7
-(``ops.attention.flash_attention``).
+through the SPMD pipeline schedule (``pipeline_spmd``) over microbatches,
+the blocks over the mesh's ``pp`` ranks and each microbatch's rows over its
+``dp`` shards; take a mean integer-label cross-entropy and one optimizer
+update. On the card every attention forward runs K1 and every attention
+backward K7 (``ops.attention.flash_attention``).
 
 What differs from the JAX package:
 
@@ -19,8 +20,12 @@ What differs from the JAX package:
   starts fresh, and a state the step did not return (a restored
   checkpoint) is loaded first. ``optax.sgd(lr)`` is
   ``functools.partial(torch.optim.SGD, lr=lr)``.
-- One rank: ``vit_shardings`` has no counterpart until the pipeline runs
-  on several cards (ROADMAP.md item 11).
+- One process drives every rank, so the dp gradient reduction is
+  autograd's sum over the rows of the whole batch: the dp shards of a
+  rank run its one copy of the blocks (``pipeline_spmd.rank_devices``).
+  ``vit_shardings`` gives the JAX package's placement as
+  ``parallel.sharding.Sharding``s and :func:`place_vit` applies it, as
+  ``jax.device_put`` does.
 """
 
 from __future__ import annotations
@@ -32,12 +37,15 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from adapt_tpu_torch.core.mesh import Mesh
 from adapt_tpu_torch.parallel.pipeline_spmd import (
     pipeline_microbatch,
     pipeline_unmicrobatch,
+    rank_devices,
     spmd_pipeline,
     stack_stage_params,
 )
+from adapt_tpu_torch.parallel.sharding import P, Sharding
 
 
 class PipelinedViT(NamedTuple):
@@ -78,21 +86,51 @@ def split_vit_variables(graph, depth: int) -> PipelinedViT:
     )
 
 
-def make_pipelined_vit_apply(graph, mesh: Mapping[str, int] | None = None,
+def vit_shardings(params: PipelinedViT, mesh: Mesh) -> PipelinedViT:
+    """:class:`~adapt_tpu_torch.parallel.sharding.Sharding`s for the
+    pipelined layout, keyed as ``params.state_dict()``: the stacked blocks
+    ``P("pp")`` on the stack dim, the ends replicated."""
+    sd = params.state_dict()
+    rep, pp = Sharding(mesh, P()), Sharding(mesh, P("pp"))
+    return PipelinedViT(embed={k: rep for k in sd["embed"]},
+                        blocks={k: pp for k in sd["blocks"]},
+                        head={k: rep for k in sd["head"]})
+
+
+def place_vit(params: PipelinedViT, shardings: PipelinedViT
+              ) -> PipelinedViT:
+    """Move ``params``' modules where ``shardings`` (:func:`vit_shardings`)
+    put them, in place: block ``i`` to the device of the shard whose stack
+    slice holds ``i``, the ends to the mesh's first device. A module
+    already there is not copied."""
+    sharding = next(iter(shardings.blocks.values()))
+    lead = sharding.devices[0]
+    params.embed.to(lead)
+    params.head.to(lead)
+    depth = len(params.blocks)
+    for ix, dev in zip(sharding.index((depth,)), sharding.devices):
+        for i in range(ix[0].start, ix[0].stop):
+            params.blocks[i].to(dev)
+    return params
+
+
+def make_pipelined_vit_apply(graph, mesh: Mesh | None = None,
                              num_micro: int = 1):
-    """Forward: embed -> pipelined blocks over ``num_micro`` microbatches
-    -> head. ``mesh`` maps axis names to sizes; more than one rank on an
-    axis raises (see ``pipeline_spmd``)."""
+    """Forward: embed -> blocks pipelined over the mesh's ``pp`` ranks in
+    ``num_micro`` microbatches, their rows over its ``dp`` shards when it
+    has that axis -> head (``mesh=None``: one rank)."""
     for name in ("patch_embed", "encoder_block_0", "head"):
         graph.node(name)  # raises on a graph that is not a ViT
+    batch_axis = ("dp" if mesh is not None and "dp" in mesh.axis_names
+                  else None)
+    if mesh is not None:
+        rank_devices(mesh, "pp", batch_axis)  # raises on a mesh it cannot run
 
     def apply_fn(params: PipelinedViT, x: torch.Tensor) -> torch.Tensor:
         h = params.embed(x)
         xs = pipeline_microbatch(h, num_micro)
-        ys = spmd_pipeline(
-            lambda blk, a: blk(a), params.blocks, xs, mesh, axis="pp",
-            batch_axis="dp" if mesh is not None and "dp" in mesh else None,
-        )
+        ys = spmd_pipeline(lambda blk, a: blk(a), params.blocks, xs, mesh,
+                           axis="pp", batch_axis=batch_axis)
         return params.head(pipeline_unmicrobatch(ys))
 
     return apply_fn

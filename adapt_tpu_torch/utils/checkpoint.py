@@ -19,7 +19,9 @@ on the host, and only the newest ``max_to_keep`` steps kept. Restores are
 host-first, as in the JAX package: ``restore`` loads the saved parameters
 into the caller's (``load_state_dict``, which copies onto their device)
 and hands the optimizer state back as saved, for the train step to load.
-Nothing stays open between calls, so there is nothing to close.
+Nothing stays open between calls; ``close()`` (and leaving a ``with``
+block) ends the checkpointer's use, as the JAX package's closes its
+manager: a later call raises.
 """
 
 from __future__ import annotations
@@ -94,14 +96,20 @@ class TrainCheckpointer:
             raise ValueError(f"max_to_keep must be >= 1, got {max_to_keep}")
         self._dir = os.path.abspath(os.fspath(directory))
         self._keep = max_to_keep
+        self._closed = False
         os.makedirs(self._dir, exist_ok=True)
 
+    def _open_dir(self) -> str:
+        if self._closed:
+            raise ValueError(f"checkpointer of {self._dir} is closed")
+        return self._dir
+
     def _path(self, step: int) -> str:
-        return os.path.join(self._dir, f"step_{step}.pt")
+        return os.path.join(self._open_dir(), f"step_{step}.pt")
 
     def steps(self) -> list[int]:
         """The saved steps, oldest first."""
-        found = (_NAME.match(n) for n in os.listdir(self._dir))
+        found = (_NAME.match(n) for n in os.listdir(self._open_dir()))
         return sorted(int(m.group(1)) for m in found if m)
 
     def save(self, step: int, params: Any, opt_state: Any) -> None:
@@ -133,3 +141,12 @@ class TrainCheckpointer:
         else:
             params = saved["params"]
         return params, saved["opt_state"], step
+
+    def close(self) -> None:
+        self._closed = True
+
+    def __enter__(self) -> "TrainCheckpointer":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()

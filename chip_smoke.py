@@ -306,7 +306,24 @@ Phases (no phase failure is caught; any mismatch exits non-zero):
    member 1 killed with every slot decoding: tp 1, the ring rebuilt from
    members {0, 2, 3} at sp 2, tp 1, a later long admission on the sp path,
    phase 19's delivery, journal and bar gates. Launches are added to each
-   row as ``sp_launches``.
+   row as ``sp_launches``;
+21. the multi-rank pipelines (``pp_phase``; meshes naming cuda:0, one
+   process driving every rank): (a) ``pipelined_generate`` of phase 6's
+   first 8 prompts, ragged, 32 new tokens, at pp 2 and 4, native and int8,
+   int4 at pp 2, and (dp 2, pp 2): every stream token-equal to
+   ``generate()`` of the same batch and ``kv_cache_dtype``, or first
+   differing at a top-2 gap below phase 7's bar (quantized: max(0.1, 2 x
+   the first-token logit difference of a b/P-row prefill from the whole
+   batch's)) in at most 2 of 8; K1 and K2 (K2q) launches exactly P x dp x
+   ``generate()``'s; each rank's block bytes (L/P)/L of the whole, the
+   embedding and head one copy on the card; steady decode tok/s printed
+   beside ``generate()``'s; (b) the ViT-B/16 train step over (dp 2, pp 2):
+   f32 gradients within phase 11's 1e-3 relative L2 of the one-rank
+   step's, K1 and K7 launched num_micro x dp x depth times a step, bf16
+   losses falling; (c) ``shard_vit`` at (dp 2, tp 2) within phase 12's
+   bar of ``graph.apply`` (1e-4 f32, 1e-2 bf16, of the largest logit);
+   (d) ``dryrun.dryrun_multichip(4)``. Launches are added to each row as
+   ``pp_launches``.
 
 The line before the last is the kernels' JSON; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -1669,11 +1686,13 @@ def plain_attention(torch, A):
     return PlainFlash.apply
 
 
-def vit_step(torch, graph, x, y, num_micro, lr, attn_fn=None, steps=1):
+def vit_step(torch, graph, x, y, num_micro, lr, attn_fn=None, steps=1,
+             mesh=None):
     """``steps`` SGD steps of the port's ``make_train_step`` over the graph's
-    own modules, every attention through ``attn_fn`` (None: K1 / K7).
-    Returns (losses as device tensors, step times in ms on CUDA events, the
-    first step's gradients by parameter name)."""
+    own modules, every attention through ``attn_fn`` (None: K1 / K7), the
+    blocks pipelined over ``mesh`` (None: one rank). Returns (losses as
+    device tensors, step times in ms on CUDA events, the first step's
+    gradients by parameter name)."""
     import functools
 
     from adapt_tpu_torch.parallel.train import (
@@ -1687,7 +1706,7 @@ def vit_step(torch, graph, x, y, num_micro, lr, attn_fn=None, steps=1):
         graph.node(f"encoder_block_{i}").module.attn.attn_fn = attn_fn
     params = split_vit_variables(graph, depth)
     step = make_train_step(
-        make_pipelined_vit_apply(graph, {"dp": 1, "pp": 1}, num_micro),
+        make_pipelined_vit_apply(graph, mesh, num_micro),
         functools.partial(torch.optim.SGD, lr=lr))
     state, losses, times, grads = None, [], [], None
     for i in range(steps):
@@ -2835,6 +2854,8 @@ def resnet_remote_runs(torch, Q, dev, card, procs, srv, kernels, tmp, case):
     rates = {}
     try:
         for codec in ("none", "int8dev", "lz"):
+            # lz compresses on the host at ~20 images/s: 8 requests show it.
+            reqs = xs[:8] if codec == "lz" else xs
             pin(codec)
             pipe.dispatcher.warmup(xs[0])  # first calls in every process
             for p in order:
@@ -2842,11 +2863,11 @@ def resnet_remote_runs(torch, Q, dev, card, procs, srv, kernels, tmp, case):
             Q.quantize_blocks.launches = Q.dequantize_blocks.launches = 0
             ex0 = srv.executed
             got_before = sum(p.results_received for p in order)
-            outs, wall, c, p50 = served(torch, pipe.dispatcher, xs,
+            outs, wall, c, p50 = served(torch, pipe.dispatcher, reqs,
                                         f"hub {codec}")
             nq, nd = Q.quantize_blocks.launches, Q.dequantize_blocks.launches
             wire = sum(p.bytes_sent + p.result_bytes_received for p in order)
-            rates[codec] = len(xs) * 8 / wall
+            rates[codec] = len(reqs) * 8 / wall
             extra = ""
             if codec == "int8dev":
                 err = max(rel_err(y, r) for y, r in zip(outs, refs))
@@ -2890,9 +2911,10 @@ def resnet_remote_runs(torch, Q, dev, card, procs, srv, kernels, tmp, case):
                 check_equal(torch, outs, refs, f"hub {codec}")
                 extra = "; every output torch.equal to graph.apply"
             print(f"phase 13 (a) hub over 3 workers (2 processes + 1 in this "
-                  f"process), {graph.name} f32, codec {codec}, on {card}: "
+                  f"process), {graph.name} f32, codec {codec}, {len(reqs)} "
+                  f"requests, on {card}: "
                   f"{rates[codec]:.1f} images/s, wire / raw bytes "
-                  f"{wire / (hop_raw * len(xs)):.4f}, stage dispatch-to-"
+                  f"{wire / (hop_raw * len(reqs)):.4f}, stage dispatch-to-"
                   f"result p50 ms {p50}, re-dispatches "
                   f"{c.get('dispatcher.redispatched', 0):.0f}{extra}")
 
@@ -3248,7 +3270,7 @@ def top2_gap(torch, lm, prompt, ref, t):
 
 
 def preempt_part(torch, lm, card, counters, runs, bar=0.1):
-    """Phase 14 (a): 12 ``batch`` requests (priority 0, 192 new tokens)
+    """Phase 14 (a): 12 ``batch`` requests (priority 0, 128 new tokens)
     fill the 8 slots of a paged batcher with ``SchedulerConfig(quotas=
     {"batch": TenantQuota(1, burst=12), "interactive": TenantQuota(2)},
     cache_aware=True)``; a 13th batch submit must raise QueueFullError
@@ -3286,10 +3308,10 @@ def preempt_part(torch, lm, card, counters, runs, bar=0.1):
         t0 = time.perf_counter()
         reqs = {}
         for p in batch[:12]:
-            reqs[bat.submit(p, 192, on_token=on_token,
-                            slo=SLOSpec(tenant="batch"))] = (p, 192)
+            reqs[bat.submit(p, 128, on_token=on_token,
+                            slo=SLOSpec(tenant="batch"))] = (p, 128)
         try:
-            bat.submit(batch[12], 192, slo=SLOSpec(tenant="batch"))
+            bat.submit(batch[12], 128, slo=SLOSpec(tenant="batch"))
         except QueueFullError as e:
             refused = str(e)
         else:
@@ -3607,12 +3629,11 @@ def depth_part(torch, lm, card, counters, runs, prompts, waves, fan):
 
 def depth_readings(torch, lm, card):
     """Phase 14 (d), not gated: steady decode (8 slots of 256-token
-    prompts, chunk 8) on each layout at depth 1, 2, 2, 1 in turns: 6 ticks
-    timed on the host clock (tok/s and the mean ``runtime.overlap_ratio``);
-    in the first two turns 3 more under ``torch.profiler`` (device
-    activity only: a host trace of ~16k launches takes longer to reduce
-    than to record) for the busy share, kernel time a tick over the
-    unprofiled wall a tick."""
+    prompts, chunk 8) on each layout at depth 1, then 2: 6 ticks timed on
+    the host clock (tok/s and the mean ``runtime.overlap_ratio``), then 3
+    more under ``torch.profiler`` (device activity only: a host trace of
+    ~16k launches takes longer to reduce than to record) for the busy
+    share, kernel time a tick over the unprofiled wall a tick."""
     from adapt_tpu_torch.config import RuntimeConfig
     from adapt_tpu_torch.runtime.continuous import ContinuousBatcher
     from adapt_tpu_torch.utils.metrics import global_metrics
@@ -3621,7 +3642,7 @@ def depth_readings(torch, lm, card):
     for layout in ("slots", "paged"):
         extra = (dict(kv_layout="paged", page_size=128)
                  if layout == "paged" else {})
-        for turn, depth in enumerate((1, 2, 2, 1)):
+        for depth in (1, 2):
             bat = ContinuousBatcher(
                 lm, slots=8, chunk=8,
                 runtime=RuntimeConfig(pipeline_depth=depth), **extra)
@@ -3640,13 +3661,11 @@ def depth_readings(torch, lm, card):
                     "runtime.overlap_ratio"])
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
-            busy = float("nan")
-            if turn < 2:
-                with torch.profiler.profile(activities=acts) as prof:
-                    for _ in range(3):
-                        bat.tick()
-                    torch.cuda.synchronize()
-                busy = sum(r[0] for r in kernel_rows(torch, prof, calls=3))
+            with torch.profiler.profile(activities=acts) as prof:
+                for _ in range(3):
+                    bat.tick()
+                torch.cuda.synchronize()
+            busy = sum(r[0] for r in kernel_rows(torch, prof, calls=3))
             bat.close()
             tps = 8 * 8 * 6 / wall_ms * 1e3
             print(f"phase 14 (d) steady decode [{layout}] depth {depth} on "
@@ -6819,6 +6838,326 @@ def sp_phase(torch, A, lm, lm32, slm2, card, kernels, waves, bar, int8_bar):
           f"{time.perf_counter() - t_phase:.1f} s on {card} ({took})")
 
 
+# -- phase 21: the multi-rank pipelines ----------------------------------------
+
+#: Phase 21's kernel rows by run kind.
+PP_ROWS = {
+    "native": {"flash_attn_fwd": "flash_attn_fwd",
+               "decode_attn": "decode_attn"},
+    "int8": {"flash_attn_fwd": "flash_attn_fwd",
+             "decode_attn": "decode_attn[int8]"},
+    "int4": {"flash_attn_fwd": "flash_attn_fwd",
+             "decode_attn": "decode_attn[int4]"},
+    "vit": {"flash_attn_fwd": "flash_attn_fwd",
+            "flash_attn_bwd": "flash_attn_bwd"},
+}
+
+#: Phase 21 (a)'s runs: (pp, dp, kv_cache_dtype).
+PP_RUNS = ((2, 1, "native"), (4, 1, "native"), (2, 1, "int8"),
+           (4, 1, "int8"), (2, 1, "int4"), (2, 2, "native"))
+
+
+def pp_mesh(dev, pp, dp=1, axis="pp"):
+    """A (dp, pp) mesh (just pp at dp 1) naming ``dev`` at every entry."""
+    from adapt_tpu_torch.core.mesh import MeshSpec, build_mesh
+
+    spec = ((("dp", dp),) if dp > 1 else ()) + ((axis, pp),)
+    return build_mesh(MeshSpec(spec), [dev] * (dp * pp))
+
+
+def pp_batch(torch, prompts):
+    """Phase 21 (a)'s batch: ``prompts`` right-padded into one (b, s0)
+    tensor, and their lengths."""
+    lens = [len(p) for p in prompts]
+    batch = np.zeros((len(prompts), max(lens)), np.int64)
+    for r, p in enumerate(prompts):
+        batch[r, :len(p)] = p
+    return torch.from_numpy(batch), lens
+
+
+def split_prefill_error(torch, lm, batch, lens, ranks):
+    """The largest first-token logit difference between ``generate()``'s
+    whole-batch prefill and the same rows prefilled ``b / ranks`` at a
+    time, as the pipelined microbatches are: what can move a pipelined
+    stream off ``generate()``'s on the card (cuBLAS picks its algorithm by
+    shape)."""
+    from adapt_tpu_torch.models.transformer_lm import generate
+
+    seen = []
+    hook = lm.head.register_forward_hook(
+        lambda mod, args, o: seen.append(o[:, 0].float()))
+    try:
+        generate(lm, batch, 1, prompt_lengths=lens)
+        mb = len(lens) // ranks
+        for m in range(ranks):
+            generate(lm, batch[m * mb:(m + 1) * mb], 1,
+                     prompt_lengths=lens[m * mb:(m + 1) * mb])
+    finally:
+        hook.remove()
+    return float((seen[0] - torch.cat(seen[1:])).abs().max())
+
+
+def hold_pp_streams(torch, lm, label, batch, lens, got, ref, bar, err):
+    """Phase 7's tie-aware rule: each stream equal to ``ref``'s, or first
+    differing at a top-2 gap below ``bar`` (printed with its cause), in at
+    most 2 of them. Returns the exempt rows."""
+    exempt = []
+    for r, n in enumerate(lens):
+        hit = first_gap(torch, lm, batch[r, :n].numpy(), got[r], ref[r])
+        if hit is None:
+            continue
+        t, gap = hit
+        print(f"tie-aware exemption: {label} stream {r} (prompt {n}) first "
+              f"differs from generate() at token {t}, top-2 gap {gap:.4f} "
+              f"(bar {bar:.4f}); its microbatch was prefilled {len(lens)} "
+              f"/ P rows at a time, whose first-token logits differ from "
+              f"the whole batch's by up to {err:.4f}")
+        if not gap < bar:
+            raise AssertionError(f"{label}: stream {r} differs at token {t}"
+                                 f" at a top-2 gap {gap:.4f} >= {bar:.4f}")
+        exempt.append(r)
+    if len(exempt) > 2:
+        raise AssertionError(f"{label}: {len(exempt)} of {len(lens)} streams "
+                             "differ (at most 2)")
+    return exempt
+
+
+def pp_weights(torch, lm, placed, ranks, label):
+    """Phase 21 (a)'s placement gates: each rank's block bytes (L/P)/L of
+    the whole blocks', no rank with every block, the embedding and head
+    the model's own tensors (one copy on the card)."""
+    def block_bytes(m):
+        return sum(t.numel() * t.element_size() for n, t in
+                   m.state_dict().items() if n.startswith("decoder_block_"))
+
+    whole = block_bytes(lm)
+    own = {n: t.data_ptr() for n, t in lm.state_dict().items()
+           if n.startswith(("embed.", "head."))}
+    for p, stage in enumerate(placed.stages):
+        if stage.depth != lm.depth // ranks or (
+                block_bytes(stage) * ranks != whole):
+            raise AssertionError(f"{label}: rank {p} holds {stage.depth} "
+                                 f"blocks, {block_bytes(stage)} bytes of "
+                                 f"{whole}")
+        ends = {n: t.data_ptr() for n, t in stage.state_dict().items()
+                if n.startswith(("embed.", "head."))}
+        if ends != own:
+            raise AssertionError(f"{label}: rank {p}'s embedding / head are "
+                                 "not the model's one copy")
+    return whole // ranks
+
+
+def exact_launches(label, got, want):
+    """Fail unless ``got`` (a path's launches) is ``want``, every kernel
+    ``want`` does not name at 0."""
+    if any(n != want.get(k, 0) for k, n in got.items()):
+        raise AssertionError(f"{label}: launches {got}, want {want}")
+
+
+def timed(torch, fn):
+    """(``fn()``, its host wall in s between two synchronizes)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def pp_generate_part(torch, A, D, lm, card, counters, runs, prompts):
+    """Phase 21 (a): ``pipelined_generate`` against ``generate()``."""
+    from adapt_tpu_torch.models.transformer_lm import generate
+    from adapt_tpu_torch.parallel.pipeline_decode import (
+        pipelined_generate,
+        shard_for_pipeline,
+    )
+
+    steps = 32
+    batch, lens = pp_batch(torch, prompts)
+    b = len(lens)
+    errs = {p: split_prefill_error(torch, lm, batch, lens, p) for p in (2, 4)}
+    print(f"phase 21 (a) first-token logits of b/P-row prefills against the "
+          f"whole batch's on {card}: P 2 {errs[2]:.4f}, P 4 {errs[4]:.4f}")
+    ref, walls, gen = {}, {}, {}
+    for kv in ("native", "int8", "int4"):
+        out, walls[kv] = timed(torch, lambda kv=kv: counted(
+            counters, f"phase 21 generate_{kv}", ("flash_attn_fwd",
+                                                  "decode_attn"), runs,
+            lambda: generate(lm, batch, steps, prompt_lengths=lens,
+                             kv_cache_dtype=kv)))
+        gen[kv] = runs[f"phase 21 generate_{kv}"]
+        ref[kv] = out.cpu().numpy()
+    # Steady decode: the tokens after the first over the wall beyond a
+    # prefill-only call's.
+    _, one = timed(torch, lambda: generate(lm, batch, 1, prompt_lengths=lens))
+    rate = {"generate": b * (steps - 1) / (walls["native"] - one)}
+    placed = {}
+    for pp, dp, kv in PP_RUNS:
+        label = f"phase 21 (a) pp={pp} dp={dp} {kv}"
+        mesh = pp_mesh(lm.device, pp, dp)
+        if pp not in placed:
+            before = torch.cuda.memory_allocated()
+            placed[pp] = shard_for_pipeline(lm, pp_mesh(lm.device, pp))
+            rank_bytes = pp_weights(torch, lm, placed[pp], pp, label)
+            print(f"{label}: each rank holds {lm.depth // pp} blocks, "
+                  f"{rank_bytes} bytes ({rank_bytes * pp} the whole), the "
+                  "embedding and head are the model's own tensors; device "
+                  f"memory allocated by the placement "
+                  f"{torch.cuda.memory_allocated() - before} bytes")
+        path = f"phase 21 pp{pp}_dp{dp}_{kv}"
+
+        def run(s=steps, kv=kv, mesh=mesh, pp=pp, dp=dp):
+            return pipelined_generate(
+                lm, placed[pp], batch, s, mesh,
+                dp_axis="dp" if dp > 1 else None, prompt_lengths=lens,
+                kv_cache_dtype=kv)
+
+        got, wall = timed(torch, lambda: counted(
+            counters, path, ("flash_attn_fwd", "decode_attn"), runs, run))
+        exact_launches(f"{label} (P x dp x generate()'s)", runs[path],
+                       {k: pp * dp * n for k, n in gen[kv].items()})
+        got = got.cpu().numpy()
+        if got.shape != (b, steps) or not ((got >= 0) & (got < lm.vocab)
+                                           ).all():
+            raise AssertionError(f"{label}: tokens {got.shape} / bad ids")
+        bar = 0.1 if kv == "native" else max(0.1, 2 * errs[pp])
+        exempt = hold_pp_streams(torch, lm, label, batch, lens, got, ref[kv],
+                                 bar, errs[pp])
+        note = ""
+        if kv == "native":
+            _, one = timed(torch, lambda: run(1))
+            rate[label] = b * (steps - 1) / (wall - one)
+            note = (f", steady decode {rate[label]:.1f} tok/s against "
+                    f"generate()'s {rate['generate']:.1f}")
+        print(f"{label} on {card}: {b} ragged streams of {steps} tokens, "
+              f"{b - len(exempt)} equal to generate(kv_cache_dtype={kv!r})"
+              f", {len(exempt)} tie exemptions, {wall:.3f} s{note}; launches "
+              f"{runs[path]} (generate()'s {gen[kv]})")
+    print(f"phase 21 (a): on one card the token ring brings no memory relief "
+          f"and no speed-up (every rank names cuda:0 and runs in turn); no "
+          f"gain is claimed")
+
+
+def tp_forward_parts(torch, V, vit, x, dev):
+    """Where a dp x tp forward's difference from ``graph.apply`` comes
+    from: the dp row split alone, tp 2 alone, both (largest logit
+    differences)."""
+    whole = vit.apply(x).float()
+    runs = {"dp2": torch.cat([vit.apply(h) for h in x.chunk(2)]),
+            "tp2": V.shard_vit(vit, pp_mesh(dev, 2, axis="tp"))(x),
+            "dp2_tp2": V.shard_vit(vit, pp_mesh(dev, 2, 2, axis="tp"))(x)}
+    return {k: float((t.float() - whole).abs().max()) for k, t in runs.items()}
+
+
+def pp_train_part(torch, dev, card, counters, runs):
+    """Phase 21 (b) and (c): the ViT-B/16 train step over (dp 2, pp 2), and
+    ``shard_vit`` at (dp 2, tp 2), on ``dev``."""
+    from adapt_tpu_torch.models import vit as V
+
+    num_micro, lr = 2, 0.005
+    gen = torch.Generator().manual_seed(21)
+    x = torch.randn(8, 224, 224, 3, generator=gen).to(dev)
+    y = torch.randint(0, 1000, (8,), generator=gen).to(dev)
+    mesh = pp_mesh(dev, 2, 2)
+    vits = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        tag = "f32" if dtype == torch.float32 else "bf16"
+        vit = vits[tag] = V.vit_b16(dtype=dtype, device=dev, seed=0)
+        depth = sum(n.startswith("encoder_block_") for n in vit.topo_order())
+        want = num_micro * 2 * depth  # microbatches x dp shards x blocks
+        w0 = {k: t.clone() for k, t in vit.state_dict().items()}
+        _, _, g1 = vit_step(torch, vit, x, y, num_micro, lr)
+        vit.load_state_dict(w0)
+        n = 1 if tag == "f32" else 3
+        path = f"phase 21 vit_dp2_pp2_{tag}"
+        losses, times, g2 = counted(
+            counters, path, ("flash_attn_fwd", "flash_attn_bwd"), runs,
+            lambda: vit_step(torch, vit, x, y, num_micro, lr, steps=n,
+                             mesh=mesh))
+        vit.load_state_dict(w0)
+        exact_launches(path, runs[path], {"flash_attn_fwd": n * want,
+                                          "flash_attn_bwd": n * want})
+        err = grad_error(torch, g2, g1)
+        losses = [float(v) for v in losses]
+        if tag == "f32" and not err <= 1e-3:
+            raise AssertionError(f"{path}: gradients differ from the "
+                                 f"one-rank step's by relative L2 {err:.3e}")
+        if tag == "bf16" and not (all(np.isfinite(losses))
+                                  and losses[-1] < losses[0]):
+            raise AssertionError(f"{path}: losses {losses} not falling")
+        print(f"phase 21 (b) ViT-B/16 {tag} train step over (dp 2, pp 2) on "
+              f"{card}: batch 8 in {num_micro} microbatches, losses "
+              f"{[round(v, 6) for v in losses]}, step {times[-1]:.2f} ms, "
+              f"largest relative L2 gradient error vs the one-rank step "
+              f"{err:.3e}{' (gate 1e-3)' if tag == 'f32' else ''}, launches "
+              f"{runs[path]}")
+    tp_mesh = pp_mesh(dev, 2, 2, axis="tp")
+    for tag, tol in (("f32", 1e-4), ("bf16", 1e-2)):
+        vit = vits[tag]
+        path = f"phase 21 vit_dp2_tp2_{tag}"
+        with torch.no_grad():
+            ref = vit.apply(x).float()
+            got = counted(counters, path, ("flash_attn_fwd",), runs,
+                          lambda: V.shard_vit(vit, tp_mesh)(x)).float()
+            parts = tp_forward_parts(torch, V, vit, x, dev)
+        print(f"phase 21 (c) ViT-B/16 {tag} on {card}: largest logit "
+              f"difference from graph.apply's: {parts}")
+        exact_launches(path, runs[path], {"flash_attn_fwd": 2 * 2 * depth})
+        err = float((got - ref).abs().max())
+        scale = float(ref.abs().max())
+        if not err <= tol * scale:
+            raise AssertionError(f"{path}: logits differ from graph.apply's "
+                                 f"by {err:.3e} > {tol} x {scale:.3f}")
+        print(f"phase 21 (c) ViT-B/16 {tag} over (dp 2, tp 2) on {card}: "
+              f"logits of batch 8 within {err:.3e} of graph.apply's "
+              f"(gate {tol} x the largest, {scale:.3f}); launches "
+              f"{runs[path]}")
+
+
+def pp_phase(torch, A, D, lm, card, kernels, prompts):
+    """Phase 21: the multi-rank pipelines on the one card (meshes naming
+    cuda:0): (a) ``pipelined_generate`` of ``prompts`` (phase 6's first 8)
+    on the 12-layer model, (b) the dp x pp ViT-B/16 train step, (c) the
+    dp x tp ViT-B/16 forward, (d) ``dryrun_multichip(4)``. Adds
+    ``pp_launches`` (phase 21's launches of each kernel, its runs summed)
+    to every row of ``kernels``."""
+    from adapt_tpu_torch.dryrun import dryrun_multichip
+
+    t_phase = time.perf_counter()
+    counters = {"flash_attn_fwd": A.flash_attn_fwd,
+                "decode_attn": D.decode_attn,
+                "flash_attn_bwd": A.flash_attn_bwd}
+    runs: dict = {}
+    marks = [time.perf_counter()]
+    pp_generate_part(torch, A, D, lm, card, counters, runs, prompts)
+    marks.append(time.perf_counter())
+    pp_train_part(torch, lm.device, card, counters, runs)
+    marks.append(time.perf_counter())
+    res = counted(counters, "phase 21 dryrun", ("flash_attn_fwd",
+                                                "flash_attn_bwd"), runs,
+                  lambda: dryrun_multichip(4, [lm.device] * 4))
+    print(f"phase 21 (d) dryrun_multichip(4) on {card} (4 entries naming "
+          f"{lm.device}): {res}; launches {runs['phase 21 dryrun']}")
+    marks.append(time.perf_counter())
+    totals: dict = {}
+    for path, launches in runs.items():
+        if "generate_" in path:
+            continue  # the references, not a phase 21 path
+        kind = next((k for k in ("int8", "int4") if path.endswith(k)),
+                    "vit" if "vit" in path or "dryrun" in path else "native")
+        for k, n in launches.items():
+            if k in PP_ROWS[kind]:
+                row = PP_ROWS[kind][k]
+                totals[row] = totals.get(row, 0) + n
+    for kr in kernels:
+        kr["pp_launches"] = totals.get(kr["name"], 0)
+    print(f"phase 21 launches by path: {json.dumps(runs)}")
+    took = ", ".join(f"({part}) {b - a:.1f}"
+                     for part, a, b in zip(("a", "b-c", "d"), marks,
+                                           marks[1:]))
+    print(f"phase 21 (multi-rank pipelines) took "
+          f"{time.perf_counter() - t_phase:.1f} s on {card} ({took})")
+
+
 #: GPT-2-small widths: vocab, dim, depth, heads, MLP.
 GPT2_SMALL = (50257, 768, 12, 12, 3072)
 
@@ -7685,6 +8024,9 @@ def main(argv) -> int:
     # -- phase 20: sequence parallelism ------------------------------------
     sp_phase(torch, A, lm, lm32, slms[2], card, kernels, (wave1, wave2), bar,
              qbar)
+
+    # -- phase 21: the multi-rank pipelines -------------------------------
+    pp_phase(torch, A, D, lm, card, kernels, prompts[:8])
 
     if "--profile" in argv:
         profile_train(torch, *train_case, card)

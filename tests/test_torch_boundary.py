@@ -1,8 +1,8 @@
 """The port's boundary: ``adapt_tpu_torch``, ``chip_smoke.py``,
 ``scripts/sched_phase.py``, ``scripts/obs_phase.py``,
 ``scripts/obs_overhead.py``, ``scripts/obs_ab.py``,
-``scripts/fleet_phase.py``, ``scripts/rec_phase.py`` and
-``scripts/sp_phase.py`` import
+``scripts/fleet_phase.py``, ``scripts/rec_phase.py``,
+``scripts/sp_phase.py`` and ``scripts/pp_phase.py`` import
 neither JAX, its dependency ``ml_dtypes`` (absent beside the card) nor the
 JAX package, and entry points never quietly run on
 the CPU when no card is present."""
@@ -25,6 +25,7 @@ def _port_files():
         ROOT / "scripts" / "fleet_phase.py",
         ROOT / "scripts" / "rec_phase.py",
         ROOT / "scripts" / "sp_phase.py",
+        ROOT / "scripts" / "pp_phase.py",
     ]
 
 
@@ -81,6 +82,9 @@ def test_port_files_exist():
         "adapt_tpu_torch/parallel/ulysses.py",
         "adapt_tpu_torch/parallel/sp_prefill.py",
         "scripts/sp_phase.py",
+        "adapt_tpu_torch/parallel/pipeline_decode.py",
+        "adapt_tpu_torch/dryrun.py",
+        "scripts/pp_phase.py",
     ):
         assert want in names
 
@@ -173,3 +177,24 @@ def test_fleet_entry_points_refuse_to_run_without_a_card():
     with PipelinedDecoder(lm, [2], devices=[cpu, cpu]) as dec:
         assert dec.generate([[1, 2, 3]], 2).shape == (1, 2)
     DisaggServer(decode, worker, device="cpu").close()
+
+
+def test_multi_rank_entry_points_refuse_to_run_without_a_card():
+    """A mesh built without devices names the card: with no card,
+    ``pipelined_generate``'s and the train step's meshes and
+    ``dryrun_multichip`` raise; on meshes naming the CPU they run."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the no-card rule does not apply")
+    from adapt_tpu_torch.core.mesh import MeshSpec, build_mesh
+    from adapt_tpu_torch.dryrun import dryrun_multichip
+    from adapt_tpu_torch.models.transformer_lm import lm_tiny
+    from adapt_tpu_torch.parallel import pipelined_generate
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        build_mesh(MeshSpec((("pp", 2),)))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        dryrun_multichip(2)
+    lm = lm_tiny(device="cpu")
+    mesh = build_mesh(MeshSpec((("pp", 2),)), ["cpu"] * 2)
+    assert pipelined_generate(lm, None, [[1, 2, 3]] * 2, 2, mesh).shape == (
+        2, 2)

@@ -157,6 +157,24 @@ def test_registry_roles_and_weak_watch():
     assert sub.seen == [("join", "b")]
 
 
+def test_registry_meta_is_a_copy_of_the_lease_metadata():
+    """``meta(worker_id)``: the lease's metadata as registered, a copy
+    (mutating it leaves the registry's), ``{}`` for an unknown id; a
+    re-registration replaces it. The same reads as the JAX registry's."""
+    from adapt_tpu.control.registry import WorkerRegistry as JaxRegistry
+
+    for reg in (WorkerRegistry(default_ttl_s=5.0),
+                JaxRegistry(default_ttl_s=5.0)):
+        reg.register("w0", meta={"role": "prefill", "addr": "h:1"})
+        got = reg.meta("w0")
+        assert got == {"role": "prefill", "addr": "h:1"}
+        got["role"] = "decode"
+        assert reg.meta("w0")["role"] == "prefill"
+        assert reg.meta("nobody") == {}
+        reg.register("w0", meta={"addr": "h:2"})
+        assert reg.meta("w0") == {"addr": "h:2"} and reg.role("w0") is None
+
+
 # -- the static pipeline ----------------------------------------------------
 
 

@@ -35,7 +35,9 @@ K7 (tensor cores) must give the same bits on the models' strided q / k / v
 views as on contiguous copies, and K1's rows must not depend on the batch,
 on padding of s_q or on key tiles a mask removes. K2-K5 (native and int8)
 are also held at the head counts of GPT-2-small's tp=2 and tp=4 shards
-(kv_h 6 and 3, g 1)."""
+(kv_h 6 and 3, g 1). ``pipelined_generate`` at pp 2 on a mesh naming the
+card twice streams what ``generate()`` streams for each microbatch alone,
+with twice the whole batch's K1 / K2 launches."""
 
 import pytest
 import torch
@@ -1270,3 +1272,35 @@ def test_kernels_at_shard_head_counts_match_plain(cuda, kernel, kvh,
         ref = TP.paged_verify_attention_plain(q, kp, vp, table, idx, 5)
     torch.testing.assert_close(got.float(), ref.float(), atol=1e-2,
                                rtol=1e-2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kv_dtype", ["native", "int8"])
+def test_pipelined_generate_pp2_matches_generate(cuda, kv_dtype):
+    """``pipelined_generate`` at pp 2 on a mesh naming the card twice:
+    greedy ragged streams token-equal to ``generate()`` run on each
+    microbatch alone (the same prefill rows, so the same cuBLAS shapes;
+    decode rows padded to 8 in both), with K1 and K2 launched twice as
+    often as ``generate()`` of the whole batch."""
+    from adapt_tpu_torch.core.mesh import MeshSpec, build_mesh
+    from adapt_tpu_torch.models.transformer_lm import generate, transformer_lm
+    from adapt_tpu_torch.parallel.pipeline_decode import pipelined_generate
+
+    lm = transformer_lm(97, 128, 4, 2, 256, max_len=64, device=cuda, seed=3)
+    gen = torch.Generator().manual_seed(4)
+    prompt = torch.randint(0, 97, (8, 12), generator=gen).to(cuda)
+    lens = [12, 5, 9, 3, 12, 7, 1, 10]
+    mesh = build_mesh(MeshSpec((("pp", 2),)), [cuda] * 2)
+    kw = dict(prompt_lengths=lens, kv_cache_dtype=kv_dtype)
+    TA.flash_attn_fwd.launches = TD.decode_attn.launches = 0
+    generate(lm, prompt, 9, **kw)
+    whole = (TA.flash_attn_fwd.launches, TD.decode_attn.launches)
+    TA.flash_attn_fwd.launches = TD.decode_attn.launches = 0
+    got = pipelined_generate(lm, None, prompt, 9, mesh, **kw)
+    torch.cuda.synchronize()
+    assert (TA.flash_attn_fwd.launches, TD.decode_attn.launches) == (
+        2 * whole[0], 2 * whole[1])
+    want = torch.cat([generate(lm, prompt[m * 4:(m + 1) * 4], 9,
+                               prompt_lengths=lens[m * 4:(m + 1) * 4],
+                               kv_cache_dtype=kv_dtype) for m in range(2)])
+    assert torch.equal(got, want)

@@ -6,8 +6,9 @@ numpy batch as JAX's ``make_train_step(optax.sgd)`` on a one-device
 ``("dp", "pp")`` mesh: every loss agrees to ``rtol 1e-5`` and every final
 parameter to ``1e-4`` of its largest magnitude (f32 on both sides, summed
 in another order). Also the microbatch split, the one-rank pipeline
-schedule, the refusal of more ranks, ``PipelineConfig`` and
-``TrainCheckpointer`` resume."""
+schedule, the validation of meshes and knobs, ``PipelineConfig`` and
+``TrainCheckpointer`` resume and its context manager. Several ranks:
+``test_torch_pipeline_spmd.py``."""
 
 import dataclasses
 import functools
@@ -22,6 +23,7 @@ import torch
 
 from adapt_tpu_torch.config import PipelineConfig
 from adapt_tpu_torch.convert import vit_from_flax
+from adapt_tpu_torch.core.mesh import MeshSpec, build_mesh
 from adapt_tpu_torch.models.vit import vit_tiny
 from adapt_tpu_torch.parallel import pipeline_spmd as PS
 from adapt_tpu_torch.parallel.train import (
@@ -38,7 +40,7 @@ JT = importlib.import_module("adapt_tpu.parallel.train")
 JV = importlib.import_module("adapt_tpu.models.vit")
 
 LR = 0.05
-MESH = {"dp": 1, "pp": 1}
+MESH = build_mesh(MeshSpec((("dp", 1), ("pp", 1))), ["cpu"])
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -160,21 +162,44 @@ def test_one_rank_pipeline_is_the_sequential_block_loop(schedule):
 
 
 def test_more_ranks_are_refused():
+    """Several ranks run (``test_torch_pipeline_spmd.py``); what is refused
+    is a rank count the blocks or rows do not divide, a mesh without the
+    axis, a rank whose dp shards name distinct devices, and bad knobs."""
     blocks, xs = _blocks(), torch.randn(2, 2, 8)
     fn = lambda m, a: m(a)  # noqa: E731
-    with pytest.raises(NotImplementedError, match="item 11"):
-        PS.spmd_pipeline(fn, blocks, xs, {"pp": 2})
-    with pytest.raises(NotImplementedError, match="item 11"):
-        PS.spmd_pipeline(fn, blocks, xs, {"dp": 2, "pp": 1},
+
+    def mesh(*axes, devices=None):
+        spec = MeshSpec(tuple(axes))
+        return build_mesh(spec, devices or ["cpu"] * spec.num_devices)
+
+    with pytest.raises(ValueError, match="not divisible by pipeline"):
+        PS.spmd_pipeline(fn, blocks, xs, mesh(("pp", 3)))
+    with pytest.raises(ValueError, match="not divisible by the 'dp'"):
+        PS.spmd_pipeline(fn, blocks, torch.randn(2, 3, 8),
+                         mesh(("dp", 2), ("pp", 2)), batch_axis="dp")
+    with pytest.raises(ValueError, match="no axis 'pp'"):
+        PS.spmd_pipeline(fn, blocks, xs, mesh(("tp", 2)))
+    with pytest.raises(ValueError, match="distinct devices"):
+        PS.spmd_pipeline(fn, blocks, xs, mesh(("dp", 2), ("pp", 1),
+                                              devices=["cpu", "meta"]),
                          batch_axis="dp")
     with pytest.raises(ValueError, match="schedule"):
         PS.spmd_pipeline(fn, blocks, xs, schedule="1f1b")
     with pytest.raises(ValueError, match="hop_buffers"):
         PS.spmd_pipeline(fn, blocks, xs, schedule="overlap", hop_buffers=1)
     g, params, _ = _port()
-    apply_fn = make_pipelined_vit_apply(g, {"dp": 1, "pp": 2}, 2)
-    with pytest.raises(NotImplementedError, match="item 11"):
+    with pytest.raises(ValueError, match="distinct devices"):
+        make_pipelined_vit_apply(g, mesh(("dp", 2), ("pp", 2), devices=[
+            "cpu", "cpu", "meta", "meta"]), 2)
+    apply_fn = make_pipelined_vit_apply(g, mesh(("dp", 1), ("pp", 3)), 2)
+    with pytest.raises(ValueError, match="not divisible by pipeline"):
         apply_fn(params, torch.zeros(2, 32, 32, 3))
+    with torch.no_grad():
+        two = make_pipelined_vit_apply(g, mesh(("dp", 1), ("pp", 2)), 2)(
+            params, torch.ones(2, 32, 32, 3))
+        one = make_pipelined_vit_apply(g, None, 2)(params,
+                                                   torch.ones(2, 32, 32, 3))
+    assert torch.equal(two, one)
 
 
 def test_pipeline_config_matches_jax_and_drives_the_schedule():
@@ -225,3 +250,32 @@ def test_checkpointer_without_steps_raises(tmp_path):
         ckpt.restore(None)
     with pytest.raises(ValueError, match="max_to_keep"):
         TrainCheckpointer(tmp_path, max_to_keep=0)
+
+
+def test_checkpointer_as_a_context_manager(tmp_path):
+    """As JAX ``tests/test_checkpoint.py`` opens it: ``with`` gives the
+    checkpointer, retention and restore work inside, leaving closes it."""
+    x, y = (torch.from_numpy(t) for t in _batch(2))
+    _, params, step = _port()
+    state = None
+    with TrainCheckpointer(tmp_path / "train", max_to_keep=2) as ck:
+        for i in (1, 2, 3):
+            params, state, _ = step(params, state, x, y)
+            ck.save(i, params, state)
+        assert ck.latest_step() == 3 and ck.steps() == [2, 3]
+        _, fresh, _ = _port(seed=4)
+        _, _, at = ck.restore(fresh)
+        assert at == 3
+        a, b = params.state_dict(), fresh.state_dict()
+        assert all(torch.equal(a["blocks"][k], b["blocks"][k])
+                   for k in a["blocks"])
+        with pytest.raises(FileNotFoundError):
+            ck.restore(fresh, step=1)  # evicted by retention
+    with pytest.raises(ValueError, match="closed"):
+        ck.save(4, params, state)
+    with pytest.raises(ValueError, match="closed"):
+        ck.latest_step()
+    with TrainCheckpointer(tmp_path / "empty") as ck:
+        with pytest.raises(FileNotFoundError):
+            ck.restore(None)
+    ck.close()  # closing twice is harmless
